@@ -1,0 +1,19 @@
+"""flexflow_tpu_torch — the PyTorch/CUDA port of flexflow_tpu.
+
+Built slice by slice beside the JAX package, which stays the reference
+each slice is held against.  This package imports torch, numpy and the
+standard library, never JAX or flexflow_tpu.  The first slice serves
+the GPT decode path on one NVIDIA H100:
+
+    build_gpt_decode -> FFModel.compile(comp_mode="inference")
+    -> compiled_decode_step -> ContinuousBatchingExecutor.run
+
+with decode attention in a hand-written CUDA kernel for sm_90a
+(``csrc/ragged_paged_attention.cu``).  Entry points run on the card
+unless the config says ``device="cpu"``.
+"""
+
+from flexflow_tpu_torch.config import FFConfig
+from flexflow_tpu_torch.model import FFModel
+
+__all__ = ["FFConfig", "FFModel"]

@@ -1,0 +1,145 @@
+"""Operator type enumeration — a copy of flexflow_tpu/core/optype.py
+(the port keeps the reference's whole vocabulary so op identities
+compare across the two packages).
+
+Covers the operator vocabulary of the reference framework
+(reference: include/flexflow/ffconst.h:61-150) plus TPU-native additions
+(ring attention, pipeline stages) that the reference declared but never
+implemented or lacked entirely.
+"""
+
+from __future__ import annotations
+
+import enum
+
+
+class OperatorType(enum.Enum):
+    # ---- sentinels -------------------------------------------------------
+    NOOP = "noop"
+    INPUT = "input"
+    WEIGHT = "weight"
+    CONSTANT = "constant"
+
+    # ---- dense compute ops ----------------------------------------------
+    CONV2D = "conv2d"
+    POOL2D = "pool2d"
+    BATCHNORM = "batchnorm"
+    LINEAR = "linear"
+    EMBEDDING = "embedding"
+    MULTIHEAD_ATTENTION = "multihead_attention"
+    # TPU-native serving addition: single-token decode attention over a
+    # paged KV cache (ops/decode_attention.py; no reference equivalent —
+    # the reference has no inference path at all)
+    DECODE_ATTENTION = "decode_attention"
+    BATCH_MATMUL = "batch_matmul"
+    DROPOUT = "dropout"
+    SOFTMAX = "softmax"
+    LAYERNORM = "layernorm"
+    CONCAT = "concat"
+    SPLIT = "split"
+    FLAT = "flat"
+    RESHAPE = "reshape"
+    TRANSPOSE = "transpose"
+    REVERSE = "reverse"
+    CAST = "cast"
+    TOPK = "topk"
+    MEAN = "mean"
+    GATHER = "gather"
+    STACK = "stack"      # TPU-native: batched-branch fusion feeds
+    UNSTACK = "unstack"  # (see ops/shape_ops.py StackOp/UnstackOp)
+    BATCHED_EMBEDDING = "batched_embedding"
+
+    # elementwise binary (reference: src/ops/element_binary.cc)
+    EW_ADD = "ew_add"
+    EW_SUB = "ew_sub"
+    EW_MUL = "ew_mul"
+    EW_DIV = "ew_div"
+    EW_MAX = "ew_max"
+    EW_MIN = "ew_min"
+
+    # elementwise unary (reference: src/ops/element_unary.cc)
+    RELU = "relu"
+    SIGMOID = "sigmoid"
+    TANH = "tanh"
+    ELU = "elu"
+    GELU = "gelu"
+    EXP = "exp"
+    LOG = "log"
+    IDENTITY = "identity"
+    RSQRT = "rsqrt"
+    POW = "pow"
+    SCALAR_ADD = "scalar_add"
+    SCALAR_SUB = "scalar_sub"
+    SCALAR_MUL = "scalar_mul"
+    SCALAR_TRUE_DIV = "scalar_true_div"
+
+    # ---- MoE ops (reference: src/ops/{group_by,aggregate,aggregate_spec,cache}.cc)
+    GROUP_BY = "group_by"
+    AGGREGATE = "aggregate"
+    AGGREGATE_SPEC = "aggregate_spec"
+    CACHE = "cache"
+
+    # ---- fused -----------------------------------------------------------
+    FUSED = "fused"
+
+    # ---- parallel ops (reference: src/parallel_ops/*, ffconst.h:143-149) --
+    REPARTITION = "repartition"
+    COMBINE = "combine"
+    REPLICATE = "replicate"
+    REDUCTION = "reduction"
+    FUSED_PARALLEL = "fused_parallel"
+    PIPELINE = "pipeline"  # declared-only in the reference; real here
+    # TPU-native additions (no reference equivalent; SURVEY.md §5 gap list)
+    ALL_TO_ALL = "all_to_all"  # Ulysses-style seq<->head re-shard
+    RING_EXCHANGE = "ring_exchange"  # ring attention ppermute stage
+
+    # ---- loss / metrics pseudo-ops --------------------------------------
+    LOSS = "loss"
+    METRICS = "metrics"
+
+    def is_parallel_op(self) -> bool:
+        return self in _PARALLEL_OPS
+
+    def is_elementwise_unary(self) -> bool:
+        return self in _EW_UNARY
+
+    def is_elementwise_binary(self) -> bool:
+        return self in _EW_BINARY
+
+
+_PARALLEL_OPS = {
+    OperatorType.REPARTITION,
+    OperatorType.COMBINE,
+    OperatorType.REPLICATE,
+    OperatorType.REDUCTION,
+    OperatorType.FUSED_PARALLEL,
+    OperatorType.PIPELINE,
+    OperatorType.ALL_TO_ALL,
+    OperatorType.RING_EXCHANGE,
+}
+
+_EW_UNARY = {
+    OperatorType.RELU,
+    OperatorType.SIGMOID,
+    OperatorType.TANH,
+    OperatorType.ELU,
+    OperatorType.GELU,
+    OperatorType.EXP,
+    OperatorType.LOG,
+    OperatorType.IDENTITY,
+    OperatorType.RSQRT,
+    OperatorType.POW,
+    OperatorType.SCALAR_ADD,
+    OperatorType.SCALAR_SUB,
+    OperatorType.SCALAR_MUL,
+    OperatorType.SCALAR_TRUE_DIV,
+}
+
+_EW_BINARY = {
+    OperatorType.EW_ADD,
+    OperatorType.EW_SUB,
+    OperatorType.EW_MUL,
+    OperatorType.EW_DIV,
+    OperatorType.EW_MAX,
+    OperatorType.EW_MIN,
+}
