@@ -1,9 +1,14 @@
-"""FFConfig — the subset of flexflow_tpu/config.py the decode path reads.
+"""FFConfig — the subset of flexflow_tpu/config.py the decode and
+training paths read.
 
 The port runs on one device.  ``device`` is explicit and defaults to
 ``"cuda"``: the entry points run on the card unless the caller asks for
 the CPU (the tests pass ``device="cpu"``).  With the default device and
 no CUDA, ``torch_device`` raises instead of continuing on the CPU.
+
+Flags of the reference that the port does not run yet (``remat``,
+``grad_accum_steps``, ``trace_steps``) raise when set away from their
+defaults; they are never silently ignored.
 """
 
 from __future__ import annotations
@@ -26,6 +31,13 @@ class FFConfig:
     seed: int = 0
     kv_precision: str = "off"  # KV page-pool dtype lane; only "off" here
     device: str = "cuda"
+    epochs: int = 1
+    learning_rate: float = 0.01  # the default SGD's, as the reference
+    weight_decay: float = 0.0001
+    comp_mode: str = "training"  # set by compile(comp_mode=...)
+    remat: bool = False
+    grad_accum_steps: int = 1
+    trace_steps: int = 1
 
     def __post_init__(self):
         if self.num_devices != 1:
@@ -41,6 +53,15 @@ class FFConfig:
                 f"kv_precision={self.kv_precision!r}: the searched "
                 f"KV-precision lane (int8 pools) comes with a later "
                 f"serving slice")
+        for flag, default, what in (
+                ("remat", False, "activation rematerialisation"),
+                ("grad_accum_steps", 1, "gradient accumulation"),
+                ("trace_steps", 1, "multi-step traced train calls")):
+            if getattr(self, flag) != default:
+                raise NotImplementedError(
+                    f"{flag}={getattr(self, flag)!r}: {what} is not ported "
+                    f"yet; the port runs one optimizer step per batch "
+                    f"with every activation saved")
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:

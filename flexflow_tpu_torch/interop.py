@@ -1,11 +1,13 @@
-"""Carry the JAX package's parameters and state into the port.
+"""Carry parameters and state between the JAX package and the port.
 
 ``params_from_numpy`` and ``state_from_numpy`` take the reference's
 ``params[op][weight]`` and ``state["<op>/<var>"]`` dicts as numpy
 arrays (``np.asarray`` of each JAX array) and return the port's tensors
-on a chosen device.  bfloat16 arrays (numpy's ml_dtypes extension type)
-are carried bit for bit.  This is how a test makes both packages
-compute the same function.
+on a chosen device; ``params_to_numpy`` is the way back (host numpy
+arrays, e.g. to compare gradients and updated weights).  bfloat16 is
+carried bit for bit both ways (numpy's ml_dtypes extension type, loaded
+only when a bfloat16 tensor goes back).  This is how a test makes both
+packages compute the same function.
 """
 
 from __future__ import annotations
@@ -23,6 +25,20 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     else:
         t = torch.from_numpy(a)
     return t.to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params) -> Dict[str, Dict[str, np.ndarray]]:
+    return {op: {w: tensor_to_numpy(v) for w, v in ws.items()}
+            for op, ws in params.items()}
 
 
 def params_from_numpy(params, device="cpu"

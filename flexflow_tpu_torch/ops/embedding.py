@@ -1,7 +1,9 @@
 """Embedding lookup — the port of ``EmbeddingOp`` in
 flexflow_tpu/ops/embedding.py, for ``aggr="none"`` (the decode path's
-token and positional tables).  The sum/avg aggregations and the
-vocab-split lowering come with the slices whose models use them."""
+token and positional tables of the decode and training GPTs).  The
+gradient of the table is autograd's scatter-add of the gathered rows.
+The sum/avg aggregations and the vocab-split lowering come with the
+slices whose models use them."""
 
 from __future__ import annotations
 
@@ -42,3 +44,6 @@ class EmbeddingOp(Operator):
 
     def forward(self, ctx, inputs, weights):
         return [weights["table"][inputs[0].long()]]
+
+    def flops(self) -> float:
+        return float(self.output_shapes[0].num_elements)

@@ -4,7 +4,9 @@ cast to the compute dtype, the product accumulated in float32, a
 float32 bias, then the activation.  The product is one
 ``torch.matmul``, as the reference left it to XLA; with a bfloat16
 compute dtype the card accumulates in float32 and rounds the product
-to bfloat16 before the bias add, where XLA keeps it in float32."""
+to bfloat16 before the bias add, where XLA keeps it in float32.
+Gradients flow through it by autograd; ``flops`` is the reference's
+(linear.py:142-144)."""
 
 from __future__ import annotations
 
@@ -68,3 +70,6 @@ class LinearOp(Operator):
             y = y + weights["bias"].float()
         y = _ACTIVATIONS[self.attrs["activation"]](y)
         return [y.to(inputs[0].dtype)]
+
+    def flops(self) -> float:
+        return 2.0 * self.output_shapes[0].num_elements * self.in_dim

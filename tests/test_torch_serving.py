@@ -157,6 +157,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_training_compile_waits_for_its_slice():
+    """The training slice has landed: comp_mode="training" compiles,
+    with the default SGD optimizer and its state; inference compiles
+    carry no optimizer state."""
     pm = build_gpt_decode(FFConfig(batch_size=B, device="cpu"), **KW)
-    with pytest.raises(NotImplementedError, match="training"):
-        pm.compile(comp_mode="training")
+    pm.compile(comp_mode="training")
+    assert pm.config.comp_mode == "training"
+    assert pm.opt_state == {"step": 0}
+    assert pm.compiled.optimizer is pm.optimizer
+    pm.compile(comp_mode="inference")
+    assert pm.opt_state is None and pm.compiled.optimizer is None
