@@ -11,14 +11,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2. build: compile every CUDA kernel of both paths from ``csrc/`` with
    nvcc (sm_90a), all sources at once, and print the build seconds;
 3. kernels: call each kernel at its main path's shapes (the decode
-   kernel on fp32 and bf16 pools; the three flash kernels in bf16, the
-   training path's dtype, and in fp32) and hold it against its plain
-   PyTorch version on the same inputs; time the kernel, the plain
-   version and one PyTorch library call that computes the same function
-   (a yardstick the port never calls), each with CUDA events as the
-   median of 25 runs with the L2 cache flushed before each; compute the
-   bound from this run's inputs; sweep each kernel over odd shapes and
-   check that a head dim it does not take is refused;
+   kernel on fp32 and bf16 pools, the int8 decode kernel on the same
+   pages quantized, with its drift from the fp32 pool; the three flash
+   kernels in bf16, the training path's dtype, and in fp32) and hold it
+   against its plain PyTorch version on the same inputs; time the
+   kernel, the plain version and one PyTorch library call that computes
+   the same function (a yardstick the port never calls), each with CUDA
+   events as the median of 25 runs with the L2 cache flushed before
+   each; compute the bound from this run's inputs; sweep each kernel
+   over odd shapes and check that head dims it does not take are
+   refused;
 4. serving path: build the repo's GPT decode model at GPT-2-small widths
    (12 layers, hidden 768, 12 heads, vocab 32000, 32 frame slots, pages
    of 16 tokens, 1024-token sequences) with random weights from the
@@ -29,7 +31,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    to serving 2 of the requests alone; then profile 20 steady frames
    (``torch.profiler``): device busy time and idle share, kernels per
    frame, the largest device-time items;
-5. training path: free the serving model; build the repo's GPT at its
+5. serving lane: the same model with int8 KV pools
+   (``FFConfig(kv_precision="int8", prefill_chunk=32,
+   serve_slo_classes="interactive:1:0,batch:0:0")``), prompts through
+   the chunked prefill lane, radix prefix sharing with copy-on-write,
+   SLO classes, the event bus and the request tracer armed: 48 batch
+   requests at frame 0 (24 behind a shared 256-token system prompt, one
+   diverging mid-page, one with a 1-frame deadline) and 4 interactive
+   ones at frame 1 that preempt; check every served request's tokens,
+   the int8 kernel's 12 launches per frame, the prefill tokens counted
+   from the admissions, the preemptions, the expiry, the copy-on-write,
+   the prefix hits, every span tree and event, the first 8 frames
+   against the plain attention, and 2 sharers served alone; print frame
+   and TTFT times (split into queue, prefill and first frame), TPOT and
+   tokens/s; profile 20 frames;
+6. training path: free the serving model; build the repo's GPT at its
    full default widths (``build_gpt``: 12 layers, hidden 768, 12 heads,
    ff 3072, vocab 32000, seq 1024) with batch 8, bf16 compute, Adam,
    per-position sparse CCE and accuracy; compare the first batch's loss
@@ -39,12 +55,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    is finite and that the loss on the first batch fell; print step time
    p50/p99, tokens/s and MFU (3 x the graph's forward FLOPs against the
    card's dense bf16 peak); profile 3 steady steps;
-6. print one JSON line listing every ported kernel.
+7. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
-It takes 70-130 s on one H100, the kernels' build included.
+It takes 3-4 minutes on one H100, the kernels' build included.
 """
 
 from __future__ import annotations
@@ -69,8 +85,25 @@ FRAME_SLOTS = 32
 MAX_SEQ = FULL["page_size"] * FULL["pages_per_seq"]  # 1024
 
 KERNEL_TOL = 1e-4  # fp32 math in both; only the summation order differs
+# the reference's int8 accuracy contract (tests/test_kv.py:292): decode
+# attention over the int8 pool against the fp32 pool on the same pages
+INT8_DRIFT_TOL = 0.05
 PATH_TOL = 5e-2  # bf16 compute: a bf16 rounding of the attention output
 N_REQUESTS = 48
+# the int8 serving lane (phase 5): 48 batch requests at frame 0, the
+# first 24 behind a shared 256-token system prompt, one of them
+# diverging mid-page from the first (a copy-on-write), one with a
+# 1-frame deadline; 4 interactive requests at frame 1, which preempt
+LANE_SLO_CLASSES = "interactive:1:0,batch:0:0"
+LANE_CHUNK = 32
+LANE_SYS_TOKENS = 256
+LANE_SHARERS = 24
+LANE_BATCH = 48
+LANE_INTERACTIVE = 4
+LANE_COW = 7  # shares the first sharer's 17th page for 8 tokens
+LANE_COW_TOKENS = 8
+LANE_EXPIRING = 40
+LANE_PROFILE_WARM = 40
 PARITY_FRAMES = 8
 TIMING_RUNS = 25
 PROFILE_WARM_FRAMES = 300  # past the first admissions: slots full
@@ -186,15 +219,18 @@ def time_ms(fn, flush):
     return float(np.median(times))
 
 
-def rpa_bound_ms(lens, page_size, cap, h, d, kv_bytes, name):
+def rpa_bound_ms(lens, page_size, cap, h, d, kv_bytes, name,
+                 scale_bytes=0):
     """Least time for the work this run's inputs need: each live token's
-    k and v row read once per head, q read and out written once, the
-    live page-table entries and seq_lens read once; against the fp32
-    operations (2 per element for q.k, 2 for p.v)."""
+    k and v row read once per head (and, for an int8 pool, its k and v
+    scales once: ``scale_bytes`` per token), q read and out written
+    once, the live page-table entries and seq_lens read once; against
+    the fp32 operations (2 per element for q.k, 2 for p.v)."""
     live = np.clip(lens, 0, cap).astype(np.int64)
     b = len(lens)
-    nbytes = (live.sum() * h * d * 2 * kv_bytes + 2 * b * h * d * 4
-              + (-(-live // page_size)).sum() * 4 + b * 4)
+    nbytes = (live.sum() * (h * d * 2 * kv_bytes + scale_bytes)
+              + 2 * b * h * d * 4 + (-(-live // page_size)).sum() * 4
+              + b * 4)
     ops = 4.0 * live.sum() * h * d
     bw, fp32, _ = card_peaks(name)
     t_bytes, t_ops = nbytes / bw * 1e3, ops / fp32 * 1e3
@@ -205,9 +241,13 @@ def rpa_bound_ms(lens, page_size, cap, h, d, kv_bytes, name):
 def phase_kernels(name, seed):
     from flexflow_tpu_torch.kernels.ragged_paged_attention import (
         gather_kv_pages,
+        gather_kv_pages_quant,
         ragged_paged_attention,
+        ragged_paged_attention_quant,
+        ragged_paged_attention_quant_reference,
         ragged_paged_attention_reference,
     )
+    from flexflow_tpu_torch.ops.decode_attention import _quantize_kv
 
     b, h = FRAME_SLOTS, FULL["num_heads"]
     d = FULL["hidden"] // h
@@ -262,24 +302,66 @@ def phase_kernels(name, seed):
               f"{int(np.clip(lens, 0, MAX_SEQ).sum())} live tokens]: "
               + json.dumps(results[pool]))
         del kd, vd
+
+    # the int8 pool: the same pages quantized per token, as the decode
+    # op stores them
+    kq, ks = _quantize_kv(k32)
+    vq, vs = _quantize_kv(v32)
+    args = (q, kq, vq, ks, vs, pt, sl)
+    ref = ragged_paged_attention_quant_reference(*args)
+    got = ragged_paged_attention_quant(*args)
+    fp32_out = ragged_paged_attention_reference(q, k32, v32, pt, sl)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()),
+          "int8 kernel gave non-finite values")
+    check(bool(got[0].abs().max() == 0),
+          "int8 kernel: a sequence of length 0 must give zeros")
+    err = float((got - ref).abs().max())
+    rel = err / max(1.0, float(ref.abs().max()))
+    check(rel <= KERNEL_TOL, f"int8 kernel vs plain version: error "
+          f"{rel:.3e} > {KERNEL_TOL} of max(1, |plain|)")
+    drift = float((got - fp32_out).abs().max())
+    check(drift < INT8_DRIFT_TOL, f"int8 vs fp32 pool drift {drift:.3e} >= "
+          f"{INT8_DRIFT_TOL}")
+    kd = gather_kv_pages_quant(kq, ks, pt).transpose(1, 2).contiguous()
+    vd = gather_kv_pages_quant(vq, vs, pt).transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound_ms, bound_by = rpa_bound_ms(lens, ps, MAX_SEQ, h, d, 1, name,
+                                      scale_bytes=8)
+    results["int8"] = dict(
+        max_abs_err=err, rel_err=rel, drift_vs_fp32_pool=drift,
+        ms=time_ms(lambda: ragged_paged_attention_quant(*args), flush),
+        plain_ms=time_ms(
+            lambda: ragged_paged_attention_quant_reference(*args), flush),
+        library_ms=time_ms(lambda: sdpa(q[:, :, None, :], kd, vd,
+                                        attn_mask=mask), flush),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"kernel ragged_paged_attention_quant [int8 pool, B={b} H={h} "
+          f"D={d} ps={ps} pps={pps} P={num_pages}, "
+          f"{int(np.clip(lens, 0, MAX_SEQ).sum())} live tokens]: "
+          + json.dumps(results["int8"]))
+    del kd, vd
     sweep_kernel_shapes(seed)
     return results
 
 
 def sweep_kernel_shapes(seed):
-    """Every head dim the kernel takes (multiples of 32 up to 256) and
-    odd page sizes, on both pool dtypes, against the plain version; a
-    head dim it does not take is refused; an out-of-range page id gives
-    a NaN row instead of a read outside the pool."""
+    """Every head dim the kernels take (multiples of 32 up to 256) and
+    odd page sizes, on fp32, bf16 and int8 pools, against the plain
+    versions; head dims they do not take are refused; an out-of-range
+    page id gives a NaN row instead of a read outside the pool."""
     from flexflow_tpu_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention,
+        ragged_paged_attention_quant,
+        ragged_paged_attention_quant_reference,
         ragged_paged_attention_reference,
     )
+    from flexflow_tpu_torch.ops.decode_attention import _quantize_kv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     b, h, pps = 3, 2, 5
-    worst = 0.0
+    worst, worst_int8 = 0.0, 0.0
     for d in range(32, 257, 32):
         for ps in (1, 5, 16, 32):
             cap = ps * pps
@@ -299,6 +381,15 @@ def sweep_kernel_shapes(seed):
                 check(err <= KERNEL_TOL, f"D={d} ps={ps} {dt}: max abs err "
                       f"{err:.3e} > {KERNEL_TOL}")
                 worst = max(worst, err)
+            kq, ks = _quantize_kv(k)
+            vq, vs = _quantize_kv(v)
+            qargs = (q, kq, vq, ks, vs, pt, sl)
+            ref = ragged_paged_attention_quant_reference(*qargs)
+            err = float((ragged_paged_attention_quant(*qargs) - ref).abs(
+                ).max()) / max(1.0, float(ref.abs().max()))
+            check(err <= KERNEL_TOL, f"int8 D={d} ps={ps}: error {err:.3e} "
+                  f"> {KERNEL_TOL}")
+            worst_int8 = max(worst_int8, err)
     bad_pt = pt.clone()
     bad_pt[1, 0] = num_pages  # one past the pool
     got = ragged_paged_attention(q, k, v, bad_pt, sl)
@@ -310,10 +401,23 @@ def sweep_kernel_shapes(seed):
         fail("head dim 48 was not refused")
     except ValueError:
         pass
+    for bad_d in (8, 144):
+        zq = torch.zeros((1, 1, bad_d), device=dev)
+        zp = torch.zeros((2, 4, 1, bad_d), dtype=torch.int8, device=dev)
+        zs = torch.zeros((2, 4), device=dev)
+        try:
+            ragged_paged_attention_quant(
+                zq, zp, zp, zs, zs, torch.zeros((1, 2), dtype=torch.int32,
+                                                device=dev),
+                torch.ones(1, dtype=torch.int32, device=dev))
+            fail(f"int8 kernel: head dim {bad_d} was not refused")
+        except ValueError:
+            pass
     torch.cuda.synchronize()
-    print(f"kernel shape sweep: D 32..256 x page sizes 1, 5, 16, 32 x "
-          f"fp32/bf16 pools, max abs err {worst:.3e}; bad page id -> NaN "
-          f"row; D=48 refused")
+    print(f"kernel shape sweep: D 32..256 x page sizes 1, 5, 16, 32: "
+          f"fp32/bf16 pools max abs err {worst:.3e}, int8 pool error "
+          f"{worst_int8:.3e} of max(1, |plain|); bad page id -> NaN row; "
+          f"D=48 refused, int8 D=8 and D=144 refused")
 
 
 # ---------------------------------------------------------------------------
@@ -473,9 +577,14 @@ def profile_window(step, n, unit):
     """``torch.profiler`` over ``n`` calls of ``step``.  Reports the host
     wall time of the window, the device busy time (the union of kernel
     and copy intervals) and its share, device kernels per ``unit``, and
-    the largest device-time items.  An empty device trace is reported as
-    not measured."""
+    the largest device-time items.  The device-side spans of the
+    executor's phase annotations (``ff.phase/...``, when armed) cover
+    kernels rather than being kernels: they are reported apart, as the
+    device time each phase spans per ``unit``.  An empty device trace is
+    reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.obs.annotate import PHASE_PREFIX
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -485,8 +594,15 @@ def profile_window(step, n, unit):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev, phases = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name.startswith(PHASE_PREFIX):
+            phases[e.name] = phases.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / n / 1e3
+        else:
+            dev.append(e)
     if not dev:
         return {"device_time": "not measured (no device events traced)"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -511,7 +627,315 @@ def profile_window(step, n, unit):
         f"device_kernels_per_{unit}": len(dev) / n,
         f"top_device_ms_per_{unit}": {
             name[:60]: t / n / 1e3 for name, t in top},
+        f"phase_span_device_ms_per_{unit}": phases,
     }
+
+
+# ---------------------------------------------------------------------------
+def make_lane_requests(seed, vocab):
+    """(batch requests, interactive requests) of the int8 lane phase.
+    Each sharer's own tokens start with a token no other sharer's do,
+    so the only mid-page match is the planted one."""
+    from flexflow_tpu_torch.runtime.decode import DecodeRequest
+
+    rng = np.random.default_rng(seed + 6)
+    system = rng.integers(0, vocab, size=LANE_SYS_TOKENS).tolist()
+    batch, first_own = [], None
+    for i in range(LANE_BATCH):
+        new = int(rng.integers(16, 129))
+        if i < LANE_SHARERS:
+            own = rng.integers(0, vocab, size=int(rng.integers(17, 129)))
+            own = own.tolist()
+            own[0] = vocab - 1 - i
+            if i == 0:
+                first_own = own
+            elif i == LANE_COW:
+                own = (first_own[:LANE_COW_TOKENS]
+                       + [(first_own[LANE_COW_TOKENS] + 1) % vocab]
+                       + own[LANE_COW_TOKENS + 1:])
+            prompt = system + own
+        else:
+            prompt = rng.integers(0, vocab, size=int(
+                rng.integers(8, 257))).tolist()
+        batch.append(DecodeRequest(
+            rid=f"b{i}", prompt=prompt, max_new_tokens=new, slo="batch",
+            deadline_frames=1 if i == LANE_EXPIRING else None))
+    interactive = [DecodeRequest(
+        rid=f"i{j}", prompt=rng.integers(0, vocab, size=int(
+            rng.integers(8, 65))).tolist(),
+        max_new_tokens=int(rng.integers(16, 129)), slo="interactive")
+        for j in range(LANE_INTERACTIVE)]
+    return batch, interactive
+
+
+def claimed_prefix(i: int) -> int:
+    """Prompt tokens batch request ``i`` finds cached at its first
+    admission: the system prompt for every sharer after the first, and
+    the planted mid-page match on top for the copy-on-write one."""
+    if not 0 < i < LANE_SHARERS:
+        return 0
+    return LANE_SYS_TOKENS + (LANE_COW_TOKENS if i == LANE_COW else 0)
+
+
+def lane_executor(step, cfg):
+    from flexflow_tpu_torch.runtime.decode import (
+        ContinuousBatchingExecutor,
+        SLOClass,
+    )
+
+    return ContinuousBatchingExecutor(
+        step, max_seqs=FRAME_SLOTS, page_size=FULL["page_size"],
+        pages_per_seq=FULL["pages_per_seq"], prefill_fn=step.prefill,
+        prefill_chunk=cfg.prefill_chunk, prefix_sharing=True,
+        copy_page_fn=step.copy_page,
+        slo_classes=[SLOClass(c["name"], c["priority"],
+                              c["deadline_frames"], c["quantile"])
+                     for c in cfg.serve_slo_classes])
+
+
+def drive_lane(ex, batch, interactive, frames=None):
+    """The lane's traffic: ``batch`` at frame 0, ``interactive`` at
+    frame 1, then frames to the end (or ``frames`` in all).  Returns
+    the tokens of every sequence preempted at frame 1, as re-queued."""
+    ex.submit(batch)
+    ex.step()
+    ex.submit(interactive)
+    ex.step()
+    requeued = [list(e.tokens) for e in ex.queue if e.preempted]
+    if frames is None:
+        ex.run(max_frames=20_000)
+    else:
+        for _ in range(frames - 2):
+            ex.step()
+    return requeued
+
+
+def recording(step, log, frames, prefill_time):
+    """``step`` with its ``prefill`` and ``copy_page``, logging every
+    call in order (and each frame's logits) until ``frames`` frames ran,
+    so that the run's start can be replayed from an empty cache; every
+    chunk pass's host seconds are appended to ``prefill_time``."""
+    def frames_logged():
+        return sum(kind == "step" for kind, *_ in log)
+
+    def rec_step(ids, table, lens):
+        logits = step(ids, table, lens)
+        if frames_logged() < frames:
+            log.append(("step", (ids.copy(), table.copy(), lens.copy()),
+                        logits.float().clone()))
+        return logits
+
+    def rec_prefill(ids, positions, table):
+        t0 = time.perf_counter()
+        step.prefill(ids, positions, table)
+        prefill_time.append(time.perf_counter() - t0)
+        if frames_logged() < frames:
+            log.append(("prefill", (ids.copy(), positions.copy(),
+                                    table.copy()), None))
+
+    def rec_copy(src, dst):
+        step.copy_page(src, dst)
+        if frames_logged() < frames:
+            log.append(("copy", (src, dst), None))
+
+    rec_step.prefill = rec_prefill
+    rec_step.copy_page = rec_copy
+    return rec_step
+
+
+def phase_serving_lane(seed):
+    """The int8 KV lane at full width: chunked prefill, prefix sharing
+    with copy-on-write, SLO classes with expiry and preemption, the
+    event bus and the request tracer armed."""
+    import tempfile
+
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention_quant,
+    )
+    from flexflow_tpu_torch.models import build_gpt_decode
+    from flexflow_tpu_torch.obs import annotate
+    from flexflow_tpu_torch.obs.events import BUS, validate_event
+    from flexflow_tpu_torch.obs.tracing import TRACER
+    from flexflow_tpu_torch.runtime.decode import (
+        ContinuousBatchingExecutor,
+        DecodeRequest,
+        compiled_decode_step,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = FFConfig(batch_size=FRAME_SLOTS, compute_dtype="bfloat16",
+                   seed=seed, kv_precision="int8", prefill_chunk=LANE_CHUNK,
+                   serve_slo_classes=LANE_SLO_CLASSES)
+    model = build_gpt_decode(cfg, **FULL)
+    model.compile(comp_mode="inference")
+    torch.cuda.synchronize()
+    pools = {k: (t.dtype, tuple(t.shape)) for k, t in model.state.items()
+             if k.startswith("layer0_mha/")}
+    check(pools["layer0_mha/k_cache"][0] == torch.int8
+          and pools["layer0_mha/k_scale"] == (
+              torch.float32, pools["layer0_mha/k_cache"][1][:2]),
+          f"int8 lane pools: {pools}")
+    pool_gb = sum(t.numel() * t.element_size()
+                  for t in model.state.values()) / 1e9
+    print(f"serving lane: compiled in {time.perf_counter() - t0:.2f} s, "
+          f"int8 KV pools with scales {pool_gb:.3f} GB")
+
+    # warm-up: library handles and allocator pools, off the clock
+    warm = compiled_decode_step(model, prefill_chunk=LANE_CHUNK)
+    lane_executor(warm, cfg).run([DecodeRequest(
+        rid="warm", prompt=list(range(1, 40)), max_new_tokens=4)])
+    zero_state(model)
+
+    batch, interactive = make_lane_requests(seed, FULL["vocab"])
+    log, prefill_time = [], []
+    ex = lane_executor(recording(compiled_decode_step(
+        model, prefill_chunk=LANE_CHUNK), log, PARITY_FRAMES,
+        prefill_time), cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        obs_log = f"{tmp}/lane_obs.jsonl"
+        BUS.configure(obs_log)
+        TRACER.reset()
+        TRACER.enabled = True
+        try:
+            ragged_paged_attention_quant.launches = 0
+            t0 = time.perf_counter()
+            requeued = drive_lane(ex, batch, interactive)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ragged_paged_attention_quant.launches
+            BUS.flush()
+            with open(obs_log) as f:
+                events = [json.loads(line) for line in f]
+        finally:
+            BUS.close()
+            TRACER.enabled = False
+    out, summ, frames = dict(ex.finished), ex.summary(), ex.frame
+    tokens = sum(len(v) for v in out.values())
+    report = {
+        "frames": frames, "requests_finished": len(out),
+        "chunk_passes": summ["prefill_chunks"],
+        "prefill_tokens": summ["prefill_tokens"],
+        "prefix_hits": summ["prefix_hits"],
+        "shared_pages": summ["shared_pages"],
+        "prefix_tokens": summ["prefix_tokens"],
+        "cow_copies": summ["cow_copies"], "preempted": summ["preempted"],
+        "expired": summ["expired"],
+        "frame_p50_ms": summ["measured_p50_s"] * 1e3,
+        "frame_p99_ms": summ["measured_p99_s"] * 1e3,
+        "generated_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "kv_pool_gb": pool_gb,
+        "kernel_launches": launches}
+    for key in ("ttft", "queue", "prefill", "first_frame", "tpot", "e2e"):
+        for q in ("p50", "p99"):
+            v = summ.get(f"{key}_{q}_s")
+            report[f"{key}_{q}_ms"] = None if v is None else v * 1e3
+    # where the wall time went: decode frames (step + argmax) and the
+    # chunk passes run at admission (host seconds; the device idles
+    # most of the time, so they are close to the passes' wall time)
+    report["decode_frames_s"] = sum(ex.frame_seconds)
+    report["prefill_s"] = sum(prefill_time)
+    report["ms_per_chunk_pass"] = float(np.mean(prefill_time)) * 1e3
+    report["slo_classes"] = summ["slo_classes"]
+    print("serving lane: " + json.dumps(report))
+
+    expired = batch[LANE_EXPIRING].rid
+    served = [r for r in batch + interactive if r.rid != expired]
+    check(set(ex.expired) == {expired} and summ["expired"] == 1,
+          f"expired {sorted(ex.expired)}, wanted [{expired!r}]")
+    check(set(out) == {r.rid for r in served},
+          f"{len(out)} of {len(served)} requests finished")
+    for r in served:
+        check(len(out[r.rid]) == r.max_new_tokens,
+              f"{r.rid}: {len(out[r.rid])} tokens, wanted "
+              f"{r.max_new_tokens}")
+        check(all(0 <= t < FULL["vocab"] for t in out[r.rid]),
+              f"{r.rid}: token id outside the vocab")
+    check(launches == FULL["num_layers"] * frames,
+          f"{launches} int8 kernel launches for {frames} frames of "
+          f"{FULL['num_layers']} layers")
+    want_prefill = sum(len(r.prompt) - 1 - claimed_prefix(i)
+                       for i, r in enumerate(batch) if r.rid != expired)
+    want_prefill += sum(len(r.prompt) - 1 for r in interactive)
+    want_prefill += sum(len(t) - 1 for t in requeued)
+    check(summ["prefill_chunks"] > 0
+          and summ["prefill_tokens"] == want_prefill,
+          f"prefill tokens {summ['prefill_tokens']}, counted "
+          f"{want_prefill} from the admissions")
+    check(summ["preempted"] >= 1 and len(requeued) == summ["preempted"],
+          f"preempted {summ['preempted']}, re-queued {len(requeued)}")
+    check(summ["cow_copies"] >= 1, "no copy-on-write page copy")
+    check(summ["prefix_hits"] >= LANE_SHARERS - 1,
+          f"{summ['prefix_hits']} prefix hits, wanted >= "
+          f"{LANE_SHARERS - 1}")
+    bad = [e for e in events if validate_event(e)]
+    check(not bad, f"{len(bad)} events fail their schema: {bad[:2]}")
+    recs = {r["rid"]: r for r in ex.request_records
+            if r.get("phase") == "finish"}
+    problems = []
+    for tid in TRACER.trace_ids():
+        rec = recs.get(tid.split("#", 1)[0])
+        problems += TRACER.validate_trace(
+            tid, e2e_s=rec["e2e_s"] if rec else None)
+    check(not problems and len(TRACER.trace_ids()) == len(served) + 1,
+          f"span trees: {len(TRACER.trace_ids())} traces, problems "
+          f"{problems[:3]}")
+    print(f"serving lane: {len(TRACER.trace_ids())} request span trees "
+          f"valid, 0 orphans; {len(events)} events valid")
+
+    # the first frames again from an empty cache, with the plain
+    # attention: every prefill pass, page copy and frame in order
+    zero_state(model)
+    set_op_attr(model, "decode_attention", "use_kernel", False)
+    plain = compiled_decode_step(model, prefill_chunk=LANE_CHUNK)
+    diff = 0.0
+    for kind, args, logits in log:
+        if kind == "step":
+            diff = max(diff, float((plain(*args).float() - logits).abs()
+                                   .max()))
+        elif kind == "prefill":
+            plain.prefill(*args)
+        else:
+            plain.copy_page(*args)
+    set_op_attr(model, "decode_attention", "use_kernel", True)
+    print(f"serving lane vs plain attention, first {PARITY_FRAMES} frames "
+          f"({len(log)} calls): logits max abs diff {diff:.3e} "
+          f"(tol {PATH_TOL})")
+    check(sum(k == "step" for k, *_ in log) == PARITY_FRAMES,
+          "the parity replay lacks frames")
+    check(diff <= PATH_TOL, f"lane logits differ by {diff:.3e} > {PATH_TOL}")
+
+    # two sharers that claimed the whole system prompt, served alone
+    # without sharing (chunk windows line up: 256 is a multiple of 32)
+    sharers = sorted((r for i, r in enumerate(batch[:LANE_SHARERS])
+                      if claimed_prefix(i) == LANE_SYS_TOKENS),
+                     key=lambda r: len(r.prompt) + r.max_new_tokens)[:2]
+    for r in sharers:
+        zero_state(model)
+        solo = compiled_decode_step(model, prefill_chunk=LANE_CHUNK)
+        alone = ContinuousBatchingExecutor(
+            solo, max_seqs=FRAME_SLOTS, page_size=FULL["page_size"],
+            pages_per_seq=FULL["pages_per_seq"], prefill_fn=solo.prefill,
+            prefill_chunk=LANE_CHUNK).run([DecodeRequest(
+                rid=r.rid, prompt=r.prompt,
+                max_new_tokens=r.max_new_tokens)])
+        check(alone[r.rid] == out[r.rid],
+              f"{r.rid}: served alone gives other tokens than shared")
+    print(f"serving lane: shared == solo for {[r.rid for r in sharers]}")
+
+    zero_state(model)
+    annotate.arm()
+    try:
+        prof_ex = lane_executor(compiled_decode_step(
+            model, prefill_chunk=LANE_CHUNK), cfg)
+        drive_lane(prof_ex, batch, interactive, frames=LANE_PROFILE_WARM)
+        print("serving lane profile: " + json.dumps(
+            profile_window(prof_ex.step, PROFILE_FRAMES, "frame")))
+    finally:
+        annotate.disarm()
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -859,8 +1283,9 @@ def main(argv=None) -> int:
     rpa = phase_kernels(name, args.seed)
     flash = phase_flash_kernels(name, args.seed)
     rpa_launches = phase_main_path(args.seed)
+    quant_launches, _ = phase_serving_lane(args.seed)
     flash_launches = phase_train(args.seed, name)
-    fp32 = rpa["fp32"]
+    fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -874,6 +1299,19 @@ def main(argv=None) -> int:
         "bound_by": fp32["bound_by"],
         "library_ms": fp32["library_ms"],
         "bf16_pool": rpa["bf16"],
+    }, {
+        "name": "ragged_paged_attention_quant",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "flexflow_tpu/kernels/ragged_paged_attention.py:233",
+        "launches": quant_launches,
+        "max_abs_err": int8["max_abs_err"],
+        "ms": int8["ms"],
+        "plain_ms": int8["plain_ms"],
+        "bound_ms": int8["bound_ms"],
+        "bound_by": int8["bound_by"],
+        "library_ms": int8["library_ms"],
+        "drift_vs_fp32_pool": int8["drift_vs_fp32_pool"],
     }]
     for kind, wrapper, line in (("fwd", "flash_forward", 66),
                                 ("dq", "flash_backward_dq", 194),

@@ -8,8 +8,10 @@ H100 two paths so far.  Serving:
     build_gpt_decode -> FFModel.compile(comp_mode="inference")
     -> compiled_decode_step -> ContinuousBatchingExecutor.run
 
-with decode attention in a hand-written CUDA kernel for sm_90a
-(``csrc/ragged_paged_attention.cu``).  Training:
+with decode attention in hand-written CUDA kernels for sm_90a
+(``csrc/ragged_paged_attention.cu``: fp32/bf16 pools, and int8 pools
+under ``FFConfig(kv_precision="int8")``), prompts through the chunked
+prefill lane, radix prefix sharing and SLO classes.  Training:
 
     build_gpt / build_transformer -> FFModel.compile(optimizer,
     loss_type, metrics) -> FFModel.fit

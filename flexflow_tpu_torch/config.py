@@ -6,14 +6,23 @@ The port runs on one device.  ``device`` is explicit and defaults to
 the CPU (the tests pass ``device="cpu"``).  With the default device and
 no CUDA, ``torch_device`` raises instead of continuing on the CPU.
 
+The serving knobs are the reference's (config.py:193, 221-237):
+``prefill_chunk`` (the chunked prefill lane's chunk size),
+``serve_slo_classes`` (normalised by ``parse_slo_classes``, a copy of
+config.py:18-66) and ``kv_precision`` (the KV page-pool dtype lane:
+"off", or a pinned "fp32"/"bf16"/"int8" that
+``compile(comp_mode="inference")`` adopts onto the decode ops).
+
 Flags of the reference that the port does not run yet (``remat``,
-``grad_accum_steps``, ``trace_steps``) raise when set away from their
-defaults; they are never silently ignored.
+``grad_accum_steps``, ``trace_steps``, ``kv_precision="search"``)
+raise when set away from their defaults; they are never silently
+ignored.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,13 +32,61 @@ _DTYPES = {
 }
 
 
+def parse_slo_classes(value) -> Tuple[Dict, ...]:
+    """Normalize the SLO-class table: the CLI spelling
+    ``"name:priority:deadline_frames[:quantile[:weight]][,...]"`` or an
+    iterable of dicts -> a tuple of ``{"name", "priority",
+    "deadline_frames", "quantile", "weight"}`` dicts (runtime/decode.py
+    ``SLOClass`` takes the first four)."""
+    if isinstance(value, str):
+        classes = []
+        for part in value.split(","):
+            fields = part.split(":")
+            if len(fields) not in (3, 4, 5):
+                raise ValueError(
+                    f"SLO class {part!r} must be "
+                    f"name:priority:deadline_frames[:quantile[:weight]]")
+            classes.append({
+                "name": fields[0],
+                "priority": int(fields[1]),
+                "deadline_frames": int(fields[2]),
+                "quantile": float(fields[3]) if len(fields) >= 4 else 0.99,
+                "weight": float(fields[4]) if len(fields) == 5 else 1.0,
+            })
+        value = classes
+    out = []
+    seen = set()
+    for c in value:
+        c = {"name": str(c["name"]), "priority": int(c["priority"]),
+             "deadline_frames": int(c.get("deadline_frames", 0)),
+             "quantile": float(c.get("quantile", 0.99)),
+             "weight": float(c.get("weight", 1.0))}
+        if not c["name"] or c["name"] in seen:
+            raise ValueError(
+                f"SLO class names must be unique and non-empty "
+                f"(got {c['name']!r})")
+        if c["deadline_frames"] < 0 or not (0.0 < c["quantile"] < 1.0):
+            raise ValueError(
+                f"SLO class {c['name']!r}: deadline_frames must be >= 0 "
+                f"and quantile in (0, 1)")
+        if not c["weight"] > 0.0:
+            raise ValueError(
+                f"SLO class {c['name']!r}: weight must be > 0, got "
+                f"{c['weight']}")
+        seen.add(c["name"])
+        out.append(c)
+    return tuple(out)
+
+
 @dataclass
 class FFConfig:
     batch_size: int = 64
     num_devices: int = 1
     compute_dtype: str = "bfloat16"  # matmul dtype, as the reference
     seed: int = 0
-    kv_precision: str = "off"  # KV page-pool dtype lane; only "off" here
+    kv_precision: str = "off"  # KV page-pool dtype: off|fp32|bf16|int8
+    prefill_chunk: int = 32  # chunk size of the chunked prefill lane
+    serve_slo_classes: Optional[object] = None  # parse_slo_classes input
     device: str = "cuda"
     epochs: int = 1
     learning_rate: float = 0.01  # the default SGD's, as the reference
@@ -48,11 +105,20 @@ class FFConfig:
             raise ValueError(
                 f"compute_dtype must be one of {sorted(_DTYPES)}, got "
                 f"{self.compute_dtype!r}")
-        if self.kv_precision != "off":
+        if self.kv_precision == "search":
             raise NotImplementedError(
-                f"kv_precision={self.kv_precision!r}: the searched "
-                f"KV-precision lane (int8 pools) comes with a later "
-                f"serving slice")
+                "kv_precision='search': the searched KV-precision lane "
+                "comes with the search slice; pin fp32, bf16 or int8")
+        if self.kv_precision not in ("off", "fp32", "bf16", "int8"):
+            raise ValueError(
+                f"kv_precision must be off|fp32|bf16|int8|search, got "
+                f"{self.kv_precision!r}")
+        if self.prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.serve_slo_classes is not None:
+            self.serve_slo_classes = parse_slo_classes(
+                self.serve_slo_classes)
         for flag, default, what in (
                 ("remat", False, "activation rematerialisation"),
                 ("grad_accum_steps", 1, "gradient accumulation"),

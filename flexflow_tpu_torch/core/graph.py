@@ -52,6 +52,9 @@ class Graph:
         self.add_node(node)
         return node
 
+    def _invalidate(self) -> None:
+        self._topo_cache = None
+
     def add_node(self, node: Node) -> None:
         if node.guid in self.nodes:
             return

@@ -19,8 +19,17 @@ Both follow the TPU kernel's semantics, including zeros for a sequence
 of length 0 (the reference's XLA fallback gives the mean of V there;
 the decode op always passes lengths >= 1).
 
-``dense_decode_reference`` and ``gather_kv_pages`` are copies of the
-reference's oracle and gather.
+An INT8 pool carries one fp32 scale per (page, slot), shared across
+heads, for k and for v (``k_scale``/``v_scale`` [num_pages,
+page_size]).  ``ragged_paged_attention_quant`` launches the CUDA kernel
+that replaces ``_rpa_kernel_quant`` (dequantising inside its page loop,
+so only int8 bytes and the scales leave device memory), with its own
+``.launches`` count, and ``ragged_paged_attention_quant_reference`` is
+its plain version: gather, dequantise, the same plain softmax.
+
+``dense_decode_reference``, ``gather_kv_pages`` and
+``gather_kv_pages_quant`` are copies of the reference's oracle and
+gathers.
 """
 
 from __future__ import annotations
@@ -61,15 +70,20 @@ def gather_kv_pages(pages, page_table):
     return g.reshape(b, npp * ps, h, d)
 
 
-def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
-                                     seq_lens, scale=None):
-    """The plain PyTorch version of the kernel: gather the pages, mask
-    past ``seq_lens`` at NEG_INF, softmax in fp32 with the TPU kernel's
-    l floor of 1e-30 (so a sequence of length 0 gives zeros)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    k = gather_kv_pages(k_pages, page_table).float()
-    v = gather_kv_pages(v_pages, page_table).float()
+def gather_kv_pages_quant(pages, scales, page_table):
+    """Densify and dequantise an int8 pool: pages [P, page_size, H, D]
+    int8, scales [P, page_size] fp32 -> dense fp32
+    [B, pages_per_seq * page_size, H, D]."""
+    dense = gather_kv_pages(pages, page_table).float()
+    s = scales[page_table.long()]  # [B, pages_per_seq, page_size]
+    b, npp, ps = s.shape
+    return dense * s.reshape(b, npp * ps)[:, :, None, None]
+
+
+def _attend_dense(q, k, v, seq_lens, scale):
+    """Mask past ``seq_lens`` at NEG_INF, softmax in fp32 with the TPU
+    kernel's l floor of 1e-30 (so a sequence of length 0 gives zeros):
+    q [B, H, D], dense fp32 k/v [B, S, H, D] -> [B, H, D]."""
     s = torch.einsum("bhd,bshd->bhs", q.float(), k) * scale
     pos = torch.arange(k.shape[1], device=q.device)
     mask = pos[None, None, :] < seq_lens.to(q.device)[:, None, None]
@@ -81,15 +95,46 @@ def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
     return out.to(q.dtype)
 
 
-def _check(q, k_pages, v_pages, page_table, seq_lens):
+def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
+                                     seq_lens, scale=None):
+    """The plain PyTorch version of the kernel: gather the pages, then
+    the masked fp32 softmax of ``_attend_dense``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _attend_dense(q, gather_kv_pages(k_pages, page_table).float(),
+                         gather_kv_pages(v_pages, page_table).float(),
+                         seq_lens, scale)
+
+
+def ragged_paged_attention_quant_reference(q, k_pages, v_pages, k_scale,
+                                           v_scale, page_table, seq_lens,
+                                           scale=None):
+    """The plain PyTorch version of the int8 kernel: gather and
+    dequantise the pages, then the masked fp32 softmax of
+    ``_attend_dense``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _attend_dense(
+        q, gather_kv_pages_quant(k_pages, k_scale, page_table),
+        gather_kv_pages_quant(v_pages, v_scale, page_table), seq_lens,
+        scale)
+
+
+def _check(q, k_pages, v_pages, page_table, seq_lens,
+           pool_dtypes=(torch.float32, torch.bfloat16), scales=()):
     if q.dtype != torch.float32 or q.dim() != 3:
         raise ValueError(f"q must be [B, H, D] float32, got "
                          f"{tuple(q.shape)} {q.dtype}")
     b, h, d = q.shape
-    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in (
-            torch.float32, torch.bfloat16):
-        raise ValueError(f"k/v pools must both be float32 or both "
-                         f"bfloat16, got {k_pages.dtype}/{v_pages.dtype}")
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in pool_dtypes:
+        raise ValueError(f"k/v pools must both be one of {pool_dtypes}, "
+                         f"got {k_pages.dtype}/{v_pages.dtype}")
+    for sc in scales:
+        if sc.dtype != torch.float32 or tuple(sc.shape) != tuple(
+                k_pages.shape[:2]):
+            raise ValueError(f"k/v scales must be [P, page_size] = "
+                             f"{tuple(k_pages.shape[:2])} float32, got "
+                             f"{tuple(sc.shape)} {sc.dtype}")
     if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
             or tuple(k_pages.shape[2:]) != (h, d)):
         raise ValueError(f"k/v pools must be [P, page_size, {h}, {d}], got "
@@ -102,35 +147,45 @@ def _check(q, k_pages, v_pages, page_table, seq_lens):
         raise ValueError(f"seq_lens must be [{b}] int32, got "
                          f"{tuple(seq_lens.shape)} {seq_lens.dtype}")
     devices = {t.device for t in (q, k_pages, v_pages, page_table,
-                                  seq_lens)}
+                                  seq_lens, *scales)}
     if len(devices) != 1:
         raise ValueError(f"all operands must be on one device, got "
                          f"{sorted(map(str, devices))}")
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_entry():
-    """The C entry point of the built kernel library, typed once."""
+def _kernel_entry(symbol: str = "ffrpa_launch"):
+    """A C entry point of the built kernel library, typed once:
+    ``ffrpa_launch`` (fp32/bf16 pools) or ``ffrpa_quant_launch`` (int8
+    pools)."""
     from flexflow_tpu_torch.kernels.build import load_library
 
-    fn = load_library(_KERNEL_SOURCE).ffrpa_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn = getattr(load_library(_KERNEL_SOURCE), symbol)
+    if symbol == "ffrpa_launch":
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
-    b, h, d = q.shape
+def _launch_checks(q, *tensors):
+    d = q.shape[-1]
     if d % 32 or not 32 <= d <= 256:
         raise ValueError(f"the CUDA kernel takes head dims that are "
                          f"multiples of 32 up to 256, got {d}")
-    tensors = (q, k_pages, v_pages, page_table, seq_lens)
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in (q, *tensors)):
         raise ValueError("the CUDA kernel takes contiguous operands")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"operands on {q.device} but the current CUDA "
                          f"device is {torch.cuda.current_device()}")
+
+
+def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
+    b, h, d = q.shape
+    _launch_checks(q, k_pages, v_pages, page_table, seq_lens)
     out = torch.empty_like(q)
     err = _kernel_entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -169,3 +224,54 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
 
 
 ragged_paged_attention.launches = 0
+
+
+def _launch_quant(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                  seq_lens, scale):
+    b, h, d = q.shape
+    _launch_checks(q, k_pages, v_pages, k_scale, v_scale, page_table,
+                   seq_lens)
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the int8 kernel takes pools aligned to 16 bytes")
+    out = torch.empty_like(q)
+    err = _kernel_entry("ffrpa_quant_launch")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), b, h, d, k_pages.shape[0],
+        k_pages.shape[1], page_table.shape[1], float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ragged_paged_attention_quant CUDA launch "
+                           f"failed: cudaError {err}")
+    ragged_paged_attention_quant.launches += 1
+    return out
+
+
+def ragged_paged_attention_quant(q, k_pages, v_pages, k_scale, v_scale,
+                                 page_table, seq_lens, scale=None):
+    """Paged-KV decode attention over an INT8 pool: as
+    ``ragged_paged_attention``, with k_pages/v_pages int8 and
+    k_scale/v_scale [P, page_size] fp32 each token's symmetric scale
+    (shared across heads) -> [B, H, D] fp32.
+
+    On the card this launches the CUDA kernel on the current stream,
+    without synchronising, and adds one to
+    ``ragged_paged_attention_quant.launches``; it raises on anything
+    the kernel does not take.  On the CPU it computes the plain
+    version."""
+    _check(q, k_pages, v_pages, page_table, seq_lens,
+           pool_dtypes=(torch.int8,), scales=(k_scale, v_scale))
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        return _launch_quant(q, k_pages, v_pages, k_scale, v_scale,
+                             page_table, seq_lens, scale)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_quant_reference(
+            q, k_pages, v_pages, k_scale, v_scale, page_table, seq_lens,
+            scale)
+    raise ValueError(f"no ragged_paged_attention_quant for device "
+                     f"{q.device}")
+
+
+ragged_paged_attention_quant.launches = 0

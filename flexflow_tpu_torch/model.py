@@ -5,9 +5,13 @@ The builder methods the decode and transformer graphs call
 ``add``, ``layer_norm``, ``dense``, ``multihead_attention``,
 ``decode_attention``) build a lazy graph; ``compile`` binds it to the
 config's device with the trivial single-device strategy and initialises
-``params``, ``state`` and, for training, the optimizer state.  ``fit``,
-``evaluate`` and ``predict`` run over numpy data.  The strategy search
-and the multi-device lowerings come with later slices.
+``params``, ``state`` and, for training, the optimizer state; an
+inference compile first adopts a pinned ``config.kv_precision`` onto
+the decode-attention ops (``_adopt_kv_dtype``, reference model.py:50-83,
+as the reference's strategy search does for one pinned candidate),
+so the state holds that pool dtype.  ``fit``, ``evaluate`` and
+``predict`` run over numpy data.  The strategy search and the
+multi-device lowerings come with later slices.
 """
 
 from __future__ import annotations
@@ -28,6 +32,34 @@ from flexflow_tpu_torch.core.ptensor import (
 )
 from flexflow_tpu_torch.interop import tensor_from_numpy, tensor_to_numpy
 from flexflow_tpu_torch import ops as O
+
+
+def _adopt_kv_dtype(graph, dtype) -> None:
+    """Retype the graph's decode-attention page pools IN PLACE to
+    ``dtype`` (``"fp32"``/``"bf16"``/``"int8"``) before the state is
+    built.  fp32 (and None or "off") is the attr-free default: nothing
+    to adopt, every node stays the same object."""
+    if dtype in (None, "off", "fp32"):
+        return
+    changed = False
+    for guid, node in list(graph.nodes.items()):
+        op = node.op
+        if op.op_type != OperatorType.DECODE_ATTENTION:
+            continue
+        if op.attrs.get("kv_dtype", "fp32") == dtype:
+            continue
+        a = op.attrs
+        clone = type(op)(
+            op.name, op.input_shapes,
+            embed_dim=a["embed_dim"], num_heads=a["num_heads"],
+            page_size=a["page_size"], pages_per_seq=a["pages_per_seq"],
+            num_pages=a["num_pages"], use_kernel=a["use_kernel"],
+            kv_dtype=dtype, kernel_initializer=op._kernel_init,
+        )
+        graph.nodes[guid] = Node(guid, clone)
+        changed = True
+    if changed:
+        graph._invalidate()
 
 
 class FFModel:
@@ -182,6 +214,8 @@ class FFModel:
             raise ValueError(f"comp_mode must be 'training' or 'inference', "
                              f"got {comp_mode!r}")
         self.config.comp_mode = comp_mode
+        if comp_mode == "inference":
+            _adopt_kv_dtype(self.graph, self.config.kv_precision)
         if comp_mode == "training":
             self.optimizer = optimizer or SGDOptimizer(
                 lr=self.config.learning_rate,

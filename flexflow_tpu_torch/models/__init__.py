@@ -6,6 +6,8 @@ from flexflow_tpu_torch.models.decode import (
     GPT_DECODE_SERVE_KW,
     SERVE_FRAME_SLOTS,
     build_gpt_decode,
+    build_gpt_prefill,
+    derive_prefill_model,
 )
 from flexflow_tpu_torch.models.transformer import (
     build_gpt,
@@ -19,6 +21,8 @@ __all__ = [
     "SERVE_FRAME_SLOTS",
     "build_gpt",
     "build_gpt_decode",
+    "build_gpt_prefill",
     "build_transformer",
+    "derive_prefill_model",
     "encoder_layer",
 ]

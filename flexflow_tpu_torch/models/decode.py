@@ -8,6 +8,13 @@ dense, residual add, LayerNorm (post-LN, the decode twin of the
 reference's ``encoder_layer``); a final LayerNorm and an untied
 ``lm_head`` close the stack.  Op names equal the reference's, so a
 ``params[op][weight]`` dict carries across the two packages.
+
+``build_gpt_prefill`` is the prompt-phase graph (the causal GPT
+forward at prompt length) and ``derive_prefill_model`` reads its
+widths off an existing decode graph; ``prefill_weight_bridge``
+(runtime/prefill.py) proves the two share one parameter set.  Cache
+population runs through the chunked prefill lane over the decode graph
+itself.
 """
 
 from __future__ import annotations
@@ -73,3 +80,52 @@ def build_gpt_decode(config: FFConfig, vocab: int = 2048,
     t = model.layer_norm(t, name="final_ln")
     model.dense(t, vocab, use_bias=False, name="lm_head")
     return model
+
+
+def build_gpt_prefill(config: FFConfig, vocab: int = 2048,
+                      num_layers: int = 2, hidden: int = 256,
+                      num_heads: int = 8, ff_dim: int = 512,
+                      seq_len: int = 256) -> FFModel:
+    """The prompt-phase graph: ``build_gpt`` at prompt length."""
+    from flexflow_tpu_torch.models.transformer import build_gpt
+
+    return build_gpt(config, vocab=vocab, num_layers=num_layers,
+                     hidden=hidden, num_heads=num_heads, ff_dim=ff_dim,
+                     seq_len=seq_len)
+
+
+def derive_prefill_model(decode_graph, config: FFConfig, seq_len: int):
+    """Build the prefill twin of an existing DECODE graph by reading the
+    widths off the graph (vocab/hidden from the token embedding, heads
+    from the decode ops, ff width from the dense that feeds another
+    dense).  Returns ``(model, prefill_config)``: the config at batch 1
+    (one prompt at a time), everything else inherited."""
+    import dataclasses
+
+    from flexflow_tpu_torch.core.optype import OperatorType
+    from flexflow_tpu_torch.runtime.prefill import prefill_io_nodes
+
+    tok_guid, _, _ = prefill_io_nodes(decode_graph)
+    topo = decode_graph.topo_order()
+    dec_ops = [n.op for n in topo
+               if n.op.op_type == OperatorType.DECODE_ATTENTION]
+    tok_embed = next(
+        n.op for n in topo
+        if n.op.op_type == OperatorType.EMBEDDING
+        and any(e.src == tok_guid for e in decode_graph.in_edges[n.guid]))
+    hidden = tok_embed.attrs["out_dim"]
+    # ff1 is the dense that feeds another dense directly (ff1 -> ff2);
+    # ff_dim may equal vocab or hidden, so out_dim alone cannot tell
+    ff_dim = hidden
+    for n in topo:
+        if n.op.op_type == OperatorType.LINEAR and any(
+                decode_graph.nodes[e.dst].op.op_type == OperatorType.LINEAR
+                for e in decode_graph.out_edges[n.guid]):
+            ff_dim = n.op.attrs["out_dim"]
+            break
+    cfg = dataclasses.replace(config, batch_size=1)
+    model = build_gpt_prefill(
+        cfg, vocab=tok_embed.attrs["num_entries"], num_layers=len(dec_ops),
+        hidden=hidden, num_heads=dec_ops[0].attrs["num_heads"],
+        ff_dim=ff_dim, seq_len=seq_len)
+    return model, cfg

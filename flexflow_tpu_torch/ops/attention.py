@@ -40,6 +40,7 @@ from flexflow_tpu_torch.kernels.flash_attention import (
     flash_attention,
 )
 from flexflow_tpu_torch.ops.base import Operator, WeightSpec, register_op
+from flexflow_tpu_torch.ops.linear import matmul_acc32
 
 # the reference's flash defaults and threshold (flash_attention.py:666-669,
 # ops/attention.py:255)
@@ -148,8 +149,8 @@ class MultiHeadAttentionOp(Operator):
         attend = flash_attention if self.uses_flash() else attn_core
         out = attend(qh, kh, vh, a["causal"], scale)  # [B, Sq, H, dk]
         wo = weights["wo"].to(cd)
-        y = torch.matmul(out.reshape(*out.shape[:2], -1),
-                         wo.reshape(-1, wo.shape[-1])).float()
+        y = matmul_acc32(out.reshape(*out.shape[:2], -1),
+                         wo.reshape(-1, wo.shape[-1]))
         if a["use_bias"]:
             y = y + weights["bo"].float()
         return [y.to(inputs[0].dtype)]

@@ -1,5 +1,5 @@
 """DecodeAttentionOp — the port of flexflow_tpu/ops/decode_attention.py
-(``forward``, fp32 and bf16 pools).
+(``forward`` and ``forward_chunk``, fp32, bf16 and int8 pools).
 
 One decode step projects the fresh token's q/k/v, scatters the new k/v
 into this layer's page-pool cache (model STATE, threaded through
@@ -15,13 +15,22 @@ Inputs:
                                     over seq_lens[b] + 1 tokens)
 
 Same dtype discipline as the reference: projections in the compute
-dtype, the cache and the softmax in fp32 (a bf16 pool stores the cast).
+dtype, the cache and the softmax in fp32 (a bf16 pool stores the cast;
+an int8 pool stores each fresh token quantized, ``_quantize_kv``, with
+one fp32 scale per (page, slot) for k and for v), the output projection
+accumulated and kept in fp32 (``matmul_acc32``).
 
-Where the port departs from JAX: the KV pool is updated IN PLACE
-(``index_put_``) instead of by the functional ``.at[].set`` — the pool
-is the largest tensor of the model, and a copy per layer per frame
-would double the step's memory traffic.  ``state_out`` still publishes
-the (same) pool tensors under their keys.
+``forward_chunk`` is the chunked-prefill twin (runtime/prefill.py): C
+prompt tokens per sequence in one pass, scattered into the pool, each
+attending to the cached prefix plus the chunk's causal triangle over
+the gathered dense K/V (plain torch ops, as the reference leaves that
+attention to XLA).
+
+Where the port departs from JAX: the KV pool (and an int8 pool's
+scales) is updated IN PLACE (``index_put_``) instead of by the
+functional ``.at[].set`` — the pool is the largest tensor of the model,
+and a copy per layer per frame would double the step's memory traffic.
+``state_out`` still publishes the (same) tensors under their keys.
 """
 
 from __future__ import annotations
@@ -35,7 +44,12 @@ from flexflow_tpu_torch.core.optype import OperatorType
 from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
 from flexflow_tpu_torch.initializers import DEFAULT_WEIGHT_INIT, Initializer
 from flexflow_tpu_torch.kernels.ragged_paged_attention import (
+    NEG_INF,
+    gather_kv_pages,
+    gather_kv_pages_quant,
     ragged_paged_attention,
+    ragged_paged_attention_quant,
+    ragged_paged_attention_quant_reference,
     ragged_paged_attention_reference,
 )
 from flexflow_tpu_torch.ops.base import (
@@ -44,8 +58,21 @@ from flexflow_tpu_torch.ops.base import (
     WeightSpec,
     register_op,
 )
+from flexflow_tpu_torch.ops.linear import matmul_acc32
 
-_POOL_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+_POOL_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+                "int8": torch.int8}
+
+
+def _quantize_kv(x):
+    """Per-token symmetric int8 quantization of fresh K or V rows:
+    x [..., H, D] fp32 -> (int8 payload, fp32 scale over the trailing
+    (H, D) axes): amax / 127 with a 1e-30 floor, ``torch.round``
+    (half to even, as ``jnp.round``), clipped to +-127."""
+    amax = x.abs().amax(dim=(-2, -1))
+    s = amax.clamp_min(1e-30) / 127.0
+    q = torch.clamp(torch.round(x / s[..., None, None]), -127, 127)
+    return q.to(torch.int8), s.float()
 
 
 @register_op
@@ -72,9 +99,8 @@ class DecodeAttentionOp(Operator):
         if page_size < 1 or pages_per_seq < 1:
             raise ValueError("page_size and pages_per_seq must be >= 1")
         if kv_dtype not in _POOL_DTYPES:
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: the int8 pool comes with a later "
-                f"serving slice")
+            raise ValueError(f"kv_dtype must be one of "
+                             f"{sorted(_POOL_DTYPES)}, got {kv_dtype!r}")
         b = input_shapes[0].sizes[0]
         num_pages = num_pages or b * pages_per_seq
         if num_pages < b:
@@ -119,12 +145,53 @@ class DecodeAttentionOp(Operator):
         ]
 
     def state_specs(self):
-        """The layer's page-pool cache: (name, shape, torch dtype, fill)."""
+        """The layer's page-pool cache: (name, shape, torch dtype, fill);
+        an int8 pool adds per-(page, slot) fp32 k/v scales."""
         a = self.attrs
         shape = (a["num_pages"], a["page_size"], a["num_heads"],
                  self.head_dim)
         dt = _POOL_DTYPES[self.kv_dtype]
-        return [("k_cache", shape, dt, 0.0), ("v_cache", shape, dt, 0.0)]
+        specs = [("k_cache", shape, dt, 0), ("v_cache", shape, dt, 0)]
+        if self.kv_dtype == "int8":
+            sshape = (a["num_pages"], a["page_size"])
+            specs += [("k_scale", sshape, torch.float32, 0.0),
+                      ("v_scale", sshape, torch.float32, 0.0)]
+        return specs
+
+    def _scatter(self, ctx, page, slot, k_new, v_new):
+        """Write fresh fp32 k/v rows [..., H, D] at pool (page, slot) in
+        place (quantized under an int8 pool) and publish the state;
+        returns the layer's state tensors by name."""
+        pools = {n: ctx.state_in[f"{self.name}/{n}"]
+                 for n, *_ in self.state_specs()}
+        idx = (page.long(), slot.long())
+        if self.kv_dtype == "int8":
+            for kind, new in (("k", k_new), ("v", v_new)):
+                payload, s = _quantize_kv(new)
+                pools[f"{kind}_cache"].index_put_(idx, payload)
+                pools[f"{kind}_scale"].index_put_(idx, s)
+        else:
+            for kind, new in (("k", k_new), ("v", v_new)):
+                cache = pools[f"{kind}_cache"]
+                cache.index_put_(idx, new.to(cache.dtype))
+        for n, t in pools.items():
+            ctx.state_out[f"{self.name}/{n}"] = t
+        return pools
+
+    def _project_kv(self, x, weights, cd):
+        """q in the compute dtype, fresh k/v in fp32: x [..., E]."""
+        wq, wk, wv = (weights[n].to(cd) for n in ("wq", "wk", "wv"))
+        q = torch.einsum("...e,ehd->...hd", x, wq)
+        k_new = torch.einsum("...e,ehd->...hd", x, wk).float()
+        v_new = torch.einsum("...e,ehd->...hd", x, wv).float()
+        return q, k_new, v_new
+
+    def _out_proj(self, out, weights, cd):
+        """[..., H, D] -> fp32 [..., E] through wo, accumulated and kept
+        in fp32 (the reference's preferred_element_type=float32)."""
+        wo = weights["wo"].to(cd)
+        return matmul_acc32(out.to(cd).flatten(-2),
+                            wo.reshape(-1, wo.shape[-1]))
 
     def forward(self, ctx: LoweringContext, inputs, weights):
         a = self.attrs
@@ -132,35 +199,68 @@ class DecodeAttentionOp(Operator):
         page_table = page_table.to(torch.int32)
         seq_lens = seq_lens.to(torch.int32)
         cd = ctx.compute_dtype
-        x = hidden[:, 0, :].to(cd)  # [B, E]
-        wq, wk, wv, wo = (weights[n].to(cd) for n in ("wq", "wk", "wv", "wo"))
-        q = torch.einsum("be,ehd->bhd", x, wq)
-        k_new = torch.einsum("be,ehd->bhd", x, wk).float()
-        v_new = torch.einsum("be,ehd->bhd", x, wv).float()
-
+        q, k_new, v_new = self._project_kv(hidden[:, 0, :].to(cd), weights,
+                                           cd)
         ps = a["page_size"]
-        k_cache = ctx.state_in[f"{self.name}/k_cache"]
-        v_cache = ctx.state_in[f"{self.name}/v_cache"]
         # scatter the fresh token at position seq_lens[b]: pool page
         # page_table[b, seq_lens[b] // ps], slot seq_lens[b] % ps.  Every
         # frame row scatters; the executor points a row it wants ignored
         # at a page no live sequence owns.
-        slot = (seq_lens % ps).long()
+        slot = seq_lens % ps
         # a full sequence must be evicted before it is stepped again; the
         # clamp keeps the gather in bounds, as the reference's does
         page_idx = torch.clamp(seq_lens // ps, max=a["pages_per_seq"] - 1)
-        page = torch.gather(page_table, 1,
-                            page_idx[:, None].long())[:, 0].long()
-        k_cache.index_put_((page, slot), k_new.to(k_cache.dtype))
-        v_cache.index_put_((page, slot), v_new.to(v_cache.dtype))
-        ctx.state_out[f"{self.name}/k_cache"] = k_cache
-        ctx.state_out[f"{self.name}/v_cache"] = v_cache
+        page = torch.gather(page_table, 1, page_idx[:, None].long())[:, 0]
+        pools = self._scatter(ctx, page, slot, k_new, v_new)
 
         scale = 1.0 / math.sqrt(self.head_dim)
         lens = seq_lens + 1  # the fresh token attends to itself too
-        attend = (ragged_paged_attention if a["use_kernel"]
-                  else ragged_paged_attention_reference)
-        out = attend(q.float().contiguous(), k_cache, v_cache, page_table,
-                     lens, scale)
-        y = torch.einsum("bhd,hde->be", out.to(cd), wo).float()
+        qf = q.float().contiguous()
+        kv = (pools["k_cache"], pools["v_cache"])
+        if self.kv_dtype == "int8":
+            attend = (ragged_paged_attention_quant if a["use_kernel"]
+                      else ragged_paged_attention_quant_reference)
+            kv += (pools["k_scale"], pools["v_scale"])
+        else:
+            attend = (ragged_paged_attention if a["use_kernel"]
+                      else ragged_paged_attention_reference)
+        out = attend(qf, *kv, page_table, lens, scale)
+        y = self._out_proj(out, weights, cd)
         return [y[:, None, :].to(hidden.dtype)]
+
+    def forward_chunk(self, ctx: LoweringContext, inputs, weights):
+        """The chunked-prefill twin of ``forward``: hidden [B, C, E],
+        page_table [B, pages_per_seq], positions [B, C] int32 (each
+        token's absolute cache position; the caller clamps pad positions
+        into the sequence's own allotment, where the decode loop
+        rewrites them before any frame reads them).  Scatters all C
+        tokens' K/V into the pool in place and attends each query to
+        every cached position <= its own -> [B, C, E]."""
+        a = self.attrs
+        hidden, page_table, positions = inputs
+        page_table = page_table.to(torch.int32)
+        positions = positions.to(torch.int32)
+        cd = ctx.compute_dtype
+        q, k_new, v_new = self._project_kv(hidden.to(cd), weights, cd)
+        ps = a["page_size"]
+        slot = positions % ps  # [B, C]
+        page_idx = torch.clamp(positions // ps, max=a["pages_per_seq"] - 1)
+        page = torch.gather(page_table, 1, page_idx.long())  # [B, C]
+        pools = self._scatter(ctx, page, slot, k_new, v_new)
+
+        if self.kv_dtype == "int8":
+            k_dense = gather_kv_pages_quant(pools["k_cache"],
+                                            pools["k_scale"], page_table)
+            v_dense = gather_kv_pages_quant(pools["v_cache"],
+                                            pools["v_scale"], page_table)
+        else:
+            k_dense = gather_kv_pages(pools["k_cache"], page_table).float()
+            v_dense = gather_kv_pages(pools["v_cache"], page_table).float()
+        scale = 1.0 / math.sqrt(self.head_dim)
+        s = torch.einsum("bchd,bshd->bchs", q.float(), k_dense) * scale
+        pos_k = torch.arange(k_dense.shape[1], device=s.device)
+        mask = pos_k[None, None, :] <= positions[:, :, None]  # [B, C, S]
+        s = torch.where(mask[:, :, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bchs,bshd->bchd", p, v_dense)
+        return [self._out_proj(out, weights, cd).to(hidden.dtype)]

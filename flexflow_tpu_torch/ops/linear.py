@@ -1,10 +1,9 @@
 """Linear (dense) operator — the port of ``LinearOp`` in
 flexflow_tpu/ops/linear.py (linear.py:106-113): the input and kernel
-cast to the compute dtype, the product accumulated in float32, a
-float32 bias, then the activation.  The product is one
-``torch.matmul``, as the reference left it to XLA; with a bfloat16
-compute dtype the card accumulates in float32 and rounds the product
-to bfloat16 before the bias add, where XLA keeps it in float32.
+cast to the compute dtype, the product accumulated AND returned in
+float32 (the reference's ``preferred_element_type=jnp.float32``), a
+float32 bias, then the activation.  ``matmul_acc32`` is that product;
+the MHA and decode-attention output projections use it too.
 Gradients flow through it by autograd; ``flops`` is the reference's
 (linear.py:142-144)."""
 
@@ -22,6 +21,52 @@ from flexflow_tpu_torch.initializers import (
     Initializer,
 )
 from flexflow_tpu_torch.ops.base import Operator, WeightSpec, register_op
+
+class _MatmulAcc32(torch.autograd.Function):
+    """fp32 product of compute-dtype operands a [M, K] and b [K, N].
+    The backward forms dA and dB the same way from the cotangent cast
+    to the compute dtype (the reference's transpose contracts the fp32
+    cotangent; rounding it once keeps both backward products on the
+    card's bf16 tensor cores) and casts them to the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _mm32(g, b.t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _mm32(a.t(), g).to(b.dtype)
+        return da, db
+
+
+def _mm32(a, b):
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    # products of bf16 values are exact in fp32: the reference's
+    # function up to summation order
+    return torch.mm(a.float(), b.float())
+
+
+def matmul_acc32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., K] @ b [K, N] -> float32 [..., N], both operands already
+    in the compute dtype: the reference's ``jnp.dot(...,
+    preferred_element_type=jnp.float32)``.  float32 operands give
+    exactly ``torch.matmul``; lower-precision operands accumulate in
+    float32 and the result stays float32 (``torch.mm`` with
+    ``out_dtype`` on the card), instead of being rounded to the compute
+    dtype first."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    y = _MatmulAcc32.apply(a.reshape(-1, a.shape[-1]), b)
+    return y.view(*a.shape[:-1], b.shape[-1])
+
 
 _ACTIVATIONS = {
     None: lambda x: x,
@@ -65,7 +110,7 @@ class LinearOp(Operator):
 
     def forward(self, ctx, inputs, weights):
         cd = ctx.compute_dtype
-        y = torch.matmul(inputs[0].to(cd), weights["kernel"].to(cd)).float()
+        y = matmul_acc32(inputs[0].to(cd), weights["kernel"].to(cd))
         if self.attrs["use_bias"]:
             y = y + weights["bias"].float()
         y = _ACTIVATIONS[self.attrs["activation"]](y)

@@ -7,9 +7,12 @@ route (the JAX op runs the Pallas kernels in interpret mode, the port
 the plain versions the CUDA kernels' wrappers compute for CPU tensors);
 at seq 32 both take the compact-residual XLA path (``attn_core``).
 fp32 compute at 1e-5 on the output and 1e-4 on the gradients (summation
-order differs); bf16 compute at 2e-2 on both (bf16 projections round at
-the same places on both sides; the port's output projection is also
-rounded to bf16, see ops/attention.py).  Output errors are relative to
+order differs); bf16 compute at 2e-3 on the output and 1e-2 on the
+gradients (bf16 projections round at the same places on both sides and
+the output projection stays fp32 on both; the flash route's bf16 p
+rounds at other points).  Both were 2e-2 while the port rounded the
+output projection to bf16 (measured then up to 2.9e-3 out and 6.9e-3
+gradients; now 4.8e-4 out and 6.9e-3 gradients).  Output errors are relative to
 the largest output entry, gradient errors to the largest gradient entry
 of the op: the key bias's true gradient is zero (it shifts every logit
 of a row alike), so its computed value is rounding noise on both sides.
@@ -37,7 +40,9 @@ from flexflow_tpu_torch.ops.base import LoweringContext
 
 jfa = importlib.import_module("flexflow_tpu.kernels.flash_attention")
 
-TOLS = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# bf16 was (2e-2, 2e-2) before the fp32 output projection (ops/linear.py
+# matmul_acc32); measured now: 4.8e-4 out, 6.9e-3 gradients
+TOLS = {"float32": (1e-5, 1e-4), "bfloat16": (2e-3, 1e-2)}
 
 
 @pytest.fixture(autouse=True, scope="module")
