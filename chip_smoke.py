@@ -13,7 +13,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 3. kernels: call each kernel at its main path's shapes (the decode
    kernel on fp32 and bf16 pools, the int8 decode kernel on the same
    pages quantized, with its drift from the fp32 pool; the three flash
-   kernels in bf16, the training path's dtype, and in fp32) and hold it
+   kernels in bf16, the training path's dtype, and in fp32; the partial
+   flash forward at the zigzag ring's half-chunk shape, B 2, Sq = Sk =
+   512, H 12, D 64, causal and not, bf16 and fp32) and hold it
    against its plain PyTorch version on the same inputs; time the
    kernel, the plain version and one PyTorch library call that computes
    the same function (a yardstick the port never calls), each with CUDA
@@ -55,12 +57,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    is finite and that the loss on the first batch fell; print step time
    p50/p99, tokens/s and MFU (3 x the graph's forward FLOPs against the
    card's dense bf16 peak); profile 3 steady steps;
-7. print one JSON line listing every ported kernel.
+7. sequence-parallel training path: the same model at seq 4096, batch 2,
+   split over 4 ranks (``runtime.distributed.spawn``: one card each with
+   NCCL on a 4-card machine, else all on card 0 with the shared-card
+   transport, gloo with counted host hops; an exclusive compute mode
+   fails), every MHA on the zigzag ring; ``fit`` 20 steps and check that
+   the partial kernel launched 12 x 9 times per step on every rank and
+   the flash kernels of phase 6 never, that the loss fell, and that the
+   first step's loss equals a one-process run's on the flash route
+   (fp32 at 2 layers within 1e-5, bf16 at full width within 5e-3); print
+   the transport, step p50/p99, tokens/s, MFU, peak memory and host hops
+   per rank; profile 2 steps on rank 0;
+8. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
-It takes 3-4 minutes on one H100, the kernels' build included.
+It needs one card; with four it runs phase 7 one rank per card.
 """
 
 from __future__ import annotations
@@ -142,6 +155,29 @@ FLASH_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 # first layer's wq/wk
 LOSS_PATH_TOL = {"bf16": 1e-3, "fp32": 1e-5}
 GRAD_PATH_TOL = {"bf16": 0.1, "fp32": 1e-2}
+
+# the sequence-parallel path: build_gpt at its default widths with seq
+# 4096 and batch 2 (the 8192 tokens a step of phase 6 trains) split over
+# SP_RANKS ranks (the sp degree of __graft_entry__.py:152-155);
+# every MHA runs the zigzag ring, whose blocks are half chunks of
+# 4096 / (2 x 4) = 512 positions, 2n + 1 = 9 partial-kernel calls per
+# layer and step
+SP = dict(vocab=32000, num_layers=12, hidden=768, num_heads=12,
+          ff_dim=3072, seq_len=4096)
+SP_BATCH = 2
+SP_RANKS = 4
+SP_HALF_CHUNK = SP["seq_len"] // (2 * SP_RANKS)
+SP_STEPS = 20
+SP_TIMED_STEPS = 5
+SP_PROFILE_STEPS = 2
+SP_PARITY_LAYERS = 2
+SP_TIMEOUT_S = 600
+# the first step's loss, the SP ring against one process on the flash
+# route, same weights and batch: fp32 at SP_PARITY_LAYERS layers differs
+# in summation order only; bf16 at full width also rounds p to bf16 at
+# other points (the ring: unnormalised blocks merged in fp32; the flash
+# kernel: one normalised output) in each of 12 layers
+SP_LOSS_TOL = {"fp32": 1e-5, "bf16": 5e-3}
 
 # published peaks (NVIDIA data sheets): device-memory bytes/s, dense
 # fp32 (non-tensor-core) operations/s and dense bf16 tensor-core
@@ -957,10 +993,11 @@ def live_pairs(b, h, sq, sk, causal) -> int:
 
 def flash_bound_ms(kind, b, h, sq, sk, d, causal, elem_bytes, name):
     """Least time for one kernel's work on this card: each operand read
-    once and each output written once (lse and delta fp32 [B, H, Sq]),
+    once and each output written once (lse and delta fp32 [B, H, Sq]; the
+    partial forward's acc fp32 [B, H, Sq, D] and m, l fp32 [B, H, Sq]),
     against the peak rate of the inputs' type (dense bf16 tensor cores;
     fp32 outside the tensor cores) for the products over live pairs:
-    2D operations per pair and product, 2 products in the forward, 3 in
+    2D operations per pair and product, 2 products in the forwards, 3 in
     dq, 4 in dkv."""
     bw, fp32, bf16 = card_peaks(name)
     peak = bf16 if elem_bytes == 2 else fp32
@@ -970,6 +1007,7 @@ def flash_bound_ms(kind, b, h, sq, sk, d, causal, elem_bytes, name):
         "fwd": ((2 * q_el + 2 * k_el) * elem_bytes + rows, 2),
         "dq": ((3 * q_el + 2 * k_el) * elem_bytes + 2 * rows, 3),
         "dkv": ((2 * q_el + 4 * k_el) * elem_bytes + 2 * rows, 4),
+        "partial": ((q_el + 2 * k_el) * elem_bytes + q_el * 4 + 2 * rows, 2),
     }[kind]
     ops = 2.0 * d * products * live_pairs(b, h, sq, sk, causal)
     t_bytes, t_ops = nbytes / bw * 1e3, ops / peak * 1e3
@@ -1113,6 +1151,108 @@ def sweep_flash_shapes(seed):
         except ValueError:
             pass
     print(f"flash shape sweep: D 16..128 x causal/not x (Sq, Sk) in "
+          f"{list(pairs)} x fp32/bf16, worst error {json.dumps(worst)}; "
+          f"D=8 and D=144 refused")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+def partial_error(q, k, v, causal, scale):
+    """The partial forward kernel against its plain version: (error of
+    acc over max(1, |plain acc|), worst of m and l likewise, max abs
+    error of acc)."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    got = fa.flash_forward_partial(q, k, v, causal, scale)
+    ref = fa.flash_forward_partial_reference(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    for t in got:
+        check(bool(torch.isfinite(t).all()), "the partial kernel gave "
+              "non-finite values")
+    return (rel_err(got[0], ref[0]),
+            max(rel_err(got[1], ref[1]), rel_err(got[2], ref[2])),
+            float((got[0] - ref[0]).abs().max()))
+
+
+def phase_partial_kernel(name, seed):
+    """Kernel row 4, the partial-output flash forward, at the zigzag
+    ring's half-chunk shape on the SP path (B 2, Sq = Sk = SP seq / 2n =
+    512, H 12, D 64), bf16 (the path's dtype) and fp32, causal (the
+    diagonal blocks) and not (the others): errors against the plain
+    version, and the kernel, plain and library times with the bound.  No
+    PyTorch call returns (acc, m, l): the library figure is
+    ``scaled_dot_product_attention``'s forward at the same shape, the
+    nearest one.  Then a sweep over head dims and (Sq, Sk) pairs."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    b, s, h = SP_BATCH, SP_HALF_CHUNK, SP["num_heads"]
+    d = SP["hidden"] // h
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        q, k, v, _ = flash_operands(b, s, s, h, d, dt, gen)
+        ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
+        for causal in (False, True):
+            err, ml_err, abs_err = partial_error(q, k, v, causal, scale)
+            check(err <= FLASH_TOL[tag] and ml_err <= KERNEL_TOL,
+                  f"partial kernel vs plain version ({tag}, causal="
+                  f"{causal}): acc error {err:.3e} > {FLASH_TOL[tag]} or "
+                  f"m/l error {ml_err:.3e} > {KERNEL_TOL}")
+            bound_ms, bound_by = flash_bound_ms(
+                "partial", b, h, s, s, d, causal, q.element_size(), name)
+            key = f"{tag}{'_causal' if causal else ''}"
+            results[key] = dict(
+                max_abs_err=abs_err, rel_err=err, m_l_rel_err=ml_err,
+                ms=time_ms(lambda: fa.flash_forward_partial(
+                    q, k, v, causal, scale), flush),
+                plain_ms=time_ms(lambda: fa.flash_forward_partial_reference(
+                    q, k, v, causal, scale), flush),
+                library_ms=time_ms(lambda: sdpa(ql, kl, vl,
+                                                is_causal=causal), flush),
+                library_call="scaled_dot_product_attention forward (returns "
+                             "the normalized output, not (acc, m, l))",
+                bound_ms=bound_ms, bound_by=bound_by)
+            print(f"kernel flash_forward_partial [{key}, B={b} Sq=Sk={s} "
+                  f"H={h} D={d}, {live_pairs(b, h, s, s, causal)} live "
+                  f"pairs]: " + json.dumps(results[key]))
+    results["sweep"] = sweep_partial_shapes(seed)
+    return results
+
+
+def sweep_partial_shapes(seed):
+    """Every head dim the kernel takes, causal and not, Sq <= Sk pairs
+    (the ring's calls) and Sq > Sk ones (rows with no live key, which
+    must give the XLA twin's m = -1e30, l = Sk, acc = sum of v), bf16 and
+    fp32, against the plain version; head dims 8 and 144 are refused."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    pairs = ((1, 1), (17, 17), (100, 100), (512, 512), (17, 100),
+             (1, 1000), (64, 512), (130, 1000), (100, 17), (130, 64))
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for causal in (False, True):
+            for sq, sk in pairs:
+                for d in fa.HEAD_DIMS:
+                    q, k, v, _ = flash_operands(2, sq, sk, 2, d, dt, gen)
+                    err, ml_err, _ = partial_error(q, k, v, causal,
+                                                   1.0 / math.sqrt(d))
+                    check(err <= FLASH_TOL[tag] and ml_err <= KERNEL_TOL,
+                          f"partial sweep {tag} causal={causal} Sq={sq} "
+                          f"Sk={sk} D={d}: acc error {err:.3e}, m/l error "
+                          f"{ml_err:.3e}")
+                    worst[tag] = max(worst[tag], err, ml_err)
+    for d in (8, 144):
+        q = torch.zeros((1, 4, 1, d), device="cuda")
+        try:
+            fa.flash_forward_partial(q, q, q, False, 1.0)
+            fail(f"partial kernel: head dim {d} was not refused")
+        except ValueError:
+            pass
+    print(f"partial shape sweep: D 16..128 x causal/not x (Sq, Sk) in "
           f"{list(pairs)} x fp32/bf16, worst error {json.dumps(worst)}; "
           f"D=8 and D=144 refused")
     return worst
@@ -1273,6 +1413,247 @@ def phase_train(seed, name):
     return launches
 
 
+# ---------------------------------------------------------------------------
+def sp_strategy(model, n):
+    """The pure sequence-parallel strategy: every op whose output has a
+    sequence dim split n ways on it, the rest trivial."""
+    from flexflow_tpu_torch.core.machine import MachineView
+
+    views = {}
+    for node in model.graph.topo_order():
+        nd = node.op.output_shapes[0].ndim
+        views[node.guid] = (MachineView((1, n) + (1,) * (nd - 2))
+                            if nd >= 2 else MachineView.trivial(nd))
+    return views
+
+
+def sp_model(seed, dtype, layers, num_devices, strategy):
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.models import build_gpt
+
+    cfg = FFConfig(batch_size=SP_BATCH, compute_dtype=dtype, seed=seed,
+                   num_devices=num_devices)
+    model = build_gpt(cfg, **dict(SP, num_layers=layers))
+    model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"],
+                  strategy=strategy(model) if strategy else None)
+    return model
+
+
+def _sp_rank(rank, seed, ids):
+    """One rank of the SP phase: the fp32 parity step at
+    SP_PARITY_LAYERS layers, then the full-width bf16 model through
+    ``fit`` for SP_STEPS steps with the launch and host-hop counts set to
+    0 just before, then synchronised steps and (rank 0) a profile."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import mesh
+    from flexflow_tpu_torch.runtime.distributed import (
+        local_seq_slice,
+        transport,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def strategy(model):
+        return sp_strategy(model, n)
+
+    model = sp_model(seed, "float32", SP_PARITY_LAYERS, n, strategy)
+    model.fit(x[:SP_BATCH], y[:SP_BATCH], shuffle=False, verbose=False)
+    loss_fp32 = model.step_losses[0]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = sp_model(seed, "bfloat16", SP["num_layers"], n, strategy)
+    flops = sum(nd.op.flops() for nd in model.graph.nodes.values())
+    kernels = (fa.flash_forward_partial, fa.flash_forward,
+               fa.flash_backward_dq, fa.flash_backward_dkv)
+    comms = (mesh.ppermute, mesh.all_reduce_mean_)
+    for k in kernels:
+        k.launches = 0
+    for c in comms:
+        c.host_hops = c.host_bytes = 0
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=SP_BATCH, shuffle=False,
+                        verbose=False)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    hops = {c.__name__: {"tensors": c.host_hops, "bytes": c.host_bytes}
+            for c in comms}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    rows = slice(*local_seq_slice(SP["seq_len"]))
+    dev = model.compiled.device
+    batches = [([torch.from_numpy(np.ascontiguousarray(
+        x[i:i + SP_BATCH, rows])).to(dev)], torch.from_numpy(
+            np.ascontiguousarray(y[i:i + SP_BATCH, rows])).to(dev))
+        for i in range(0, (SP_TIMED_STEPS + SP_PROFILE_STEPS) * SP_BATCH,
+                       SP_BATCH)]
+
+    def train_step(batch):
+        model.params, model.opt_state, model.state, loss, _ = (
+            model.compiled.train_step(model.params, model.opt_state,
+                                      model.state, *batch))
+        return loss
+
+    times = []
+    for batch in batches[:SP_TIMED_STEPS]:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    it = iter(batches[SP_TIMED_STEPS:])
+    profile = None
+    if rank == 0:
+        profile = profile_window(lambda: train_step(next(it)),
+                                 SP_PROFILE_STEPS, "step")
+    else:
+        for batch in it:
+            train_step(batch)
+    torch.cuda.synchronize()
+    return {"transport": transport(), "device": str(torch.cuda.current_device()),
+            "loss_fp32_first_step": loss_fp32,
+            "losses": list(model.step_losses), "history": history,
+            "fit_wall_s": fit_wall, "samples_per_s": model.last_throughput,
+            "launches": launches, "host_hops": hops, "peak_memory_gb": peak_gb,
+            "step_times_s": times, "profile": profile, "flops": flops}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sp_train(seed, name):
+    """Sequence-parallel training of the full-width GPT at seq 4096 over
+    SP_RANKS ranks (one process each, ``torch.multiprocessing`` spawn):
+    one card per rank with NCCL when the machine has SP_RANKS cards,
+    else every rank on card 0 with the shared-card transport (gloo, host
+    hops).  First the one-process references of the first step's loss on
+    the flash route (fp32 at SP_PARITY_LAYERS layers, bf16 at full
+    width) in this process, then the ranks."""
+    from flexflow_tpu_torch.runtime.distributed import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    shared = cards < SP_RANKS
+    if shared:
+        mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.split()
+        check(bool(mode) and mode[0] == "Default",
+              f"compute mode {mode}: {SP_RANKS} ranks cannot share card 0 "
+              f"unless it is Default")
+    rng = np.random.default_rng(seed + 9)
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        SP_STEPS * SP_BATCH, SP["seq_len"] + 1)).astype(np.int32)
+
+    refs = {}
+    for tag, dtype, layers in (("fp32", "float32", SP_PARITY_LAYERS),
+                               ("bf16", "bfloat16", SP["num_layers"])):
+        model = sp_model(seed, dtype, layers, 1, None)
+        check(all(nd.op.uses_flash() for nd in model.graph.nodes.values()
+                  if hasattr(nd.op, "uses_flash")),
+              "the one-process reference must take the flash route")
+        dev = model.compiled.device
+        loss, _ = model.compiled.eval_step(
+            model.params, model.state,
+            [torch.from_numpy(ids[:SP_BATCH, :-1]).to(dev)],
+            torch.from_numpy(ids[:SP_BATCH, 1:]).to(dev))
+        refs[tag] = float(loss)
+        del model, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn(_sp_rank, SP_RANKS, (seed, ids),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    want_transport = "gloo-host" if shared else "nccl"
+    cards_used = 1 if shared else SP_RANKS
+    losses = r0["losses"]
+    steps = len(losses)
+    step_max = [max(r["step_times_s"][i] for r in ranks)
+                for i in range(SP_TIMED_STEPS)]
+    bf16_peak = card_peaks(name)[2]
+    samples_per_s = r0["samples_per_s"]
+    parity = {
+        "fp32": {"layers": SP_PARITY_LAYERS, "one_process": refs["fp32"],
+                 "sp": r0["loss_fp32_first_step"]},
+        "bf16": {"layers": SP["num_layers"], "one_process": refs["bf16"],
+                 "sp": losses[0]}}
+    for tag, par in parity.items():
+        par["rel_err"] = abs(par["sp"] - par["one_process"]) / abs(
+            par["one_process"])
+        par["tol"] = SP_LOSS_TOL[tag]
+    report = {
+        "ranks": SP_RANKS, "cards_used": cards_used,
+        "transport": [r["transport"] for r in ranks],
+        "rank_devices": [r["device"] for r in ranks],
+        "steps": steps, "phase_wall_s": wall,
+        "fit_wall_s": [r["fit_wall_s"] for r in ranks],
+        "samples_per_s": samples_per_s,
+        "tokens_per_s": samples_per_s * SP["seq_len"],
+        "mfu_vs_dense_bf16_peak": 3.0 * r0["flops"] * samples_per_s
+        / SP_BATCH / (bf16_peak * cards_used),
+        "step_p50_ms": float(np.median(step_max)) * 1e3,
+        "step_p99_ms": float(np.quantile(step_max, 0.99)) * 1e3,
+        "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+        "host_hops_per_rank_per_step": [
+            {k: {u: c / steps for u, c in v.items()}
+             for k, v in r["host_hops"].items()} for r in ranks],
+        "kernel_launches_per_rank": [r["launches"] for r in ranks],
+        "loss_first_step": losses[0], "loss_last_step": losses[-1],
+        "ln_token_range": math.log(TOKEN_RANGE),
+        "first_step_parity": parity, "epoch_history": r0["history"]}
+    print("sp training path: " + json.dumps(report))
+    print("sp training path step losses: "
+          + json.dumps([round(v, 5) for v in losses]))
+    print("sp training path profile (rank 0): " + json.dumps(r0["profile"]))
+
+    want_partial = SP["num_layers"] * (2 * SP_RANKS + 1) * steps
+    check(steps == SP_STEPS, f"{steps} SP steps ran")
+    for i, r in enumerate(ranks):
+        check(r["transport"] == want_transport,
+              f"rank {i}: transport {r['transport']}, want {want_transport}")
+        check(r["losses"] == losses, f"rank {i} reports other losses")
+        got = r["launches"]
+        check(got["flash_forward_partial"] == want_partial,
+              f"rank {i}: {got['flash_forward_partial']} partial-kernel "
+              f"launches for {steps} steps, want {want_partial}")
+        for k in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+            check(got[k] == 0, f"rank {i}: {k} launched {got[k]} times on "
+                  f"the SP path")
+        hopped = r["host_hops"]["ppermute"]["tensors"]
+        check((hopped > 0) == shared, f"rank {i}: {hopped} host hops with "
+              f"transport {r['transport']}")
+    check(bool(np.isfinite(losses).all()), "an SP step's loss is not finite")
+    check(losses[-1] < losses[0], f"SP loss did not fall: {losses[0]:.4f} "
+          f"at step 1, {losses[-1]:.4f} at step {steps}")
+    for tag, par in parity.items():
+        check(par["rel_err"] <= par["tol"],
+              f"SP {tag} first-step loss {par['sp']:.6f} vs one process "
+              f"{par['one_process']:.6f}: {par['rel_err']:.3e} > "
+              f"{par['tol']}")
+    return r0["launches"], report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1282,9 +1663,11 @@ def main(argv=None) -> int:
     phase_build()
     rpa = phase_kernels(name, args.seed)
     flash = phase_flash_kernels(name, args.seed)
+    partial = phase_partial_kernel(name, args.seed)
     rpa_launches = phase_main_path(args.seed)
     quant_launches, _ = phase_serving_lane(args.seed)
     flash_launches = phase_train(args.seed, name)
+    sp_launches, _ = phase_sp_train(args.seed, name)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -1331,6 +1714,25 @@ def main(argv=None) -> int:
             "library_ms": bf16["library_ms"],
             "fp32": flash[(kind, "fp32")],
         })
+    main_row = partial["bf16"]  # most ring blocks carry no mask
+    kernels.append({
+        "name": "flash_forward_partial",
+        "route": "cuda",
+        "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "flexflow_tpu/kernels/flash_attention.py:527",
+        "launches": sp_launches["flash_forward_partial"],
+        "max_abs_err": max(r["max_abs_err"] for k, r in partial.items()
+                           if k.startswith("bf16")),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "library_call": main_row["library_call"],
+        "bf16_causal": partial["bf16_causal"],
+        "fp32": partial["fp32"],
+        "fp32_causal": partial["fp32_causal"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

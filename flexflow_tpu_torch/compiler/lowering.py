@@ -1,6 +1,7 @@
-"""Graph execution on one device — the single-device part of
-flexflow_tpu/compiler/lowering.py (``CompiledModel``: ``init_params``,
-``apply``, ``train_step``, ``eval_step``, ``forward_fn``).
+"""Graph execution — the port of flexflow_tpu/compiler/lowering.py
+(``CompiledModel``: ``init_params``, ``apply``, ``train_step``,
+``eval_step``, ``forward_fn``) for one device and for pure sequence
+parallelism.
 
 PyTorch runs eagerly, so "lowering" is running each node's ``forward``
 in topological order.  ``apply`` records autograd only when called with
@@ -12,7 +13,21 @@ optimizer update (in place, see optimizers.py), then the metrics.
 Weights are seeded by NAME, as the reference's ``weight_fold_key``
 does: each weight draws from its own ``torch.Generator`` seeded from
 the model seed and crc32 of ``"op/weight"``, so initialisation does not
-depend on the order the graph enumerates its nodes.
+depend on the order the graph enumerates its nodes (and every rank of a
+job starts from the same weights).
+
+Strategies.  The trivial strategy (or none) runs the graph on one
+device.  The pure sequence-parallel strategy — every op whose output
+has a sequence dim (ndim >= 2) at ``MachineView((1, n, 1, ...))``, n the
+job's world size, and every other op trivial — runs one rank per shard
+of the sequence: inputs, labels and constants are the rank's slice,
+position-wise ops run on it unchanged, MHA runs the ring
+(``parallel/ring_attention.py``), each rank's loss is the mean over its
+tokens, the gradients are averaged over the ranks after the backward
+(``all_reduce_mean_``; with equal shards the mean of the shards' mean
+losses is the global mean loss) and so are the reported loss and
+metrics.  Any other non-trivial view needs resharding between views
+(ROADMAP Queue A item 8) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +39,7 @@ import torch
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.core.graph import Graph, Node
+from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.losses import LossType, compute_loss
 from flexflow_tpu_torch.metrics import MetricsType, compute_metrics
 from flexflow_tpu_torch.ops.base import LoweringContext
@@ -38,19 +54,81 @@ def weight_generator(seed: int, op_name: str, w_name: str) -> torch.Generator:
     return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | crc)
 
 
+# losses that are means over positions: under sequence parallelism the
+# mean of the ranks' losses is the global loss
+_SP_LOSSES = (LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+              LossType.CATEGORICAL_CROSSENTROPY,
+              LossType.MEAN_SQUARED_ERROR, LossType.IDENTITY)
+
+
+def sequence_parallel_degree(graph: Graph,
+                             strategy: Optional[Dict[int, MachineView]]
+                             ) -> int:
+    """n when ``strategy`` is the pure sequence-parallel strategy of
+    degree n, 1 when it is trivial (or None); raises
+    ``NotImplementedError`` for any other strategy."""
+    if not strategy:
+        return 1
+    views = {n.guid: strategy.get(n.guid) or MachineView.trivial(
+        n.op.output_shapes[0].ndim) for n in graph.topo_order()}
+    if all(v.is_trivial for v in views.values()):
+        return 1
+    seq_degrees = {v.dim_degrees[1] for v in views.values()
+                   if len(v.dim_degrees) >= 2}
+    n = max(seq_degrees, default=1)
+    for guid, v in views.items():
+        nd = len(v.dim_degrees)
+        want = (MachineView((1, n) + (1,) * (nd - 2)) if nd >= 2
+                else MachineView.trivial(nd))
+        if v != want:
+            raise NotImplementedError(
+                f"{graph.nodes[guid].op.name}: view {v} (want {want}); the "
+                f"port lowers the trivial strategy and the pure "
+                f"sequence-parallel one (every op with a sequence dim at "
+                f"(1, n, ...)); other views need resharding between views "
+                f"(ROADMAP Queue A item 8), a later slice")
+    return n
+
+
 class CompiledModel:
-    """A graph bound to one device, with the loss, metrics and optimizer
-    a training compile chose (all optional for inference)."""
+    """A graph bound to one device, or to this rank's shard of the
+    sequence under a sequence-parallel strategy, with the loss, metrics
+    and optimizer a training compile chose (all optional for
+    inference)."""
 
     def __init__(self, graph: Graph, config: FFConfig,
                  loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
                  metric_types: Sequence = (),
-                 optimizer: Optional[Optimizer] = None):
+                 optimizer: Optional[Optimizer] = None,
+                 strategy: Optional[Dict[int, MachineView]] = None):
+        from flexflow_tpu_torch.runtime import distributed
+
         self.graph = graph
         self.config = config
         self.device = config.torch_device()
         self.compute_dtype = config.torch_compute_dtype
+        world = distributed.world_size()
+        if config.num_devices != world:
+            raise ValueError(
+                f"FFConfig.num_devices={config.num_devices} but the job has "
+                f"{world} rank(s) (runtime.distributed.initialize)")
+        self.sp_size = sequence_parallel_degree(graph, strategy)
+        if self.sp_size != world:
+            raise NotImplementedError(
+                f"a strategy of sequence degree {self.sp_size} on {world} "
+                f"rank(s): the port splits the sequence over every rank "
+                f"of the job; data-parallel and replicated execution come "
+                f"with later slices")
+        self.sp_group = None
+        if self.sp_size > 1:
+            import torch.distributed as dist
+
+            self.sp_group = dist.group.WORLD
         self.loss_type = LossType.from_any(loss_type)
+        if self.sp_size > 1 and self.loss_type not in _SP_LOSSES:
+            raise NotImplementedError(
+                f"loss {self.loss_type.value} under sequence parallelism: "
+                f"the port takes losses that are means over positions")
         self.metric_types = [MetricsType.from_any(m) for m in metric_types]
         self.optimizer = optimizer
         self._topo = graph.topo_order()
@@ -92,7 +170,8 @@ class CompiledModel:
             raise ValueError(f"expected {len(self._input_nodes)} inputs, "
                              f"got {len(inputs)}")
         ctx = LoweringContext(compute_dtype=self.compute_dtype, train=train,
-                              state_in=state, device=self.device)
+                              state_in=state, device=self.device,
+                              sp_group=self.sp_group)
         values: Dict[Tuple[int, int], torch.Tensor] = {}
         for node, x in zip(self._input_nodes, inputs):
             values[(node.guid, 0)] = x
@@ -121,7 +200,9 @@ class CompiledModel:
     def loss_and_grads(self, params, state, inputs, labels):
         """One training forward and backward without an update: (loss,
         logits, new state, grads keyed like params).  A weight the
-        forward does not reach gets a zero gradient."""
+        forward does not reach gets a zero gradient.  Under sequence
+        parallelism the loss and the gradients are the job's (means over
+        the ranks) and the logits are this rank's shard."""
         leaves = [(op, w, t) for op, ws in params.items()
                   for w, t in ws.items()]
         for _, _, t in leaves:
@@ -134,7 +215,13 @@ class CompiledModel:
         for (op, w, t), g in zip(leaves, gs):
             grads.setdefault(op, {})[w] = (torch.zeros_like(t) if g is None
                                            else g)
-        return loss.detach(), logits.detach(), new_state, grads
+        loss = loss.detach()
+        if self.sp_group is not None:
+            from flexflow_tpu_torch.parallel.mesh import all_reduce_mean_
+
+            all_reduce_mean_([g for ws in grads.values()
+                              for g in ws.values()] + [loss], self.sp_group)
+        return loss, logits.detach(), new_state, grads
 
     def train_step(self, params, opt_state, state, inputs, labels):
         """One optimizer step: returns (params, opt_state, state, loss,
@@ -147,6 +234,10 @@ class CompiledModel:
             params, state, inputs, labels)
         self.optimizer.apply(params, grads, opt_state)
         m = compute_metrics(self.metric_types, self.loss_type, logits, labels)
+        if self.sp_group is not None and m:
+            from flexflow_tpu_torch.parallel.mesh import all_reduce_mean_
+
+            all_reduce_mean_(list(m.values()), self.sp_group)
         return params, opt_state, new_state, loss, m
 
     @torch.no_grad()

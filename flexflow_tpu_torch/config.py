@@ -1,10 +1,13 @@
 """FFConfig — the subset of flexflow_tpu/config.py the decode and
 training paths read.
 
-The port runs on one device.  ``device`` is explicit and defaults to
-``"cuda"``: the entry points run on the card unless the caller asks for
-the CPU (the tests pass ``device="cpu"``).  With the default device and
-no CUDA, ``torch_device`` raises instead of continuing on the CPU.
+``device`` is explicit and defaults to ``"cuda"``: the entry points run
+on the card unless the caller asks for the CPU (the tests pass
+``device="cpu"``).  With the default device and no CUDA,
+``torch_device`` raises instead of continuing on the CPU.
+``num_devices`` is the job's number of ranks (one process each,
+``runtime.distributed.initialize``); ``compile`` checks it against the
+job.
 
 The serving knobs are the reference's (config.py:193, 221-237):
 ``prefill_chunk`` (the chunked prefill lane's chunk size),
@@ -97,10 +100,9 @@ class FFConfig:
     trace_steps: int = 1
 
     def __post_init__(self):
-        if self.num_devices != 1:
-            raise NotImplementedError(
-                f"num_devices={self.num_devices}: the port runs on one "
-                f"device until the multi-device slice")
+        if self.num_devices < 1:
+            raise ValueError(
+                f"num_devices must be >= 1, got {self.num_devices}")
         if self.compute_dtype not in _DTYPES:
             raise ValueError(
                 f"compute_dtype must be one of {sorted(_DTYPES)}, got "

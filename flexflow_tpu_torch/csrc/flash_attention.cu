@@ -1,12 +1,15 @@
 // Flash attention forward and backward for Hopper (sm_90a).
 //
-// Replaces the three Pallas TPU kernels of
+// Replaces the four Pallas TPU kernels of
 // flexflow_tpu/kernels/flash_attention.py:
 //
-//   flash_fwd_kernel     <- `_flash_kernel` with save_lse=True
-//                           (launched by `_flash_forward`)
-//   flash_bwd_dq_kernel  <- `_flash_bwd_dq_kernel`   (`_flash_backward`)
-//   flash_bwd_dkv_kernel <- `_flash_bwd_dkv_kernel`  (`_flash_backward`)
+//   flash_fwd_kernel<.., false> <- `_flash_kernel` with save_lse=True
+//                                  (launched by `_flash_forward`)
+//   flash_fwd_kernel<.., true>  <- `_flash_kernel` with partial_out=True
+//                                  (launched by `_flash_forward_partial`,
+//                                  ring attention's block step)
+//   flash_bwd_dq_kernel         <- `_flash_bwd_dq_kernel` (`_flash_backward`)
+//   flash_bwd_dkv_kernel        <- `_flash_bwd_dkv_kernel` (`_flash_backward`)
 //
 // It computes the same functions, not the same blocking.  For one (b, h):
 //
@@ -30,12 +33,28 @@
 // of v, lse = log Sk), and such rows get zero ds, so no dq and no dk, and
 // dv += dO / Sk.
 //
+// The partial-output forward writes the UNNORMALIZED online-softmax
+// state in place of out and lse, for ring attention to merge across
+// ranks: acc [B, H, Sq, D] = sum_j exp(s_j - m) v_j, m and l [B, H, Sq]
+// (the row max and sum_j exp(s_j - m)), all fp32; no l floor and no
+// division (the ring divides after its last merge).  A row with no live
+// key gets the XLA twin's (`_xla_attention_partial`) values: every logit
+// is -1e30, so m = -1e30, l = Sk and acc = sum of v.  The ring never
+// makes such rows (its calls have Sq == Sk, or no mask).
+//
 // What bounds it on the card.  At the training path's shape (B 8, S 1024,
 // H 12, D 64, causal) one layer's forward moves about 50 MB (q, k, v, out
 // read or written once, bf16) and does about 12.9 GFLOP over 50.4 M live
 // (q, k) pairs: 15 us of bytes against 13 us of dense bf16 tensor-core
 // time at the published peaks, so the two sit close.  The backward does
 // 3x (dq) and 4x (dkv) the forward's products per pair.
+//
+// The partial forward at the zigzag ring's half-chunk shape (B 2, Sq = Sk
+// = 512, H 12, D 64, bf16, no mask) reads q, k, v once (4.7 MB) and
+// writes acc, m and l (3.2 MB): 2.4 us of bytes at 3.35 TB/s against
+// 1.6 GFLOP, 1.6 us of dense bf16 tensor-core time.  It is bytes-bound,
+// and its fp32 acc is two thirds of the bytes: the price of a merge
+// across ranks in fp32, as the reference's.
 //
 // What the design does about it: a tile of q rows is read once and kept
 // in shared memory while the block walks the k tiles (forward, dq), or a
@@ -158,21 +177,24 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][D / 16],
 }
 
 // the logit of (row, col) after masking; a row with no live key (causal,
-// row + off < 0) takes 0 everywhere, i.e. uniform attention
+// row + off < 0) takes `dead` everywhere: 0 gives uniform attention,
+// -1e30 the partial's m = -1e30 (both give p = 1 for every key)
 __device__ __forceinline__ float masked_logit(float dot, int row, int col,
                                               int off, int causal,
-                                              float scale) {
+                                              float scale, float dead = 0.f) {
   if (!causal) return dot * scale;
-  if (row + off < 0) return 0.f;
+  if (row + off < 0) return dead;
   return row + off >= col ? dot * scale : kNegInf;
 }
 
-template <typename T, int D>
+// Partial = false: out [B, Sq, H, D] in T and lse [B, H, Sq] (o0, o1).
+// Partial = true: acc [B, H, Sq, D], m and l [B, H, Sq], fp32 (o0-o2).
+template <typename T, int D, bool Partial>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int H, int Sq, int Sk,
-                     int causal, float scale) {
+                     const T* __restrict__ v, void* __restrict__ o0,
+                     float* __restrict__ o1, float* __restrict__ o2, int H,
+                     int Sq, int Sk, int causal, float scale) {
   constexpr int NE = D / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -222,7 +244,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        s[a][j] = masked_logit(s[a][j], row, col, off, causal, scale);
+        s[a][j] = masked_logit(s[a][j], row, col, off, causal, scale,
+                               Partial ? kNegInf : 0.f);
         if (col < Sk) m_cur = fmaxf(m_cur, s[a][j]);
       }
       const float m_new = fmaxf(m[a], group_max(m_cur));
@@ -248,12 +271,23 @@ __global__ void __launch_bounds__(kThreads)
   for (int a = 0; a < 4; ++a) {
     const int row = q0 + ty * 4 + a;
     if (row >= Sq) continue;
-    const float lf = fmaxf(l[a], 1e-30f);
-    T* orow = out + q_base + (size_t)row * HD;
+    const size_t r = ((size_t)b * H + h) * Sq + row;
+    if (Partial) {
+      float* arow = static_cast<float*>(o0) + r * D;
 #pragma unroll
-    for (int e = 0; e < NE; ++e)
-      orow[tx + 16 * e] = from_f32<T>(acc[a][e] / lf);
-    if (tx == 0) lse[((size_t)b * H + h) * Sq + row] = m[a] + logf(lf);
+      for (int e = 0; e < NE; ++e) arow[tx + 16 * e] = acc[a][e];
+      if (tx == 0) {
+        o1[r] = m[a];
+        o2[r] = l[a];
+      }
+    } else {
+      const float lf = fmaxf(l[a], 1e-30f);
+      T* orow = static_cast<T*>(o0) + q_base + (size_t)row * HD;
+#pragma unroll
+      for (int e = 0; e < NE; ++e)
+        orow[tx + 16 * e] = from_f32<T>(acc[a][e] / lf);
+      if (tx == 0) o1[r] = m[a] + logf(lf);
+    }
   }
 }
 
@@ -457,18 +491,33 @@ struct Args {
   const void* dout;
   const float* lse_in;
   const float* delta;
-  void* o0;  // out | dq | dk
-  void* o1;  // lse | -  | dv
+  void* o0;  // out | acc | dq | dk
+  void* o1;  // lse | m   | -  | dv
+  void* o2;  // -   | l   | -  | -
   int B, H, Sq, Sk, causal;
   float scale;
   cudaStream_t stream;
 };
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Which { kFwd = 0, kFwdPartial = 1, kDq = 2, kDkv = 3 };
 
 // Above 48 KB a kernel takes dynamic shared memory only after
 // cudaFuncSetAttribute; each kernel instance makes the call once (the
-// function-local statics below are per (T, D) instance).
+// function-local statics below are per instance).
+template <typename T, int D, bool Partial>
+cudaError_t launch_fwd(const Args& a, const T* q, const T* k, const T* v) {
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D, Partial>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fwd_smem(D));
+  if (ready != cudaSuccess) return ready;
+  const unsigned nq = (unsigned)((a.Sq + kTile - 1) / kTile);
+  flash_fwd_kernel<T, D, Partial><<<dim3(nq, a.H, a.B), dim3(kThreads),
+                                    fwd_smem(D), a.stream>>>(
+      q, k, v, a.o0, static_cast<float*>(a.o1), static_cast<float*>(a.o2),
+      a.H, a.Sq, a.Sk, a.causal, a.scale);
+  return cudaSuccess;
+}
+
 template <typename T, int D>
 cudaError_t launch(Which which, const Args& a) {
   const T* q = static_cast<const T*>(a.q);
@@ -478,15 +527,11 @@ cudaError_t launch(Which which, const Args& a) {
   const dim3 block(kThreads);
   const unsigned nq = (unsigned)((a.Sq + kTile - 1) / kTile);
   const unsigned nk = (unsigned)((a.Sk + kTile - 1) / kTile);
-  if (which == kFwd) {
-    static const cudaError_t ready = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)fwd_smem(D));
-    if (ready != cudaSuccess) return ready;
-    flash_fwd_kernel<T, D><<<dim3(nq, a.H, a.B), block, fwd_smem(D),
-                             a.stream>>>(
-        q, k, v, static_cast<T*>(a.o0), static_cast<float*>(a.o1), a.H,
-        a.Sq, a.Sk, a.causal, a.scale);
+  if (which == kFwd || which == kFwdPartial) {
+    const cudaError_t err = which == kFwd
+                                ? launch_fwd<T, D, false>(a, q, k, v)
+                                : launch_fwd<T, D, true>(a, q, k, v);
+    if (err != cudaSuccess) return err;
   } else if (which == kDq) {
     static const cudaError_t ready = cudaFuncSetAttribute(
         flash_bwd_dq_kernel<T, D>,
@@ -543,9 +588,21 @@ extern "C" int ffflash_fwd(const void* q, const void* k, const void* v,
                            void* out, void* lse, int B, int H, int Sq,
                            int Sk, int D, int is_bf16, int causal,
                            float scale, void* stream) {
-  Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, B, H, Sq, Sk,
-         causal, scale, static_cast<cudaStream_t>(stream)};
+  Args a{q, k, v, nullptr, nullptr, nullptr, out, lse, nullptr, B, H, Sq,
+         Sk, causal, scale, static_cast<cudaStream_t>(stream)};
   return run(kFwd, D, is_bf16, a);
+}
+
+// q [B,Sq,H,D], k/v [B,Sk,H,D] as ffflash_fwd; acc [B,H,Sq,D], m and l
+// [B,H,Sq], all fp32 and unnormalized.
+extern "C" int ffflash_fwd_partial(const void* q, const void* k,
+                                   const void* v, void* acc, void* m,
+                                   void* l, int B, int H, int Sq, int Sk,
+                                   int D, int is_bf16, int causal,
+                                   float scale, void* stream) {
+  Args a{q, k, v, nullptr, nullptr, nullptr, acc, m, l, B, H, Sq, Sk,
+         causal, scale, static_cast<cudaStream_t>(stream)};
+  return run(kFwdPartial, D, is_bf16, a);
 }
 
 // dout like q; lse, delta [B,H,Sq] fp32; dq like q.
@@ -555,8 +612,8 @@ extern "C" int ffflash_bwd_dq(const void* q, const void* k, const void* v,
                               int Sq, int Sk, int D, int is_bf16, int causal,
                               float scale, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
-         static_cast<const float*>(delta), dq, nullptr, B, H, Sq, Sk,
-         causal, scale, static_cast<cudaStream_t>(stream)};
+         static_cast<const float*>(delta), dq, nullptr, nullptr, B, H, Sq,
+         Sk, causal, scale, static_cast<cudaStream_t>(stream)};
   return run(kDq, D, is_bf16, a);
 }
 
@@ -567,7 +624,7 @@ extern "C" int ffflash_bwd_dkv(const void* q, const void* k, const void* v,
                                int H, int Sq, int Sk, int D, int is_bf16,
                                int causal, float scale, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
-         static_cast<const float*>(delta), dk, dv, B, H, Sq, Sk,
+         static_cast<const float*>(delta), dk, dv, nullptr, B, H, Sq, Sk,
          causal, scale, static_cast<cudaStream_t>(stream)};
   return run(kDkv, D, is_bf16, a);
 }

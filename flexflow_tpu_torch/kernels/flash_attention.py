@@ -1,23 +1,31 @@
 """Flash attention — the port of flexflow_tpu/kernels/flash_attention.py.
 
-Three wrappers launch the hand-written CUDA kernels of
+Four wrappers launch the hand-written CUDA kernels of
 ``csrc/flash_attention.cu`` for tensors on the card, each replacing one
 Pallas TPU kernel:
 
-* ``flash_forward``      — ``_flash_kernel`` with ``save_lse=True``
+* ``flash_forward``         — ``_flash_kernel`` with ``save_lse=True``
   (reference ``_flash_forward``): out and the per-row logsumexp;
-* ``flash_backward_dq``  — ``_flash_bwd_dq_kernel`` (``_flash_backward``);
-* ``flash_backward_dkv`` — ``_flash_bwd_dkv_kernel`` (``_flash_backward``).
+* ``flash_backward_dq``     — ``_flash_bwd_dq_kernel`` (``_flash_backward``);
+* ``flash_backward_dkv``    — ``_flash_bwd_dkv_kernel`` (``_flash_backward``);
+* ``flash_forward_partial`` — ``_flash_kernel`` with ``partial_out=True``
+  (``_flash_forward_partial``): the unnormalized (acc, m, l) that ring
+  attention merges across ranks.
 
 Each counts its launches in ``.launches``.  For tensors on the CPU each
 computes its plain PyTorch version instead (``flash_forward_reference``,
 ``flash_backward_dq_reference``, ``flash_backward_dkv_reference``; the
-last two together are ``flash_backward_reference``); on a CUDA tensor
-it launches the kernel or raises.  ``flash_attention`` is the
-``torch.autograd.Function`` over them: the forward kernel saves
-(q, k, v, out, lse), the backward forms
-``delta = rowsum(dO * out)`` in fp32 as a torch op (the reference also
-computes it outside Pallas) and runs the dq and dkv kernels.
+last two together are ``flash_backward_reference``;
+``flash_forward_partial_reference``); on a CUDA tensor it launches the
+kernel or raises.  ``flash_attention`` is the ``torch.autograd.Function``
+over the first three: the forward kernel saves (q, k, v, out, lse), the
+backward forms ``delta = rowsum(dO * out)`` in fp32 as a torch op (the
+reference also computes it outside Pallas) and runs the dq and dkv
+kernels.  ``flash_attention_partial`` is the one over the partial
+forward; its backward is the reference's (``_fap_bwd``): a recompute in
+plain torch ops, chunked over at most 128 query rows
+(``attention_partial_at`` keeps each chunk's causal diagonal global),
+since the reference's is einsum and not Pallas.
 
 Layout: q, k, v, out [B, S, H, D] as the MHA op holds them; the kernels
 read that layout through strides, so the reference's transposes to
@@ -27,8 +35,9 @@ reference's lse is [B*H, Sq, 1]; reshape to compare).
 Causal masking is end-aligned (query i sees keys j <= i + Sk - Sq) and
 fills the finite ``NEG_INF``.  Rows with no live key (causal, Sq > Sk)
 follow the reference's XLA path (``_xla_attention``): uniform attention
-over all Sk keys and zero q/k gradients.  (The Pallas kernel's value on
-such rows depends on its block size.)
+over all Sk keys and zero q/k gradients; in the partials (the XLA twin
+``_xla_attention_partial``) m = NEG_INF, l = Sk and acc = the sum of v.
+(The Pallas kernel's value on such rows depends on its block size.)
 
 Also here, as in the reference module, is the attention math the MHA op
 takes below the flash threshold: ``attn_logits_probs`` and the
@@ -138,6 +147,35 @@ def flash_backward_reference(q, k, v, out, lse, dout, causal: bool,
                                               causal, scale))
 
 
+def attention_partial_at(q, k, v, causal: bool, scale: float,
+                         row_offset: int, sq_total: int):
+    """Unnormalized partials (acc [B, H, Sq, D], m and l [B, H, Sq, 1],
+    fp32) of a query chunk whose first row is row ``row_offset`` of a
+    ``sq_total``-row query sequence: the causal diagonal stays global
+    (reference ``_xla_attention_partial_at``).  Differentiable; p is
+    rounded to v's dtype before p.v, and the max is ``amax``, whose
+    gradient splits among ties as JAX's max does."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sk = s.shape[-1]
+        rows = row_offset + torch.arange(s.shape[-2], device=s.device)
+        cols = torch.arange(sk, device=s.device)
+        s = s.masked_fill(rows[:, None] + (sk - sq_total) < cols[None, :],
+                          NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    return acc, m, l
+
+
+def flash_forward_partial_reference(q, k, v, causal: bool, scale: float):
+    """The plain version of the partial forward kernel, the reference's
+    XLA twin ``_xla_attention_partial``: (acc [B, H, Sq, D], m, l
+    [B, H, Sq, 1]), fp32, unnormalized."""
+    return attention_partial_at(q, k, v, causal, scale, 0, q.shape[1])
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 def _check(q, k, v):
@@ -168,8 +206,8 @@ def _kernel_entry(name: str):
     from flexflow_tpu_torch.kernels.build import load_library
 
     fn = getattr(load_library(_KERNEL_SOURCE), name)
-    n_ptr = {"ffflash_fwd": 5, "ffflash_bwd_dq": 7,
-             "ffflash_bwd_dkv": 8}[name]
+    n_ptr = {"ffflash_fwd": 5, "ffflash_fwd_partial": 6,
+             "ffflash_bwd_dq": 7, "ffflash_bwd_dkv": 8}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -258,9 +296,28 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, causal: bool,
     return dk, dv
 
 
+def flash_forward_partial(q, k, v, causal: bool, scale: float):
+    """q [B, Sq, H, D], k/v [B, Sk, H, D], fp32 or bf16 -> (acc
+    [B, H, Sq, D], m, l [B, H, Sq, 1]), fp32 and unnormalized.  On the
+    card: the partial forward kernel, counted in
+    ``flash_forward_partial.launches``.  On the CPU: the plain version."""
+    _check(q, k, v)
+    if _device_type(q) == "cpu":
+        return flash_forward_partial_reference(q, k, v, causal, scale)
+    b, sq, h, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((b, h, sq, d), **f32)
+    m = torch.empty((b, h, sq, 1), **f32)
+    l = torch.empty((b, h, sq, 1), **f32)
+    _launch("ffflash_fwd_partial", (q, k, v, acc, m, l), q, k, causal, scale)
+    flash_forward_partial.launches += 1
+    return acc, m, l
+
+
 flash_forward.launches = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
+flash_forward_partial.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -292,6 +349,64 @@ def flash_attention(q, k, v, causal: bool = False, scale: float | None = None):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, bool(causal), float(scale))
+
+
+# the reference's recompute backward chunks at most this many query rows
+# (``_fap_bwd``: min(block_q, 128) with the default block_q of 512)
+PARTIAL_BWD_ROWS = 128
+
+
+def _partial_backward(q, k, v, dacc, dm, dl, causal, scale):
+    """(dq, dk, dv) of the partials by recompute (reference ``_fap_bwd``):
+    chunks of ``_pick_block(Sq, 128)`` query rows with dk and dv summed
+    in fp32 across them, or one whole-matrix recompute when the chunks do
+    not divide Sq or cover it."""
+    sq = q.shape[1]
+    bq = _pick_block(sq, PARTIAL_BWD_ROWS) or sq
+    bounds = ([(0, sq)] if sq % bq or sq == bq
+              else [(i, i + bq) for i in range(0, sq, bq)])
+    dq, dk, dv = [], 0.0, 0.0
+    with torch.enable_grad():
+        kd = k.detach().requires_grad_(True)
+        vd = v.detach().requires_grad_(True)
+        for lo, hi in bounds:
+            qc = q[:, lo:hi].detach().requires_grad_(True)
+            out = attention_partial_at(qc, kd, vd, causal, scale, lo, sq)
+            dqc, dkc, dvc = torch.autograd.grad(
+                out, (qc, kd, vd), (dacc[:, :, lo:hi], dm[:, :, lo:hi],
+                                    dl[:, :, lo:hi]))
+            dq.append(dqc)
+            dk = dk + dkc.float()
+            dv = dv + dvc.float()
+    return torch.cat(dq, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionPartial(torch.autograd.Function):
+    """Forward: the partial forward kernel, saving (q, k, v).  Backward:
+    the reference's chunked recompute in plain torch ops."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        acc, m, l = flash_forward_partial(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return acc, m, l
+
+    @staticmethod
+    def backward(ctx, dacc, dm, dl):
+        q, k, v = ctx.saved_tensors
+        return (*_partial_backward(q, k, v, dacc, dm, dl, ctx.causal,
+                                   ctx.scale), None, None)
+
+
+def flash_attention_partial(q, k, v, causal: bool = False,
+                            scale: float | None = None):
+    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> (acc [B, H, Sq, D], m, l
+    [B, H, Sq, 1]), fp32 and unnormalized (out = acc / l after merging),
+    differentiable in q, k and v."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionPartial.apply(q, k, v, bool(causal), float(scale))
 
 
 # ---------------------------------------------------------------------------

@@ -4,14 +4,17 @@ The builder methods the decode and transformer graphs call
 (``create_tensor``, ``create_constant``, ``embedding``, ``reshape``,
 ``add``, ``layer_norm``, ``dense``, ``multihead_attention``,
 ``decode_attention``) build a lazy graph; ``compile`` binds it to the
-config's device with the trivial single-device strategy and initialises
-``params``, ``state`` and, for training, the optimizer state; an
+config's device with the trivial single-device strategy, or for
+training with a pure sequence-parallel strategy to this rank's shard of
+the sequence (compiler/lowering.py), and initialises ``params``,
+``state`` and, for training, the optimizer state; an
 inference compile first adopts a pinned ``config.kv_precision`` onto
 the decode-attention ops (``_adopt_kv_dtype``, reference model.py:50-83,
 as the reference's strategy search does for one pinned candidate),
 so the state holds that pool dtype.  ``fit``, ``evaluate`` and
-``predict`` run over numpy data.  The strategy search and the
-multi-device lowerings come with later slices.
+``predict`` run over numpy data (under sequence parallelism ``fit``
+only).  The strategy search and the other multi-device lowerings come
+with later slices.
 """
 
 from __future__ import annotations
@@ -200,13 +203,17 @@ class FFModel:
     # ---- compile ---------------------------------------------------------
     def compile(self, optimizer=None,
                 loss_type="sparse_categorical_crossentropy",
-                metrics=("accuracy",), comp_mode: str = "training"):
-        """Bind the graph to the config's device with the trivial
-        single-device strategy and initialise ``params``/``state`` from
-        ``config.seed``.  ``comp_mode="training"`` also sets the loss,
-        the metrics and the optimizer (default: SGD at
-        ``config.learning_rate`` with ``config.weight_decay``, as the
-        reference's) and initialises ``opt_state``."""
+                metrics=("accuracy",), comp_mode: str = "training",
+                strategy=None):
+        """Bind the graph to the config's device and initialise
+        ``params``/``state`` from ``config.seed``.  ``strategy`` (guid ->
+        ``MachineView``) is None or trivial for one device, or the pure
+        sequence-parallel strategy over the job's ranks (training only);
+        other strategies raise ``NotImplementedError``.
+        ``comp_mode="training"`` also sets the loss, the metrics and the
+        optimizer (default: SGD at ``config.learning_rate`` with
+        ``config.weight_decay``, as the reference's) and initialises
+        ``opt_state``."""
         from flexflow_tpu_torch.compiler.lowering import CompiledModel
         from flexflow_tpu_torch.optimizers import SGDOptimizer
 
@@ -223,7 +230,12 @@ class FFModel:
         self.compiled = CompiledModel(
             self.graph, self.config, loss_type=loss_type,
             metric_types=metrics if comp_mode == "training" else (),
-            optimizer=self.optimizer if comp_mode == "training" else None)
+            optimizer=self.optimizer if comp_mode == "training" else None,
+            strategy=strategy)
+        if comp_mode == "inference" and self.compiled.sp_size > 1:
+            raise NotImplementedError(
+                "an inference compile under a sequence-parallel strategy "
+                "comes with a later slice")
         self.params, self.state = self.compiled.init_params(self.config.seed)
         self.opt_state = (self.optimizer.init_state(self.params)
                           if comp_mode == "training" else None)
@@ -243,7 +255,10 @@ class FFModel:
         per epoch with the metrics' report and the epoch's last loss.
         Sets ``last_throughput`` (samples/s after the first step, which
         is fenced and left off the clock, as the reference does) and
-        ``step_losses`` (every step's loss, read after the loop).
+        ``step_losses`` (every step's loss, read after the loop).  Under
+        sequence parallelism every rank runs this loop on its slice of
+        the sequence: the samples are the job's, the losses and metrics
+        the job's means, and only rank 0 prints.
 
         Not ported yet, and raising when asked for: callbacks,
         recompile_state, validation data or split, checkpoints and
@@ -300,24 +315,36 @@ class FFModel:
             metrics.update(acc)
             logs = metrics.report()
             logs["loss"] = float(loss)
-            if verbose:
+            if verbose and self._prints():
                 print(f"epoch {epoch}: loss={logs['loss']:.4f} {metrics}")
             history.append(logs)
         elapsed = time.perf_counter() - t_start  # float(loss) above fenced
         if steps_done > steps_at_t0 and elapsed > 0:
             self.last_throughput = ((steps_done - steps_at_t0) * batch_size
                                     / elapsed)
-            if verbose:
+            if verbose and self._prints():
                 print(f"ELAPSED TIME = {elapsed:.4f}s, THROUGHPUT = "
                       f"{self.last_throughput:.2f} samples/s")
         self.step_losses = torch.stack(losses).tolist()
         return history
+
+    def _prints(self) -> bool:
+        from flexflow_tpu_torch.runtime.distributed import rank
+
+        return rank() == 0
+
+    def _refuse_sequence_parallel(self, what: str) -> None:
+        if self.compiled is not None and self.compiled.sp_size > 1:
+            raise NotImplementedError(
+                f"{what} under a sequence-parallel strategy comes with a "
+                f"later slice; the port trains (fit) under it")
 
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None):
         """Loss and metrics over full batches, in order, no gradients."""
         from flexflow_tpu_torch.metrics import PerfMetrics
         from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
 
+        self._refuse_sequence_parallel("evaluate")
         xs = x if isinstance(x, (list, tuple)) else [x]
         batch_size = batch_size or self.config.batch_size
         loader = SingleDataLoader(self.compiled, [np.asarray(a) for a in xs],
@@ -341,6 +368,7 @@ class FFModel:
         trimmed, as the reference does)."""
         if self.compiled is None:
             raise RuntimeError("call compile() first")
+        self._refuse_sequence_parallel("predict")
         batch_size = batch_size or self.config.batch_size
         xs = [np.asarray(a) for a in (x if isinstance(x, (list, tuple))
                                       else [x])]

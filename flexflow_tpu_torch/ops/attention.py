@@ -4,10 +4,10 @@ in flexflow_tpu/ops/attention.py.
 query [B, Sq, E], key [B, Sk, E], value [B, Sk, E] -> [B, Sq, E] with
 the reference's weight layouts (wq/wk/wv [E, H, dk], wo [H, dk, E],
 optional biases) and dtype flow: inputs and weights cast to the compute
-dtype, q/k/v projected there, attention, the output projection, an fp32
-bias, the result cast back to the query's dtype.  As in the port's
-``LinearOp``, a bfloat16 output projection is rounded to bfloat16 before
-the bias add, where XLA keeps it in float32.
+dtype, q/k/v projected there, attention, the output projection with an
+fp32 result (``matmul_acc32``, as the reference's
+``preferred_element_type=float32``), an fp32 bias, the result cast back
+to the query's dtype.
 
 Which attention runs is ``flash_route``, a function of shapes: the
 flash kernels (``kernels/flash_attention.py``) when ``use_flash`` is set,
@@ -19,8 +19,15 @@ XLA path, ``attn_core``.  The reference's try/except around the flash
 call is not copied: a CUDA tensor that takes the flash route launches
 the kernels or raises.
 
+Under sequence parallelism (the lowering context carries a group of
+more than one rank) self-attention without dropout runs the ring
+(``parallel/ring_attention.py``) on the rank's shard, as the
+reference's ``_attention`` does (ops/attention.py:196-247); the
+reference's all-gather fallback for cross-attention or dropout under a
+split sequence is resharding, which comes later, and raises here.
+
 Not ported here: attention dropout in training (raises; a later slice),
-and the ring and Ulysses sequence-parallel branches (multi-device).
+and the Ulysses sequence-parallel branch (raises; a later slice).
 """
 
 from __future__ import annotations
@@ -69,8 +76,8 @@ def _project(x, w):
 class MultiHeadAttentionOp(Operator):
     """attrs: embed_dim, num_heads, kdim, vdim, dropout, use_bias,
     causal, use_flash (take the flash kernels where ``flash_route``
-    allows), sp_mode (the reference's sequence-parallel scheme; inert
-    on one device)."""
+    allows), sp_mode (the reference's sequence-parallel scheme, read
+    when the sequence is split across ranks)."""
 
     op_type = OperatorType.MULTIHEAD_ATTENTION
 
@@ -91,6 +98,20 @@ class MultiHeadAttentionOp(Operator):
                          vdim=vdim or embed_dim, dropout=dropout,
                          use_bias=use_bias, causal=causal,
                          use_flash=use_flash, sp_mode=sp_mode)
+
+    def _use_ulysses(self, n: int) -> bool:
+        """Whether a seq degree of ``n`` is served by the all-to-all
+        exchange instead of the ring (reference ops/attention.py:94-110:
+        the ring when the head count does not divide; ``auto`` picks
+        Ulysses only for non-causal attention at n >= 3, where it moves
+        fewer bytes than the ring)."""
+        a = self.attrs
+        mode = a.get("sp_mode", "ring")
+        if n <= 1 or a["num_heads"] % n != 0:
+            return False
+        if mode == "ulysses":
+            return True
+        return mode == "auto" and not a["causal"] and n >= 3
 
     def infer(self) -> Sequence[ParallelTensorShape]:
         q = self.input_shapes[0]
@@ -146,14 +167,34 @@ class MultiHeadAttentionOp(Operator):
             kh = kh + weights["bk"].to(cd)
             vh = vh + weights["bv"].to(cd)
         scale = 1.0 / math.sqrt(self.head_dim)
-        attend = flash_attention if self.uses_flash() else attn_core
-        out = attend(qh, kh, vh, a["causal"], scale)  # [B, Sq, H, dk]
+        if ctx.sp_size > 1:
+            out = self._sequence_parallel(ctx, qh, kh, vh, scale)
+        else:
+            attend = flash_attention if self.uses_flash() else attn_core
+            out = attend(qh, kh, vh, a["causal"], scale)  # [B, Sq, H, dk]
         wo = weights["wo"].to(cd)
         y = matmul_acc32(out.reshape(*out.shape[:2], -1),
                          wo.reshape(-1, wo.shape[-1]))
         if a["use_bias"]:
             y = y + weights["bo"].float()
         return [y.to(inputs[0].dtype)]
+
+    def _sequence_parallel(self, ctx, qh, kh, vh, scale):
+        """Attention over the sequence split across ``ctx.sp_group``."""
+        n = ctx.sp_size
+        if self.input_shapes[0].sizes[1] != self.input_shapes[1].sizes[1]:
+            raise NotImplementedError(
+                f"{self.name}: cross-attention under a split sequence needs "
+                f"K/V resharding, which comes with a later slice")
+        if self._use_ulysses(n):
+            raise NotImplementedError(
+                f"{self.name}: Ulysses sequence parallelism "
+                f"(sp_mode={self.attrs['sp_mode']!r}, degree {n}) comes "
+                f"with a later slice of the port; use sp_mode='ring'")
+        from flexflow_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(qh, kh, vh, ctx.sp_group,
+                              causal=self.attrs["causal"], scale=scale)
 
     def flops(self) -> float:
         """The reference's estimate (ops/attention.py:301-308): the four

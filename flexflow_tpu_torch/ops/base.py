@@ -5,8 +5,8 @@ logical input/output shapes + weight specs.  ``infer`` runs at graph
 build time; ``forward(ctx, inputs, weights)`` computes the op on
 PyTorch tensors.  ``flops`` is the reference's forward-FLOP estimate
 (the training path's MFU counts 3x its sum).  The reference's degree
-propagation and the rest of its cost hooks belong to the search and
-multi-device slices and are not here yet.
+propagation and the rest of its cost hooks belong to the search slice
+and are not here yet.
 """
 
 from __future__ import annotations
@@ -36,17 +36,37 @@ class LoweringContext:
     says whether the pass is a training step's; ``device`` is where the
     model's tensors live (constants are placed there).  Ops that own
     state (the decode op's KV pools) read it from ``state_in`` and
-    publish what they wrote under the same keys in ``state_out``."""
+    publish what they wrote under the same keys in ``state_out``.
+
+    Under sequence parallelism ``sp_group`` is the process group the
+    sequence dim is split over (the reference's ``mesh`` and the seq
+    slot of ``slot_axes``): this rank holds shard ``sp_rank`` of
+    ``sp_size``; ``seq_slice`` gives its positions."""
 
     def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
                  train: bool = False,
                  state_in: Optional[Dict[str, torch.Tensor]] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", sp_group=None):
         self.compute_dtype = compute_dtype
         self.train = train
         self.state_in = state_in or {}
         self.state_out: Dict[str, torch.Tensor] = {}
         self.device = torch.device(device)
+        self.sp_group = sp_group
+        self.sp_size, self.sp_rank = 1, 0
+        if sp_group is not None:
+            import torch.distributed as dist
+
+            self.sp_size = dist.get_world_size(sp_group)
+            self.sp_rank = dist.get_rank(sp_group)
+
+    def seq_slice(self, seq_len: int) -> slice:
+        """This rank's positions of a ``seq_len``-long sequence."""
+        if seq_len % self.sp_size:
+            raise ValueError(f"sequence length {seq_len} does not split "
+                             f"into {self.sp_size} ranks")
+        per = seq_len // self.sp_size
+        return slice(self.sp_rank * per, (self.sp_rank + 1) * per)
 
 
 class Operator:

@@ -39,8 +39,9 @@ class InputOp(Operator):
 class ConstantOp(Operator):
     """Compile-time constant tensor (``build_gpt``'s position ids).  The
     value is kept as a numpy array; ``forward`` hands out one tensor per
-    device, made at first use.  attrs keep a digest of the value, as the
-    reference's do."""
+    device, made at first use, and under sequence parallelism the
+    rank's slice of its sequence dim (dim 1, as every op's).  attrs keep
+    a digest of the value, as the reference's do."""
 
     op_type = OperatorType.CONSTANT
     is_gradient_free = True
@@ -64,4 +65,6 @@ class ConstantOp(Operator):
         if t is None:
             t = torch.from_numpy(np.array(self._value)).to(ctx.device)
             self._on_device[ctx.device] = t
+        if ctx.sp_size > 1 and t.dim() >= 2:
+            t = t[:, ctx.seq_slice(t.shape[1])]
         return [t]

@@ -1,10 +1,13 @@
 """Host-to-device data loading — the port of ``SingleDataLoader`` in
-flexflow_tpu/runtime/dataloader.py, for one device.
+flexflow_tpu/runtime/dataloader.py.
 
 Full numpy arrays stay on the host; each batch is a row gather copied
 to the model's device.  The shuffle draws from
 ``np.random.default_rng(seed)`` exactly as the reference's does, so the
-two packages see the same batches in the same order.
+two packages see the same batches in the same order, and so does every
+rank of a job.  Under sequence parallelism each rank is handed its
+slice of the sequence dim (dim 1) of the inputs and the labels
+(``runtime.distributed.local_seq_slice``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,16 @@ class SingleDataLoader:
                  batch_size: int, shuffle: bool = True, seed: int = 0,
                  drop_remainder: bool = True):
         self.device = compiled.device
+        if compiled.sp_size > 1:
+            from flexflow_tpu_torch.runtime.distributed import (
+                local_seq_slice,
+            )
+
+            if any(a.ndim < 2 for a in (*xs, y)):
+                raise ValueError("under sequence parallelism every input "
+                                 "and the labels need a sequence dim")
+            xs = [a[:, slice(*local_seq_slice(a.shape[1]))] for a in xs]
+            y = y[:, slice(*local_seq_slice(y.shape[1]))]
         self.xs = [np.ascontiguousarray(a) for a in xs]
         self.y = np.ascontiguousarray(y)
         n = self.xs[0].shape[0]
