@@ -10,6 +10,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    gives them;
 2. build: compile every CUDA kernel of both paths from ``csrc/`` with
    nvcc (sm_90a), all sources at once, and print the build seconds;
+   then check with ``cuobjdump`` that the bf16 flash forward
+   (``flash_fwd_tc_kernel``, both values of Partial, at both padded head
+   dims D' = 64 and 128) runs its products as HGMMA (tensor-core)
+   instructions and spills nothing to local memory, and print its
+   registers;
 3. kernels: call each kernel at its main path's shapes (the decode
    kernel on fp32 and bf16 pools, the int8 decode kernel on the same
    pages quantized, with its drift from the fp32 pool; the three flash
@@ -20,9 +25,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernel, the plain version and one PyTorch library call that computes
    the same function (a yardstick the port never calls), each with CUDA
    events as the median of 25 runs with the L2 cache flushed before
-   each; compute the bound from this run's inputs; sweep each kernel
-   over odd shapes and check that head dims it does not take are
-   refused;
+   each; compute the bound from this run's inputs; hold the bf16
+   forwards' outputs row by row as well (each row's error over that
+   row's largest plain value); sweep each kernel over odd shapes
+   (including lengths that cross a 64-row tile edge by one) and check
+   that head dims it does not take are refused;
 4. serving path: build the repo's GPT decode model at GPT-2-small widths
    (12 layers, hidden 768, 12 heads, vocab 32000, 32 frame slots, pages
    of 16 tokens, 1024-token sequences) with random weights from the
@@ -56,7 +63,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    each flash kernel launched 12 times per step, that every step's loss
    is finite and that the loss on the first batch fell; print step time
    p50/p99, tokens/s and MFU (3 x the graph's forward FLOPs against the
-   card's dense bf16 peak); profile 3 steady steps;
+   card's dense bf16 peak);
+   profile 3 steady steps;
 7. sequence-parallel training path: the same model at seq 4096, batch 2,
    split over 4 ranks (``runtime.distributed.spawn``: one card each with
    NCCL on a 4-card machine, else all on card 0 with the shared-card
@@ -80,8 +88,10 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -134,12 +144,24 @@ TOKEN_RANGE = 512
 ADAM_ALPHA = 3e-4
 TIMED_STEPS = 10
 PROFILE_STEPS = 3
+# (Sq, Sk) pairs that cross a 64-row tile edge by one, in both sweeps
+TILE_EDGE_PAIRS = ((63, 65), (65, 63), (64, 64), (128, 129), (129, 128))
 # flash kernels vs their plain versions, max abs error over
 # max(1, max |plain|): fp32 math in both, the order of the sums differs;
 # in bf16 the kernel rounds p to bf16 relative to its running row max,
 # the plain version relative to the final row max, and bf16 outputs
 # round once more (2^-8 relative)
 FLASH_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# the forward's out and the partial forward's acc row by row: each row's
+# max abs error over that row's max |plain|, so that rows deep in a
+# causal sequence (|out| ~ 0.06 at the training shape) are held as
+# tightly as the first ones (|out| up to ~4).  bf16: one bf16 ulp of a
+# row's largest value is 2^-8 to 2^-7 of it, and the two sides round
+# their fp32 outs independently; worst readings on an H100 over seeds 0
+# and 1, main shapes and sweeps: out 9.7e-3, acc 6.0e-3 (PERF.md
+# section 6), so the limit is two ulps, 1.65x the worst.  fp32: worst
+# 3.2e-6, the limit FLASH_TOL's
+ROW_TOL = {"fp32": 1e-4, "bf16": 1.6e-2}
 # the flash route vs the use_flash=False route on the training path's
 # first batch: loss relative error, and per weight the gradient's error
 # norm over the use_flash=False gradient's norm.  fp32 compute: the
@@ -233,6 +255,56 @@ def phase_build():
     paths = build(["ragged_paged_attention", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(p.name for p in paths.values())}")
+    return paths
+
+
+def phase_sass(lib):
+    """The bf16 forward's products run on the tensor cores: the SASS of
+    ``flash_fwd_tc_kernel`` at D' = 64 (head dims up to 64) and D' = 128
+    (80 to 128), for both values of Partial, holds HGMMA instructions,
+    and no instance spills to local memory (``cuobjdump -res-usage``
+    LOCAL 0 and no STL in the SASS)."""
+    from flexflow_tpu_torch.kernels.build import cuda_tool
+
+    tool = cuda_tool("cuobjdump")
+    dumps = {}
+    for flag in ("-sass", "-res-usage"):
+        run = subprocess.run([tool, flag, str(lib)], capture_output=True,
+                             text=True, timeout=300)
+        check(run.returncode == 0, f"cuobjdump {flag} failed: "
+              f"{run.stderr.strip()[-2000:]}")
+        dumps[flag] = run.stdout
+    sass = {}
+    name = None
+    for line in dumps["-sass"].splitlines():
+        found = re.match(r"\s*Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            sass[name] = []
+        elif name is not None:
+            sass[name].append(line)
+    usage = {m.group(1): {k: int(v) for k, v in re.findall(
+        r"(REG|STACK|SHARED|LOCAL):(\d+)", m.group(2))}
+        for m in re.finditer(r"Function (\S+):\s*\n(.*)",
+                             dumps["-res-usage"])}
+    report = {}
+    for dp, partial in itertools.product((64, 128), (False, True)):
+        key = f"flash_fwd_tc_kernelILi{dp}ELb{int(partial)}E"
+        names = [n for n in sass if key in n]
+        check(len(names) == 1, f"{len(names)} SASS functions match {key}")
+        lines = sass[names[0]]
+        hgmma = sum("HGMMA" in ln for ln in lines)
+        stl = sum(re.search(r"\bSTL(\.|\s)", ln) is not None
+                  for ln in lines)
+        res = usage.get(names[0], {})
+        report[f"D'={dp} partial={partial}"] = {
+            "symbol": names[0], "hgmma": hgmma, "stl": stl, **res}
+        check(hgmma > 0, f"no HGMMA in {names[0]}: its products do not run "
+              f"on the tensor cores")
+        check(stl == 0 and res.get("LOCAL", 0) == 0,
+              f"{names[0]} spills to local memory: {stl} STL, "
+              f"LOCAL {res.get('LOCAL')}")
+    print("bf16 forward SASS: " + json.dumps(report))
 
 
 # ---------------------------------------------------------------------------
@@ -981,6 +1053,14 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
+def row_err(got, ref) -> float:
+    """Max over rows (all but the last dim) of the row's max |got - ref|
+    over the row's max |ref|, in fp32."""
+    got, ref = got.float(), ref.float()
+    worst = (got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)
+    return float(worst.max())
+
+
 def live_pairs(b, h, sq, sk, causal) -> int:
     """(query, key) pairs the causal end-aligned mask leaves live."""
     if not causal:
@@ -1044,6 +1124,7 @@ def flash_errors(q, k, v, do, causal, scale):
               "non-finite values")
     return {
         "fwd": max(rel_err(out, r_out), rel_err(lse, r_lse)),
+        "fwd_row": row_err(out, r_out),
         "dq": rel_err(dq, r_dq),
         "dkv": max(rel_err(dk, r_dk), rel_err(dv, r_dv)),
         "abs": {"fwd": float((out.float() - r_out.float()).abs().max()),
@@ -1080,6 +1161,9 @@ def phase_flash_kernels(name, seed):
             check(errs[kind] <= FLASH_TOL[tag],
                   f"flash {kind} kernel vs plain version ({tag}): error "
                   f"{errs[kind]:.3e} > {FLASH_TOL[tag]}")
+        check(errs["fwd_row"] <= ROW_TOL[tag],
+              f"flash fwd kernel vs plain version ({tag}): out error "
+              f"{errs['fwd_row']:.3e} of a row's max > {ROW_TOL[tag]}")
         out, lse = fa.flash_forward(q, k, v, True, scale)
         delta = fa._delta(out, do).contiguous()
         args = (q, k, v, do, lse, delta, True, scale)
@@ -1109,6 +1193,7 @@ def phase_flash_kernels(name, seed):
                                                 q.element_size(), name)
             results[(kind, tag)] = dict(
                 max_abs_err=errs["abs"][kind], rel_err=errs[kind],
+                **({"row_err": errs["fwd_row"]} if kind == "fwd" else {}),
                 ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
             print(f"kernel flash_{kind} [{tag}, B={b} S={s} H={h} D={d} "
@@ -1128,8 +1213,9 @@ def sweep_flash_shapes(seed):
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     pairs = ((1, 1), (17, 17), (100, 100), (1000, 1000), (17, 100),
-             (100, 17), (1, 1000), (1000, 1), (130, 64))
+             (100, 17), (1, 1000), (1000, 1), (130, 64)) + TILE_EDGE_PAIRS
     worst = {"fp32": 0.0, "bf16": 0.0}
+    worst_row = {"fp32": 0.0, "bf16": 0.0}
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for causal in (False, True):
             for sq, sk in pairs:
@@ -1138,11 +1224,14 @@ def sweep_flash_shapes(seed):
                     errs = flash_errors(q, k, v, do, causal,
                                         1.0 / math.sqrt(d))
                     err = max(errs[kind] for kind in ("fwd", "dq", "dkv"))
-                    check(err <= FLASH_TOL[tag],
+                    check(err <= FLASH_TOL[tag]
+                          and errs["fwd_row"] <= ROW_TOL[tag],
                           f"flash sweep {tag} causal={causal} Sq={sq} "
                           f"Sk={sk} D={d}: error {err:.3e} > "
-                          f"{FLASH_TOL[tag]}")
+                          f"{FLASH_TOL[tag]} or fwd row error "
+                          f"{errs['fwd_row']:.3e} > {ROW_TOL[tag]}")
                     worst[tag] = max(worst[tag], err)
+                    worst_row[tag] = max(worst_row[tag], errs["fwd_row"])
     for d in (8, 144):
         q = torch.zeros((1, 4, 1, d), device="cuda")
         try:
@@ -1151,16 +1240,17 @@ def sweep_flash_shapes(seed):
         except ValueError:
             pass
     print(f"flash shape sweep: D 16..128 x causal/not x (Sq, Sk) in "
-          f"{list(pairs)} x fp32/bf16, worst error {json.dumps(worst)}; "
-          f"D=8 and D=144 refused")
-    return worst
+          f"{list(pairs)} x fp32/bf16, worst error {json.dumps(worst)}, "
+          f"worst fwd row error {json.dumps(worst_row)}; D=8 and D=144 "
+          f"refused")
+    return {"worst": worst, "worst_fwd_row": worst_row}
 
 
 # ---------------------------------------------------------------------------
 def partial_error(q, k, v, causal, scale):
     """The partial forward kernel against its plain version: (error of
     acc over max(1, |plain acc|), worst of m and l likewise, max abs
-    error of acc)."""
+    error of acc, acc's error row by row (``row_err``))."""
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
     got = fa.flash_forward_partial(q, k, v, causal, scale)
@@ -1171,7 +1261,7 @@ def partial_error(q, k, v, causal, scale):
               "non-finite values")
     return (rel_err(got[0], ref[0]),
             max(rel_err(got[1], ref[1]), rel_err(got[2], ref[2])),
-            float((got[0] - ref[0]).abs().max()))
+            float((got[0] - ref[0]).abs().max()), row_err(got[0], ref[0]))
 
 
 def phase_partial_kernel(name, seed):
@@ -1196,16 +1286,20 @@ def phase_partial_kernel(name, seed):
         q, k, v, _ = flash_operands(b, s, s, h, d, dt, gen)
         ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
         for causal in (False, True):
-            err, ml_err, abs_err = partial_error(q, k, v, causal, scale)
-            check(err <= FLASH_TOL[tag] and ml_err <= KERNEL_TOL,
+            err, ml_err, abs_err, acc_row = partial_error(q, k, v, causal,
+                                                          scale)
+            check(err <= FLASH_TOL[tag] and ml_err <= KERNEL_TOL
+                  and acc_row <= ROW_TOL[tag],
                   f"partial kernel vs plain version ({tag}, causal="
-                  f"{causal}): acc error {err:.3e} > {FLASH_TOL[tag]} or "
-                  f"m/l error {ml_err:.3e} > {KERNEL_TOL}")
+                  f"{causal}): acc error {err:.3e} > {FLASH_TOL[tag]}, "
+                  f"acc row error {acc_row:.3e} > {ROW_TOL[tag]} or m/l "
+                  f"error {ml_err:.3e} > {KERNEL_TOL}")
             bound_ms, bound_by = flash_bound_ms(
                 "partial", b, h, s, s, d, causal, q.element_size(), name)
             key = f"{tag}{'_causal' if causal else ''}"
             results[key] = dict(
-                max_abs_err=abs_err, rel_err=err, m_l_rel_err=ml_err,
+                max_abs_err=abs_err, rel_err=err, row_err=acc_row,
+                m_l_rel_err=ml_err,
                 ms=time_ms(lambda: fa.flash_forward_partial(
                     q, k, v, causal, scale), flush),
                 plain_ms=time_ms(lambda: fa.flash_forward_partial_reference(
@@ -1231,20 +1325,24 @@ def sweep_partial_shapes(seed):
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     pairs = ((1, 1), (17, 17), (100, 100), (512, 512), (17, 100),
-             (1, 1000), (64, 512), (130, 1000), (100, 17), (130, 64))
+             (1, 1000), (64, 512), (130, 1000), (100, 17),
+             (130, 64)) + TILE_EDGE_PAIRS
     worst = {"fp32": 0.0, "bf16": 0.0}
+    worst_row = {"fp32": 0.0, "bf16": 0.0}
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for causal in (False, True):
             for sq, sk in pairs:
                 for d in fa.HEAD_DIMS:
                     q, k, v, _ = flash_operands(2, sq, sk, 2, d, dt, gen)
-                    err, ml_err, _ = partial_error(q, k, v, causal,
-                                                   1.0 / math.sqrt(d))
-                    check(err <= FLASH_TOL[tag] and ml_err <= KERNEL_TOL,
+                    err, ml_err, _, acc_row = partial_error(
+                        q, k, v, causal, 1.0 / math.sqrt(d))
+                    check(err <= FLASH_TOL[tag] and ml_err <= KERNEL_TOL
+                          and acc_row <= ROW_TOL[tag],
                           f"partial sweep {tag} causal={causal} Sq={sq} "
-                          f"Sk={sk} D={d}: acc error {err:.3e}, m/l error "
-                          f"{ml_err:.3e}")
+                          f"Sk={sk} D={d}: acc error {err:.3e}, acc row "
+                          f"error {acc_row:.3e}, m/l error {ml_err:.3e}")
                     worst[tag] = max(worst[tag], err, ml_err)
+                    worst_row[tag] = max(worst_row[tag], acc_row)
     for d in (8, 144):
         q = torch.zeros((1, 4, 1, d), device="cuda")
         try:
@@ -1253,9 +1351,10 @@ def sweep_partial_shapes(seed):
         except ValueError:
             pass
     print(f"partial shape sweep: D 16..128 x causal/not x (Sq, Sk) in "
-          f"{list(pairs)} x fp32/bf16, worst error {json.dumps(worst)}; "
-          f"D=8 and D=144 refused")
-    return worst
+          f"{list(pairs)} x fp32/bf16, worst error {json.dumps(worst)}, "
+          f"worst acc row error {json.dumps(worst_row)}; D=8 and D=144 "
+          f"refused")
+    return {"worst": worst, "worst_acc_row": worst_row}
 
 
 # ---------------------------------------------------------------------------
@@ -1660,7 +1759,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     name = phase_device()
-    phase_build()
+    libs = phase_build()
+    phase_sass(libs["flash_attention"])
     rpa = phase_kernels(name, args.seed)
     flash = phase_flash_kernels(name, args.seed)
     partial = phase_partial_kernel(name, args.seed)

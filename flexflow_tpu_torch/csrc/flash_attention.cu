@@ -3,11 +3,14 @@
 // Replaces the four Pallas TPU kernels of
 // flexflow_tpu/kernels/flash_attention.py:
 //
-//   flash_fwd_kernel<.., false> <- `_flash_kernel` with save_lse=True
-//                                  (launched by `_flash_forward`)
-//   flash_fwd_kernel<.., true>  <- `_flash_kernel` with partial_out=True
-//                                  (launched by `_flash_forward_partial`,
-//                                  ring attention's block step)
+//   flash_fwd_tc_kernel<.., false> (bf16) and
+//   flash_fwd_kernel<float, .., false>      <- `_flash_kernel` with
+//                                  save_lse=True (`_flash_forward`)
+//   flash_fwd_tc_kernel<.., true> (bf16) and
+//   flash_fwd_kernel<float, .., true>       <- `_flash_kernel` with
+//                                  partial_out=True
+//                                  (`_flash_forward_partial`, ring
+//                                  attention's block step)
 //   flash_bwd_dq_kernel         <- `_flash_bwd_dq_kernel` (`_flash_backward`)
 //   flash_bwd_dkv_kernel        <- `_flash_bwd_dkv_kernel` (`_flash_backward`)
 //
@@ -21,11 +24,12 @@
 //
 // where delta = rowsum(dO * out) comes from the caller in fp32, as the
 // reference computes it outside Pallas.  Operands are [B, S, H, D] (fp32
-// or bf16) read in place through strides: no transpose to [B*H, S, D]
-// around the call.  lse and delta are [B, H, Sq] fp32.  All math is fp32
-// with the reference's roundings for bf16: products of two bf16 values
-// are exact in fp32, p is rounded to bf16 before p.v and before p^T dO,
-// ds before ds.k and ds^T.q.  Any Sq, Sk >= 1; the ragged edge is masked.
+// or bf16) read in place: no transpose to [B*H, S, D] around the call.
+// lse and delta are [B, H, Sq] fp32.  All math is fp32 with the
+// reference's roundings for bf16: products of two bf16 values are exact
+// in fp32, p is rounded to bf16 (against the running row max in the
+// forwards) before p.v and before p^T dO, ds before ds.k and ds^T.q.
+// Any Sq, Sk >= 1; the ragged edge is masked.
 //
 // Rows with no live key (causal with Sq > Sk, rows < Sq - Sk) follow the
 // reference's XLA path, not the Pallas kernel (whose value there depends
@@ -42,36 +46,62 @@
 // is -1e30, so m = -1e30, l = Sk and acc = sum of v.  The ring never
 // makes such rows (its calls have Sq == Sk, or no mask).
 //
-// What bounds it on the card.  At the training path's shape (B 8, S 1024,
-// H 12, D 64, causal) one layer's forward moves about 50 MB (q, k, v, out
-// read or written once, bf16) and does about 12.9 GFLOP over 50.4 M live
-// (q, k) pairs: 15 us of bytes against 13 us of dense bf16 tensor-core
-// time at the published peaks, so the two sit close.  The backward does
-// 3x (dq) and 4x (dkv) the forward's products per pair.
+// What bounds the bf16 forward on the card.  At the training path's
+// shape (B 8, S 1024, H 12, D 64, causal) one layer's forward moves
+// about 50 MB (q, k, v, out read or written once) and does about 12.9
+// GFLOP over 50.4 M live (q, k) pairs: 15 us of bytes at 3.35 TB/s
+// against 13 us of dense bf16 tensor-core time, so the two sit close;
+// scalar fp32 FMAs (67 TFLOP/s) could not go below 0.19 ms.  The partial
+// forward at the zigzag ring's half-chunk shape (B 2, Sq = Sk = 512, H
+// 12, D 64, no mask) reads q, k, v once (4.7 MB) and writes acc, m and l
+// (3.2 MB): 2.4 us of bytes against 1.6 us of tensor-core time, and its
+// fp32 acc is two thirds of the bytes (the price of a merge across ranks
+// in fp32, as the reference's).
 //
-// The partial forward at the zigzag ring's half-chunk shape (B 2, Sq = Sk
-// = 512, H 12, D 64, bf16, no mask) reads q, k, v once (4.7 MB) and
-// writes acc, m and l (3.2 MB): 2.4 us of bytes at 3.35 TB/s against
-// 1.6 GFLOP, 1.6 us of dense bf16 tensor-core time.  It is bytes-bound,
-// and its fp32 acc is two thirds of the bytes: the price of a merge
-// across ranks in fp32, as the reference's.
+// What the bf16 forward's design does about it (flash_fwd_tc_kernel):
+// both products run on the tensor cores as wgmma, from operands that
+// TMA copies into shared memory in bf16, so no thread spends
+// instructions or registers on loads.  One block per (b, h, 64-row q
+// tile): 64-row tiles give 192 blocks on 132 SMs at the half-chunk
+// shape, where 128-row tiles would leave 36 SMs idle; the q tiles are
+// the grid's outermost dimension in reverse, so under a causal mask the
+// blocks with the most k tiles start first.  A producer warp loads the q
+// tile once and streams K and V tiles through a 3-stage ring (full /
+// empty mbarriers), so loads run two tiles ahead of the products; the
+// consumer warpgroup computes s = q k^T (m64n64k16 from shared memory),
+// runs the online softmax on the accumulator fragment in registers (a
+// row lives in a quad of lanes: two shuffles per reduction), converts p
+// to bf16 in registers into the A fragment of o += p v (v MN-major from
+// shared memory through the transpose bit), so p never touches shared
+// memory.  The softmax of tile kb runs while p v of tile kb - 1 is still
+// on the tensor cores (s of tile kb is issued with it, and o is rescaled
+// once both are done).  Head dims pad to 64 or 128 columns in
+// shared memory: TMA zero-fills columns past D and rows past S, zero
+// columns add nothing to either product, and zero-filled keys are masked
+// by col < Sk.  The causal block skip of the TPU kernel is kept, and only
+// tiles that cross the diagonal or the ragged end evaluate the mask.
+// The epilogue stages the tile in shared memory and writes it with
+// coalesced 16-byte stores.
 //
-// What the design does about it: a tile of q rows is read once and kept
-// in shared memory while the block walks the k tiles (forward, dq), or a
-// tile of k and v is kept while the block walks the q tiles (dkv), so
-// no [Sq, Sk] matrix reaches device memory and each operand crosses it
-// once per tile pass.  One block per (b, h, 64-row tile), 256 threads,
-// each owning a 4x4 patch of the 64x64 score tile and 4 rows of the
-// output tile; rows of a score tile reduce with warp shuffles inside
-// 16-lane groups.  The causal block skip of the TPU kernels is kept.
-// The products are scalar fp32 FMAs from shared memory (row stride D+1,
-// free of bank conflicts): right first.  mma.sync/wgmma tensor-core
-// products, TMA loads and warp specialisation are later work.
+// fp32 keeps the scalar design (flash_fwd_kernel<float, ..>), as do the
+// two backward kernels in both dtypes, which do 3x (dq) and 4x (dkv) the
+// forward's products per pair and so are bound by operations: one block
+// per (b, h, 64-row tile) keeps its q tile (forward, dq) or its k and v
+// tiles (dkv) in shared memory while it walks the other axis, so no
+// [Sq, Sk] matrix reaches device memory; 256 threads each own a 4x4
+// patch of the score tile, scalar fp32 FMAs from shared memory (row
+// stride D+1, free of bank conflicts).  TF32 products would break fp32
+// parity with the reference; the backward's tensor-core redesign is
+// later work.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -187,6 +217,7 @@ __device__ __forceinline__ float masked_logit(float dot, int row, int col,
   return row + off >= col ? dot * scale : kNegInf;
 }
 
+// The scalar forward, launched for fp32 (bf16 takes flash_fwd_tc_kernel).
 // Partial = false: out [B, Sq, H, D] in T and lse [B, H, Sq] (o0, o1).
 // Partial = true: acc [B, H, Sq, D], m and l [B, H, Sq], fp32 (o0-o2).
 template <typename T, int D, bool Partial>
@@ -474,6 +505,473 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores: flash_fwd_tc_kernel<D, Partial>.
+//
+// One block per (64-row q tile, h, b): warps 0-3 are one consumer
+// warpgroup that owns the 64 query rows, warp 4 the producer, whose lane
+// 0 issues every load.  Head dims pad to DP = 64 (D <= 64) or 128 in
+// shared memory; each operand tile is DP / 64 boxes of 64 rows x 64
+// columns (128 bytes a row, 8 KB a box), written by TMA with the 128-byte
+// swizzle that the wgmma descriptors name.
+constexpr int kTcThreads = 160;  // one consumer warpgroup + a producer warp
+constexpr int kStages = 3;       // K/V tiles in flight
+constexpr int kBox = 64 * 128;   // bytes of one 64 x 64 bf16 box
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// returns once the phase of `bar` with parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a [B, S, H, D] bf16 tensor, (d0, h, row, b) its first
+// element, into shared memory; completion counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int d0, int h, int row, int b,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h), "r"(row), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor with the 128-byte swizzle; strides in
+// bytes (lbo: between 64-column boxes along a MN-major operand's N;
+// sbo: between groups of 8 rows)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// the consumer warpgroup's own barrier (the producer warp never joins)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// d[64 x 64] (+)= A (shared, K-major) * B (shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] += A (registers, bf16 pairs) * B (shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A (registers, bf16 pairs) * B (shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DP == 64) {
+    wgmma_m64n64k16_rs(o, a, db);
+  } else {
+    wgmma_m64n128k16_rs(o, a, db);
+  }
+}
+
+// What the online softmax of one thread needs about its two rows.
+struct Rows {
+  int row[2];  // global query rows (16w + g and + 8)
+  int c;       // lane & 3: the thread's column pair in each 8 columns
+  int q0, Sk, off, causal;
+  float scale;
+  float dead;  // the logit of a row with no live key
+};
+
+// s = q k^T of one k tile: DP/16 k-steps of 16 columns, each 32 bytes on
+// along the swizzled 128-byte rows of a box; one committed group
+template <int DP>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q,
+                                         uint32_t k) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t step = (kk / 4) * kBox + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(s, smem_desc(q + step, 16, 1024),
+                       smem_desc(k + step, 16, 1024), 1);
+  }
+  wgmma_commit();
+}
+
+// o += p v: v is MN-major (d contiguous); 16 keys are two 1024-byte
+// groups of 8 rows, the second 64-column box kBox bytes on; one group
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+                                         const uint32_t (&pa)[4][4],
+                                         uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_pv<DP>(o, pa[kk], smem_desc(v + kk * 2048, kBox, 1024));
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The online softmax of the k tile at k0 on the score fragment s: scale,
+// mask (only on tiles that cross the causal diagonal or the ragged end;
+// zero-filled keys past Sk are masked too), update the row max m and sum
+// l, leave p in s and the factor that rescales o in alpha.
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2],
+                                               const Rows& r, int k0) {
+  const bool edge =
+      k0 + kTile > r.Sk || (r.causal && k0 + kTile - 1 > r.q0 + r.off);
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float x = s[i] * r.scale;
+    if (edge) {
+      const int col = k0 + 8 * (i >> 2) + 2 * r.c + (i & 1);
+      const int row = r.row[h] + r.off;
+      if (r.causal) x = row < 0 ? r.dead : (row >= col ? x : kNegInf);
+      if (col >= r.Sk) x = -INFINITY;
+    }
+    s[i] = x;
+    mx[h] = fmaxf(mx[h], x);
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m_new = fmaxf(m[h], quad_max(mx[h]));
+    // (a - b) * log2 e, never a fused product: at a row with no live
+    // key a == b == -1e30 and the difference must be exactly 0
+    alpha[h] = exp2f((m[h] - m_new) * kLog2e);
+    m[h] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = exp2f((s[i] - m[h]) * kLog2e);
+    psum[h] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
+}
+
+// p to bf16 in registers: the score fragment's columns 16kk..16kk+15 are
+// the A fragment of the kk-th k-step of p v
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4],
+                                       const float (&p)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pa[kk][j] = pack_bf16(p[8 * kk + 2 * j], p[8 * kk + 2 * j + 1]);
+}
+
+// The bf16 forward for head dims padded to DP (64 or 128) in shared
+// memory.  Partial = false: out [B, Sq, H, D] bf16 and lse [B, H, Sq]
+// (o0, o1); Partial = true: acc [B, H, Sq, D], m and l [B, H, Sq], fp32
+// (o0-o2).  q, k, v come through the tensor maps mq, mk, mv.
+//
+// Accumulator register i of a thread (lane = 4g + c of warp w) holds row
+// 16w + g + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2c + (i & 1) of its
+// 64-row tile: each row lives in one quad of lanes.
+template <int DP, bool Partial>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        void* __restrict__ o0, float* __restrict__ o1,
+                        float* __restrict__ o2, int H, int Sq, int Sk, int D,
+                        int causal, float scale) {
+  constexpr int NB = DP / 64;             // boxes per operand tile
+  constexpr int kTileBytes = NB * kBox;   // one operand tile
+  extern __shared__ uint8_t tc_smem[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* base = tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
+  const uint32_t sq = smem_u32(base);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(base + (1 + 2 * kStages) * kTileBytes);
+  auto k_tile = [&](int st) { return sq + (1 + 2 * st) * kTileBytes; };
+  auto v_tile = [&](int st) { return sq + (2 + 2 * st) * kTileBytes; };
+  auto full = [&](int st) { return smem_u32(bars + st); };
+  auto empty = [&](int st) { return smem_u32(bars + kStages + st); };
+  const uint32_t q_ready = smem_u32(bars + 2 * kStages);
+
+  // the q tiles in reverse, outermost: under a causal mask the blocks
+  // with the most k tiles start first, every head's at once
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int off = Sk - Sq;
+  // causal block skip: k tiles past the last live key of the tile's last
+  // row hold nothing; a tile with a row that has no live key reads all
+  const int q_last = min(q0 + kTile, Sq) - 1;
+  int nk = (Sk + kTile - 1) / kTile;
+  if (causal && q0 + off >= 0) nk = min(nk, (q_last + off) / kTile + 1);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);   // the producer's arrive + the bytes
+      mbar_init(empty(st), 4);  // one arrive per consumer warp
+    }
+    mbar_init(q_ready, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer: Q once, then K and V through the ring
+    if (lane == 0) {
+      mbar_expect_tx(q_ready, kTileBytes);
+      for (int bx = 0; bx < NB; ++bx)
+        tma_load(sq + bx * kBox, &mq, bx * 64, h, q0, b, q_ready);
+      for (int kb = 0; kb < nk; ++kb) {
+        const int st = kb % kStages;
+        if (kb >= kStages) mbar_wait(empty(st), (kb / kStages - 1) & 1);
+        mbar_expect_tx(full(st), 2 * kTileBytes);
+        for (int bx = 0; bx < NB; ++bx) {
+          tma_load(k_tile(st) + bx * kBox, &mk, bx * 64, h, kb * kTile, b,
+                   full(st));
+          tma_load(v_tile(st) + bx * kBox, &mv, bx * 64, h, kb * kTile, b,
+                   full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: 4 warps x 16 rows.  The products of consecutive tiles
+  // overlap the softmax: s of tile kb is issued with p v of tile kb - 1,
+  // and the softmax of tile kb runs while p v is still in flight.
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const Rows rows{{q0 + warp * 16 + g, q0 + warp * 16 + g + 8}, c, q0, Sk,
+                  off, causal, scale, Partial ? kNegInf : 0.f};
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float s[32], alpha[2];
+  uint32_t pa[4][4];
+
+  mbar_wait(q_ready, 0);
+  mbar_wait(full(0), 0);
+  issue_qk<DP>(s, sq, k_tile(0));
+  wgmma_wait<0>();
+  online_softmax(s, m, l, alpha, rows, 0);
+  pack_p(pa, s);
+  for (int kb = 1; kb < nk; ++kb) {
+    const int st = kb % kStages;
+    const int prev = (kb - 1) % kStages;
+    mbar_wait(full(st), (kb / kStages) & 1);
+    issue_qk<DP>(s, sq, k_tile(st));  // its fence also covers o and pa
+    issue_pv<DP>(o, pa, v_tile(prev));
+    wgmma_wait<1>();  // s is ready; p v of tile kb - 1 may still run
+    online_softmax(s, m, l, alpha, rows, kb * kTile);
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(prev));
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    pack_p(pa, s);
+  }
+  wgmma_fence();
+  issue_pv<DP>(o, pa, v_tile((nk - 1) % kStages));
+  wgmma_wait<0>();
+
+  // epilogue: stage the tile in shared memory (every warp's last wgmma
+  // has read q and the ring), then 16-byte coalesced stores of rows < Sq
+  consumers_sync();
+  const size_t r_base = ((size_t)b * H + h) * Sq;
+  const int nrow = min(kTile, Sq - q0);
+  if (Partial) {
+    constexpr int LD = DP + 4;  // fp32 row stride, 16-byte aligned
+    float* st = reinterpret_cast<float*>(base + kTileBytes);
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int lr = warp * 16 + g + 8 * ((i >> 1) & 1);
+      *reinterpret_cast<float2*>(st + lr * LD + 8 * (i >> 2) + 2 * c) =
+          make_float2(o[i], o[i + 1]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (c == 0 && rows.row[r] < Sq) {
+        o1[r_base + rows.row[r]] = m[r];
+        o2[r_base + rows.row[r]] = l[r];
+      }
+    }
+    consumers_sync();
+    float* acc = static_cast<float*>(o0) + (r_base + q0) * D;
+    const int n4 = D / 4;
+    for (int idx = threadIdx.x; idx < nrow * n4; idx += 128) {
+      const int r = idx / n4;
+      const int c4 = (idx - r * n4) * 4;
+      *reinterpret_cast<float4*>(acc + (size_t)r * D + c4) =
+          *reinterpret_cast<const float4*>(st + r * LD + c4);
+    }
+  } else {
+    float lf[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lf[r] = fmaxf(l[r], 1e-30f);
+      if (c == 0 && rows.row[r] < Sq)
+        o1[r_base + rows.row[r]] = m[r] + logf(lf[r]);
+    }
+    // out in bf16 over q's tile, in the boxes' swizzled layout
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      const int lr = warp * 16 + g + 8 * r;
+      const int j = i >> 2;
+      const int at = (j >> 3) * kBox + lr * 128 + (((j & 7) ^ (lr & 7)) << 4)
+                     + 4 * c;
+      *reinterpret_cast<uint32_t*>(base + at) =
+          pack_bf16(o[i] / lf[r], o[i + 1] / lf[r]);
+    }
+    consumers_sync();
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o0);
+    const int n8 = D / 8;
+    for (int idx = threadIdx.x; idx < nrow * n8; idx += 128) {
+      const int r = idx / n8;
+      const int ch = idx - r * n8;
+      const int at = (ch >> 3) * kBox + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+      *reinterpret_cast<uint4*>(
+          out + (((size_t)b * Sq + q0 + r) * H + h) * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(base + at);
+    }
+  }
+}
+
 constexpr size_t fwd_smem(int D) {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kLdS);
 }
@@ -501,42 +999,134 @@ struct Args {
 
 enum Which { kFwd = 0, kFwdPartial = 1, kDq = 2, kDkv = 3 };
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library needs no link against libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The [B, S, H, D] bf16 tensor at `ptr` as a 4-D tensor map, dims (D, H,
+// S, B) innermost first, boxes of 64 x 1 x 64 x 1 with the 128-byte
+// swizzle; TMA fills zeros past D and past S.
+cudaError_t bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                     int D) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+constexpr size_t tc_smem_bytes(int DP) {
+  // q and kStages (k, v) tiles, the barriers, and slack to align to 1024
+  return (size_t)(DP / 64) * kBox * (1 + 2 * kStages) +
+         sizeof(uint64_t) * (2 * kStages + 1) + 1024;
+}
+
+template <int DP, bool Partial>
+cudaError_t launch_fwd_tc(const Args& a, int D) {
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<DP, Partial>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_smem_bytes(DP));
+  if (ready != cudaSuccess) return ready;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = bshd_map(&mq, a.q, a.B, a.Sq, a.H, D);
+  if (err == cudaSuccess) err = bshd_map(&mk, a.k, a.B, a.Sk, a.H, D);
+  if (err == cudaSuccess) err = bshd_map(&mv, a.v, a.B, a.Sk, a.H, D);
+  if (err != cudaSuccess) return err;
+  const int nq = (a.Sq + kTile - 1) / kTile;
+  if (nq > 65535) return cudaErrorInvalidValue;  // grid z
+  const dim3 grid(a.H, a.B, nq);
+  flash_fwd_tc_kernel<DP, Partial>
+      <<<grid, kTcThreads, tc_smem_bytes(DP), a.stream>>>(
+          mq, mk, mv, a.o0, static_cast<float*>(a.o1),
+          static_cast<float*>(a.o2), a.H, a.Sq, a.Sk, D, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+// the bf16 forwards: every head dim the kernels take, padded to 64 or 128
+cudaError_t dispatch_fwd_tc(bool partial, int D, const Args& a) {
+  switch (D) {
+    case 16:
+    case 32:
+    case 48:
+    case 64:
+      return partial ? launch_fwd_tc<64, true>(a, D)
+                     : launch_fwd_tc<64, false>(a, D);
+    case 80:
+    case 96:
+    case 112:
+    case 128:
+      return partial ? launch_fwd_tc<128, true>(a, D)
+                     : launch_fwd_tc<128, false>(a, D);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // Above 48 KB a kernel takes dynamic shared memory only after
 // cudaFuncSetAttribute; each kernel instance makes the call once (the
-// function-local statics below are per instance).
-template <typename T, int D, bool Partial>
-cudaError_t launch_fwd(const Args& a, const T* q, const T* k, const T* v) {
+// function-local statics below are per instance).  The scalar forward
+// is launched for fp32 only: run sends bf16 forwards to dispatch_fwd_tc.
+template <int D, bool Partial>
+cudaError_t launch_fwd_fp32(const Args& a) {
   static const cudaError_t ready = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, Partial>,
+      flash_fwd_kernel<float, D, Partial>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fwd_smem(D));
   if (ready != cudaSuccess) return ready;
   const unsigned nq = (unsigned)((a.Sq + kTile - 1) / kTile);
-  flash_fwd_kernel<T, D, Partial><<<dim3(nq, a.H, a.B), dim3(kThreads),
-                                    fwd_smem(D), a.stream>>>(
-      q, k, v, a.o0, static_cast<float*>(a.o1), static_cast<float*>(a.o2),
-      a.H, a.Sq, a.Sk, a.causal, a.scale);
-  return cudaSuccess;
+  flash_fwd_kernel<float, D, Partial><<<dim3(nq, a.H, a.B), dim3(kThreads),
+                                        fwd_smem(D), a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.o0, static_cast<float*>(a.o1),
+      static_cast<float*>(a.o2), a.H, a.Sq, a.Sk, a.causal, a.scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch(Which which, const Args& a) {
+cudaError_t launch_bwd(Which which, const Args& a) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   const dim3 block(kThreads);
-  const unsigned nq = (unsigned)((a.Sq + kTile - 1) / kTile);
-  const unsigned nk = (unsigned)((a.Sk + kTile - 1) / kTile);
-  if (which == kFwd || which == kFwdPartial) {
-    const cudaError_t err = which == kFwd
-                                ? launch_fwd<T, D, false>(a, q, k, v)
-                                : launch_fwd<T, D, true>(a, q, k, v);
-    if (err != cudaSuccess) return err;
-  } else if (which == kDq) {
+  if (which == kDq) {
     static const cudaError_t ready = cudaFuncSetAttribute(
         flash_bwd_dq_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem(D));
     if (ready != cudaSuccess) return ready;
+    const unsigned nq = (unsigned)((a.Sq + kTile - 1) / kTile);
     flash_bwd_dq_kernel<T, D><<<dim3(nq, a.H, a.B), block, dq_smem(D),
                                 a.stream>>>(
         q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.o0), a.H, a.Sq,
@@ -546,6 +1136,7 @@ cudaError_t launch(Which which, const Args& a) {
         flash_bwd_dkv_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_smem(D));
     if (ready != cudaSuccess) return ready;
+    const unsigned nk = (unsigned)((a.Sk + kTile - 1) / kTile);
     flash_bwd_dkv_kernel<T, D><<<dim3(nk, a.H, a.B), block, dkv_smem(D),
                                  a.stream>>>(
         q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.o0),
@@ -554,17 +1145,19 @@ cudaError_t launch(Which which, const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(Which which, int D, const Args& a) {
+// Calls f(std::integral_constant<int, D>) for the head dims the scalar
+// kernels take.
+template <typename F>
+cudaError_t dispatch_d(int D, F&& f) {
   switch (D) {
-    case 16: return launch<T, 16>(which, a);
-    case 32: return launch<T, 32>(which, a);
-    case 48: return launch<T, 48>(which, a);
-    case 64: return launch<T, 64>(which, a);
-    case 80: return launch<T, 80>(which, a);
-    case 96: return launch<T, 96>(which, a);
-    case 112: return launch<T, 112>(which, a);
-    case 128: return launch<T, 128>(which, a);
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
   }
   return cudaErrorInvalidValue;
 }
@@ -575,8 +1168,20 @@ int run(Which which, int D, int is_bf16, const Args& a) {
     return (int)cudaErrorInvalidValue;
   }
   if (a.B == 0) return (int)cudaGetLastError();
-  return (int)(is_bf16 ? dispatch_d<__nv_bfloat16>(which, D, a)
-                       : dispatch_d<float>(which, D, a));
+  if (which == kFwd || which == kFwdPartial) {
+    if (is_bf16) return (int)dispatch_fwd_tc(which == kFwdPartial, D, a);
+    return (int)dispatch_d(D, [&](auto d) {
+      return which == kFwd ? launch_fwd_fp32<decltype(d)::value, false>(a)
+                           : launch_fwd_fp32<decltype(d)::value, true>(a);
+    });
+  }
+  if (is_bf16)
+    return (int)dispatch_d(D, [&](auto d) {
+      return launch_bwd<__nv_bfloat16, decltype(d)::value>(which, a);
+    });
+  return (int)dispatch_d(D, [&](auto d) {
+    return launch_bwd<float, decltype(d)::value>(which, a);
+  });
 }
 
 }  // namespace

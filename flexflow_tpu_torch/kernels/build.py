@@ -26,16 +26,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """The CUDA toolkit's ``name`` (nvcc, cuobjdump, ...) from PATH or
+    CUDA_HOME's bin."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
+    path = Path(home) / "bin" / name
     if path.exists():
         return str(path)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                       "port's CUDA kernels are built on the GPU host")
+    raise RuntimeError(f"{name} not found on PATH or under CUDA_HOME; the "
+                       f"port's CUDA kernels are built on the GPU host")
 
 
 def library_path(name: str) -> Path:
@@ -55,7 +57,8 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
         if path.exists():
             continue
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)

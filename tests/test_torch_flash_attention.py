@@ -6,6 +6,10 @@ tensors) are held against the Pallas kernels run in interpret mode
 (``_flash_forward(..., save_lse=True, interpret=True)`` and
 ``_flash_backward(..., interpret=True)``, as tests/test_kernels.py runs
 them), causal and not, Sq = Sk and Sq < Sk, head dims 32 and 64.
+Lengths of 65 and 127, which no power-of-two block divides, are held
+against the XLA path the reference's entry point takes for them
+(``flash_attention`` falls back to ``_xla_attention``; lse against the
+logsumexp of its masked logits), at head dims 48 and 112 and Sq > Sk.
 
 Tolerances: fp32 inputs 2e-5 abs on out and lse and 2e-4 abs on the
 gradients (the same function; blocking and summation order differ).
@@ -87,7 +91,44 @@ def _close(got, ref, tol, rel=False, what=""):
 CASES = [  # (causal, sq, sk, d)
     (False, 64, 64, 32), (True, 64, 64, 32), (False, 32, 64, 64),
     (True, 32, 64, 64), (True, 64, 64, 64), (False, 64, 64, 64),
+    # one past or one short of the CUDA kernels' 64-row tiles, head dims
+    # that pad to 64 and 128 columns; Sq > Sk causal has rows with no key
+    (False, 65, 127, 48), (True, 65, 127, 48), (False, 127, 65, 112),
+    (True, 127, 65, 112), (True, 65, 65, 112), (False, 127, 127, 48),
 ]
+BLOCK = 32  # the Pallas kernels' blocks where they divide both lengths
+
+
+def _xla_lse(q, k, causal, scale):
+    """[B, H, Sq] logsumexp of the reference's masked logits, rows with
+    no live key over all keys at logit 0 (its uniform attention)."""
+    s = jnp.einsum("bqhd,bkhd->bhqk", q, k,
+                   preferred_element_type=jnp.float32) * scale
+    if causal:
+        sq, sk = s.shape[-2:]
+        s = jnp.where(jnp.tril(jnp.ones((sq, sk), bool), k=sk - sq), s,
+                      jfa.NEG_INF)
+        s = jnp.where((jnp.arange(sq) < sq - sk)[:, None], 0.0, s)
+    return jax.nn.logsumexp(s, axis=-1)
+
+
+def _jax_reference(jq, jk, jv, jdo, causal, scale):
+    """(out, lse [B, H, Sq], dq, dk, dv) of the JAX package: the Pallas
+    kernels in interpret mode where BLOCK divides both lengths, else the
+    XLA path that its entry point falls back to for such lengths."""
+    b, sq, h, _ = jq.shape
+    sk = jk.shape[1]
+    if sq % BLOCK == 0 and sk % BLOCK == 0:
+        jout, jlse = jfa._flash_forward(jq, jk, jv, causal, scale, BLOCK,
+                                        BLOCK, interpret=True, save_lse=True)
+        grads = jfa._flash_backward(jq, jk, jv, jout, jlse, jdo, causal,
+                                    scale, BLOCK, BLOCK, interpret=True)
+        return (jout, np.asarray(jlse).reshape(b, h, sq), *grads)
+    assert jfa._pick_block(sq, 512) is None or jfa._pick_block(
+        sk, 1024) is None
+    jout, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(
+        q, k, v, causal=causal, scale=scale), jq, jk, jv)
+    return (jout, _xla_lse(jq, jk, causal, scale), *vjp(jdo))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -97,14 +138,11 @@ def test_plain_versions_match_pallas_kernels(causal, sq, sk, d, dtype):
     scale = 1.0 / math.sqrt(d)
     (jq, jk, jv, jdo), (q, k, v, do) = _both(_inputs(b, sq, sk, h, d),
                                              dtype)
-    jout, jlse = jfa._flash_forward(jq, jk, jv, causal, scale, 32, 32,
-                                    interpret=True, save_lse=True)
-    jdq, jdk, jdv = jfa._flash_backward(jq, jk, jv, jout, jlse, jdo, causal,
-                                        scale, 32, 32, interpret=True)
+    jout, jlse, jdq, jdk, jdv = _jax_reference(jq, jk, jv, jdo, causal,
+                                               scale)
     out, lse = fa.flash_forward_reference(q, k, v, causal, scale)
     dq, dk, dv = fa.flash_backward_reference(q, k, v, out, lse, do, causal,
                                              scale)
-    jlse = np.asarray(jlse).reshape(b, h, sq)
     assert out.dtype == q.dtype and lse.dtype == torch.float32
     if dtype == "float32":
         _close(out, jout, FP32_OUT_TOL, what="out")

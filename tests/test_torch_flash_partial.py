@@ -13,7 +13,9 @@ rather than the final one (measured 1.9e-3), and within 1e-3 against
 the XLA twin (the same roundings; a p whose exp lands on the other side
 of a bf16 rounding boundary moves one term by 2^-8; measured 1.1e-7);
 m and l within 2e-6 (measured 2.4e-7).  Rows with no live
-key (causal, Sq > Sk) are held against the XLA twin only: the Pallas
+key (causal, Sq > Sk) are held against the XLA twin only (as are the
+lengths of 65 and 127, where the reference's entry point takes the twin
+itself): the Pallas
 kernel leaves such a row's l equal to the keys of the blocks it ran,
 which depends on its block size.
 
@@ -45,9 +47,9 @@ B, H, D = 2, 2, 16
 JDTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
-def _operands(sq, sk, dtype, seed):
+def _operands(sq, sk, dtype, seed, d=D):
     rng = np.random.default_rng(seed)
-    j = [jnp.asarray(rng.normal(size=(B, s, H, D)), JDTYPE[dtype])
+    j = [jnp.asarray(rng.normal(size=(B, s, H, d)), JDTYPE[dtype])
          for s in (sq, sk, sk)]
     return j, [tensor_from_numpy(np.asarray(a)) for a in j]
 
@@ -61,14 +63,19 @@ def _max_err(got, ref):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("sq,sk", [(64, 64), (32, 64)])
-def test_partial_matches_xla_twin_and_pallas(dtype, causal, sq, sk):
-    (jq, jk, jv), (q, k, v) = _operands(sq, sk, dtype, seed=sq + sk)
-    scale = 1.0 / math.sqrt(D)
+@pytest.mark.parametrize("sq,sk,d", [
+    pytest.param(64, 64, D, id="64-64"), pytest.param(32, 64, D, id="32-64"),
+    # one past or one short of the CUDA kernel's 64-row tiles, head dims
+    # that pad to 64 and 128 columns: no power-of-two block divides
+    # these lengths, so the reference's entry point takes its XLA twin
+    (65, 127, 48), (127, 65, 112), (65, 65, 112), (127, 127, 48)])
+def test_partial_matches_xla_twin_and_pallas(dtype, causal, sq, sk, d):
+    (jq, jk, jv), (q, k, v) = _operands(sq, sk, dtype, seed=sq + sk, d=d)
+    scale = 1.0 / math.sqrt(d)
     before = fa.flash_forward_partial.launches
     acc, m, l = fa.flash_forward_partial(q, k, v, causal, scale)
     assert fa.flash_forward_partial.launches == before  # CPU: plain version
-    assert acc.shape == (B, H, sq, D) and m.shape == l.shape == (B, H, sq, 1)
+    assert acc.shape == (B, H, sq, d) and m.shape == l.shape == (B, H, sq, 1)
     assert acc.dtype == m.dtype == l.dtype == torch.float32
     twin = _xla_attention_partial(jq, jk, jv, causal, scale)
     pallas = jax_flash_attention_partial(jq, jk, jv, causal=causal,
