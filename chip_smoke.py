@@ -10,11 +10,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    gives them;
 2. build: compile every CUDA kernel of both paths from ``csrc/`` with
    nvcc (sm_90a), all sources at once, and print the build seconds;
-   then check with ``cuobjdump`` that the bf16 flash forward
-   (``flash_fwd_tc_kernel``, both values of Partial, at both padded head
-   dims D' = 64 and 128) runs its products as HGMMA (tensor-core)
-   instructions and spills nothing to local memory, and print its
-   registers;
+   then check with ``cuobjdump`` that the bf16 flash kernels (the
+   forward ``flash_fwd_tc_kernel``, both values of Partial, and the
+   backward pair ``flash_bwd_dq_tc_kernel`` and
+   ``flash_bwd_dkv_tc_kernel``, each at both padded head dims D' = 64
+   and 128) run their products as HGMMA (tensor-core) instructions and
+   spill nothing to local memory, and print their registers;
 3. kernels: call each kernel at its main path's shapes (the decode
    kernel on fp32 and bf16 pools, the int8 decode kernel on the same
    pages quantized, with its drift from the fp32 pool; the three flash
@@ -25,11 +26,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernel, the plain version and one PyTorch library call that computes
    the same function (a yardstick the port never calls), each with CUDA
    events as the median of 25 runs with the L2 cache flushed before
-   each; compute the bound from this run's inputs; hold the bf16
-   forwards' outputs row by row as well (each row's error over that
-   row's largest plain value); sweep each kernel over odd shapes
-   (including lengths that cross a 64-row tile edge by one) and check
-   that head dims it does not take are refused;
+   each; compute the bound from this run's inputs; hold the flash
+   kernels' outputs row by row as well (each row's error over that
+   row's largest plain value: the forwards' out and acc, the backward's
+   dq, dk and dv); check that two calls of the backward pair at the
+   training shape give bit-equal gradients; sweep each kernel over odd
+   shapes (including lengths that cross a 64-row tile edge by one) and
+   check that head dims it does not take are refused;
 4. serving path: build the repo's GPT decode model at GPT-2-small widths
    (12 layers, hidden 768, 12 heads, vocab 32000, 32 frame slots, pages
    of 16 tokens, 1024-token sequences) with random weights from the
@@ -162,6 +165,28 @@ FLASH_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 # section 6), so the limit is two ulps, 1.65x the worst.  fp32: worst
 # 3.2e-6, the limit FLASH_TOL's
 ROW_TOL = {"fp32": 1e-4, "bf16": 1.6e-2}
+# the bf16 backward kernels' dq, dk and dv row by row, so that small
+# gradient rows (late keys under a causal mask, deep query rows) are held
+# as tightly as the largest: each row's max abs error over the larger of
+# its max |plain| and GRAD_ROW_FLOOR (``row_err``).  The floor: the
+# operands are unit normals and the gradients of order 1; a row that is
+# exactly zero in exact arithmetic (a query row with one live key, such
+# as the first causal row, or every row when Sk = 1: a softmax over one
+# key has no gradient) holds only the fp32 rounding of dp - delta on
+# both sides, up to about 5e-6 on an H100, while the smallest rows that
+# are not (the last keys' dk and dv at the training shape, about 3e-4 of
+# the largest, 1.3e-3) lie above 2^-10.  The limit: both sides round ds
+# to bf16 before ds k and ds^T q, and where their fp32 ds differ in the
+# last bits (other summation orders of dp) a value can round the other
+# way, one bf16 ulp of that term; then each output rounds once.  Worst
+# readings on an H100 over seeds 0 and 1, training shape and sweep
+# (PERF.md section 6): dq 7.8e-3, dk 1.47e-2 (its rows sum up to 1000
+# such terms), dv 7.6e-3; so 2^-5, 2.1x the worst.  fp32 (the scalar
+# kernels) is printed, not held: its dq and dk rows of exact zeros carry
+# the same rounding noise (up to 2.7e-2 of the floor) against a plain
+# fp32 reference
+GRAD_ROW_FLOOR = 2.0 ** -10
+BWD_ROW_TOL = {"bf16": 2.0 ** -5}
 # the flash route vs the use_flash=False route on the training path's
 # first batch: loss relative error, and per weight the gradient's error
 # norm over the use_flash=False gradient's norm.  fp32 compute: the
@@ -259,11 +284,13 @@ def phase_build():
 
 
 def phase_sass(lib):
-    """The bf16 forward's products run on the tensor cores: the SASS of
-    ``flash_fwd_tc_kernel`` at D' = 64 (head dims up to 64) and D' = 128
-    (80 to 128), for both values of Partial, holds HGMMA instructions,
-    and no instance spills to local memory (``cuobjdump -res-usage``
-    LOCAL 0 and no STL in the SASS)."""
+    """The bf16 flash kernels' products run on the tensor cores: the SASS
+    of the forward ``flash_fwd_tc_kernel`` (both values of Partial) and of
+    the backward pair ``flash_bwd_dq_tc_kernel`` and
+    ``flash_bwd_dkv_tc_kernel``, each at D' = 64 (head dims up to 64) and
+    D' = 128 (80 to 128), holds HGMMA instructions, and no instance
+    spills to local memory (``cuobjdump -res-usage`` LOCAL 0 and no STL
+    in the SASS)."""
     from flexflow_tpu_torch.kernels.build import cuda_tool
 
     tool = cuda_tool("cuobjdump")
@@ -287,9 +314,14 @@ def phase_sass(lib):
         r"(REG|STACK|SHARED|LOCAL):(\d+)", m.group(2))}
         for m in re.finditer(r"Function (\S+):\s*\n(.*)",
                              dumps["-res-usage"])}
-    report = {}
+    kernels = {}
     for dp, partial in itertools.product((64, 128), (False, True)):
-        key = f"flash_fwd_tc_kernelILi{dp}ELb{int(partial)}E"
+        kernels[f"fwd D'={dp} partial={partial}"] = (
+            f"flash_fwd_tc_kernelILi{dp}ELb{int(partial)}E")
+    for kind, dp in itertools.product(("dq", "dkv"), (64, 128)):
+        kernels[f"{kind} D'={dp}"] = f"flash_bwd_{kind}_tc_kernelILi{dp}E"
+    report = {}
+    for label, key in kernels.items():
         names = [n for n in sass if key in n]
         check(len(names) == 1, f"{len(names)} SASS functions match {key}")
         lines = sass[names[0]]
@@ -297,14 +329,15 @@ def phase_sass(lib):
         stl = sum(re.search(r"\bSTL(\.|\s)", ln) is not None
                   for ln in lines)
         res = usage.get(names[0], {})
-        report[f"D'={dp} partial={partial}"] = {
-            "symbol": names[0], "hgmma": hgmma, "stl": stl, **res}
-        check(hgmma > 0, f"no HGMMA in {names[0]}: its products do not run "
-              f"on the tensor cores")
-        check(stl == 0 and res.get("LOCAL", 0) == 0,
-              f"{names[0]} spills to local memory: {stl} STL, "
-              f"LOCAL {res.get('LOCAL')}")
-    print("bf16 forward SASS: " + json.dumps(report))
+        report[label] = {"symbol": names[0], "hgmma": hgmma, "stl": stl,
+                         **res}
+    print("bf16 flash SASS: " + json.dumps(report))
+    for r in report.values():
+        check(r["hgmma"] > 0, f"no HGMMA in {r['symbol']}: its products do "
+              f"not run on the tensor cores")
+        check(r["stl"] == 0 and r.get("LOCAL", 0) == 0,
+              f"{r['symbol']} spills to local memory: {r['stl']} STL, "
+              f"LOCAL {r.get('LOCAL')}")
 
 
 # ---------------------------------------------------------------------------
@@ -1053,11 +1086,11 @@ def rel_err(got, ref) -> float:
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
-def row_err(got, ref) -> float:
+def row_err(got, ref, floor=1e-30) -> float:
     """Max over rows (all but the last dim) of the row's max |got - ref|
-    over the row's max |ref|, in fp32."""
+    over the larger of the row's max |ref| and ``floor``, in fp32."""
     got, ref = got.float(), ref.float()
-    worst = (got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)
+    worst = (got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(floor)
     return float(worst.max())
 
 
@@ -1127,6 +1160,9 @@ def flash_errors(q, k, v, do, causal, scale):
         "fwd_row": row_err(out, r_out),
         "dq": rel_err(dq, r_dq),
         "dkv": max(rel_err(dk, r_dk), rel_err(dv, r_dv)),
+        "bwd_row": {"dq": row_err(dq, r_dq, GRAD_ROW_FLOOR),
+                    "dk": row_err(dk, r_dk, GRAD_ROW_FLOOR),
+                    "dv": row_err(dv, r_dv, GRAD_ROW_FLOOR)},
         "abs": {"fwd": float((out.float() - r_out.float()).abs().max()),
                 "dq": float((dq.float() - r_dq.float()).abs().max()),
                 "dkv": max(float((dk.float() - r_dk.float()).abs().max()),
@@ -1136,6 +1172,32 @@ def flash_errors(q, k, v, do, causal, scale):
                     "dk": float(r_dk.float().abs().max()),
                     "dv": float(r_dv.float().abs().max())},
     }
+
+
+def check_bwd_rows(errs, tag, where):
+    """The bf16 backward kernels' dq, dk and dv row by row (``row_err``
+    with GRAD_ROW_FLOOR); fp32's readings are printed, not held."""
+    if tag not in BWD_ROW_TOL:
+        return
+    for out, err in errs["bwd_row"].items():
+        check(err <= BWD_ROW_TOL[tag],
+              f"flash backward {out} vs plain version ({tag}, {where}): "
+              f"error {err:.3e} of a row's max > {BWD_ROW_TOL[tag]}")
+
+
+def bit_equal_backward(q, k, v, do, causal, scale):
+    """Two calls of each backward kernel on the same inputs give
+    bit-equal dq, dk and dv (each element is written by one block in a
+    fixed order, with no atomics)."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    out, lse = fa.flash_forward(q, k, v, causal, scale)
+    delta = fa._delta(out, do).contiguous()
+    args = (q, k, v, do, lse, delta, causal, scale)
+    first = (fa.flash_backward_dq(*args), *fa.flash_backward_dkv(*args))
+    second = (fa.flash_backward_dq(*args), *fa.flash_backward_dkv(*args))
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def phase_flash_kernels(name, seed):
@@ -1164,6 +1226,10 @@ def phase_flash_kernels(name, seed):
         check(errs["fwd_row"] <= ROW_TOL[tag],
               f"flash fwd kernel vs plain version ({tag}): out error "
               f"{errs['fwd_row']:.3e} of a row's max > {ROW_TOL[tag]}")
+        check_bwd_rows(errs, tag, "training shape")
+        check(bit_equal_backward(q, k, v, do, True, scale),
+              f"flash backward ({tag}): two calls on the same inputs gave "
+              f"different dq, dk or dv")
         out, lse = fa.flash_forward(q, k, v, True, scale)
         delta = fa._delta(out, do).contiguous()
         args = (q, k, v, do, lse, delta, True, scale)
@@ -1193,14 +1259,17 @@ def phase_flash_kernels(name, seed):
                                                 q.element_size(), name)
             results[(kind, tag)] = dict(
                 max_abs_err=errs["abs"][kind], rel_err=errs[kind],
-                **({"row_err": errs["fwd_row"]} if kind == "fwd" else {}),
+                row_err=(errs["fwd_row"] if kind == "fwd" else
+                         errs["bwd_row"]["dq"] if kind == "dq" else
+                         max(errs["bwd_row"]["dk"], errs["bwd_row"]["dv"])),
                 ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
             print(f"kernel flash_{kind} [{tag}, B={b} S={s} H={h} D={d} "
                   f"causal, {live_pairs(b, h, s, s, True)} live pairs]: "
                   + json.dumps(results[(kind, tag)]))
         print(f"flash plain-version magnitudes [{tag}]: "
-              + json.dumps(errs["ref_max"]))
+              + json.dumps(errs["ref_max"]) + "; backward row errors "
+              + json.dumps(errs["bwd_row"]) + "; two calls bit-equal")
     results["sweep"] = sweep_flash_shapes(seed)
     return results
 
@@ -1216,6 +1285,8 @@ def sweep_flash_shapes(seed):
              (100, 17), (1, 1000), (1000, 1), (130, 64)) + TILE_EDGE_PAIRS
     worst = {"fp32": 0.0, "bf16": 0.0}
     worst_row = {"fp32": 0.0, "bf16": 0.0}
+    worst_bwd_row = {tag: dict.fromkeys(("dq", "dk", "dv"), 0.0)
+                     for tag in ("fp32", "bf16")}
     for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for causal in (False, True):
             for sq, sk in pairs:
@@ -1224,14 +1295,18 @@ def sweep_flash_shapes(seed):
                     errs = flash_errors(q, k, v, do, causal,
                                         1.0 / math.sqrt(d))
                     err = max(errs[kind] for kind in ("fwd", "dq", "dkv"))
+                    where = f"sweep causal={causal} Sq={sq} Sk={sk} D={d}"
                     check(err <= FLASH_TOL[tag]
                           and errs["fwd_row"] <= ROW_TOL[tag],
-                          f"flash sweep {tag} causal={causal} Sq={sq} "
-                          f"Sk={sk} D={d}: error {err:.3e} > "
+                          f"flash {where} {tag}: error {err:.3e} > "
                           f"{FLASH_TOL[tag]} or fwd row error "
                           f"{errs['fwd_row']:.3e} > {ROW_TOL[tag]}")
+                    check_bwd_rows(errs, tag, where)
                     worst[tag] = max(worst[tag], err)
                     worst_row[tag] = max(worst_row[tag], errs["fwd_row"])
+                    for out, e in errs["bwd_row"].items():
+                        worst_bwd_row[tag][out] = max(
+                            worst_bwd_row[tag][out], e)
     for d in (8, 144):
         q = torch.zeros((1, 4, 1, d), device="cuda")
         try:
@@ -1241,9 +1316,10 @@ def sweep_flash_shapes(seed):
             pass
     print(f"flash shape sweep: D 16..128 x causal/not x (Sq, Sk) in "
           f"{list(pairs)} x fp32/bf16, worst error {json.dumps(worst)}, "
-          f"worst fwd row error {json.dumps(worst_row)}; D=8 and D=144 "
-          f"refused")
-    return {"worst": worst, "worst_fwd_row": worst_row}
+          f"worst fwd row error {json.dumps(worst_row)}, worst backward "
+          f"row error {json.dumps(worst_bwd_row)}; D=8 and D=144 refused")
+    return {"worst": worst, "worst_fwd_row": worst_row,
+            "worst_bwd_row": worst_bwd_row}
 
 
 # ---------------------------------------------------------------------------
@@ -1796,12 +1872,20 @@ def main(argv=None) -> int:
         "library_ms": int8["library_ms"],
         "drift_vs_fp32_pool": int8["drift_vs_fp32_pool"],
     }]
-    for kind, wrapper, line in (("fwd", "flash_forward", 66),
-                                ("dq", "flash_backward_dq", 194),
-                                ("dkv", "flash_backward_dkv", 242)):
+    # the CUDA symbols at the main path's head dim 64 (D' = 64)
+    for kind, wrapper, line, symbols in (
+            ("fwd", "flash_forward", 66,
+             ("flash_fwd_tc_kernel<64, false>",
+              "flash_fwd_kernel<float, 64, false>")),
+            ("dq", "flash_backward_dq", 194,
+             ("flash_bwd_dq_tc_kernel<64>", "flash_bwd_dq_kernel<float, 64>")),
+            ("dkv", "flash_backward_dkv", 242,
+             ("flash_bwd_dkv_tc_kernel<64>",
+              "flash_bwd_dkv_kernel<float, 64>"))):
         bf16 = flash[(kind, "bf16")]
         kernels.append({
             "name": wrapper,
+            "kernel": dict(zip(("bf16", "fp32"), symbols)),
             "route": "cuda",
             "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"flexflow_tpu/kernels/flash_attention.py:{line}",
@@ -1817,6 +1901,8 @@ def main(argv=None) -> int:
     main_row = partial["bf16"]  # most ring blocks carry no mask
     kernels.append({
         "name": "flash_forward_partial",
+        "kernel": {"bf16": "flash_fwd_tc_kernel<64, true>",
+                   "fp32": "flash_fwd_kernel<float, 64, true>"},
         "route": "cuda",
         "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
         "replaces": "flexflow_tpu/kernels/flash_attention.py:527",

@@ -11,8 +11,12 @@
 //                                  partial_out=True
 //                                  (`_flash_forward_partial`, ring
 //                                  attention's block step)
-//   flash_bwd_dq_kernel         <- `_flash_bwd_dq_kernel` (`_flash_backward`)
-//   flash_bwd_dkv_kernel        <- `_flash_bwd_dkv_kernel` (`_flash_backward`)
+//   flash_bwd_dq_tc_kernel (bf16) and
+//   flash_bwd_dq_kernel<float, ..>   <- `_flash_bwd_dq_kernel`
+//                                  (`_flash_backward`)
+//   flash_bwd_dkv_tc_kernel (bf16) and
+//   flash_bwd_dkv_kernel<float, ..>  <- `_flash_bwd_dkv_kernel`
+//                                  (`_flash_backward`)
 //
 // It computes the same functions, not the same blocking.  For one (b, h):
 //
@@ -83,16 +87,57 @@
 // The epilogue stages the tile in shared memory and writes it with
 // coalesced 16-byte stores.
 //
-// fp32 keeps the scalar design (flash_fwd_kernel<float, ..>), as do the
-// two backward kernels in both dtypes, which do 3x (dq) and 4x (dkv) the
-// forward's products per pair and so are bound by operations: one block
-// per (b, h, 64-row tile) keeps its q tile (forward, dq) or its k and v
-// tiles (dkv) in shared memory while it walks the other axis, so no
-// [Sq, Sk] matrix reaches device memory; 256 threads each own a 4x4
+// What bounds the bf16 backward pair.  At the training shape dq does
+// three products per live pair (s = q k^T, dp = dO v^T, ds k: 19.4
+// GFLOP) and dkv four (s^T, dp^T, p^T dO, ds^T q: 25.8 GFLOP), against
+// about 63 MB (dq) and 76 MB (dkv) of operands read and gradients
+// written once: 20 and 26 us of dense bf16 tensor-core time against 19
+// and 23 us of bytes, so both sit near the line, the products a little
+// above it; scalar fp32 FMAs could not go below 0.29 and 0.39 ms.
+//
+// What their design does about it (flash_bwd_dq_tc_kernel,
+// flash_bwd_dkv_tc_kernel): the forward's TMA maps, 3-stage ring and its
+// two wgmma forms only.  Every product is either "A and B K-major from
+// shared memory" (issue_qk: s, dp, and the transposed s^T = k q^T, dp^T
+// = v dO^T) or "A as bf16 pairs in registers, B MN-major from shared
+// memory" (issue_pv: ds k in dq; p^T dO and ds^T q in dkv).  dq: one
+// block per (b, h, 64-row q tile), q and dO loaded once by TMA, K and V
+// streamed through the ring; each thread keeps its two rows' lse and
+// delta in registers and turns the s and dp fragments into ds in
+// registers (the mask only on edge tiles), rounded to bf16 into the A
+// fragment of dq += ds k.  dkv: one block per (b, h, 64-row k tile), k
+// and v loaded once, q, dO and the q tile's 64 lse and delta values
+// streamed (lse and delta by plain loads into the stage's slot: rows of
+// [B, H, Sq] are 16-byte aligned only when Sq % 4 == 0); the fragments
+// are transposed, rows keys and columns queries, so p^T and ds^T are A
+// fragments as they stand, and each thread reads its 16 columns' lse
+// and delta from the slot.  In both, the next tile's two score products
+// are issued with this tile's gradient products, the elementwise pass
+// runs while the latter are on the tensor cores, and a stage is refilled
+// (loads two tiles ahead) once a block barrier shows every warp's last
+// wgmma on it is done.  Unlike the forward, the blocks have no producer
+// warp: thread 0 issues the loads.  Each of the SM's four register
+// files serves every fourth warp of a block, so a fifth warp shares one
+// with another warp of the block; dkv's threads need about 190
+// registers (dk, dv, s^T, dp^T: 4 x 32 fp32, two A fragments of 16, and
+// addresses), and with a producer warp only one block fits an SM (at D'
+// = 128, 9 warps cap a thread at 168 registers and it spills); without,
+// two, and dq's three.  Every output element is written once by one
+// block in a fixed order: no atomics, so two calls give bit-equal
+// gradients.  At D' = 128, dk and dv alone would take 128 registers, so
+// the dkv block has two warpgroups, each owning 64 columns of dk and dv
+// and recomputing s^T and dp^T (1.5x the products, spill-free; D' = 128
+// is no main path's width).  dq at D' = 128 holds its 64 accumulators in
+// one warpgroup.
+//
+// fp32 keeps the scalar design (flash_fwd_kernel<float, ..>,
+// flash_bwd_dq_kernel<float, ..>, flash_bwd_dkv_kernel<float, ..>): one
+// block per (b, h, 64-row tile) keeps its q tile (forward, dq) or its k
+// and v tiles (dkv) in shared memory while it walks the other axis, so
+// no [Sq, Sk] matrix reaches device memory; 256 threads each own a 4x4
 // patch of the score tile, scalar fp32 FMAs from shared memory (row
 // stride D+1, free of bank conflicts).  TF32 products would break fp32
-// parity with the reference; the backward's tensor-core redesign is
-// later work.
+// parity with the reference.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -795,6 +840,53 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4],
       pa[kk][j] = pack_bf16(p[8 * kk + 2 * j], p[8 * kk + 2 * j + 1]);
 }
 
+// A thread's share of a 64 x NC accumulator fragment (rows 16 wq + g and
+// + 8) in bf16 into shared memory at `tile`, in the layout of the TMA
+// boxes (128-byte rows, 16-byte chunks swizzled by the row), so that
+// store_rows_bf16 can write whole rows with 16-byte stores
+template <int NC>
+__device__ __forceinline__ void stage_bf16(uint8_t* tile,
+                                           const float (&o)[NC / 2], int wq,
+                                           int g, int c) {
+#pragma unroll
+  for (int i = 0; i < NC / 2; i += 2) {
+    const int lr = wq * 16 + g + 8 * ((i >> 1) & 1);
+    const int j = i >> 2;
+    const int at = (j >> 3) * kBox + lr * 128 + (((j & 7) ^ (lr & 7)) << 4)
+                   + 4 * c;
+    *reinterpret_cast<uint32_t*>(tile + at) = pack_bf16(o[i], o[i + 1]);
+  }
+}
+
+// the backward's barriers, which have no empty half: kStages full ones
+// and one for the tiles loaded once, each completed by thread 0's
+// arrive + the bytes
+__device__ __forceinline__ void init_loads(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) mbar_init(smem_u32(bars + i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// the first nrow rows of a staged tile to head h of a bf16 [B, S, H, D]
+// tensor, rows row0 = b * S + (the tile's first row) on, D / 8 16-byte
+// chunks a row, by the block's first nthreads threads
+__device__ __forceinline__ void store_rows_bf16(const uint8_t* tile,
+                                                __nv_bfloat16* out,
+                                                size_t row0, int H, int h,
+                                                int D, int nrow,
+                                                int nthreads) {
+  const int n8 = D / 8;
+  for (int idx = threadIdx.x; idx < nrow * n8; idx += nthreads) {
+    const int r = idx / n8;
+    const int ch = idx - r * n8;
+    const int at = (ch >> 3) * kBox + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(out + ((row0 + r) * H + h) * D + ch * 8) =
+        *reinterpret_cast<const uint4*>(tile + at);
+  }
+}
+
 // The bf16 forward for head dims padded to DP (64 or 128) in shared
 // memory.  Partial = false: out [B, Sq, H, D] bf16 and lse [B, H, Sq]
 // (o0, o1); Partial = true: acc [B, H, Sq, D], m and l [B, H, Sq], fp32
@@ -947,29 +1039,390 @@ __global__ void __launch_bounds__(kTcThreads)
       if (c == 0 && rows.row[r] < Sq)
         o1[r_base + rows.row[r]] = m[r] + logf(lf[r]);
     }
-    // out in bf16 over q's tile, in the boxes' swizzled layout
+    // out in bf16 over q's tile
 #pragma unroll
-    for (int i = 0; i < DP / 2; i += 2) {
-      const int r = (i >> 1) & 1;
-      const int lr = warp * 16 + g + 8 * r;
-      const int j = i >> 2;
-      const int at = (j >> 3) * kBox + lr * 128 + (((j & 7) ^ (lr & 7)) << 4)
-                     + 4 * c;
-      *reinterpret_cast<uint32_t*>(base + at) =
-          pack_bf16(o[i] / lf[r], o[i + 1] / lf[r]);
-    }
+    for (int i = 0; i < DP / 2; ++i) o[i] /= lf[(i >> 1) & 1];
+    stage_bf16<DP>(base, o, warp, g, c);
     consumers_sync();
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o0);
-    const int n8 = D / 8;
-    for (int idx = threadIdx.x; idx < nrow * n8; idx += 128) {
-      const int r = idx / n8;
-      const int ch = idx - r * n8;
-      const int at = (ch >> 3) * kBox + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
-      *reinterpret_cast<uint4*>(
-          out + (((size_t)b * Sq + q0 + r) * H + h) * D + ch * 8) =
-          *reinterpret_cast<const uint4*>(base + at);
+    store_rows_bf16(base, static_cast<__nv_bfloat16*>(o0),
+                    (size_t)b * Sq + q0, H, h, D, nrow, 128);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 backward pair on the tensor cores: flash_bwd_dq_tc_kernel<DP>
+// and flash_bwd_dkv_tc_kernel<DP>, on the forward's ring, TMA maps and
+// wgmma forms (the design note at the top of the file).
+
+// What the dq kernel's elementwise pass needs about a thread's two rows
+struct DqRows {
+  int row[2];     // global query rows (16w + g and + 8)
+  bool live[2];   // row < Sq and the row has a live key
+  float lse[2];
+  float delta[2];
+  int c, q0, Sq, Sk, off, causal;
+  float scale;
+};
+
+// ds of the k tile at k0 from the fragments s = q k^T and dp = dO v^T:
+// p = exp(s scale - lse) under the forward's mask (evaluated only on
+// tiles that cross the causal diagonal or a ragged end; a row with no
+// live key has logit 0), ds = p (dp - delta) scale, and 0 for keys past
+// Sk and for rows past Sq or with no live key; ds is left in s
+__device__ __forceinline__ void dq_ds(float (&s)[32], const float (&dp)[32],
+                                      const DqRows& r, int k0) {
+  const bool edge = k0 + kTile > r.Sk || r.q0 + kTile > r.Sq ||
+                    (r.causal && k0 + kTile - 1 > r.q0 + r.off);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float x = s[i] * r.scale;
+    bool live = true;
+    if (edge) {
+      const int col = k0 + 8 * (i >> 2) + 2 * r.c + (i & 1);
+      const int diag = r.row[h] + r.off;
+      if (r.causal) x = diag < 0 ? 0.f : (diag >= col ? x : kNegInf);
+      live = r.live[h] && col < r.Sk;
+    }
+    const float p = exp2f((x - r.lse[h]) * kLog2e);
+    s[i] = live ? p * (dp[i] - r.delta[h]) * r.scale : 0.f;
+  }
+}
+
+// One warpgroup (64 q rows) and no producer warp (see the note at the
+// top): thread 0 issues every load, refilling a stage once a block
+// barrier shows that every warp's products have read it.  dq += ds k
+// reads k MN-major (d contiguous) through issue_pv, as p v reads v.
+template <int DP>
+__global__ void __launch_bounds__(128)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, int H, int Sq,
+                           int Sk, int D, int causal, float scale) {
+  constexpr int NB = DP / 64;
+  constexpr int kTileBytes = NB * kBox;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* base = tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
+  // q and dO resident, then kStages (k, v) pairs, then the barriers
+  const uint32_t sq = smem_u32(base);
+  const uint32_t sdo = sq + kTileBytes;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(base + (2 + 2 * kStages) * kTileBytes);
+  auto k_tile = [&](int st) { return sq + (2 + 2 * st) * kTileBytes; };
+  auto v_tile = [&](int st) { return sq + (3 + 2 * st) * kTileBytes; };
+  auto full = [&](int st) { return smem_u32(bars + st); };
+  const uint32_t q_ready = smem_u32(bars + kStages);
+
+  // the q tiles in reverse, outermost: causal blocks with the most k
+  // tiles start first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int off = Sk - Sq;
+  // rows with no live key get ds = 0, so only live keys need a k tile
+  const int q_last = min(q0 + kTile, Sq) - 1;
+  int nk = (Sk + kTile - 1) / kTile;
+  if (causal) nk = q_last + off < 0 ? 0 : min(nk, (q_last + off) / kTile + 1);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  init_loads(bars);
+  auto load_kv = [&](int kb) {  // k tile kb into stage kb % kStages
+    const int st = kb % kStages;
+    mbar_expect_tx(full(st), 2 * kTileBytes);
+    for (int bx = 0; bx < NB; ++bx) {
+      tma_load(k_tile(st) + bx * kBox, &mk, bx * 64, h, kb * kTile, b,
+               full(st));
+      tma_load(v_tile(st) + bx * kBox, &mv, bx * 64, h, kb * kTile, b,
+               full(st));
+    }
+  };
+  if (threadIdx.x == 0 && nk > 0) {
+    mbar_expect_tx(q_ready, 2 * kTileBytes);
+    for (int bx = 0; bx < NB; ++bx) {
+      tma_load(sq + bx * kBox, &mq, bx * 64, h, q0, b, q_ready);
+      tma_load(sdo + bx * kBox, &mdo, bx * 64, h, q0, b, q_ready);
+    }
+    for (int kb = 0; kb < min(nk, kStages); ++kb) load_kv(kb);
+  }
+
+  // 4 warps x 16 rows.  s and dp of tile kb are issued with dq += ds k
+  // of tile kb - 1, and ds of tile kb is formed while the latter runs;
+  // then tile kb + 2 goes into the stage tile kb - 1 leaves.
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const size_t r_base = ((size_t)b * H + h) * Sq;
+  DqRows rows;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    rows.row[r] = row;
+    rows.live[r] = row < Sq && !(causal && row + off < 0);
+    rows.lse[r] = row < Sq ? lse[r_base + row] : 0.f;
+    rows.delta[r] = row < Sq ? delta[r_base + row] : 0.f;
+  }
+  rows.c = c;
+  rows.q0 = q0;
+  rows.Sq = Sq;
+  rows.Sk = Sk;
+  rows.off = off;
+  rows.causal = causal;
+  rows.scale = scale;
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t da[4][4];
+
+  if (nk > 0) {
+    mbar_wait(q_ready, 0);
+    mbar_wait(full(0), 0);
+    issue_qk<DP>(s, sq, k_tile(0));
+    issue_qk<DP>(dp, sdo, v_tile(0));
+    wgmma_wait<0>();
+    dq_ds(s, dp, rows, 0);
+    pack_p(da, s);
+    for (int kb = 1; kb < nk; ++kb) {
+      const int st = kb % kStages;
+      const int prev = (kb - 1) % kStages;
+      mbar_wait(full(st), (kb / kStages) & 1);
+      issue_qk<DP>(s, sq, k_tile(st));  // its fence also covers da
+      issue_qk<DP>(dp, sdo, v_tile(st));
+      issue_pv<DP>(acc, da, k_tile(prev));
+      wgmma_wait<1>();  // s and dp are ready; ds k of tile kb - 1 may run
+      dq_ds(s, dp, rows, kb * kTile);
+      wgmma_wait<0>();
+      __syncthreads();  // every warp's products have read stage prev
+      if (threadIdx.x == 0 && kb + kStages - 1 < nk)
+        load_kv(kb + kStages - 1);
+      pack_p(da, s);
+    }
+    wgmma_fence();
+    issue_pv<DP>(acc, da, k_tile((nk - 1) % kStages));
+    wgmma_wait<0>();
+  }
+
+  // epilogue through q's tile (every warp's last wgmma has read it)
+  __syncthreads();
+  stage_bf16<DP>(base, acc, warp, g, c);
+  __syncthreads();
+  store_rows_bf16(base, dq, (size_t)b * Sq + q0, H, h, D,
+                  min(kTile, Sq - q0), 128);
+}
+
+// What the dkv kernel's elementwise pass needs: the fragments' rows are
+// keys, their columns the q tile's rows
+struct DkvCols {
+  int key[2];  // global keys of a thread's two rows (16w + g and + 8)
+  int c, k0, Sq, off, causal;
+  float scale;
+};
+
+// p^T and ds^T of the q tile at i0 from s^T = k q^T in st and dp^T = v
+// dO^T in dpt, with the tile's lse and delta from its ring slot (sl, sd):
+// the columns a thread holds are 8j + 2c and + 1.  q rows past Sq (TMA
+// zero-fills them, and lse 0 would give p = 1) are masked on edge
+// tiles; a q row with no live key has logit 0 and ds 0.  p^T is left in
+// st, ds^T in dpt.
+__device__ __forceinline__ void dkv_p_ds(float (&st)[32], float (&dpt)[32],
+                                         const float* sl, const float* sd,
+                                         const DkvCols& r, int i0) {
+  const bool edge = i0 + kTile > r.Sq ||
+                    (r.causal && r.k0 + kTile - 1 > i0 + r.off);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * r.c);
+    const float2 d2 = *reinterpret_cast<const float2*>(sd + 8 * j + 2 * r.c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float l = (e & 1) ? l2.y : l2.x;
+      const float d = (e & 1) ? d2.y : d2.x;
+      float x = st[i] * r.scale;
+      bool valid = true;
+      bool live = true;
+      if (edge) {
+        const int row = i0 + 8 * j + 2 * r.c + (e & 1);
+        const int diag = row + r.off;
+        if (r.causal)
+          x = diag < 0 ? 0.f : (diag >= r.key[e >> 1] ? x : kNegInf);
+        valid = row < r.Sq;
+        live = valid && !(r.causal && diag < 0);
+      }
+      const float p = valid ? exp2f((x - l) * kLog2e) : 0.f;
+      dpt[i] = live ? p * (dpt[i] - d) * r.scale : 0.f;
+      st[i] = p;
     }
   }
+}
+
+// dv += p^T dO and dk += ds^T q over one q tile, for the 64 columns of
+// dv and dk whose boxes of dO and q start at d_o and q (MN-major, d
+// contiguous); one committed group
+__device__ __forceinline__ void issue_dkv(float (&dv)[32], float (&dk)[32],
+                                          const uint32_t (&pa)[4][4],
+                                          const uint32_t (&dsa)[4][4],
+                                          uint32_t d_o, uint32_t q) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_rs(dv, pa[kk], smem_desc(d_o + kk * 2048, kBox, 1024));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_rs(dk, dsa[kk], smem_desc(q + kk * 2048, kBox, 1024));
+  wgmma_commit();
+}
+
+// One warpgroup per 64 columns of dk and dv (DP / 64 of them) and no
+// producer warp, as in the dq kernel.
+template <int DP>
+__global__ void __launch_bounds__(128 * (DP / 64))
+    flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv,
+                            const __grid_constant__ CUtensorMap mdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int H, int Sq,
+                            int Sk, int D, int causal, float scale) {
+  constexpr int NB = DP / 64;
+  constexpr int NWG = NB;  // warpgroups
+  constexpr int kTileBytes = NB * kBox;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* base = tc_smem + ((1024 - (smem_u32(tc_smem) & 1023)) & 1023);
+  // k and v resident, then kStages (q, dO) pairs, each stage's slot of
+  // the q tile's lse (64 floats) and delta (64), then the barriers
+  const uint32_t sk = smem_u32(base);
+  const uint32_t sv = sk + kTileBytes;
+  auto q_tile = [&](int st) { return sk + (2 + 2 * st) * kTileBytes; };
+  auto do_tile = [&](int st) { return sk + (3 + 2 * st) * kTileBytes; };
+  float* slots =
+      reinterpret_cast<float*>(base + (2 + 2 * kStages) * kTileBytes);
+  auto slot = [&](int st) { return slots + st * 2 * kTile; };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slots + kStages * 2 * kTile);
+  auto full = [&](int st) { return smem_u32(bars + st); };
+  const uint32_t kv_ready = smem_u32(bars + kStages);
+
+  // the k tiles in order, outermost: under a causal mask with Sq <= Sk
+  // the early k tiles see the most q tiles and start first
+  const int k0 = blockIdx.z * kTile;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int off = Sk - Sq;
+  // causal block skip (the reference's rule at flash_attention.py:262):
+  // q tiles whose last row sees no key of this tile contribute nothing.
+  // With Sq > Sk the rows without a live key (the first Sq - Sk) add
+  // dO / Sk to dv, so every q tile is read.  ib0 < the number of q tiles,
+  // since k0 - off < Sq: a block always has a q tile.
+  int ib0 = 0;
+  if (causal && off >= 0 && k0 - off > 0) ib0 = (k0 - off) / kTile;
+  const int nq = (Sq + kTile - 1) / kTile - ib0;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  init_loads(bars);
+  auto load_q = [&](int n) {  // the block's q tile n into stage n % kStages
+    const int st = n % kStages;
+    const int i0 = (ib0 + n) * kTile;
+    mbar_expect_tx(full(st), 2 * kTileBytes);
+    for (int bx = 0; bx < NB; ++bx) {
+      tma_load(q_tile(st) + bx * kBox, &mq, bx * 64, h, i0, b, full(st));
+      tma_load(do_tile(st) + bx * kBox, &mdo, bx * 64, h, i0, b, full(st));
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_ready, 2 * kTileBytes);
+    for (int bx = 0; bx < NB; ++bx) {
+      tma_load(sk + bx * kBox, &mk, bx * 64, h, k0, b, kv_ready);
+      tma_load(sv + bx * kBox, &mv, bx * 64, h, k0, b, kv_ready);
+    }
+    for (int n = 0; n < min(nq, kStages); ++n) load_q(n);
+  }
+  // lse and delta go into a stage's slot by plain loads and stores (rows
+  // of [B, H, Sq] start 16-byte aligned only when Sq % 4 == 0): thread t
+  // < 128 carries slot entry t, lse of row t (t < 64) or delta of row t -
+  // 64 of a q tile, loaded a tile ahead; the block barrier of the
+  // iteration in between orders the store before every read
+  const size_t r_base = ((size_t)b * H + h) * Sq;
+  const bool slot_thread = threadIdx.x < 2 * kTile;
+  const float* src = threadIdx.x < kTile ? lse : delta;
+  auto fetch = [&](int n) {
+    const int row = (ib0 + n) * kTile + (threadIdx.x & (kTile - 1));
+    return slot_thread && n < nq && row < Sq ? src[r_base + row] : 0.f;
+  };
+  for (int n = 0; n < min(nq, kStages); ++n)
+    if (slot_thread) slot(n)[threadIdx.x] = fetch(n);
+  float next = fetch(kStages);
+  __syncthreads();
+
+  // warpgroup wg owns columns [64 wg, 64 wg + 64) of dk and dv; each of
+  // its 4 warps 16 keys.  s^T and dp^T of q tile n are issued with the
+  // gradient products of tile n - 1, and p^T, ds^T of tile n are formed
+  // while those run; then tile n + 2 goes into the stage tile n - 1
+  // leaves.
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const DkvCols cols{{k0 + wq * 16 + g, k0 + wq * 16 + g + 8}, c, k0, Sq,
+                     off, causal, scale};
+  const uint32_t box = wg * kBox;  // this warpgroup's columns of q and dO
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+  float s[32], dp[32];
+  uint32_t pa[4][4], dsa[4][4];
+
+  mbar_wait(kv_ready, 0);
+  mbar_wait(full(0), 0);
+  issue_qk<DP>(s, sk, q_tile(0));
+  issue_qk<DP>(dp, sv, do_tile(0));
+  wgmma_wait<0>();
+  dkv_p_ds(s, dp, slot(0), slot(0) + kTile, cols, ib0 * kTile);
+  pack_p(pa, s);
+  pack_p(dsa, dp);
+  for (int n = 1; n < nq; ++n) {
+    const int st = n % kStages;
+    const int prev = (n - 1) % kStages;
+    mbar_wait(full(st), (n / kStages) & 1);
+    issue_qk<DP>(s, sk, q_tile(st));  // its fence also covers pa and dsa
+    issue_qk<DP>(dp, sv, do_tile(st));
+    issue_dkv(dv_acc, dk_acc, pa, dsa, do_tile(prev) + box,
+              q_tile(prev) + box);
+    wgmma_wait<1>();  // s^T and dp^T are ready; tile n - 1's may run
+    dkv_p_ds(s, dp, slot(st), slot(st) + kTile, cols, (ib0 + n) * kTile);
+    wgmma_wait<0>();
+    __syncthreads();  // every warp has read stage prev and its slot
+    if (n + kStages - 1 < nq) {
+      if (threadIdx.x == 0) load_q(n + kStages - 1);
+      if (slot_thread) slot(prev)[threadIdx.x] = next;
+      next = fetch(n + kStages);
+    }
+    pack_p(pa, s);
+    pack_p(dsa, dp);
+  }
+  wgmma_fence();
+  const int last = (nq - 1) % kStages;
+  issue_dkv(dv_acc, dk_acc, pa, dsa, do_tile(last) + box, q_tile(last) + box);
+  wgmma_wait<0>();
+
+  // epilogue: dk through k's tile, dv through v's (every warpgroup's last
+  // wgmma has read them), each warpgroup its own box
+  __syncthreads();
+  stage_bf16<64>(base + wg * kBox, dk_acc, wq, g, c);
+  stage_bf16<64>(base + kTileBytes + wg * kBox, dv_acc, wq, g, c);
+  __syncthreads();
+  const int nrow = min(kTile, Sk - k0);
+  const size_t row0 = (size_t)b * Sk + k0;
+  store_rows_bf16(base, dk, row0, H, h, D, nrow, 128 * NWG);
+  store_rows_bf16(base + kTileBytes, dv, row0, H, h, D, nrow, 128 * NWG);
 }
 
 constexpr size_t fwd_smem(int D) {
@@ -1095,10 +1548,75 @@ cudaError_t dispatch_fwd_tc(bool partial, int D, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+constexpr size_t bwd_tc_smem_bytes(int DP, bool dkv) {
+  // two resident tiles and kStages pairs in the ring, dkv's lse and delta
+  // slots, the barriers, and slack to align to 1024
+  return (size_t)(DP / 64) * kBox * (2 + 2 * kStages) +
+         (dkv ? sizeof(float) * 2 * kTile * kStages : 0) +
+         sizeof(uint64_t) * (kStages + 1) + 1024;
+}
+
+template <int DP>
+cudaError_t launch_bwd_tc(Which which, const Args& a, int D) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = bshd_map(&mq, a.q, a.B, a.Sq, a.H, D);
+  if (err == cudaSuccess) err = bshd_map(&mk, a.k, a.B, a.Sk, a.H, D);
+  if (err == cudaSuccess) err = bshd_map(&mv, a.v, a.B, a.Sk, a.H, D);
+  if (err == cudaSuccess) err = bshd_map(&mdo, a.dout, a.B, a.Sq, a.H, D);
+  if (err != cudaSuccess) return err;
+  if (which == kDq) {
+    static const cudaError_t ready = cudaFuncSetAttribute(
+        flash_bwd_dq_tc_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bwd_tc_smem_bytes(DP, false));
+    if (ready != cudaSuccess) return ready;
+    const int nq = (a.Sq + kTile - 1) / kTile;
+    if (nq > 65535) return cudaErrorInvalidValue;  // grid z
+    flash_bwd_dq_tc_kernel<DP><<<dim3(a.H, a.B, nq), 128,
+                                 bwd_tc_smem_bytes(DP, false), a.stream>>>(
+        mq, mk, mv, mdo, a.lse_in, a.delta,
+        static_cast<__nv_bfloat16*>(a.o0), a.H, a.Sq, a.Sk, D, a.causal,
+        a.scale);
+  } else {
+    static const cudaError_t ready = cudaFuncSetAttribute(
+        flash_bwd_dkv_tc_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bwd_tc_smem_bytes(DP, true));
+    if (ready != cudaSuccess) return ready;
+    const int nk = (a.Sk + kTile - 1) / kTile;
+    if (nk > 65535) return cudaErrorInvalidValue;  // grid z
+    flash_bwd_dkv_tc_kernel<DP><<<dim3(a.H, a.B, nk), 128 * (DP / 64),
+                                  bwd_tc_smem_bytes(DP, true), a.stream>>>(
+        mq, mk, mv, mdo, a.lse_in, a.delta,
+        static_cast<__nv_bfloat16*>(a.o0), static_cast<__nv_bfloat16*>(a.o1),
+        a.H, a.Sq, a.Sk, D, a.causal, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+// the bf16 backward pair: every head dim the kernels take, padded to 64
+// or 128
+cudaError_t dispatch_bwd_tc(Which which, int D, const Args& a) {
+  switch (D) {
+    case 16:
+    case 32:
+    case 48:
+    case 64:
+      return launch_bwd_tc<64>(which, a, D);
+    case 80:
+    case 96:
+    case 112:
+    case 128:
+      return launch_bwd_tc<128>(which, a, D);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // Above 48 KB a kernel takes dynamic shared memory only after
 // cudaFuncSetAttribute; each kernel instance makes the call once (the
-// function-local statics below are per instance).  The scalar forward
-// is launched for fp32 only: run sends bf16 forwards to dispatch_fwd_tc.
+// function-local statics below are per instance).  The scalar kernels
+// are launched for fp32 only: run sends bf16 to dispatch_fwd_tc and
+// dispatch_bwd_tc.
 template <int D, bool Partial>
 cudaError_t launch_fwd_fp32(const Args& a) {
   static const cudaError_t ready = cudaFuncSetAttribute(
@@ -1175,10 +1693,7 @@ int run(Which which, int D, int is_bf16, const Args& a) {
                            : launch_fwd_fp32<decltype(d)::value, true>(a);
     });
   }
-  if (is_bf16)
-    return (int)dispatch_d(D, [&](auto d) {
-      return launch_bwd<__nv_bfloat16, decltype(d)::value>(which, a);
-    });
+  if (is_bf16) return (int)dispatch_bwd_tc(which, D, a);
   return (int)dispatch_d(D, [&](auto d) {
     return launch_bwd<float, decltype(d)::value>(which, a);
   });

@@ -7,7 +7,9 @@ The kernels build and run only on the card, so a drift between the
 there.  This parses the source and checks, for each of the four
 entries, the pointer operands, the trailing ints (in the order
 ``_launch`` passes them), the float scale and the stream, and that the
-bf16 forward's dispatch takes exactly ``HEAD_DIMS``.
+bf16 forward's and bf16 backward's dispatches (``dispatch_fwd_tc``,
+``dispatch_bwd_tc``) and the scalar kernels' (``dispatch_d``) take
+exactly ``HEAD_DIMS``.
 """
 
 from __future__ import annotations
@@ -74,15 +76,23 @@ def test_entry_matches_the_wrapper_types(name, monkeypatch):
     assert params[-1] == ("void*", "stream")
 
 
-def test_bf16_forward_takes_the_wrappers_head_dims():
-    body = re.search(r"cudaError_t dispatch_fwd_tc\(.*?\n}\n", SOURCE,
+def _dispatch_dims(name):
+    """The head dims of the ``case`` labels of the C++ function ``name``."""
+    body = re.search(rf"cudaError_t {name}\(.*?\n}}\n", SOURCE,
                      re.S).group(0)
-    dims = tuple(int(d) for d in re.findall(r"case (\d+):", body))
-    assert dims == fa.HEAD_DIMS
+    return tuple(int(d) for d in re.findall(r"case (\d+):", body))
+
+
+def test_bf16_forward_takes_the_wrappers_head_dims():
+    assert _dispatch_dims("dispatch_fwd_tc") == fa.HEAD_DIMS
+
+
+def test_bf16_backward_takes_the_wrappers_head_dims():
+    assert _dispatch_dims("dispatch_bwd_tc") == fa.HEAD_DIMS
+    # and run sends every bf16 backward there, not to the scalar kernels
+    body = re.search(r"int run\(Which which.*?\n}\n", SOURCE, re.S).group(0)
+    assert "if (is_bf16) return (int)dispatch_bwd_tc(which, D, a);" in body
 
 
 def test_backward_and_fp32_dispatch_take_the_wrappers_head_dims():
-    body = re.search(r"cudaError_t dispatch_d\(.*?\n}\n", SOURCE,
-                     re.S).group(0)
-    dims = tuple(int(d) for d in re.findall(r"case (\d+):", body))
-    assert dims == fa.HEAD_DIMS
+    assert _dispatch_dims("dispatch_d") == fa.HEAD_DIMS
