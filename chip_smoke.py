@@ -2,6 +2,13 @@
 and check them.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --decode-times ROOT [--seed N]
+
+The second form only times the decode kernels of the checkout at ROOT
+(its own ``flexflow_tpu_torch``, built from its own sources) at phase
+3's serving shape with phase 3's timer, and prints one JSON line: run
+it for two checkouts in one process order (parent, change, change,
+parent) to compare two commits on one card.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -15,7 +22,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    backward pair ``flash_bwd_dq_tc_kernel`` and
    ``flash_bwd_dkv_tc_kernel``, each at both padded head dims D' = 64
    and 128) run their products as HGMMA (tensor-core) instructions and
-   spill nothing to local memory, and print their registers;
+   spill nothing to local memory, and print their registers; the same
+   for the decode kernels at the serving head dim 64
+   (``rpa_split_kernel`` on fp32 and bf16 pools,
+   ``rpa_quant_split_kernel`` on int8 pools: bound by bytes, so no HGMMA
+   is asked of them): no spills, registers and resident blocks per SM
+   printed;
 3. kernels: call each kernel at its main path's shapes (the decode
    kernel on fp32 and bf16 pools, the int8 decode kernel on the same
    pages quantized, with its drift from the fp32 pool; the three flash
@@ -30,9 +42,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernels' outputs row by row as well (each row's error over that
    row's largest plain value: the forwards' out and acc, the backward's
    dq, dk and dv); check that two calls of the backward pair at the
-   training shape give bit-equal gradients; sweep each kernel over odd
-   shapes (including lengths that cross a 64-row tile edge by one) and
-   check that head dims it does not take are refused;
+   training shape give bit-equal gradients; check that the decode
+   kernels (fp32, bf16 and int8 pools) give bit-equal outputs on two
+   calls at the serving shape and the same bits for the 1024-token
+   sequence alone as in the batch, and hold them against their plain
+   versions at lengths on the split edges (0, 1, split - 1, split,
+   split + 1, around two splits, the cap - 1 and the cap); sweep each
+   kernel over odd shapes (including lengths that cross a 64-row tile
+   edge by one) and check that head dims it does not take are refused;
 4. serving path: build the repo's GPT decode model at GPT-2-small widths
    (12 layers, hidden 768, 12 heads, vocab 32000, 32 frame slots, pages
    of 16 tokens, 1024-token sequences) with random weights from the
@@ -94,6 +111,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -132,6 +150,10 @@ LANE_EXPIRING = 40
 LANE_PROFILE_WARM = 40
 PARITY_FRAMES = 8
 TIMING_RUNS = 25
+# about 0.1 ms of device spin before each timed run (time_ms): longer
+# than a slow host's dispatch of one wrapper call, which otherwise lands
+# in the window of a kernel as short as the decode pair's
+SPIN_CYCLES = 200_000
 PROFILE_WARM_FRAMES = 300  # past the first admissions: slots full
 PROFILE_FRAMES = 20
 
@@ -283,14 +305,11 @@ def phase_build():
     return paths
 
 
-def phase_sass(lib):
-    """The bf16 flash kernels' products run on the tensor cores: the SASS
-    of the forward ``flash_fwd_tc_kernel`` (both values of Partial) and of
-    the backward pair ``flash_bwd_dq_tc_kernel`` and
-    ``flash_bwd_dkv_tc_kernel``, each at D' = 64 (head dims up to 64) and
-    D' = 128 (80 to 128), holds HGMMA instructions, and no instance
-    spills to local memory (``cuobjdump -res-usage`` LOCAL 0 and no STL
-    in the SASS)."""
+def sass_report(lib, kernels):
+    """label -> {symbol, hgmma, stl, REG, STACK, SHARED, LOCAL} for each
+    SASS function of ``lib`` whose mangled name holds every fragment of
+    ``kernels[label]`` (exactly one must), from ``cuobjdump -sass`` and
+    ``-res-usage``."""
     from flexflow_tpu_torch.kernels.build import cuda_tool
 
     tool = cuda_tool("cuobjdump")
@@ -314,16 +333,10 @@ def phase_sass(lib):
         r"(REG|STACK|SHARED|LOCAL):(\d+)", m.group(2))}
         for m in re.finditer(r"Function (\S+):\s*\n(.*)",
                              dumps["-res-usage"])}
-    kernels = {}
-    for dp, partial in itertools.product((64, 128), (False, True)):
-        kernels[f"fwd D'={dp} partial={partial}"] = (
-            f"flash_fwd_tc_kernelILi{dp}ELb{int(partial)}E")
-    for kind, dp in itertools.product(("dq", "dkv"), (64, 128)):
-        kernels[f"{kind} D'={dp}"] = f"flash_bwd_{kind}_tc_kernelILi{dp}E"
     report = {}
-    for label, key in kernels.items():
-        names = [n for n in sass if key in n]
-        check(len(names) == 1, f"{len(names)} SASS functions match {key}")
+    for label, keys in kernels.items():
+        names = [n for n in sass if all(k in n for k in keys)]
+        check(len(names) == 1, f"{len(names)} SASS functions match {keys}")
         lines = sass[names[0]]
         hgmma = sum("HGMMA" in ln for ln in lines)
         stl = sum(re.search(r"\bSTL(\.|\s)", ln) is not None
@@ -331,25 +344,75 @@ def phase_sass(lib):
         res = usage.get(names[0], {})
         report[label] = {"symbol": names[0], "hgmma": hgmma, "stl": stl,
                          **res}
-    print("bf16 flash SASS: " + json.dumps(report))
+    return report
+
+
+def check_no_spills(report):
     for r in report.values():
-        check(r["hgmma"] > 0, f"no HGMMA in {r['symbol']}: its products do "
-              f"not run on the tensor cores")
         check(r["stl"] == 0 and r.get("LOCAL", 0) == 0,
               f"{r['symbol']} spills to local memory: {r['stl']} STL, "
               f"LOCAL {r.get('LOCAL')}")
 
 
+def phase_sass(libs):
+    """The bf16 flash kernels' products run on the tensor cores: the SASS
+    of the forward ``flash_fwd_tc_kernel`` (both values of Partial) and of
+    the backward pair ``flash_bwd_dq_tc_kernel`` and
+    ``flash_bwd_dkv_tc_kernel``, each at D' = 64 (head dims up to 64) and
+    D' = 128 (80 to 128), holds HGMMA instructions, and no instance
+    spills to local memory (``cuobjdump -res-usage`` LOCAL 0 and no STL
+    in the SASS).  The decode kernels at the serving head dim 64
+    (``rpa_split_kernel`` on fp32 and bf16 pools,
+    ``rpa_quant_split_kernel`` on int8; bound by bytes, so no HGMMA is
+    expected) spill nothing either; their registers and resident blocks
+    per SM are printed."""
+    from flexflow_tpu_torch.kernels.ragged_paged_attention import (
+        blocks_per_sm,
+    )
+
+    kernels = {}
+    for dp, partial in itertools.product((64, 128), (False, True)):
+        kernels[f"fwd D'={dp} partial={partial}"] = (
+            f"flash_fwd_tc_kernelILi{dp}ELb{int(partial)}E",)
+    for kind, dp in itertools.product(("dq", "dkv"), (64, 128)):
+        kernels[f"{kind} D'={dp}"] = (f"flash_bwd_{kind}_tc_kernelILi{dp}E",)
+    report = sass_report(libs["flash_attention"], kernels)
+    print("bf16 flash SASS: " + json.dumps(report))
+    for r in report.values():
+        check(r["hgmma"] > 0, f"no HGMMA in {r['symbol']}: its products do "
+              f"not run on the tensor cores")
+    check_no_spills(report)
+
+    decode = sass_report(libs["ragged_paged_attention"], {
+        "fp32": ("16rpa_split_kernelIfLi64E",),
+        "bf16": ("16rpa_split_kernelI", "bfloat16", "Li64E"),
+        "int8": ("22rpa_quant_split_kernelILi64E",)})
+    for pool, r in decode.items():
+        r["blocks_per_sm"] = blocks_per_sm(pool, 64)
+    print("decode SASS (D=64): " + json.dumps(decode))
+    check_no_spills(decode)
+
+
 # ---------------------------------------------------------------------------
-def time_ms(fn, flush):
+def time_ms(fn, flush, read_flush=False):
     """Median milliseconds of ``fn`` over TIMING_RUNS CUDA-event-timed
     runs, the L2 cache flushed before each (each layer's pool is cold
-    when the real decode step reaches it)."""
+    when the real decode step reaches it): by zeroing ``flush``, which
+    leaves the L2 full of dirty lines whose write-back may land in the
+    window, or with ``read_flush`` by reading it (clean lines).  Between
+    the flush and the start event the device spins for SPIN_CYCLES, so
+    that the host has issued ``fn``'s launches before the device reaches
+    the start event: the window times the device, not the host's
+    dispatch."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMING_RUNS):
-        flush.zero_()
+        if read_flush:
+            flush.sum()
+        else:
+            flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -379,17 +442,9 @@ def rpa_bound_ms(lens, page_size, cap, h, d, kv_bytes, name,
                                  else "operations")
 
 
-def phase_kernels(name, seed):
-    from flexflow_tpu_torch.kernels.ragged_paged_attention import (
-        gather_kv_pages,
-        gather_kv_pages_quant,
-        ragged_paged_attention,
-        ragged_paged_attention_quant,
-        ragged_paged_attention_quant_reference,
-        ragged_paged_attention_reference,
-    )
-    from flexflow_tpu_torch.ops.decode_attention import _quantize_kv
-
+def serving_operands(seed):
+    """Phase 3's decode operands at the serving shape: (lens, q, k, v,
+    page_table, seq_lens), fp32 pools, on the card."""
     b, h = FRAME_SLOTS, FULL["num_heads"]
     d = FULL["hidden"] // h
     ps, pps = FULL["page_size"], FULL["pages_per_seq"]
@@ -405,8 +460,31 @@ def phase_kernels(name, seed):
     v32 = torch.randn((num_pages, ps, h, d), generator=gen, device=dev)
     pt = torch.as_tensor(table, dtype=torch.int32, device=dev)
     sl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
-    pos = torch.arange(MAX_SEQ, device=dev)
+    return lens, q, k32, v32, pt, sl
+
+
+def flush_buffer():
+    return torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB
+
+
+def phase_kernels(name, seed):
+    from flexflow_tpu_torch.kernels.ragged_paged_attention import (
+        gather_kv_pages,
+        gather_kv_pages_quant,
+        ragged_paged_attention,
+        ragged_paged_attention_quant,
+        ragged_paged_attention_quant_reference,
+        ragged_paged_attention_reference,
+    )
+    from flexflow_tpu_torch.ops.decode_attention import _quantize_kv
+
+    b, h = FRAME_SLOTS, FULL["num_heads"]
+    d = FULL["hidden"] // h
+    ps, pps = FULL["page_size"], FULL["pages_per_seq"]
+    num_pages = b * pps
+    lens, q, k32, v32, pt, sl = serving_operands(seed)
+    flush = flush_buffer()
+    pos = torch.arange(MAX_SEQ, device=q.device)
     mask = (pos[None, :] < sl[:, None])[:, None, None, :]  # [B,1,1,S]
     results = {}
     for pool in ("fp32", "bf16"):
@@ -423,12 +501,18 @@ def phase_kernels(name, seed):
         check(err <= KERNEL_TOL,
               f"kernel vs plain version on the {pool} pool: max abs err "
               f"{err:.3e} > {KERNEL_TOL}")
+        check_deterministic(
+            ragged_paged_attention, got,
+            lambda rows: (q[rows], kp, vp, pt[rows], sl[rows]), pool)
         kd = gather_kv_pages(kp, pt).transpose(1, 2).contiguous()
         vd = gather_kv_pages(vp, pt).transpose(1, 2).contiguous()
         qd = q.to(dt)[:, :, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         kernel_ms = time_ms(
             lambda: ragged_paged_attention(q, kp, vp, pt, sl), flush)
+        read_flush_ms = time_ms(
+            lambda: ragged_paged_attention(q, kp, vp, pt, sl), flush,
+            read_flush=True)
         plain_ms = time_ms(
             lambda: ragged_paged_attention_reference(q, kp, vp, pt, sl),
             flush)
@@ -436,6 +520,7 @@ def phase_kernels(name, seed):
         bound_ms, bound_by = rpa_bound_ms(lens, ps, MAX_SEQ, h, d,
                                           kp.element_size(), name)
         results[pool] = dict(max_abs_err=err, ms=kernel_ms,
+                             ms_read_flush=read_flush_ms,
                              plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
         print(f"kernel ragged_paged_attention [{pool} pool, B={b} H={h} "
@@ -464,6 +549,9 @@ def phase_kernels(name, seed):
     drift = float((got - fp32_out).abs().max())
     check(drift < INT8_DRIFT_TOL, f"int8 vs fp32 pool drift {drift:.3e} >= "
           f"{INT8_DRIFT_TOL}")
+    check_deterministic(
+        ragged_paged_attention_quant, got,
+        lambda rows: (q[rows], kq, vq, ks, vs, pt[rows], sl[rows]), "int8")
     kd = gather_kv_pages_quant(kq, ks, pt).transpose(1, 2).contiguous()
     vd = gather_kv_pages_quant(vq, vs, pt).transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -472,6 +560,8 @@ def phase_kernels(name, seed):
     results["int8"] = dict(
         max_abs_err=err, rel_err=rel, drift_vs_fp32_pool=drift,
         ms=time_ms(lambda: ragged_paged_attention_quant(*args), flush),
+        ms_read_flush=time_ms(lambda: ragged_paged_attention_quant(*args),
+                              flush, read_flush=True),
         plain_ms=time_ms(
             lambda: ragged_paged_attention_quant_reference(*args), flush),
         library_ms=time_ms(lambda: sdpa(q[:, :, None, :], kd, vd,
@@ -482,8 +572,129 @@ def phase_kernels(name, seed):
           f"{int(np.clip(lens, 0, MAX_SEQ).sum())} live tokens]: "
           + json.dumps(results["int8"]))
     del kd, vd
+    check_split_edges(seed)
     sweep_kernel_shapes(seed)
     return results
+
+
+def decode_times(root, seed):
+    """``--decode-times ROOT``: the decode kernels of the checkout at
+    ``root`` (its ``flexflow_tpu_torch``) on phase 3's serving operands,
+    each pool's kernel timed by ``time_ms`` after a zeroing and after a
+    reading flush, with its max abs error against that checkout's plain
+    version (int8: of max(1, |plain|))."""
+    sys.path.insert(0, os.path.abspath(root))
+    import flexflow_tpu_torch
+    from flexflow_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_quant,
+        ragged_paged_attention_quant_reference,
+        ragged_paged_attention_reference,
+    )
+    from flexflow_tpu_torch.ops.decode_attention import _quantize_kv
+
+    package = os.path.dirname(os.path.abspath(flexflow_tpu_torch.__file__))
+    check(package == os.path.join(os.path.abspath(root),
+                                  "flexflow_tpu_torch"),
+          f"--decode-times {root}: imported the package at {package}")
+    _, q, k32, v32, pt, sl = serving_operands(seed)
+    kq, ks = _quantize_kv(k32)
+    vq, vs = _quantize_kv(v32)
+    flush = flush_buffer()
+    report = {"package": package}
+    for pool, kernel, plain, operands in (
+            ("fp32", ragged_paged_attention, ragged_paged_attention_reference,
+             (q, k32, v32, pt, sl)),
+            ("bf16", ragged_paged_attention, ragged_paged_attention_reference,
+             (q, k32.bfloat16(), v32.bfloat16(), pt, sl)),
+            ("int8", ragged_paged_attention_quant,
+             ragged_paged_attention_quant_reference,
+             (q, kq, vq, ks, vs, pt, sl))):
+        ref = plain(*operands)
+        err = float((kernel(*operands) - ref).abs().max())
+        if pool == "int8":
+            err /= max(1.0, float(ref.abs().max()))
+        check(err <= KERNEL_TOL, f"--decode-times {root}, {pool} pool: "
+              f"error {err:.3e} > {KERNEL_TOL}")
+        report[pool] = dict(
+            max_err=err, ms=time_ms(lambda: kernel(*operands), flush),
+            ms_read_flush=time_ms(lambda: kernel(*operands), flush,
+                                  read_flush=True))
+    print("decode times: " + json.dumps(report))
+
+
+def bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def check_deterministic(kernel, got, operands, pool):
+    """At the serving shape: a second call gives the same bits, and the
+    1024-token sequence (row 5) alone gives the same bits as its row in
+    the 32-row batch (its splits do not depend on the batch)."""
+    every = slice(None)
+    again = kernel(*operands(every))
+    alone = kernel(*operands(slice(5, 6)))
+    torch.cuda.synchronize()
+    check(bool(torch.equal(bits(again), bits(got))),
+          f"two calls on the {pool} pool differ")
+    check(bool(torch.equal(bits(alone[0]), bits(got[5]))),
+          f"the {pool} pool's 1024-token row differs alone and in the batch")
+
+
+def check_split_edges(seed):
+    """Sequence lengths at the kernels' split edges (0, 1, split - 1,
+    split, split + 1, the same around two splits, the cap - 1 and the
+    cap) at the serving widths, on fp32, bf16 and int8 pools, against
+    the plain versions."""
+    from flexflow_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_quant,
+        ragged_paged_attention_quant_reference,
+        ragged_paged_attention_reference,
+        split_tokens,
+    )
+    from flexflow_tpu_torch.ops.decode_attention import _quantize_kv
+
+    split = split_tokens()
+    lens = (0, 1, split - 1, split, split + 1, 2 * split - 1, 2 * split,
+            2 * split + 1, MAX_SEQ - 1, MAX_SEQ)
+    h = FULL["num_heads"]
+    d = FULL["hidden"] // h
+    ps, pps = FULL["page_size"], FULL["pages_per_seq"]
+    b = len(lens)
+    num_pages = b * pps
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    k = torch.randn((num_pages, ps, h, d), generator=gen, device=dev)
+    v = torch.randn((num_pages, ps, h, d), generator=gen, device=dev)
+    pt = torch.randperm(num_pages, generator=gen, device=dev).reshape(
+        b, pps).to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    errs = {}
+    for pool, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        kp, vp = k.to(dt), v.to(dt)
+        got = ragged_paged_attention(q, kp, vp, pt, sl)
+        ref = ragged_paged_attention_reference(q, kp, vp, pt, sl)
+        torch.cuda.synchronize()
+        errs[pool] = float((got - ref).abs().max())
+        check(bool(got[0].abs().max() == 0),
+              f"{pool} pool: a sequence of length 0 must give zeros")
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+    args = (q, kq, vq, ks, vs, pt, sl)
+    got = ragged_paged_attention_quant(*args)
+    ref = ragged_paged_attention_quant_reference(*args)
+    torch.cuda.synchronize()
+    errs["int8"] = float((got - ref).abs().max()) / max(
+        1.0, float(ref.abs().max()))
+    check(bool(got[0].abs().max() == 0),
+          "int8 pool: a sequence of length 0 must give zeros")
+    print(f"kernel split edges (split {split} tokens, lengths {lens}): "
+          + json.dumps(errs))
+    for pool, err in errs.items():
+        check(err <= KERNEL_TOL, f"split edges, {pool} pool: error "
+              f"{err:.3e} > {KERNEL_TOL}")
 
 
 def sweep_kernel_shapes(seed):
@@ -718,8 +929,9 @@ def profile_window(step, n, unit):
     """``torch.profiler`` over ``n`` calls of ``step``.  Reports the host
     wall time of the window, the device busy time (the union of kernel
     and copy intervals) and its share, device kernels per ``unit``, and
-    the largest device-time items.  The device-side spans of the
-    executor's phase annotations (``ff.phase/...``, when armed) cover
+    the largest device-time items, and the decode-attention kernels'
+    (``rpa_*``) device time and share of busy.  The device-side spans of
+    the executor's phase annotations (``ff.phase/...``, when armed) cover
     kernels rather than being kernels: they are reported apart, as the
     device time each phase spans per ``unit``.  An empty device trace is
     reported as not measured."""
@@ -760,6 +972,7 @@ def profile_window(step, n, unit):
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    decode = sum(t for name, t in by_name.items() if "rpa_" in name)
     return {
         f"{unit}s": n,
         f"{unit}_wall_ms": wall_us / n / 1e3,
@@ -769,6 +982,8 @@ def profile_window(step, n, unit):
         f"top_device_ms_per_{unit}": {
             name[:60]: t / n / 1e3 for name, t in top},
         f"phase_span_device_ms_per_{unit}": phases,
+        f"decode_attention_ms_per_{unit}": decode / n / 1e3,
+        "decode_attention_share_of_busy": decode / busy,
     }
 
 
@@ -1832,11 +2047,18 @@ def phase_sp_train(seed, name):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-times", metavar="ROOT", default=None,
+                    help="only time the decode kernels of the checkout "
+                         "at ROOT at phase 3's serving shape")
     args = ap.parse_args(argv)
+    if args.decode_times is not None:
+        phase_device()
+        decode_times(args.decode_times, args.seed)
+        return 0
 
     name = phase_device()
     libs = phase_build()
-    phase_sass(libs["flash_attention"])
+    phase_sass(libs)
     rpa = phase_kernels(name, args.seed)
     flash = phase_flash_kernels(name, args.seed)
     partial = phase_partial_kernel(name, args.seed)
@@ -1847,6 +2069,8 @@ def main(argv=None) -> int:
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
+        "kernel": {"fp32": "rpa_split_kernel<float, 64>",
+                   "bf16": "rpa_split_kernel<__nv_bfloat16, 64>"},
         "route": "cuda",
         "source": "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "flexflow_tpu/kernels/ragged_paged_attention.py:132",
@@ -1860,6 +2084,7 @@ def main(argv=None) -> int:
         "bf16_pool": rpa["bf16"],
     }, {
         "name": "ragged_paged_attention_quant",
+        "kernel": "rpa_quant_split_kernel<64>",
         "route": "cuda",
         "source": "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "flexflow_tpu/kernels/ragged_paged_attention.py:233",

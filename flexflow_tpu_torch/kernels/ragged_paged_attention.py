@@ -17,13 +17,18 @@ version ``ragged_paged_attention_reference`` for tensors on the CPU.
 On a CUDA tensor it launches the kernel or raises; nothing falls back.
 Both follow the TPU kernel's semantics, including zeros for a sequence
 of length 0 (the reference's XLA fallback gives the mean of V there;
-the decode op always passes lengths >= 1).
+the decode op always passes lengths >= 1).  The kernel cuts each
+sequence into fixed runs of tokens (split-KV): the wrapper gives it a
+workspace for the splits' partials (``torch.empty`` per call) and
+per-(b, h) arrival counters, kept zeroed per device and stream
+(``_counters``), by which the last split of each (b, h) to finish
+merges the partials in split order.
 
 An INT8 pool carries one fp32 scale per (page, slot), shared across
 heads, for k and for v (``k_scale``/``v_scale`` [num_pages,
 page_size]).  ``ragged_paged_attention_quant`` launches the CUDA kernel
-that replaces ``_rpa_kernel_quant`` (dequantising inside its page loop,
-so only int8 bytes and the scales leave device memory), with its own
+that replaces ``_rpa_kernel_quant`` (dequantising in registers, so
+only int8 bytes and the scales leave device memory), with its own
 ``.launches`` count, and ``ragged_paged_attention_quant_reference`` is
 its plain version: gather, dequantise, the same plain softmax.
 
@@ -153,31 +158,92 @@ def _check(q, k_pages, v_pages, page_table, seq_lens,
                          f"{sorted(map(str, devices))}")
 
 
+# ctypes types of the library's C entries: (argtypes, restype)
+_ENTRY_TYPES = {
+    # q, k, v, page_table, seq_lens, out, workspace, counters; B, H, D,
+    # num_pages, page_size, pages_per_seq, kv_is_bf16; scale; stream
+    "ffrpa_launch": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p]),
+    # q, k, v, k_scale, v_scale, page_table, seq_lens, out, workspace,
+    # counters; B, H, D, num_pages, page_size, pages_per_seq; scale;
+    # stream
+    "ffrpa_quant_launch": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                           + [ctypes.c_float, ctypes.c_void_p]),
+    "ffrpa_split_tokens": [],
+    # pool (0 fp32, 1 bf16, 2 int8), D, int* blocks
+    "ffrpa_blocks_per_sm": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_entry(symbol: str = "ffrpa_launch"):
     """A C entry point of the built kernel library, typed once:
-    ``ffrpa_launch`` (fp32/bf16 pools) or ``ffrpa_quant_launch`` (int8
-    pools)."""
+    ``ffrpa_launch`` (fp32/bf16 pools), ``ffrpa_quant_launch`` (int8
+    pools), ``ffrpa_split_tokens`` (tokens per split) or
+    ``ffrpa_blocks_per_sm``."""
     from flexflow_tpu_torch.kernels.build import load_library
 
     fn = getattr(load_library(_KERNEL_SOURCE), symbol)
-    if symbol == "ffrpa_launch":
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = _ENTRY_TYPES[symbol]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_checks(q, *tensors):
+@functools.lru_cache(maxsize=None)
+def split_tokens() -> int:
+    """Tokens per split of the built kernels (a constant of the source)."""
+    return _kernel_entry("ffrpa_split_tokens")()
+
+
+def blocks_per_sm(pool: str, head_dim: int) -> int:
+    """Resident blocks per SM of the card's decode kernel for ``pool``
+    ("fp32", "bf16" or "int8") at ``head_dim``, as the CUDA occupancy
+    calculator gives it."""
+    blocks = ctypes.c_int(0)
+    err = _kernel_entry("ffrpa_blocks_per_sm")(
+        ("fp32", "bf16", "int8").index(pool), head_dim,
+        ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"ffrpa_blocks_per_sm failed: cudaError {err}")
+    return blocks.value
+
+
+# (device index, stream) -> int32 per-(b, h) arrival counters, all zero
+# between calls: the kernel's last split of each (b, h) resets its own
+_COUNTERS = {}
+
+
+def _counters(q, n: int):
+    """At least ``n`` zeroed int32 counters for calls on q's device and
+    the current stream (launches on one stream are ordered, so calls
+    there share them)."""
+    key = (q.device.index, torch.cuda.current_stream().cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=q.device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def _workspace(q, page_size, pages_per_seq):
+    """The splits' partials (m, l, acc) in fp32, any contents, and the
+    arrival counters."""
+    b, h, d = q.shape
+    splits = -(-page_size * pages_per_seq // split_tokens())
+    ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    return ws, _counters(q, b * h)
+
+
+def _launch_checks(q, k_pages, v_pages, *tensors):
     d = q.shape[-1]
     if d % 32 or not 32 <= d <= 256:
         raise ValueError(f"the CUDA kernel takes head dims that are "
                          f"multiples of 32 up to 256, got {d}")
-    if not all(t.is_contiguous() for t in (q, *tensors)):
+    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, *tensors)):
         raise ValueError("the CUDA kernel takes contiguous operands")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("the CUDA kernel takes pools aligned to 16 bytes")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"operands on {q.device} but the current CUDA "
                          f"device is {torch.cuda.current_device()}")
@@ -187,9 +253,11 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
     b, h, d = q.shape
     _launch_checks(q, k_pages, v_pages, page_table, seq_lens)
     out = torch.empty_like(q)
+    ws, counters = _workspace(q, k_pages.shape[1], page_table.shape[1])
     err = _kernel_entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), counters.data_ptr(),
         b, h, d, k_pages.shape[0], k_pages.shape[1], page_table.shape[1],
         int(k_pages.dtype == torch.bfloat16), float(scale),
         torch.cuda.current_stream().cuda_stream)
@@ -231,13 +299,13 @@ def _launch_quant(q, k_pages, v_pages, k_scale, v_scale, page_table,
     b, h, d = q.shape
     _launch_checks(q, k_pages, v_pages, k_scale, v_scale, page_table,
                    seq_lens)
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("the int8 kernel takes pools aligned to 16 bytes")
     out = torch.empty_like(q)
+    ws, counters = _workspace(q, k_pages.shape[1], page_table.shape[1])
     err = _kernel_entry("ffrpa_quant_launch")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), b, h, d, k_pages.shape[0],
+        seq_lens.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), b, h, d, k_pages.shape[0],
         k_pages.shape[1], page_table.shape[1], float(scale),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
