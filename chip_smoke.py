@@ -54,12 +54,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (12 layers, hidden 768, 12 heads, vocab 32000, 32 frame slots, pages
    of 16 tokens, 1024-token sequences) with random weights from the
    seed, compile it on the card and serve 48 seeded requests through
-   ``ContinuousBatchingExecutor``; check the kernel ran 12 times per
-   frame, hold the first 8 frames' logits against the same path with
-   the plain attention, and check batched serving is token-identical
-   to serving 2 of the requests alone; then profile 20 steady frames
-   (``torch.profiler``): device busy time and idle share, kernels per
-   frame, the largest device-time items;
+   ``ContinuousBatchingExecutor``, each frame a replay of the captured
+   frame graph (compiler/graphs.py; warmed up and captured before the
+   run), then the same requests again eagerly under ``eager()``; check
+   the kernel ran 12 times per frame on both sides (captured: 12 per
+   replay x one replay per frame), that both sides give the same
+   tokens and the same logits bit for bit (every frame's fingerprint,
+   the first 8 frames whole), hold the first 8 frames' logits against
+   the same path with the plain attention, and check batched serving is
+   token-identical to serving 2 of the requests alone; print both
+   sides' frame p50/p99 and tokens/s; then profile 20 steady frames on
+   each side (``torch.profiler``): device busy time and idle share,
+   kernels per frame, the largest device-time items;
 5. serving lane: the same model with int8 KV pools
    (``FFConfig(kv_precision="int8", prefill_chunk=32,
    serve_slo_classes="interactive:1:0,batch:0:0")``), prompts through
@@ -67,24 +73,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    SLO classes, the event bus and the request tracer armed: 48 batch
    requests at frame 0 (24 behind a shared 256-token system prompt, one
    diverging mid-page, one with a 1-frame deadline) and 4 interactive
-   ones at frame 1 that preempt; check every served request's tokens,
-   the int8 kernel's 12 launches per frame, the prefill tokens counted
-   from the admissions, the preemptions, the expiry, the copy-on-write,
-   the prefix hits, every span tree and event, the first 8 frames
-   against the plain attention, and 2 sharers served alone; print frame
-   and TTFT times (split into queue, prefill and first frame), TPOT and
-   tokens/s; profile 20 frames;
+   ones at frame 1 that preempt, with frames and chunk passes replaying
+   their captured graphs; check every served request's tokens, the
+   int8 kernel's 12 launches per frame (12 per replay), a replay per
+   chunk pass, the prefill tokens counted from the admissions, the
+   preemptions, the expiry, the copy-on-write, the prefix hits, every
+   span tree and event, the first 8 frames against the plain attention,
+   and 2 sharers served alone; then the same traffic eagerly, checked
+   bit for bit against the captured run (tokens, every frame's logits,
+   the schedule); print both sides' frame and TTFT times (split into
+   queue, prefill and first frame), TPOT, tokens/s and each chunk
+   pass's host and device ms; profile 20 frames on each side;
 6. training path: free the serving model; build the repo's GPT at its
    full default widths (``build_gpt``: 12 layers, hidden 768, 12 heads,
    ff 3072, vocab 32000, seq 1024) with batch 8, bf16 compute, Adam,
    per-position sparse CCE and accuracy; compare the first batch's loss
    and gradients on the flash route with the ``use_flash=False`` route;
-   ``fit`` 2 epochs over 20 seeded batches (40 steps) and check that
-   each flash kernel launched 12 times per step, that every step's loss
-   is finite and that the loss on the first batch fell; print step time
-   p50/p99, tokens/s and MFU (3 x the graph's forward FLOPs against the
-   card's dense bf16 peak);
-   profile 3 steady steps;
+   from the same start weights run 4 steps captured, 4 eagerly and one
+   ``train_steps`` call over the 4 batches stacked, and check their
+   losses and weights bit-equal; ``fit`` 2 epochs over 20 seeded
+   batches (40 steps) captured, with ``trace_steps=4`` and eagerly,
+   each from the start weights, and check their step losses and final
+   weights bit-equal, that each flash kernel launched 12 times per step
+   (captured: 12 per replay of a step, 48 per replay of 4), that every
+   step's loss is finite and that the loss on the first batch fell;
+   print each fit's tokens/s and MFU (3 x the graph's forward FLOPs
+   against the card's dense bf16 peak) and both sides' step time
+   p50/p99; profile 3 steady steps on each side;
 7. sequence-parallel training path: the same model at seq 4096, batch 2,
    split over 4 ranks (``runtime.distributed.spawn``: one card each with
    NCCL on a 4-card machine, else all on card 0 with the shared-card
@@ -107,6 +122,7 @@ It needs one card; with four it runs phase 7 one rank per card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import itertools
 import json
@@ -168,6 +184,7 @@ TRAIN_EPOCHS = 2
 TOKEN_RANGE = 512
 ADAM_ALPHA = 3e-4
 TIMED_STEPS = 10
+TRACE_STEPS = 4  # fit(trace_steps=4) against fit(trace_steps=1)
 PROFILE_STEPS = 3
 # (Sq, Sk) pairs that cross a 64-row tile edge by one, in both sweeps
 TILE_EDGE_PAIRS = ((63, 65), (65, 63), (64, 64), (128, 129), (129, 128))
@@ -804,8 +821,31 @@ def zero_state(model):
         t.zero_()
 
 
+def fingerprint(logits):
+    """A device int64 sum of the logits' bit patterns, one per frame:
+    a changed bit changes it, so two runs' frames compare without
+    keeping every frame's logits."""
+    t = logits.contiguous()
+    return t.view(torch.int16 if t.element_size() == 2
+                  else torch.int32).sum(dtype=torch.int64)
+
+
+def replays(graph) -> int:
+    """Replays of a ``StepGraph`` so far, over its keys."""
+    return sum(r["replays"] for r in graph.report())
+
+
+def captured_launches(graph) -> dict:
+    """Kernel launches per replay of a ``StepGraph`` captured for one
+    input-shape key."""
+    rep = graph.report()
+    check(len(rep) == 1, f"{len(rep)} captured keys, wanted 1")
+    return rep[0]["captured_launches"]
+
+
 def phase_main_path(seed):
     from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.compiler.graphs import eager
     from flexflow_tpu_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention,
     )
@@ -835,38 +875,60 @@ def phase_main_path(seed):
             pages_per_seq=FULL["pages_per_seq"])
 
     step = compiled_decode_step(model)
-    # warm-up: library handles and allocator pools, off the clock
+    # warm-up, off the clock: library handles, allocator pools, the
+    # frame's capture, and the eager path's own first calls
+    t0 = time.perf_counter()
     executor(step).run([DecodeRequest(rid="warm", prompt=[1, 2, 3],
                                       max_new_tokens=4)])
-    zero_state(model)
-
-    recorded = []
-
-    def recording_step(ids, table, lens):
-        logits = step(ids, table, lens)
-        if len(recorded) < PARITY_FRAMES:
-            recorded.append((ids.copy(), table.copy(), lens.copy(),
-                             logits.float().clone()))
-        return logits
-
-    reqs = make_requests(seed, FULL["vocab"])
-    ex = executor(recording_step)
-    ragged_paged_attention.launches = 0
-    t0 = time.perf_counter()
-    out = ex.run(reqs, max_frames=20_000)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ragged_paged_attention.launches
-    frames = ex.frame
-    summ = ex.summary()
-    tokens = sum(len(v) for v in out.values())
-    print("main path: " + json.dumps({
-        "frames": frames, "requests_finished": len(out),
-        "frame_p50_ms": summ["measured_p50_s"] * 1e3,
-        "frame_p99_ms": summ["measured_p99_s"] * 1e3,
-        "generated_tokens": tokens, "wall_s": wall,
-        "tokens_per_s": tokens / wall,
-        "kernel_launches": launches}))
+    capture_s = time.perf_counter() - t0
+    with eager():
+        executor(step).run([DecodeRequest(rid="warm", prompt=[1, 2, 3],
+                                          max_new_tokens=4)])
+    per_replay = captured_launches(step.graph)
+    reqs = make_requests(seed, FULL["vocab"])
+
+    def serve():
+        """The requests from an empty cache; the first frames' logits
+        and every frame's fingerprint recorded."""
+        zero_state(model)
+        recorded, prints = [], []
+
+        def recording_step(ids, table, lens):
+            logits = step(ids, table, lens)
+            prints.append(fingerprint(logits))
+            if len(recorded) < PARITY_FRAMES:
+                recorded.append((ids.copy(), table.copy(), lens.copy(),
+                                 logits.float().clone()))
+            return logits
+
+        ex = executor(recording_step)
+        ragged_paged_attention.launches = 0
+        replays0 = replays(step.graph)
+        t0 = time.perf_counter()
+        out = ex.run(reqs, max_frames=20_000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        summ = ex.summary()
+        tokens = sum(len(v) for v in out.values())
+        report = {
+            "frames": ex.frame, "requests_finished": len(out),
+            "frame_p50_ms": summ["measured_p50_s"] * 1e3,
+            "frame_p99_ms": summ["measured_p99_s"] * 1e3,
+            "generated_tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "kernel_launches": ragged_paged_attention.launches,
+            "graph_replays": replays(step.graph) - replays0}
+        return out, recorded, torch.stack(prints).cpu(), report
+
+    out, recorded, prints, report = serve()
+    report["captured_launches_per_replay"] = per_replay
+    report["warm_up_and_capture_s"] = capture_s
+    print("main path (captured): " + json.dumps(report))
+    with eager():
+        out_e, recorded_e, prints_e, report_e = serve()
+    print("main path (eager): " + json.dumps(report_e))
+    frames, launches = report["frames"], report["kernel_launches"]
     check(len(out) == N_REQUESTS,
           f"{len(out)} of {N_REQUESTS} requests finished")
     for r in reqs:
@@ -875,9 +937,26 @@ def phase_main_path(seed):
               f"{r.rid}: {len(got)} tokens, wanted {r.max_new_tokens}")
         check(all(0 <= t < FULL["vocab"] for t in got),
               f"{r.rid}: token id outside the vocab")
-    check(launches == FULL["num_layers"] * frames,
-          f"{launches} kernel launches for {frames} frames of "
-          f"{FULL['num_layers']} layers")
+    layers = FULL["num_layers"]
+    check(per_replay == {"ragged_paged_attention": layers},
+          f"captured launches per frame {per_replay}, wanted {layers}")
+    check(report["graph_replays"] == frames
+          and launches == layers * report["graph_replays"],
+          f"{launches} kernel launches for {report['graph_replays']} "
+          f"replays of {frames} frames of {layers} layers")
+    check(report_e["graph_replays"] == 0
+          and report_e["kernel_launches"] == layers * report_e["frames"],
+          f"eager: {report_e['kernel_launches']} launches, "
+          f"{report_e['graph_replays']} replays for {report_e['frames']} "
+          f"frames")
+    check(out_e == out, "eager serving gives other tokens than captured")
+    check(torch.equal(prints_e, prints),
+          "eager frames' logits differ in bits from the captured frames'")
+    check(all(torch.equal(a[-1], b[-1]) for a, b in zip(recorded,
+                                                         recorded_e)),
+          "eager first frames' logits differ from the captured ones")
+    print(f"main path: captured == eager, bit for bit: tokens of "
+          f"{len(out)} requests, logits of {frames} frames")
     check(len(recorded) == PARITY_FRAMES,
           f"{len(recorded)} frames recorded for the parity replay")
     for *_, logits in recorded:
@@ -909,9 +988,13 @@ def phase_main_path(seed):
     print(f"main path: batched == solo for "
           f"{[r.rid for r in shortest[:2]]}")
 
-    zero_state(model)
-    print("main path profile: " + json.dumps(
-        profile_frames(executor(compiled_decode_step(model)), reqs)))
+    for tag, ctx in (("captured", contextlib.nullcontext()),
+                     ("eager", eager())):
+        zero_state(model)
+        with ctx:
+            prof = profile_frames(executor(compiled_decode_step(model)),
+                                  reqs)
+        print(f"main path profile ({tag}): " + json.dumps(prof))
     return launches
 
 
@@ -1066,25 +1149,31 @@ def drive_lane(ex, batch, interactive, frames=None):
     return requeued
 
 
-def recording(step, log, frames, prefill_time):
+def recording(step, log, frames, passes, prints):
     """``step`` with its ``prefill`` and ``copy_page``, logging every
     call in order (and each frame's logits) until ``frames`` frames ran,
     so that the run's start can be replayed from an empty cache; every
-    chunk pass's host seconds are appended to ``prefill_time``."""
+    frame's logits fingerprint is appended to ``prints`` and every chunk
+    pass's host seconds and CUDA events around it to ``passes``."""
     def frames_logged():
         return sum(kind == "step" for kind, *_ in log)
 
     def rec_step(ids, table, lens):
         logits = step(ids, table, lens)
+        prints.append(fingerprint(logits))
         if frames_logged() < frames:
             log.append(("step", (ids.copy(), table.copy(), lens.copy()),
                         logits.float().clone()))
         return logits
 
     def rec_prefill(ids, positions, table):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
         t0 = time.perf_counter()
+        start.record()
         step.prefill(ids, positions, table)
-        prefill_time.append(time.perf_counter() - t0)
+        end.record()
+        passes.append((time.perf_counter() - t0, start, end))
         if frames_logged() < frames:
             log.append(("prefill", (ids.copy(), positions.copy(),
                                     table.copy()), None))
@@ -1099,19 +1188,87 @@ def recording(step, log, frames, prefill_time):
     return rec_step
 
 
-def phase_serving_lane(seed):
-    """The int8 KV lane at full width: chunked prefill, prefix sharing
-    with copy-on-write, SLO classes with expiry and preemption, the
-    event bus and the request tracer armed."""
+def run_lane(model, step, cfg, batch, interactive):
+    """The lane's traffic through ``step`` from an empty cache, with the
+    event bus and the request tracer armed; returns the executor, the
+    bus's events, the preempted sequences' tokens, the call log, the
+    frames' fingerprints and a report."""
     import tempfile
 
-    from flexflow_tpu_torch import FFConfig
     from flexflow_tpu_torch.kernels.ragged_paged_attention import (
         ragged_paged_attention_quant,
     )
+    from flexflow_tpu_torch.obs.events import BUS
+    from flexflow_tpu_torch.obs.tracing import TRACER
+
+    zero_state(model)
+    log, passes, prints = [], [], []
+    ex = lane_executor(recording(step, log, PARITY_FRAMES, passes, prints),
+                       cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        obs_log = f"{tmp}/lane_obs.jsonl"
+        BUS.configure(obs_log)
+        TRACER.reset()
+        TRACER.enabled = True
+        try:
+            ragged_paged_attention_quant.launches = 0
+            replays0 = (replays(step.graph), replays(step.prefill_graph))
+            t0 = time.perf_counter()
+            requeued = drive_lane(ex, batch, interactive)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ragged_paged_attention_quant.launches
+            BUS.flush()
+            with open(obs_log) as f:
+                events = [json.loads(line) for line in f]
+        finally:
+            BUS.close()
+            TRACER.enabled = False
+    out, summ = dict(ex.finished), ex.summary()
+    tokens = sum(len(v) for v in out.values())
+    report = {
+        "frames": ex.frame, "requests_finished": len(out),
+        "chunk_passes": summ["prefill_chunks"],
+        "prefill_tokens": summ["prefill_tokens"],
+        "prefix_hits": summ["prefix_hits"],
+        "shared_pages": summ["shared_pages"],
+        "prefix_tokens": summ["prefix_tokens"],
+        "cow_copies": summ["cow_copies"], "preempted": summ["preempted"],
+        "expired": summ["expired"],
+        "frame_p50_ms": summ["measured_p50_s"] * 1e3,
+        "frame_p99_ms": summ["measured_p99_s"] * 1e3,
+        "generated_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "kernel_launches": launches,
+        "frame_replays": replays(step.graph) - replays0[0],
+        "chunk_replays": replays(step.prefill_graph) - replays0[1]}
+    for key in ("ttft", "queue", "prefill", "first_frame", "tpot", "e2e"):
+        for q in ("p50", "p99"):
+            v = summ.get(f"{key}_{q}_s")
+            report[f"{key}_{q}_ms"] = None if v is None else v * 1e3
+    # where the wall time went: decode frames (step + argmax) and the
+    # chunk passes run at admission: host seconds of each pass's call
+    # (a captured pass returns once its replay is queued) and device ms
+    # between CUDA events around it
+    report["decode_frames_s"] = sum(ex.frame_seconds)
+    report["prefill_s"] = sum(t for t, *_ in passes)
+    report["ms_per_chunk_pass"] = float(np.mean(
+        [t for t, *_ in passes])) * 1e3
+    report["device_ms_per_chunk_pass"] = float(np.mean(
+        [a.elapsed_time(b) for _, a, b in passes]))
+    report["slo_classes"] = summ["slo_classes"]
+    return dict(ex=ex, out=out, events=events, requeued=requeued, log=log,
+                prints=torch.stack(prints).cpu(), report=report)
+
+
+def phase_serving_lane(seed):
+    """The int8 KV lane at full width: chunked prefill, prefix sharing
+    with copy-on-write, SLO classes with expiry and preemption, the
+    event bus and the request tracer armed; captured, then eager."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.compiler.graphs import eager
     from flexflow_tpu_torch.models import build_gpt_decode
     from flexflow_tpu_torch.obs import annotate
-    from flexflow_tpu_torch.obs.events import BUS, validate_event
+    from flexflow_tpu_torch.obs.events import validate_event
     from flexflow_tpu_torch.obs.tracing import TRACER
     from flexflow_tpu_torch.runtime.decode import (
         ContinuousBatchingExecutor,
@@ -1139,64 +1296,29 @@ def phase_serving_lane(seed):
     print(f"serving lane: compiled in {time.perf_counter() - t0:.2f} s, "
           f"int8 KV pools with scales {pool_gb:.3f} GB")
 
-    # warm-up: library handles and allocator pools, off the clock
-    warm = compiled_decode_step(model, prefill_chunk=LANE_CHUNK)
-    lane_executor(warm, cfg).run([DecodeRequest(
-        rid="warm", prompt=list(range(1, 40)), max_new_tokens=4)])
-    zero_state(model)
+    # warm-up, off the clock: library handles, allocator pools, the
+    # frame's and the chunk pass's captures, the eager path's first calls
+    step = compiled_decode_step(model, prefill_chunk=LANE_CHUNK)
+    warm = [DecodeRequest(rid="warm", prompt=list(range(1, 40)),
+                          max_new_tokens=4)]
+    lane_executor(step, cfg).run(warm)
+    with eager():
+        lane_executor(step, cfg).run(warm)
+    per_frame = captured_launches(step.graph)
+    per_chunk = captured_launches(step.prefill_graph)
 
     batch, interactive = make_lane_requests(seed, FULL["vocab"])
-    log, prefill_time = [], []
-    ex = lane_executor(recording(compiled_decode_step(
-        model, prefill_chunk=LANE_CHUNK), log, PARITY_FRAMES,
-        prefill_time), cfg)
-    with tempfile.TemporaryDirectory() as tmp:
-        obs_log = f"{tmp}/lane_obs.jsonl"
-        BUS.configure(obs_log)
-        TRACER.reset()
-        TRACER.enabled = True
-        try:
-            ragged_paged_attention_quant.launches = 0
-            t0 = time.perf_counter()
-            requeued = drive_lane(ex, batch, interactive)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = ragged_paged_attention_quant.launches
-            BUS.flush()
-            with open(obs_log) as f:
-                events = [json.loads(line) for line in f]
-        finally:
-            BUS.close()
-            TRACER.enabled = False
-    out, summ, frames = dict(ex.finished), ex.summary(), ex.frame
-    tokens = sum(len(v) for v in out.values())
-    report = {
-        "frames": frames, "requests_finished": len(out),
-        "chunk_passes": summ["prefill_chunks"],
-        "prefill_tokens": summ["prefill_tokens"],
-        "prefix_hits": summ["prefix_hits"],
-        "shared_pages": summ["shared_pages"],
-        "prefix_tokens": summ["prefix_tokens"],
-        "cow_copies": summ["cow_copies"], "preempted": summ["preempted"],
-        "expired": summ["expired"],
-        "frame_p50_ms": summ["measured_p50_s"] * 1e3,
-        "frame_p99_ms": summ["measured_p99_s"] * 1e3,
-        "generated_tokens": tokens, "wall_s": wall,
-        "tokens_per_s": tokens / wall, "kv_pool_gb": pool_gb,
-        "kernel_launches": launches}
-    for key in ("ttft", "queue", "prefill", "first_frame", "tpot", "e2e"):
-        for q in ("p50", "p99"):
-            v = summ.get(f"{key}_{q}_s")
-            report[f"{key}_{q}_ms"] = None if v is None else v * 1e3
-    # where the wall time went: decode frames (step + argmax) and the
-    # chunk passes run at admission (host seconds; the device idles
-    # most of the time, so they are close to the passes' wall time)
-    report["decode_frames_s"] = sum(ex.frame_seconds)
-    report["prefill_s"] = sum(prefill_time)
-    report["ms_per_chunk_pass"] = float(np.mean(prefill_time)) * 1e3
-    report["slo_classes"] = summ["slo_classes"]
-    print("serving lane: " + json.dumps(report))
+    cap = run_lane(model, step, cfg, batch, interactive)
+    ex, out, report = cap["ex"], cap["out"], cap["report"]
+    summ, frames = ex.summary(), ex.frame
+    report["kv_pool_gb"] = pool_gb
+    report["captured_launches_per_frame"] = per_frame
+    report["captured_launches_per_chunk_pass"] = per_chunk
+    print("serving lane (captured): " + json.dumps(report))
 
+    layers = FULL["num_layers"]
+    launches, requeued, events = (report["kernel_launches"], cap["requeued"],
+                                  cap["events"])
     expired = batch[LANE_EXPIRING].rid
     served = [r for r in batch + interactive if r.rid != expired]
     check(set(ex.expired) == {expired} and summ["expired"] == 1,
@@ -1209,9 +1331,17 @@ def phase_serving_lane(seed):
               f"{r.max_new_tokens}")
         check(all(0 <= t < FULL["vocab"] for t in out[r.rid]),
               f"{r.rid}: token id outside the vocab")
-    check(launches == FULL["num_layers"] * frames,
-          f"{launches} int8 kernel launches for {frames} frames of "
-          f"{FULL['num_layers']} layers")
+    check(per_frame == {"ragged_paged_attention_quant": layers}
+          and per_chunk == {},
+          f"captured launches per frame {per_frame}, per chunk pass "
+          f"{per_chunk}")
+    check(report["frame_replays"] == frames
+          and launches == layers * report["frame_replays"],
+          f"{launches} int8 kernel launches for {report['frame_replays']} "
+          f"replays of {frames} frames of {layers} layers")
+    check(report["chunk_replays"] == summ["prefill_chunks"],
+          f"{report['chunk_replays']} chunk-pass replays for "
+          f"{summ['prefill_chunks']} chunk passes")
     want_prefill = sum(len(r.prompt) - 1 - claimed_prefix(i)
                        for i, r in enumerate(batch) if r.rid != expired)
     want_prefill += sum(len(r.prompt) - 1 for r in interactive)
@@ -1241,8 +1371,32 @@ def phase_serving_lane(seed):
     print(f"serving lane: {len(TRACER.trace_ids())} request span trees "
           f"valid, 0 orphans; {len(events)} events valid")
 
+    with eager():
+        eag = run_lane(model, step, cfg, batch, interactive)
+    print("serving lane (eager): " + json.dumps(eag["report"]))
+    rep_e = eag["report"]
+    check(rep_e["frame_replays"] == rep_e["chunk_replays"] == 0
+          and rep_e["kernel_launches"] == layers * rep_e["frames"],
+          f"eager lane: {rep_e['kernel_launches']} launches, "
+          f"{rep_e['frame_replays']} + {rep_e['chunk_replays']} replays "
+          f"for {rep_e['frames']} frames")
+    check(eag["out"] == out, "the eager lane gives other tokens")
+    check(eag["requeued"] == requeued and all(
+        rep_e[k] == report[k] for k in (
+            "frames", "chunk_passes", "prefill_tokens", "prefix_hits",
+            "cow_copies", "preempted", "expired")),
+          "the eager lane schedules otherwise")
+    check(torch.equal(eag["prints"], cap["prints"]) and all(
+        (a[2] is None) == (b[2] is None)
+        and (a[2] is None or torch.equal(a[2], b[2]))
+        for a, b in zip(cap["log"], eag["log"])),
+          "the eager lane's logits differ in bits from the captured lane's")
+    print(f"serving lane: captured == eager, bit for bit: tokens of "
+          f"{len(out)} requests, logits of {frames} frames")
+
     # the first frames again from an empty cache, with the plain
     # attention: every prefill pass, page copy and frame in order
+    log = cap["log"]
     zero_state(model)
     set_op_attr(model, "decode_attention", "use_kernel", False)
     plain = compiled_decode_step(model, prefill_chunk=LANE_CHUNK)
@@ -1281,14 +1435,18 @@ def phase_serving_lane(seed):
               f"{r.rid}: served alone gives other tokens than shared")
     print(f"serving lane: shared == solo for {[r.rid for r in sharers]}")
 
-    zero_state(model)
     annotate.arm()
     try:
-        prof_ex = lane_executor(compiled_decode_step(
-            model, prefill_chunk=LANE_CHUNK), cfg)
-        drive_lane(prof_ex, batch, interactive, frames=LANE_PROFILE_WARM)
-        print("serving lane profile: " + json.dumps(
-            profile_window(prof_ex.step, PROFILE_FRAMES, "frame")))
+        for tag, ctx in (("captured", contextlib.nullcontext()),
+                         ("eager", eager())):
+            zero_state(model)
+            with ctx:
+                prof_ex = lane_executor(compiled_decode_step(
+                    model, prefill_chunk=LANE_CHUNK), cfg)
+                drive_lane(prof_ex, batch, interactive,
+                           frames=LANE_PROFILE_WARM)
+                prof = profile_window(prof_ex.step, PROFILE_FRAMES, "frame")
+            print(f"serving lane profile ({tag}): " + json.dumps(prof))
     finally:
         annotate.disarm()
     return launches, report
@@ -1698,8 +1856,30 @@ def path_parity(model, inputs, labels):
     return report
 
 
+def train_tensors(model):
+    """Every tensor a training step updates in place: the weights, then
+    the optimizer state."""
+    from torch.utils import _pytree as pytree
+
+    return [t for t in pytree.tree_leaves((model.params, model.opt_state))
+            if isinstance(t, torch.Tensor)]
+
+
+@torch.no_grad()
+def restore(model, snapshot):
+    """Put the weights and the optimizer state back, in place (the
+    captured steps hold their addresses)."""
+    for t, s in zip(train_tensors(model), snapshot):
+        t.copy_(s)
+
+
+def same_bits(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def phase_train(seed, name):
     from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.compiler.graphs import eager
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.models import build_gpt
 
@@ -1733,41 +1913,9 @@ def phase_train(seed, name):
 
     kernels = (fa.flash_forward, fa.flash_backward_dq,
                fa.flash_backward_dkv)
-    torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    history = model.fit(x, y, batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
-                        shuffle=False, verbose=False)
-    wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
-    steps = len(model.step_losses)
-    losses = model.step_losses
-    final = model.evaluate(x[:TRAIN_BATCH], y[:TRAIN_BATCH])
-    tokens_per_s = model.last_throughput * TRAIN["seq_len"]
-    bf16_peak = card_peaks(name)[2]
-    mfu = 3.0 * flops * model.last_throughput / TRAIN_BATCH / bf16_peak
-    print("training path: " + json.dumps({
-        "steps": steps, "fit_wall_s": wall,
-        "samples_per_s": model.last_throughput,
-        "tokens_per_s": tokens_per_s, "mfu_vs_dense_bf16_peak": mfu,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "loss_first_step": losses[0], "loss_last_step": losses[-1],
-        "first_batch_loss_after": final["loss"],
-        "epoch_history": history, "kernel_launches": launches}))
-    print("training path step losses: "
-          + json.dumps([round(v, 5) for v in losses]))
-    check(steps == TRAIN_EPOCHS * TRAIN_BATCHES, f"{steps} steps ran")
-    for kname, n in launches.items():
-        check(n == TRAIN["num_layers"] * steps,
-              f"{kname}: {n} launches for {steps} steps of "
-              f"{TRAIN['num_layers']} layers")
-    check(bool(np.isfinite(losses).all()), "a step's loss is not finite")
-    check(final["loss"] < losses[0],
-          f"first batch's loss did not fall: {losses[0]:.4f} at step 1, "
-          f"{final['loss']:.4f} after training")
-
-    # step time: synchronised steps over the first batches
+    layers = TRAIN["num_layers"]
+    start = [t.clone() for t in train_tensors(model)]
+    graph = model.compiled.step_graph
     batches = [([torch.from_numpy(x[i:i + TRAIN_BATCH]).to(dev)],
                 torch.from_numpy(y[i:i + TRAIN_BATCH]).to(dev))
                for i in range(0, TIMED_STEPS * TRAIN_BATCH, TRAIN_BATCH)]
@@ -1778,19 +1926,129 @@ def phase_train(seed, name):
                                       model.state, *batch))
         return loss
 
-    times = []
-    for batch in batches:
-        torch.cuda.synchronize()
+    # k steps captured (the first call captures), eager, and as one
+    # train_steps call over the stacked batches (its capture): bit-equal
+    # losses and weights
+    k = TRACE_STEPS
+    stepwise = {}
+    for tag, ctx in (("captured", contextlib.nullcontext()),
+                     ("eager", eager())):
+        restore(model, start)
+        with ctx:
+            losses = [train_step(b).clone() for b in batches[:k]]
+        stepwise[tag] = (torch.stack(losses).cpu(),
+                         [t.clone() for t in train_tensors(model)])
+    restore(model, start)
+    *_, stacked, _ = model.compiled.train_steps(
+        model.params, model.opt_state, model.state,
+        [torch.stack([b[0][0] for b in batches[:k]])],
+        torch.stack([b[1] for b in batches[:k]]))
+    stepwise["train_steps"] = (stacked.cpu(),
+                               [t.clone() for t in train_tensors(model)])
+    ref_losses, ref_tensors = stepwise["captured"]
+    for tag, (ls, ts) in stepwise.items():
+        check(torch.equal(ls, ref_losses) and same_bits(ts, ref_tensors),
+              f"{k} training steps {tag}: losses {ls.tolist()} or weights "
+              f"differ in bits from the captured steps' "
+              f"{ref_losses.tolist()}")
+    print(f"training path: {k} steps captured == eager == one "
+          f"train_steps({k}) call, losses and weights bit for bit: "
+          f"{ref_losses.tolist()}")
+    del stepwise, ref_tensors
+    per_replay = {r["shapes"][0][0]: r["captured_launches"]
+                  for r in graph.report()}
+    want = {n: {kn.__name__: layers * n for kn in kernels} for n in (1, k)}
+    check(per_replay == want,
+          f"captured launches per replay {per_replay}, wanted {want}")
+
+    def fit(tag, trace_steps, eager_fit):
+        """``fit`` over the seeded batches from the start weights, with
+        the launch counts set to 0 just before."""
+        restore(model, start)
+        model.config.trace_steps = trace_steps
+        for kn in kernels:
+            kn.launches = 0
+        replays0 = replays(graph)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        train_step(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    print("training path step time (synchronised steps): " + json.dumps({
-        "steps": len(times), "p50_ms": float(np.median(times)) * 1e3,
-        "p99_ms": float(np.quantile(times, 0.99)) * 1e3}))
-    it = iter(batches)
-    print("training path profile: " + json.dumps(profile_window(
-        lambda: train_step(next(it)), PROFILE_STEPS, "step")))
+        with eager() if eager_fit else contextlib.nullcontext():
+            history = model.fit(x, y, batch_size=TRAIN_BATCH,
+                                epochs=TRAIN_EPOCHS, shuffle=False,
+                                verbose=False)
+        wall = time.perf_counter() - t0
+        model.config.trace_steps = 1
+        losses = model.step_losses
+        launches = {kn.__name__: kn.launches for kn in kernels}
+        bf16_peak = card_peaks(name)[2]
+        report = {
+            "fit": tag, "trace_steps": trace_steps, "steps": len(losses),
+            "fit_wall_s": wall, "samples_per_s": model.last_throughput,
+            "tokens_per_s": model.last_throughput * TRAIN["seq_len"],
+            "mfu_vs_dense_bf16_peak": 3.0 * flops * model.last_throughput
+            / TRAIN_BATCH / bf16_peak,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss_first_step": losses[0], "loss_last_step": losses[-1],
+            "epoch_history": history, "kernel_launches": launches,
+            "graph_replays": replays(graph) - replays0}
+        print(f"training path ({tag}): " + json.dumps(report))
+        steps = len(losses)
+        check(steps == TRAIN_EPOCHS * TRAIN_BATCHES,
+              f"{tag}: {steps} steps ran")
+        calls = 0 if eager_fit else steps // trace_steps
+        check(report["graph_replays"] == calls,
+              f"{tag}: {report['graph_replays']} replays, wanted {calls}")
+        for kname, n in launches.items():
+            check(n == layers * steps,
+                  f"{tag}: {kname}: {n} launches for {steps} steps of "
+                  f"{layers} layers")
+            if not eager_fit:
+                each = per_replay.get(trace_steps, {}).get(kname)
+                check(each is not None and n == each * calls,
+                      f"{tag}: {kname}: {n} launches, not {each} per "
+                      f"replay x {calls} replays")
+        check(bool(np.isfinite(losses).all()),
+              f"{tag}: a step's loss is not finite")
+        return losses, [t.clone() for t in train_tensors(model)], report
+
+    losses, after, report = fit("captured", 1, False)
+    final = model.evaluate(x[:TRAIN_BATCH], y[:TRAIN_BATCH])
+    print("training path step losses: "
+          + json.dumps([round(v, 5) for v in losses]))
+    check(final["loss"] < losses[0],
+          f"first batch's loss did not fall: {losses[0]:.4f} at step 1, "
+          f"{final['loss']:.4f} after training")
+    launches = report["kernel_launches"]
+    for tag, n, eager_fit in ((f"trace_steps={k}", k, False),
+                              ("eager", 1, True)):
+        got, got_after, _ = fit(tag, n, eager_fit)
+        check(got == losses and same_bits(got_after, after),
+              f"fit {tag}: step losses or weights differ in bits from "
+              f"fit with trace_steps=1, captured")
+    print(f"training path: fit captured == fit trace_steps={k} == fit "
+          f"eager, {len(losses)} step losses and the weights bit for bit")
+    del after
+
+    # step time: synchronised steps over the first batches
+    for tag, ctx in (("captured", contextlib.nullcontext()),
+                     ("eager", eager())):
+        restore(model, start)
+        times = []
+        with ctx:
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            print(f"training path step time ({tag}, synchronised steps): "
+                  + json.dumps({
+                      "steps": len(times),
+                      "p50_ms": float(np.median(times)) * 1e3,
+                      "p99_ms": float(np.quantile(times, 0.99)) * 1e3}))
+            it = iter(batches)
+            print(f"training path profile ({tag}): " + json.dumps(
+                profile_window(lambda: train_step(next(it)), PROFILE_STEPS,
+                               "step")))
 
     for tag, par in parity.items():
         check(par["loss_rel_err"] <= LOSS_PATH_TOL[tag],

@@ -6,9 +6,22 @@ parallelism.
 PyTorch runs eagerly, so "lowering" is running each node's ``forward``
 in topological order.  ``apply`` records autograd only when called with
 ``train=True``; the decode path and ``eval_step``/``forward_fn`` run it
-without.  ``train_step`` is the reference's ``_raw_step``: the loss
+without.  A training step is the reference's ``_raw_step``: the loss
 (plus any ``*/aux_loss`` state terms), gradients by autograd, the
 optimizer update (in place, see optimizers.py), then the metrics.
+
+``train_steps`` runs N steps over ``[N, B, ...]`` stacks as ONE
+captured CUDA graph (compiler/graphs.py): the reference's jitted
+``lax.scan`` (lowering.py:697-731).  Step i reads slice i of the static
+stacks; the losses and metrics come back stacked over N in static
+buffers that the next call with the same N overwrites.  ``train_step``
+is the N = 1 case.  The parameters, the optimizer state and the model
+state are updated in place (a state value that a step returns as a new
+tensor is copied into the old one), so the graph holds their
+addresses.  Under sequence parallelism both stay eager: the gradient
+mean's gloo host hops cannot be captured, and the reference also runs
+one step per call when the job has several processes.  ``eval_step``
+and ``forward_fn`` stay eager: no main path times them.
 
 Weights are seeded by NAME, as the reference's ``weight_fold_key``
 does: each weight draws from its own ``torch.Generator`` seeded from
@@ -36,7 +49,9 @@ import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
+from flexflow_tpu_torch.compiler.graphs import StepGraph
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.core.graph import Graph, Node
 from flexflow_tpu_torch.core.machine import MachineView
@@ -139,6 +154,7 @@ class CompiledModel:
         if not sinks:
             raise ValueError("empty graph")
         self._sink = sinks[-1]
+        self.step_graph = StepGraph(self.device)
 
     def init_params(self, seed: int = 0):
         """Fresh ``params[op_name][weight_name]`` and
@@ -202,12 +218,16 @@ class CompiledModel:
         logits, new state, grads keyed like params).  A weight the
         forward does not reach gets a zero gradient.  Under sequence
         parallelism the loss and the gradients are the job's (means over
-        the ranks) and the logits are this rank's shard."""
-        leaves = [(op, w, t) for op, ws in params.items()
-                  for w, t in ws.items()]
-        for _, _, t in leaves:
-            t.requires_grad_(True)
-        logits, new_state = self.apply(params, state, inputs, train=True)
+        the ranks) and the logits are this rank's shard.  The gradients
+        are taken with respect to fresh leaves that share the weights'
+        storage, so no autograd node outlives the call: a node kept from
+        an earlier call would carry that call's stream into a capture."""
+        leaves = [(op, w, t.detach().requires_grad_(True))
+                  for op, ws in params.items() for w, t in ws.items()]
+        live: Dict[str, Dict[str, torch.Tensor]] = {}
+        for op, w, t in leaves:
+            live.setdefault(op, {})[w] = t
+        logits, new_state = self.apply(live, state, inputs, train=True)
         loss = self._loss_from(logits, labels, new_state)
         gs = torch.autograd.grad(loss, [t for _, _, t in leaves],
                                  allow_unused=True)
@@ -223,22 +243,68 @@ class CompiledModel:
                               for g in ws.values()] + [loss], self.sp_group)
         return loss, logits.detach(), new_state, grads
 
-    def train_step(self, params, opt_state, state, inputs, labels):
-        """One optimizer step: returns (params, opt_state, state, loss,
-        metrics); params and opt_state are the same objects, updated in
-        place.  Nothing here waits for the device."""
+    def _steps(self, params, opt_state, state, inputs_stacked,
+               labels_stacked):
+        """``labels_stacked.shape[0]`` optimizer steps in order, step i
+        on slice i of the stacks; returns (losses [N], metrics stacked
+        over N)."""
+        losses, ms = [], []
+        for i in range(labels_stacked.shape[0]):
+            labels = labels_stacked[i]
+            loss, logits, new_state, grads = self.loss_and_grads(
+                params, state, [x[i] for x in inputs_stacked], labels)
+            self.optimizer.apply(params, grads, opt_state)
+            m = compute_metrics(self.metric_types, self.loss_type, logits,
+                                labels)
+            if self.sp_group is not None and m:
+                from flexflow_tpu_torch.parallel.mesh import all_reduce_mean_
+
+                all_reduce_mean_(list(m.values()), self.sp_group)
+            with torch.no_grad():
+                for k, v in new_state.items():
+                    if v is not state[k]:
+                        state[k].copy_(v)
+            losses.append(loss)
+            ms.append(m)
+        return (torch.stack(losses),
+                {k: torch.stack([m[k] for m in ms]) for k in ms[0]})
+
+    def train_steps(self, params, opt_state, state, inputs_stacked,
+                    labels_stacked):
+        """N optimizer steps in one call (reference ``train_steps``):
+        ``inputs_stacked`` a list of [N, B, ...] tensors or arrays,
+        ``labels_stacked`` [N, B, ...].  Returns (params, opt_state,
+        state, losses [N], metrics stacked over N); the first three are
+        the same objects, updated in place, and the last two are the
+        compiled step's static buffers (see the module docstring).
+        Nothing here waits for the device."""
         if self.optimizer is None:
             raise RuntimeError("train_step needs a model compiled with "
                                "comp_mode='training'")
-        loss, logits, new_state, grads = self.loss_and_grads(
-            params, state, inputs, labels)
-        self.optimizer.apply(params, grads, opt_state)
-        m = compute_metrics(self.metric_types, self.loss_type, logits, labels)
-        if self.sp_group is not None and m:
-            from flexflow_tpu_torch.parallel.mesh import all_reduce_mean_
+        arrays = [*inputs_stacked, labels_stacked]
 
-            all_reduce_mean_(list(m.values()), self.sp_group)
-        return params, opt_state, new_state, loss, m
+        def steps(*xs):
+            return self._steps(params, opt_state, state, xs[:-1], xs[-1])
+
+        if self.sp_group is not None:
+            losses, m = steps(*arrays)
+        else:
+            losses, m = self.step_graph(
+                steps, arrays,
+                bound=[t for t in pytree.tree_leaves((params, opt_state,
+                                                      state))
+                       if isinstance(t, torch.Tensor)])
+        return params, opt_state, state, losses, m
+
+    def train_step(self, params, opt_state, state, inputs, labels):
+        """One optimizer step, ``train_steps`` with N = 1: returns
+        (params, opt_state, state, loss, metrics); the loss and metrics
+        are views of the static buffers the next step overwrites."""
+        params, opt_state, state, losses, m = self.train_steps(
+            params, opt_state, state, [x[None] for x in inputs],
+            labels[None])
+        return (params, opt_state, state, losses[0],
+                {k: v[0] for k, v in m.items()})
 
     @torch.no_grad()
     def eval_step(self, params, state, inputs, labels):

@@ -16,10 +16,12 @@ config.py:18-66) and ``kv_precision`` (the KV page-pool dtype lane:
 "off", or a pinned "fp32"/"bf16"/"int8" that
 ``compile(comp_mode="inference")`` adopts onto the decode ops).
 
+``trace_steps`` is the reference's: ``fit`` runs that many optimizer
+steps per compiled call (``CompiledModel.train_steps``).
+
 Flags of the reference that the port does not run yet (``remat``,
-``grad_accum_steps``, ``trace_steps``, ``kv_precision="search"``)
-raise when set away from their defaults; they are never silently
-ignored.
+``grad_accum_steps``, ``kv_precision="search"``) raise when set away
+from their defaults; they are never silently ignored.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ class FFConfig:
     comp_mode: str = "training"  # set by compile(comp_mode=...)
     remat: bool = False
     grad_accum_steps: int = 1
-    trace_steps: int = 1
+    trace_steps: int = 1  # optimizer steps per compiled call in fit
 
     def __post_init__(self):
         if self.num_devices < 1:
@@ -123,8 +125,7 @@ class FFConfig:
                 self.serve_slo_classes)
         for flag, default, what in (
                 ("remat", False, "activation rematerialisation"),
-                ("grad_accum_steps", 1, "gradient accumulation"),
-                ("trace_steps", 1, "multi-step traced train calls")):
+                ("grad_accum_steps", 1, "gradient accumulation")):
             if getattr(self, flag) != default:
                 raise NotImplementedError(
                     f"{flag}={getattr(self, flag)!r}: {what} is not ported "

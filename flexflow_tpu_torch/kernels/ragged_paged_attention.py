@@ -209,8 +209,12 @@ def blocks_per_sm(pool: str, head_dim: int) -> int:
 
 
 # (device index, stream) -> int32 per-(b, h) arrival counters, all zero
-# between calls: the kernel's last split of each (b, h) resets its own
+# between calls: the kernel's last split of each (b, h) resets its own,
+# so a captured launch (compiler/graphs.py) leaves them zero for the
+# next replay.  A grown buffer keeps the smaller one alive, since a
+# captured graph may hold its address.
 _COUNTERS = {}
+_OUTGROWN = []
 
 
 def _counters(q, n: int):
@@ -220,6 +224,8 @@ def _counters(q, n: int):
     key = (q.device.index, torch.cuda.current_stream().cuda_stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(n, dtype=torch.int32, device=q.device)
         _COUNTERS[key] = buf
     return buf

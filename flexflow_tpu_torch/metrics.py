@@ -36,7 +36,8 @@ def compute_metrics(metric_types: List[MetricsType], loss_type,
     loss_type = LossType.from_any(loss_type)
     out: Dict[str, torch.Tensor] = {}
     n = logits.shape[0]
-    out["train_all"] = torch.tensor(float(n), device=logits.device)
+    # a fill, not a host-to-device copy: capturable in a CUDA graph
+    out["train_all"] = torch.full((), float(n), device=logits.device)
     logits32 = logits.float()
     labels32 = labels.float()
     for m in metric_types:

@@ -250,11 +250,16 @@ class FFModel:
             resume: bool = False):
         """The training loop (reference ``FFModel.fit``, the subset of
         one device): batches from ``SingleDataLoader`` (the reference's
-        seeded shuffle), one ``train_step`` each, metrics summed on the
-        device and read once per epoch.  Returns the history, one dict
-        per epoch with the metrics' report and the epoch's last loss.
-        Sets ``last_throughput`` (samples/s after the first step, which
-        is fenced and left off the clock, as the reference does) and
+        seeded shuffle), one training step each, metrics summed on the
+        device and read once per epoch.  With ``config.trace_steps`` n >
+        1, a job of one process and at least n batches, the batches go
+        n at a time through ``train_steps`` (one graph replay for n
+        steps) and the rest one by one, as the reference's
+        ``iter_traced`` loop does (model.py:1935-1990).  Returns the
+        history, one dict per epoch with the metrics' report and the
+        epoch's last loss.  Sets ``last_throughput`` (samples/s after
+        the first call, which is fenced and left off the clock with the
+        step's capture, as the reference leaves its compile) and
         ``step_losses`` (every step's loss, read after the loop).  Under
         sequence parallelism every rank runs this loop on its slice of
         the sequence: the samples are the job's, the losses and metrics
@@ -292,29 +297,41 @@ class FFModel:
         if loader.num_batches == 0:
             raise ValueError(f"no full batch: {loader.num_samples} samples "
                              f"< batch_size {batch_size}")
+        from flexflow_tpu_torch.runtime.distributed import world_size
+
+        trace_n = max(1, int(self.config.trace_steps))
+        use_trace = (trace_n > 1 and world_size() == 1
+                     and loader.num_batches >= trace_n)
         metrics = PerfMetrics()
         history = []
         losses = []
         t_start, steps_at_t0, steps_done = None, 0, 0
-        loss = None
         for epoch in range(epochs):
             metrics.reset()
             acc = None
-            for inputs, labels in loader:
-                (self.params, self.opt_state, self.state, loss, m) = (
-                    self.compiled.train_step(self.params, self.opt_state,
-                                             self.state, inputs, labels))
-                losses.append(loss)
+            batches = (loader.iter_traced(trace_n) if use_trace else
+                       (("single", i, l) for i, l in loader))
+            for kind, inputs, labels in batches:
+                if kind == "single":  # train_step: a stack of one
+                    inputs, labels = [x[None] for x in inputs], labels[None]
+                (self.params, self.opt_state, self.state, step_loss,
+                 ms) = self.compiled.train_steps(
+                    self.params, self.opt_state, self.state, inputs, labels)
+                # the results are static buffers that the next call
+                # overwrites: keep a copy of the losses; the metric sums
+                # are new tensors
+                losses.append(step_loss.clone())
+                m = {k: v.sum(dim=0) for k, v in ms.items()}
                 acc = m if acc is None else {k: acc[k] + v
                                              for k, v in m.items()}
-                steps_done += 1
+                steps_done += len(step_loss)
                 if t_start is None:
-                    float(loss)  # fence: the first step stays off the clock
+                    float(losses[-1][-1])  # fence: off the clock
                     t_start = time.perf_counter()
                     steps_at_t0 = steps_done
             metrics.update(acc)
             logs = metrics.report()
-            logs["loss"] = float(loss)
+            logs["loss"] = float(losses[-1][-1])
             if verbose and self._prints():
                 print(f"epoch {epoch}: loss={logs['loss']:.4f} {metrics}")
             history.append(logs)
@@ -325,7 +342,7 @@ class FFModel:
             if verbose and self._prints():
                 print(f"ELAPSED TIME = {elapsed:.4f}s, THROUGHPUT = "
                       f"{self.last_throughput:.2f} samples/s")
-        self.step_losses = torch.stack(losses).tolist()
+        self.step_losses = torch.cat(losses).tolist()
         return history
 
     def _prints(self) -> bool:

@@ -12,11 +12,18 @@ moments.  It returns the same (params, state) objects.  The updates run
 as ``torch._foreach_*`` ops over all weights, a handful of launches per
 step instead of a handful per weight.  Parameters must be float32, as
 every weight spec of the ported ops is.
+
+The step count is a 0-d int32 tensor on the parameters' device, as the
+reference's ``opt_state["step"]`` is (optimizers.py:108), advanced in
+place, and Adam's ``alpha_t`` is computed from it in fp32 on the device
+and applied as a tensor scalar.  Nothing of an update is a host value
+that changes from step to step, so a captured step
+(compiler/graphs.py) replays it exactly, and the eager update runs the
+same ops.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -43,6 +50,13 @@ def _check_fp32(ps: List[torch.Tensor]) -> None:
             f"got {sorted(map(str, bad))}")
 
 
+def _step_counter(params: Params) -> torch.Tensor:
+    """A 0-d int32 zero on the parameters' device."""
+    ts = [t for ws in params.values() for t in ws.values()]
+    return torch.zeros((), dtype=torch.int32,
+                       device=ts[0].device if ts else "cpu")
+
+
 class Optimizer:
     def init_state(self, params: Params) -> dict:
         raise NotImplementedError
@@ -63,8 +77,8 @@ class SGDOptimizer(Optimizer):
 
     def init_state(self, params):
         if self.momentum == 0.0:
-            return {"step": 0}
-        return {"step": 0, "v": _zeros_like(params)}
+            return {"step": _step_counter(params)}
+        return {"step": _step_counter(params), "v": _zeros_like(params)}
 
     @torch.no_grad()
     def apply(self, params, grads, state):
@@ -80,7 +94,7 @@ class SGDOptimizer(Optimizer):
             gs = (torch._foreach_add(gs, vs, alpha=self.momentum)
                   if self.nesterov else vs)
         torch._foreach_add_(ps, gs, alpha=-self.lr)
-        state["step"] += 1
+        state["step"].add_(1)
         return params, state
 
 
@@ -98,12 +112,13 @@ class AdamOptimizer(Optimizer):
         return self.alpha
 
     def init_state(self, params):
-        return {"step": 0, "m": _zeros_like(params), "v": _zeros_like(params)}
+        return {"step": _step_counter(params), "m": _zeros_like(params),
+                "v": _zeros_like(params)}
 
     @torch.no_grad()
     def apply(self, params, grads, state):
-        t = state["step"] + 1
-        alpha_t = (self.alpha * math.sqrt(1.0 - self.beta2 ** t)
+        t = state["step"].float() + 1.0
+        alpha_t = (self.alpha * torch.sqrt(1.0 - self.beta2 ** t)
                    / (1.0 - self.beta1 ** t))
         ps = _flat(params, params)
         _check_fp32(ps)
@@ -119,8 +134,11 @@ class AdamOptimizer(Optimizer):
         torch._foreach_addcmul_(vs, gs, gs, value=1.0 - self.beta2)
         denom = torch._foreach_sqrt(vs)
         torch._foreach_add_(denom, self.epsilon)
-        torch._foreach_addcdiv_(ps, ms, denom, value=-alpha_t)
+        # p - alpha_t * m / denom, in the reference's order
+        upd = torch._foreach_mul(ms, alpha_t)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_sub_(ps, upd)
         if decay is not None:
             torch._foreach_sub_(ps, decay)
-        state["step"] = t
+        state["step"].add_(1)
         return params, state

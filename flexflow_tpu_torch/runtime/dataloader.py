@@ -7,7 +7,9 @@ to the model's device.  The shuffle draws from
 two packages see the same batches in the same order, and so does every
 rank of a job.  Under sequence parallelism each rank is handed its
 slice of the sequence dim (dim 1) of the inputs and the labels
-(``runtime.distributed.local_seq_slice``).
+(``runtime.distributed.local_seq_slice``).  ``iter_traced(n)`` yields
+the same batches in the same order, n at a time stacked on a leading
+step axis for ``CompiledModel.train_steps``.
 """
 
 from __future__ import annotations
@@ -56,12 +58,37 @@ class SingleDataLoader:
     def _place(self, array: np.ndarray, idx: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array[idx]).to(self.device)
 
-    def __iter__(self):
+    def _order(self) -> np.ndarray:
         order = np.arange(self.num_samples)
         if self.shuffle:
             self.rng.shuffle(order)
+        return order
+
+    def __iter__(self):
+        order = self._order()
         bs = self.batch_size
         for b in range(self.num_batches):
             idx = order[b * bs:(b + 1) * bs]
             yield ([self._place(a, idx) for a in self.xs],
+                   self._place(self.y, idx))
+
+    def iter_traced(self, n: int):
+        """Yield ``('stack', inputs, labels)`` with a leading [n] step
+        axis for ``CompiledModel.train_steps``, then the batches that do
+        not fill a stack as ``('single', inputs, labels)``: the
+        reference's ``iter_traced`` (dataloader.py:107-140).  Stacks take
+        full batches only."""
+        order = self._order()
+        bs = self.batch_size
+        stacks = (self.num_samples // bs) // n
+        for s in range(stacks):
+            idx = order[s * n * bs:(s + 1) * n * bs]
+            yield ("stack",
+                   [self._place(a, idx).reshape((n, bs) + a.shape[1:])
+                    for a in self.xs],
+                   self._place(self.y, idx).reshape(
+                       (n, bs) + self.y.shape[1:]))
+        for b in range(stacks * n, self.num_batches):
+            idx = order[b * bs:(b + 1) * bs]
+            yield ("single", [self._place(a, idx) for a in self.xs],
                    self._place(self.y, idx))

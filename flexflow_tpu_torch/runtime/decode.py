@@ -1007,31 +1007,52 @@ class ContinuousBatchingExecutor:
 def compiled_decode_step(model, prefill_chunk: int = 0) -> Callable:
     """A ``step_fn`` over a compiled decode model: one forward per frame,
     the KV-cache state dict threaded across calls (the pools are updated
-    in place, see ops/decode_attention.py).  Frame arrays are copied to
-    the model's device; the logits stay there.
+    in place, see ops/decode_attention.py).  The frame runs as a
+    compiled step (compiler/graphs.py, the reference's jitted frame,
+    runtime/decode.py:1047): the frame arrays are copied into static
+    ``ids [B, 1]``, ``page_table [B, P]`` and ``seq_lens [B]`` buffers
+    and, on the card, a captured CUDA graph replays.  That is sound
+    because every launch argument of the frame is a static shape: the
+    decode kernels read lengths and tables from device tensors, so
+    their split-KV grid does not change from frame to frame, and the
+    pools keep their addresses.  Each call returns a copy of the
+    frame's logits, on the device (``step.graph`` is the frame's
+    ``StepGraph``).
 
     ``step.copy_page(src, dst)`` is the prefix-sharing executor's
     ``copy_page_fn``: page ``src`` of every layer's k/v pool and, under
-    an int8 pool, of its scales, copied in place into page ``dst``.
+    an int8 pool, of its scales, copied in place into page ``dst``,
+    eagerly, on the stream the replays run on.
     ``prefill_chunk > 0`` also builds the chunked prefill writer over
     the same graph, params and state (runtime/prefill.py), attached as
     ``step.prefill(ids [1, C], positions [1, C], page_table [1, P])``
-    for the executor's ``prefill_fn``."""
+    for the executor's ``prefill_fn``; each pass is a compiled step
+    too (``step.prefill_graph``; reference decode.py:1078)."""
+    from flexflow_tpu_torch.compiler.graphs import StepGraph
+
     compiled = model.compiled
     device = compiled.device
     box = {"state": model.state}
+    frame_graph = StepGraph(device)
 
-    def to_device(*arrays):
-        return [torch.as_tensor(np.asarray(a, np.int32)).to(device)
-                for a in arrays]
+    def int32(*arrays):
+        return [np.asarray(a, np.int32) for a in arrays]
 
-    def step(ids, page_table, seq_lens):
+    def bound():
+        return [t for ws in model.params.values() for t in ws.values()] + \
+            list(box["state"].values())
+
+    def frame(ids, page_table, seq_lens):
         logits, box["state"] = compiled.apply(
-            model.params, box["state"], to_device(ids, page_table,
-                                                  seq_lens))
+            model.params, box["state"], [ids, page_table, seq_lens])
         return logits
 
+    def step(ids, page_table, seq_lens):
+        return frame_graph(frame, int32(ids, page_table, seq_lens),
+                           bound()).clone()
+
     step.state = box  # tests inspect the threaded cache
+    step.graph = frame_graph
 
     def copy_page(src: int, dst: int) -> None:
         for key, val in box["state"].items():
@@ -1045,10 +1066,16 @@ def compiled_decode_step(model, prefill_chunk: int = 0) -> Callable:
 
         pf = build_chunk_forward(model.graph, compiled.compute_dtype,
                                  device)
+        chunk_graph = StepGraph(device)
+
+        def chunk(ids, positions, page_table):
+            box["state"] = pf(model.params, box["state"], ids, positions,
+                              page_table)
+            return ()
 
         def prefill(ids, positions, page_table):
-            box["state"] = pf(model.params, box["state"],
-                              *to_device(ids, positions, page_table))
+            chunk_graph(chunk, int32(ids, positions, page_table), bound())
 
         step.prefill = prefill
+        step.prefill_graph = chunk_graph
     return step

@@ -193,8 +193,7 @@ def test_fit_refuses_what_is_not_ported():
                dict(callbacks=[object()])):
         with pytest.raises(NotImplementedError):
             pm.fit(x, x, **kw)
-    for flag, value in (("remat", True), ("grad_accum_steps", 2),
-                        ("trace_steps", 4)):
+    for flag, value in (("remat", True), ("grad_accum_steps", 2)):
         with pytest.raises(NotImplementedError, match=flag):
             FFConfig(device="cpu", **{flag: value})
 
