@@ -1,14 +1,17 @@
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, training and multi-rank training
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --decode-times ROOT [--seed N]
+    python3 chip_smoke.py --step-times ROOT [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
-3's serving shape with phase 3's timer, and prints one JSON line: run
-it for two checkouts in one process order (parent, change, change,
-parent) to compare two commits on one card.
+3's serving shape with phase 3's timer, and prints one JSON line; the
+third times phase 6's training step of that checkout, captured and
+eager, with the flash kernels' launches per step.  Run either for two
+checkouts in one process order (parent, change, change, parent) to
+compare two commits on one card.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -34,7 +37,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernels in bf16, the training path's dtype, and in fp32; the partial
    flash forward at the zigzag ring's half-chunk shape, B 2, Sq = Sk =
    512, H 12, D 64, causal and not, bf16 and fp32) and hold it
-   against its plain PyTorch version on the same inputs; time the
+   against its plain PyTorch version on the same inputs (the flash
+   kernels also at the per-rank shapes of phase 8's legs, causal, bf16
+   and fp32: Megatron's B 4, S 1024, H 6 and Ulysses' B 2, S 4096,
+   H 3, D 64); time the
    kernel, the plain version and one PyTorch library call that computes
    the same function (a yardstick the port never calls), each with CUDA
    events as the median of 25 runs with the L2 cache flushed before
@@ -109,14 +115,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the flash kernels of phase 6 never, that the loss fell, and that the
    first step's loss equals a one-process run's on the flash route
    (fp32 at 2 layers within 1e-5, bf16 at full width within 5e-3); print
-   the transport, step p50/p99, tokens/s, MFU, peak memory and host hops
-   per rank; profile 2 steps on rank 0;
-8. print one JSON line listing every ported kernel.
+   the transport, step p50/p99, tokens/s, MFU, peak memory and every
+   collective's calls, bytes and host hops per rank; profile 2 steps on
+   rank 0;
+8. hybrid-parallel training path, 4 ranks spawned as phase 7's: (a)
+   Megatron dp 2 x tp 2 of phase 6's model on phase 6's batches (MHA (2,
+   1, 1) r 2 with 6 heads per rank, ff1 (2, 1, 2), ff2 (2, 1, 1) r 2,
+   every other op batch-split), ``fit`` 10 steps, then 4 synchronised
+   steps and a profile of 2 on rank 0; check rows 1-3 launched 12 times
+   per rank per step and row 4 never, every loss finite and falling, the
+   first step's loss against one process (fp32 at 2 layers within 1e-5,
+   bf16 at full width, phase 6's first step, within 5e-3), and every
+   replica of every weight block bit-equal after the last step; print
+   the transport, step p50/p99, tokens/s, MFU over the cards used, peak
+   memory per rank and every collective's calls, bytes and host hops per
+   rank per step; (b) Ulysses at phase 7's shape (sp 4,
+   ``sp_mode="ulysses"`` on every MHA, 3 heads per rank) on phase 7's
+   batches, ``fit`` 3 steps: rows 1-3 12 launches per rank per step, row
+   4 none, all-to-all exchanges, the first step's loss against phase 7's
+   one-process bf16 loss within 5e-3;
+9. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
-It needs one card; with four it runs phase 7 one rank per card.
+It needs one card; with four it runs phases 7 and 8 one rank per card.
 """
 
 from __future__ import annotations
@@ -264,6 +287,24 @@ SP_TIMEOUT_S = 600
 # other points (the ring: unnormalised blocks merged in fp32; the flash
 # kernel: one normalised output) in each of 12 layers
 SP_LOSS_TOL = {"fp32": 1e-5, "bf16": 5e-3}
+# the hybrid-parallel path (phase 8): Megatron dp 2 x tp 2 of phase 6's
+# model, seq 1024 and batch 8 (phase 6's tokens per step) over HYB_RANKS
+# ranks: MHA (2, 1, 1) r 2 (6 heads per rank), ff1 (2, 1, 2), ff2 (2, 1,
+# 1) r 2, every other op batch-split 2 ways; then Ulysses at phase 7's
+# shape (seq 4096, batch 2, sp 4, 3 heads per rank).  First-step losses
+# against one process with phase 7's tolerances
+HYB_RANKS = 4
+HYB_STEPS = 10
+HYB_TIMED_STEPS = 4
+HYB_PROFILE_STEPS = 2
+HYB_PARITY_LAYERS = 2
+ULYSSES_STEPS = 3
+# the per-rank attention shapes of phase 8's legs, (leg, B, S, H) at D
+# 64: Megatron's local batch and heads at phase 6's sequence, Ulysses'
+# whole sequence at H / sp heads
+HYB_FLASH_SHAPES = (
+    ("megatron", TRAIN_BATCH // 2, TRAIN["seq_len"], TRAIN["num_heads"] // 2),
+    ("ulysses", SP_BATCH, SP["seq_len"], SP["num_heads"] // HYB_RANKS))
 
 # published peaks (NVIDIA data sheets): device-memory bytes/s, dense
 # fp32 (non-tensor-core) operations/s and dense bf16 tensor-core
@@ -638,6 +679,72 @@ def decode_times(root, seed):
             ms_read_flush=time_ms(lambda: kernel(*operands), flush,
                                   read_flush=True))
     print("decode times: " + json.dumps(report))
+
+
+def step_times(root, seed):
+    """Phase 6's training step (its model, batch and optimizer) of the
+    checkout at ``root``: after one warm step (the capture) each, the
+    flash kernels' launches per step and the synchronised step time over
+    TIMED_STEPS steps, captured and eager; one JSON line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import flexflow_tpu_torch
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.compiler.graphs import eager
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import build_gpt
+
+    package = os.path.dirname(os.path.abspath(flexflow_tpu_torch.__file__))
+    check(package == os.path.join(os.path.abspath(root),
+                                  "flexflow_tpu_torch"),
+          f"--step-times {root}: imported the package at {package}")
+    cfg = FFConfig(batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                   seed=seed)
+    model = build_gpt(cfg, **TRAIN)
+    model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    rng = np.random.default_rng(seed + 3)  # phase 6's batches
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        TRAIN_BATCHES * TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
+    dev = model.compiled.device
+    batches = [([torch.from_numpy(ids[i:i + TRAIN_BATCH, :-1]).to(dev)],
+                torch.from_numpy(ids[i:i + TRAIN_BATCH, 1:]).to(dev))
+               for i in range(0, TIMED_STEPS * TRAIN_BATCH, TRAIN_BATCH)]
+    kernels = (fa.flash_forward, fa.flash_backward_dq,
+               fa.flash_backward_dkv)
+
+    def train_step(batch):
+        model.params, model.opt_state, model.state, loss, _ = (
+            model.compiled.train_step(model.params, model.opt_state,
+                                      model.state, *batch))
+        return loss
+
+    report = {"package": package}
+    for tag, ctx in (("captured", contextlib.nullcontext()),
+                     ("eager", eager())):
+        with ctx:
+            train_step(batches[0])
+            for kn in kernels:
+                kn.launches = 0
+            times = []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = train_step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(loss)), f"--step-times {root} {tag}: "
+              f"the loss is not finite")
+        launches = ({k: v for k, v in captured_launches(
+            model.compiled.step_graph).items()
+            if k in {kn.__name__ for kn in kernels}}
+            if tag == "captured" else
+            {kn.__name__: kn.launches / len(batches) for kn in kernels})
+        report[tag] = {"steps": len(times),
+                       "p50_ms": float(np.median(times)) * 1e3,
+                       "p99_ms": float(np.quantile(times, 0.99)) * 1e3,
+                       "flash_launches_per_step": launches}
+    print("step times: " + json.dumps(report))
 
 
 def bits(t):
@@ -1644,7 +1751,38 @@ def phase_flash_kernels(name, seed):
               + json.dumps(errs["ref_max"]) + "; backward row errors "
               + json.dumps(errs["bwd_row"]) + "; two calls bit-equal")
     results["sweep"] = sweep_flash_shapes(seed)
+    results["hybrid_shapes"] = check_hybrid_flash_shapes(seed)
     return results
+
+
+def check_hybrid_flash_shapes(seed):
+    """The three flash kernels at the per-rank shapes of phase 8's legs
+    (HYB_FLASH_SHAPES, causal), bf16 and fp32, against their plain
+    versions with the limits of the training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    d = TRAIN["hidden"] // TRAIN["num_heads"]
+    out = {}
+    for leg, b, s, h in HYB_FLASH_SHAPES:
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v, do = flash_operands(b, s, s, h, d, dt, gen)
+            errs = flash_errors(q, k, v, do, True, 1.0 / math.sqrt(d))
+            where = f"{leg} shape B={b} S={s} H={h} D={d} causal"
+            for kind in ("fwd", "dq", "dkv"):
+                check(errs[kind] <= FLASH_TOL[tag],
+                      f"flash {kind} kernel vs plain version ({tag}, "
+                      f"{where}): error {errs[kind]:.3e} > {FLASH_TOL[tag]}")
+            check(errs["fwd_row"] <= ROW_TOL[tag],
+                  f"flash fwd kernel vs plain version ({tag}, {where}): out "
+                  f"error {errs['fwd_row']:.3e} of a row's max > "
+                  f"{ROW_TOL[tag]}")
+            check_bwd_rows(errs, tag, where)
+            out[f"{leg}_{tag}"] = {"shape": [b, s, h, d], **{
+                k: errs[k] for k in ("fwd", "fwd_row", "dq", "dkv",
+                                     "bwd_row")}}
+            del q, k, v, do
+    print("flash kernels at phase 8's per-rank shapes vs plain versions: "
+          + json.dumps(out))
+    return out
 
 
 def sweep_flash_shapes(seed):
@@ -2058,7 +2196,7 @@ def phase_train(seed, name):
               f"{tag}: flash route gradient of {par['grad_worst_weight']} "
               f"differs by {par['grad_worst_rel_norm_err']:.3e} > "
               f"{GRAD_PATH_TOL[tag]}")
-    return launches
+    return launches, losses[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2075,13 +2213,16 @@ def sp_strategy(model, n):
     return views
 
 
-def sp_model(seed, dtype, layers, num_devices, strategy):
+def gpt_model(seed, dtype, layers, widths, batch, num_devices, strategy,
+              sp_mode=None):
     from flexflow_tpu_torch import AdamOptimizer, FFConfig
     from flexflow_tpu_torch.models import build_gpt
 
-    cfg = FFConfig(batch_size=SP_BATCH, compute_dtype=dtype, seed=seed,
+    cfg = FFConfig(batch_size=batch, compute_dtype=dtype, seed=seed,
                    num_devices=num_devices)
-    model = build_gpt(cfg, **dict(SP, num_layers=layers))
+    model = build_gpt(cfg, **dict(widths, num_layers=layers))
+    if sp_mode:
+        set_op_attr(model, "multihead_attention", "sp_mode", sp_mode)
     model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
                   loss_type="sparse_categorical_crossentropy",
                   metrics=["accuracy"],
@@ -2110,22 +2251,22 @@ def _sp_rank(rank, seed, ids):
     def strategy(model):
         return sp_strategy(model, n)
 
-    model = sp_model(seed, "float32", SP_PARITY_LAYERS, n, strategy)
+    model = gpt_model(seed, "float32", SP_PARITY_LAYERS, SP, SP_BATCH, n,
+                      strategy)
     model.fit(x[:SP_BATCH], y[:SP_BATCH], shuffle=False, verbose=False)
     loss_fp32 = model.step_losses[0]
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
-    model = sp_model(seed, "bfloat16", SP["num_layers"], n, strategy)
+    model = gpt_model(seed, "bfloat16", SP["num_layers"], SP, SP_BATCH, n,
+                      strategy)
     flops = sum(nd.op.flops() for nd in model.graph.nodes.values())
     kernels = (fa.flash_forward_partial, fa.flash_forward,
                fa.flash_backward_dq, fa.flash_backward_dkv)
-    comms = (mesh.ppermute, mesh.all_reduce_mean_)
     for k in kernels:
         k.launches = 0
-    for c in comms:
-        c.host_hops = c.host_bytes = 0
+    mesh.reset_comm_counts()
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
     t0 = time.perf_counter()
@@ -2134,8 +2275,7 @@ def _sp_rank(rank, seed, ids):
     torch.cuda.synchronize()
     fit_wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    hops = {c.__name__: {"tensors": c.host_hops, "bytes": c.host_bytes}
-            for c in comms}
+    hops = mesh.comm_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     rows = slice(*local_seq_slice(SP["seq_len"]))
@@ -2213,7 +2353,7 @@ def phase_sp_train(seed, name):
     refs = {}
     for tag, dtype, layers in (("fp32", "float32", SP_PARITY_LAYERS),
                                ("bf16", "bfloat16", SP["num_layers"])):
-        model = sp_model(seed, dtype, layers, 1, None)
+        model = gpt_model(seed, dtype, layers, SP, SP_BATCH, 1, None)
         check(all(nd.op.uses_flash() for nd in model.graph.nodes.values()
                   if hasattr(nd.op, "uses_flash")),
               "the one-process reference must take the flash route")
@@ -2263,9 +2403,10 @@ def phase_sp_train(seed, name):
         "step_p50_ms": float(np.median(step_max)) * 1e3,
         "step_p99_ms": float(np.quantile(step_max, 0.99)) * 1e3,
         "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
-        "host_hops_per_rank_per_step": [
+        "collectives_per_rank_per_step": [
             {k: {u: c / steps for u, c in v.items()}
-             for k, v in r["host_hops"].items()} for r in ranks],
+             for k, v in r["host_hops"].items() if v["calls"]}
+            for r in ranks],
         "kernel_launches_per_rank": [r["launches"] for r in ranks],
         "loss_first_step": losses[0], "loss_last_step": losses[-1],
         "ln_token_range": math.log(TOKEN_RANGE),
@@ -2288,7 +2429,7 @@ def phase_sp_train(seed, name):
         for k in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
             check(got[k] == 0, f"rank {i}: {k} launched {got[k]} times on "
                   f"the SP path")
-        hopped = r["host_hops"]["ppermute"]["tensors"]
+        hopped = r["host_hops"]["ppermute"]["host_hops"]
         check((hopped > 0) == shared, f"rank {i}: {hopped} host hops with "
               f"transport {r['transport']}")
     check(bool(np.isfinite(losses).all()), "an SP step's loss is not finite")
@@ -2299,7 +2440,324 @@ def phase_sp_train(seed, name):
               f"SP {tag} first-step loss {par['sp']:.6f} vs one process "
               f"{par['one_process']:.6f}: {par['rel_err']:.3e} > "
               f"{par['tol']}")
-    return r0["launches"], report
+    return r0["launches"], report, refs
+
+
+# ---------------------------------------------------------------------------
+def megatron_strategy(model):
+    """Megatron dp 2 x tp 2: MHA (2, 1, 1) r 2, ff1 (2, 1, 2), ff2 (2, 1,
+    1) r 2, every other op split 2 ways on its batch dim where it can
+    be."""
+    from flexflow_tpu_torch.core.machine import MachineView
+
+    views = {}
+    for node in model.graph.topo_order():
+        op = node.op
+        nd = op.output_shapes[0].ndim
+        degs = [1] * nd
+        if nd and 0 in op.splittable_output_dims():
+            degs[0] = 2
+        views[node.guid] = MachineView(tuple(degs))
+        if op.op_type.value == "multihead_attention" or op.name.endswith(
+                "_ff2"):
+            views[node.guid] = MachineView((2, 1, 1), replica_degree=2)
+        elif op.name.endswith("_ff1"):
+            views[node.guid] = MachineView((2, 1, 2))
+    return views
+
+
+def weight_blocks(model):
+    """Per weight: (this rank's block coordinates, sha1 of its bits)."""
+    import hashlib
+
+    c = model.compiled
+    out = {}
+    for op, ws in model.params.items():
+        for w, t in ws.items():
+            pl = c.weight_placement(op, w)
+            key = [c.mesh.index(axes) if axes else 0 for axes in pl.dims]
+            raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+            out[f"{op}/{w}"] = (key, hashlib.sha1(raw.tobytes()).hexdigest())
+    return out
+
+
+def _hybrid_rank(rank, seed, ids, ids_u):
+    """One rank of the hybrid phase: Megatron dp x tp (the fp32 parity step at
+    HYB_PARITY_LAYERS layers, then the full-width bf16 model through
+    ``fit`` for HYB_STEPS steps with the launch and collective counts
+    set to 0 just before, synchronised steps, a profile on rank 0, the
+    weight blocks' digests), then Ulysses (``fit`` for ULYSSES_STEPS
+    steps, counts set to 0 just before)."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import mesh
+    from flexflow_tpu_torch.runtime.distributed import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    x, y = ids[:, :-1], ids[:, 1:]
+    kernels = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv,
+               fa.flash_forward_partial)
+
+    def drive(model, xs, ys, batch):
+        """``fit`` with every count set to 0 just before: (wall s,
+        launches, collectives, history)."""
+        for k in kernels:
+            k.launches = 0
+        mesh.reset_comm_counts()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        history = model.fit(xs, ys, batch_size=batch, shuffle=False,
+                            verbose=False)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0,
+                {k.__name__: k.launches for k in kernels},
+                mesh.comm_counts(), history)
+
+    model = gpt_model(seed, "float32", HYB_PARITY_LAYERS, TRAIN,
+                         TRAIN_BATCH, n, megatron_strategy)
+    model.fit(x[:TRAIN_BATCH], y[:TRAIN_BATCH], shuffle=False, verbose=False)
+    loss_fp32 = model.step_losses[0]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = gpt_model(seed, "bfloat16", TRAIN["num_layers"], TRAIN,
+                         TRAIN_BATCH, n, megatron_strategy)
+    heads = {nd.op.name: model.params[nd.op.name]["wq"].shape[1]
+             for nd in model.graph.nodes.values()
+             if nd.op.op_type.value == "multihead_attention"}
+    flops = sum(nd.op.flops() for nd in model.graph.nodes.values())
+    wall, launches, comms, history = drive(model, x, y, TRAIN_BATCH)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = list(model.step_losses)
+    samples_per_s = model.last_throughput
+    c, dev = model.compiled, model.compiled.device
+
+    def local(a, rows, labels=False):
+        blk = a[rows]
+        sl = c.label_slices(blk.shape) if labels else c.input_slices(
+            0, blk.shape)
+        return torch.from_numpy(np.ascontiguousarray(blk[sl])).to(dev)
+
+    batches = []
+    for i in range(HYB_TIMED_STEPS + HYB_PROFILE_STEPS):
+        rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        batches.append(([local(x, rows)], local(y, rows, labels=True)))
+
+    def train_step(batch):
+        model.params, model.opt_state, model.state, loss, _ = c.train_step(
+            model.params, model.opt_state, model.state, *batch)
+        return loss
+
+    times = []
+    for batch in batches[:HYB_TIMED_STEPS]:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    it = iter(batches[HYB_TIMED_STEPS:])
+    profile = None
+    if rank == 0:
+        profile = profile_window(lambda: train_step(next(it)),
+                                 HYB_PROFILE_STEPS, "step")
+    else:
+        for batch in it:
+            train_step(batch)
+    torch.cuda.synchronize()
+    megatron = {"transport": transport(), "losses": losses,
+                "loss_fp32_first_step": loss_fp32, "history": history,
+                "fit_wall_s": wall, "samples_per_s": samples_per_s,
+                "launches": launches, "collectives": comms,
+                "peak_memory_gb": peak_gb, "step_times_s": times,
+                "profile": profile,
+                "local_heads": sorted(set(heads.values())), "flops": flops,
+                "blocks": weight_blocks(model)}
+    del model, c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def sp_views(model):
+        return sp_strategy(model, n)
+
+    model = gpt_model(seed, "bfloat16", SP["num_layers"], SP, SP_BATCH, n,
+                         sp_views, sp_mode="ulysses")
+    heads_u = sorted({nd.op.attrs["num_heads"] // n
+                      for nd in model.graph.nodes.values()
+                      if nd.op.op_type.value == "multihead_attention"})
+    wall_u, launches_u, comms_u, _ = drive(
+        model, ids_u[:, :-1], ids_u[:, 1:], SP_BATCH)
+    ulysses = {"losses": list(model.step_losses), "fit_wall_s": wall_u,
+               "samples_per_s": model.last_throughput,
+               "launches": launches_u, "collectives": comms_u,
+               "local_heads": heads_u,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {"megatron": megatron, "ulysses": ulysses,
+            "device": str(torch.cuda.current_device())}
+
+
+def phase_hybrid_train(seed, name, first_loss_bf16, sp_refs):
+    """Hybrid-parallel training over HYB_RANKS ranks (spawned as phase
+    7's: one card each with NCCL on a 4-card machine, else all on card 0
+    through gloo with counted host hops): Megatron dp 2 x tp 2 of phase
+    6's model on phase 6's batches, then Ulysses at phase 7's shape on
+    phase 7's batches.  The one-process references: phase 6's first
+    step (bf16, full width) and phase 7's (bf16 at seq 4096), and the
+    fp32 first step at HYB_PARITY_LAYERS layers, computed here."""
+    from flexflow_tpu_torch.runtime.distributed import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    shared = cards < HYB_RANKS
+    rng = np.random.default_rng(seed + 3)  # phase 6's batches
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        TRAIN_BATCHES * TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
+    ids = ids[:HYB_STEPS * TRAIN_BATCH]
+    rng = np.random.default_rng(seed + 9)  # phase 7's batches
+    ids_u = rng.integers(0, TOKEN_RANGE, size=(
+        SP_STEPS * SP_BATCH, SP["seq_len"] + 1)).astype(np.int32)
+    ids_u = ids_u[:ULYSSES_STEPS * SP_BATCH]
+
+    model = gpt_model(seed, "float32", HYB_PARITY_LAYERS, TRAIN,
+                         TRAIN_BATCH, 1, None)
+    check(all(nd.op.uses_flash() for nd in model.graph.nodes.values()
+              if hasattr(nd.op, "uses_flash")),
+          "the one-process reference must take the flash route")
+    dev = model.compiled.device
+    loss, _ = model.compiled.eval_step(
+        model.params, model.state,
+        [torch.from_numpy(ids[:TRAIN_BATCH, :-1]).to(dev)],
+        torch.from_numpy(ids[:TRAIN_BATCH, 1:]).to(dev))
+    ref_fp32 = float(loss)
+    del model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn(_hybrid_rank, HYB_RANKS, (seed, ids, ids_u),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    want_transport = "gloo-host" if shared else "nccl"
+    cards_used = 1 if shared else HYB_RANKS
+    bf16_peak = card_peaks(name)[2]
+    meg = [r["megatron"] for r in ranks]
+    uly = [r["ulysses"] for r in ranks]
+    m0, u0 = meg[0], uly[0]
+    steps, steps_u = len(m0["losses"]), len(u0["losses"])
+    step_max = [max(r["step_times_s"][i] for r in meg)
+                for i in range(HYB_TIMED_STEPS)]
+    parity = {
+        "megatron_fp32": {"layers": HYB_PARITY_LAYERS,
+                          "one_process": ref_fp32,
+                          "hybrid": m0["loss_fp32_first_step"]},
+        "megatron_bf16": {"layers": TRAIN["num_layers"],
+                          "one_process": first_loss_bf16,
+                          "hybrid": m0["losses"][0]},
+        "ulysses_bf16": {"layers": SP["num_layers"],
+                         "one_process": sp_refs["bf16"],
+                         "hybrid": u0["losses"][0]}}
+    for tag, par in parity.items():
+        par["rel_err"] = abs(par["hybrid"] - par["one_process"]) / abs(
+            par["one_process"])
+        par["tol"] = SP_LOSS_TOL["fp32" if tag.endswith("fp32") else "bf16"]
+
+    def per_step(counts, k):
+        return {c: {u: v / k for u, v in cnt.items()}
+                for c, cnt in counts.items() if cnt["calls"]}
+
+    report = {
+        "ranks": HYB_RANKS, "cards_used": cards_used,
+        "transport": [r["megatron"]["transport"] for r in ranks],
+        "rank_devices": [r["device"] for r in ranks],
+        "phase_wall_s": wall,
+        "megatron": {
+            "strategy": "dp 2 x tp 2", "steps": steps,
+            "local_heads": m0["local_heads"],
+            "fit_wall_s": [r["fit_wall_s"] for r in meg],
+            "samples_per_s": m0["samples_per_s"],
+            "tokens_per_s": m0["samples_per_s"] * TRAIN["seq_len"],
+            "mfu_vs_dense_bf16_peak": 3.0 * m0["flops"]
+            * m0["samples_per_s"] / TRAIN_BATCH / (bf16_peak * cards_used),
+            "step_p50_ms": float(np.median(step_max)) * 1e3,
+            "step_p99_ms": float(np.quantile(step_max, 0.99)) * 1e3,
+            "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in meg],
+            "collectives_per_rank_per_step": [
+                per_step(r["collectives"], steps) for r in meg],
+            "kernel_launches_per_rank": [r["launches"] for r in meg],
+            "loss_first_step": m0["losses"][0],
+            "loss_last_step": m0["losses"][-1],
+            "epoch_history": m0["history"]},
+        "ulysses": {
+            "strategy": "sp 4, sp_mode ulysses", "steps": steps_u,
+            "local_heads": u0["local_heads"],
+            "fit_wall_s": [r["fit_wall_s"] for r in uly],
+            "samples_per_s": u0["samples_per_s"],
+            "tokens_per_s": u0["samples_per_s"] * SP["seq_len"],
+            "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in uly],
+            "collectives_per_rank_per_step": [
+                per_step(r["collectives"], steps_u) for r in uly],
+            "kernel_launches_per_rank": [r["launches"] for r in uly],
+            "losses": u0["losses"]},
+        "first_step_parity": parity}
+    print("hybrid training path: " + json.dumps(report))
+    print("hybrid training path step losses (megatron): "
+          + json.dumps([round(v, 5) for v in m0["losses"]]))
+    print("hybrid training path profile (megatron, rank 0): "
+          + json.dumps(m0["profile"]))
+
+    layers = TRAIN["num_layers"]
+    check(steps == HYB_STEPS, f"{steps} Megatron steps ran")
+    check(steps_u == ULYSSES_STEPS, f"{steps_u} Ulysses steps ran")
+    rows = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+    for i, (m, u) in enumerate(zip(meg, uly)):
+        check(m["transport"] == want_transport,
+              f"rank {i}: transport {m['transport']}, want {want_transport}")
+        check(m["losses"] == m0["losses"] and u["losses"] == u0["losses"],
+              f"rank {i} reports other losses")
+        for leg, r, k in (("megatron", m, steps), ("ulysses", u, steps_u)):
+            for kname in rows:
+                check(r["launches"][kname] == layers * k,
+                      f"rank {i} {leg}: {kname} launched "
+                      f"{r['launches'][kname]} times in {k} steps, want "
+                      f"{layers * k}")
+            check(r["launches"]["flash_forward_partial"] == 0,
+                  f"rank {i} {leg}: the partial kernel launched")
+        hopped = m["collectives"]["all_reduce_sum"]["host_hops"]
+        check((hopped > 0) == shared, f"rank {i}: {hopped} host hops with "
+              f"transport {m['transport']}")
+        check(u["collectives"]["all_to_all"]["calls"] > 0,
+              f"rank {i}: the Ulysses leg ran no all-to-all")
+    check(m0["local_heads"] == [TRAIN["num_heads"] // 2],
+          f"Megatron local heads {m0['local_heads']}")
+    check(u0["local_heads"] == [SP["num_heads"] // HYB_RANKS],
+          f"Ulysses local heads {u0['local_heads']}")
+    for leg, ls in (("megatron", m0["losses"]), ("ulysses", u0["losses"])):
+        check(bool(np.isfinite(ls).all()), f"a {leg} step's loss is not "
+              f"finite")
+        check(ls[-1] < ls[0], f"{leg} loss did not fall: {ls[0]:.4f} at "
+              f"step 1, {ls[-1]:.4f} at step {len(ls)}")
+    blocks = {}
+    for i, m in enumerate(meg):
+        for wname, (key, digest) in m["blocks"].items():
+            seen = blocks.setdefault((wname, tuple(key)), digest)
+            check(seen == digest, f"rank {i}: replica of {wname} block "
+                  f"{key} differs in bits after the last step")
+    print(f"hybrid training path: {len(blocks)} weight blocks, every "
+          f"replica bit-equal after "
+          f"{steps + HYB_TIMED_STEPS + HYB_PROFILE_STEPS} steps")
+    for tag, par in parity.items():
+        check(par["rel_err"] <= par["tol"],
+              f"{tag} first-step loss {par['hybrid']:.6f} vs one process "
+              f"{par['one_process']:.6f}: {par['rel_err']:.3e} > "
+              f"{par['tol']}")
+    return ({k: m0["launches"][k] for k in rows},
+            {k: u0["launches"][k] for k in rows}, report)
 
 
 def main(argv=None) -> int:
@@ -2308,10 +2766,17 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-times", metavar="ROOT", default=None,
                     help="only time the decode kernels of the checkout "
                          "at ROOT at phase 3's serving shape")
+    ap.add_argument("--step-times", metavar="ROOT", default=None,
+                    help="only time phase 6's training step of the "
+                         "checkout at ROOT, captured and eager")
     args = ap.parse_args(argv)
     if args.decode_times is not None:
         phase_device()
         decode_times(args.decode_times, args.seed)
+        return 0
+    if args.step_times is not None:
+        phase_device()
+        step_times(args.step_times, args.seed)
         return 0
 
     name = phase_device()
@@ -2322,8 +2787,10 @@ def main(argv=None) -> int:
     partial = phase_partial_kernel(name, args.seed)
     rpa_launches = phase_main_path(args.seed)
     quant_launches, _ = phase_serving_lane(args.seed)
-    flash_launches = phase_train(args.seed, name)
-    sp_launches, _ = phase_sp_train(args.seed, name)
+    flash_launches, first_loss = phase_train(args.seed, name)
+    sp_launches, _, sp_refs = phase_sp_train(args.seed, name)
+    megatron_launches, ulysses_launches, _ = phase_hybrid_train(
+        args.seed, name, first_loss, sp_refs)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -2373,6 +2840,8 @@ def main(argv=None) -> int:
             "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"flexflow_tpu/kernels/flash_attention.py:{line}",
             "launches": flash_launches[wrapper],
+            "launches_megatron_per_rank": megatron_launches[wrapper],
+            "launches_ulysses_per_rank": ulysses_launches[wrapper],
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],
             "plain_ms": bf16["plain_ms"],

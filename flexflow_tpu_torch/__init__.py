@@ -2,8 +2,8 @@
 
 Built slice by slice beside the JAX package, which stays the reference
 each slice is held against.  This package imports torch, numpy and the
-standard library, never JAX or flexflow_tpu.  It runs three paths on
-one NVIDIA H100.  Serving:
+standard library, never JAX or flexflow_tpu.  It runs these paths on
+NVIDIA H100 cards.  Serving:
 
     build_gpt_decode -> FFModel.compile(comp_mode="inference")
     -> compiled_decode_step -> ContinuousBatchingExecutor.run
@@ -18,12 +18,14 @@ prefill lane, radix prefix sharing and SLO classes.  Training:
 
 with flash attention forward and backward in hand-written CUDA kernels
 (``csrc/flash_attention.cu``), ``FFConfig(trace_steps=n)`` running n
-steps per compiled call.  Sequence-parallel training: the same under
-``runtime.distributed`` and a strategy that splits the sequence over
-the job's ranks, attention on the ring (``parallel/``).  The decode
-frame, the chunk pass and the training step (one or n) run as captured
-CUDA graphs over static buffers (``compiler/graphs.py``; eagerly inside
-``compiler.graphs.eager()``); sequence-parallel steps stay eager.
+steps per compiled call.  Multi-rank training: the same under
+``runtime.distributed`` and a strategy that splits the batch, the
+sequence, out dims or heads/contractions over the job's ranks
+(``compiler/lowering.py``, ``parallel/``: resharding, the ring,
+Ulysses).  The decode frame, the chunk pass and the training step (one
+or n) run as captured CUDA graphs over static buffers
+(``compiler/graphs.py``; eagerly inside ``compiler.graphs.eager()``);
+multi-rank steps stay eager.
 Entry points run on the card unless the config says ``device="cpu"``.
 """
 

@@ -1,7 +1,6 @@
 """Graph execution — the port of flexflow_tpu/compiler/lowering.py
 (``CompiledModel``: ``init_params``, ``apply``, ``train_step``,
-``eval_step``, ``forward_fn``) for one device and for pure sequence
-parallelism.
+``eval_step``, ``forward_fn``).
 
 PyTorch runs eagerly, so "lowering" is running each node's ``forward``
 in topological order.  ``apply`` records autograd only when called with
@@ -18,29 +17,52 @@ buffers that the next call with the same N overwrites.  ``train_step``
 is the N = 1 case.  The parameters, the optimizer state and the model
 state are updated in place (a state value that a step returns as a new
 tensor is copied into the old one), so the graph holds their
-addresses.  Under sequence parallelism both stay eager: the gradient
-mean's gloo host hops cannot be captured, and the reference also runs
-one step per call when the job has several processes.  ``eval_step``
+addresses.  A job of several ranks runs its steps eagerly: the
+collectives' gloo host hops cannot be captured, and the reference also
+runs one step per call when the job has several processes (NCCL
+capture of multi-rank steps: ROADMAP Queue A item 5).  ``eval_step``
 and ``forward_fn`` stay eager: no main path times them.
 
 Weights are seeded by NAME, as the reference's ``weight_fold_key``
 does: each weight draws from its own ``torch.Generator`` seeded from
 the model seed and crc32 of ``"op/weight"``, so initialisation does not
-depend on the order the graph enumerates its nodes (and every rank of a
-job starts from the same weights).
+depend on the order the graph enumerates its nodes, and every rank
+draws the same whole weight and keeps its block of it: any strategy
+starts from the one-process weights.
 
-Strategies.  The trivial strategy (or none) runs the graph on one
-device.  The pure sequence-parallel strategy — every op whose output
-has a sequence dim (ndim >= 2) at ``MachineView((1, n, 1, ...))``, n the
-job's world size, and every other op trivial — runs one rank per shard
-of the sequence: inputs, labels and constants are the rank's slice,
-position-wise ops run on it unchanged, MHA runs the ring
-(``parallel/ring_attention.py``), each rank's loss is the mean over its
-tokens, the gradients are averaged over the ranks after the backward
-(``all_reduce_mean_``; with equal shards the mean of the shards' mean
-losses is the global mean loss) and so are the reported loss and
-metrics.  Any other non-trivial view needs resharding between views
-(ROADMAP Queue A item 8) and raises ``NotImplementedError``.
+Strategies (explicit SPMD, one process per rank).  As in the reference
+(lowering.py:140-150), each node's view (the strategy's, else its
+fixed view, else trivial) goes through the op's ``propagate`` and
+``view_slot_axes``; ``parallel.mesh.placement`` turns the annotations
+into layouts over the job's mesh.  ``_run_node`` (reference :237-282)
+reshards each edge from its producer's output layout to the layout its
+consumer's input annotation asks for (the port's counterpart of the
+reference's ``_constrain``: GSPMD inserts these collectives there),
+puts a ``grad_all_reduce`` on an input that is replicated over axes
+along which the op's work differs (its weights' or outputs' split or
+partial axes: the input's gradient is a partial sum there, Megatron's
+f operator), and runs the op on the local shards (or its
+``forward_sharded``).  Gradients are laid out as their values are.  One
+process is the same path on a one-rank mesh: every layout is whole, and
+every reshard, gradient sum and job reduction is the identity; only the
+capture of its steps (``capture``) sets it apart.
+
+The loss is a global mean: the sink's output is resharded to a layout
+split at most on its batch and sequence dims (the label dims) and not
+partial, each rank's loss is the mean over its block divided by the
+number of blocks, and autograd's gradients are then each rank's share.
+``_sync_grads`` sums each weight's gradient, in fp32, over the axes the
+weight is replicated on along which the op's work differs (batch,
+sequence, partial-output axes); where every rank computes the same, it
+does not.  The reported loss is the sum of the ranks' shares over the
+sink's split axes; the metrics (per-sample sums) are summed over its
+batch axes and averaged over its sequence axes.
+
+Not lowered, and raising ``NotImplementedError`` with the ROADMAP
+item that lifts it: ZeRO (``zero_dp_shard``, per-group
+``zero_groups``), compressed or scheduled gradient sync
+(``sync_precision``, ``sync_schedule``), pipeline and placement meta,
+and the inference compile under a split (model.py).
 """
 
 from __future__ import annotations
@@ -55,11 +77,28 @@ from flexflow_tpu_torch.compiler.graphs import StepGraph
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.core.graph import Graph, Node
 from flexflow_tpu_torch.core.machine import MachineView
-from flexflow_tpu_torch.losses import LossType, compute_loss
-from flexflow_tpu_torch.metrics import MetricsType, compute_metrics
-from flexflow_tpu_torch.ops.base import LoweringContext
+from flexflow_tpu_torch.losses import (
+    LossType,
+    compute_loss,
+    job_loss,
+    loss_share,
+)
+from flexflow_tpu_torch.metrics import (
+    MetricsType,
+    compute_metrics,
+    job_metrics,
+)
+from flexflow_tpu_torch.ops.base import LoweringContext, OpSharding
 from flexflow_tpu_torch.ops.inout import InputOp
 from flexflow_tpu_torch.optimizers import Optimizer
+from flexflow_tpu_torch.parallel.mesh import (
+    Placement,
+    all_reduce_sum,
+    grad_all_reduce,
+    placement,
+    reshard,
+    view_slot_axes,
+)
 
 
 def weight_generator(seed: int, op_name: str, w_name: str) -> torch.Generator:
@@ -69,47 +108,47 @@ def weight_generator(seed: int, op_name: str, w_name: str) -> torch.Generator:
     return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | crc)
 
 
-# losses that are means over positions: under sequence parallelism the
-# mean of the ranks' losses is the global loss
-_SP_LOSSES = (LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
-              LossType.CATEGORICAL_CROSSENTROPY,
-              LossType.MEAN_SQUARED_ERROR, LossType.IDENTITY)
+# losses that are means over positions: a rank's share of the global
+# mean is its block's mean over the number of blocks
+_MEAN_LOSSES = (LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                LossType.CATEGORICAL_CROSSENTROPY,
+                LossType.MEAN_SQUARED_ERROR, LossType.IDENTITY)
+
+# compile options of the reference the port refuses, and the ROADMAP
+# Queue A item that lifts each
+_ITEM_ZERO_SYNC = "ROADMAP Queue A item 5"
+_ITEM_PIPELINE = "ROADMAP Queue A item 8"
 
 
-def sequence_parallel_degree(graph: Graph,
-                             strategy: Optional[Dict[int, MachineView]]
-                             ) -> int:
-    """n when ``strategy`` is the pure sequence-parallel strategy of
-    degree n, 1 when it is trivial (or None); raises
-    ``NotImplementedError`` for any other strategy."""
+def refuse_unlowered(what: str, item: str) -> None:
+    """Raise for a compile option or strategy block the port does not
+    lower, naming the ROADMAP item that lifts it."""
+    raise NotImplementedError(
+        f"{what} is not lowered by the port yet ({item}); the port syncs "
+        f"fp32 gradients in one all-reduce per set of axes and runs no "
+        f"pipeline")
+
+
+def strategy_views(strategy) -> Dict[int, MachineView]:
+    """The views by guid of a strategy, refusing the ``__meta__`` blocks
+    the lowering does not run."""
     if not strategy:
-        return 1
-    views = {n.guid: strategy.get(n.guid) or MachineView.trivial(
-        n.op.output_shapes[0].ndim) for n in graph.topo_order()}
-    if all(v.is_trivial for v in views.values()):
-        return 1
-    seq_degrees = {v.dim_degrees[1] for v in views.values()
-                   if len(v.dim_degrees) >= 2}
-    n = max(seq_degrees, default=1)
-    for guid, v in views.items():
-        nd = len(v.dim_degrees)
-        want = (MachineView((1, n) + (1,) * (nd - 2)) if nd >= 2
-                else MachineView.trivial(nd))
-        if v != want:
-            raise NotImplementedError(
-                f"{graph.nodes[guid].op.name}: view {v} (want {want}); the "
-                f"port lowers the trivial strategy and the pure "
-                f"sequence-parallel one (every op with a sequence dim at "
-                f"(1, n, ...)); other views need resharding between views "
-                f"(ROADMAP Queue A item 8), a later slice")
-    return n
+        return {}
+    meta = strategy.get("__meta__") or {}
+    for key, item in (("pipeline", _ITEM_PIPELINE),
+                      ("placement", _ITEM_PIPELINE),
+                      ("sync_schedule", _ITEM_ZERO_SYNC),
+                      ("sync_precision", _ITEM_ZERO_SYNC),
+                      ("zero_groups", _ITEM_ZERO_SYNC)):
+        if meta.get(key):
+            refuse_unlowered(f"strategy __meta__.{key}", item)
+    return {k: v for k, v in strategy.items() if k != "__meta__"}
 
 
 class CompiledModel:
-    """A graph bound to one device, or to this rank's shard of the
-    sequence under a sequence-parallel strategy, with the loss, metrics
-    and optimizer a training compile chose (all optional for
-    inference)."""
+    """A graph bound to one device, or to this rank's shards under a
+    strategy over the job's ranks, with the loss, metrics and optimizer
+    a training compile chose (all optional for inference)."""
 
     def __init__(self, graph: Graph, config: FFConfig,
                  loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
@@ -127,23 +166,16 @@ class CompiledModel:
             raise ValueError(
                 f"FFConfig.num_devices={config.num_devices} but the job has "
                 f"{world} rank(s) (runtime.distributed.initialize)")
-        self.sp_size = sequence_parallel_degree(graph, strategy)
-        if self.sp_size != world:
-            raise NotImplementedError(
-                f"a strategy of sequence degree {self.sp_size} on {world} "
-                f"rank(s): the port splits the sequence over every rank "
-                f"of the job; data-parallel and replicated execution come "
-                f"with later slices")
-        self.sp_group = None
-        if self.sp_size > 1:
-            import torch.distributed as dist
-
-            self.sp_group = dist.group.WORLD
+        for what, asked in (
+                ("zero_dp_shard", config.zero_dp_shard),
+                ("sync_precision", config.sync_precision != "fp32"),
+                ("sync_schedule", config.sync_schedule != "off")):
+            if asked:
+                refuse_unlowered(f"FFConfig.{what}="
+                                 f"{getattr(config, what)!r}",
+                                 _ITEM_ZERO_SYNC)
+        views = strategy_views(strategy)
         self.loss_type = LossType.from_any(loss_type)
-        if self.sp_size > 1 and self.loss_type not in _SP_LOSSES:
-            raise NotImplementedError(
-                f"loss {self.loss_type.value} under sequence parallelism: "
-                f"the port takes losses that are means over positions")
         self.metric_types = [MetricsType.from_any(m) for m in metric_types]
         self.optimizer = optimizer
         self._topo = graph.topo_order()
@@ -156,9 +188,87 @@ class CompiledModel:
         self._sink = sinks[-1]
         self.step_graph = StepGraph(self.device)
 
+        self.mesh = distributed.mesh()
+        self._shardings: Dict[int, OpSharding] = {}
+        self._slot_axes: Dict[int, Dict[int, Tuple[str, ...]]] = {}
+        for node in self._topo:
+            mv = views.get(node.guid)
+            if mv is None:
+                mv = node.op.fixed_machine_view() or MachineView.trivial(
+                    node.op.output_shapes[0].ndim)
+            self._shardings[node.guid] = node.op.propagate(mv)
+            self._slot_axes[node.guid] = view_slot_axes(mv, self.mesh.axes)
+        # one process captures its steps; several run them eagerly
+        self.capture = world == 1
+        self._layouts()
+        if self._loss_blocks > 1 and self.loss_type not in _MEAN_LOSSES:
+            raise NotImplementedError(
+                f"loss {self.loss_type.value} with the sink split over "
+                f"ranks: the port takes losses that are means over "
+                f"positions (ROADMAP Queue A item 3)")
+
+    # ---- layouts ---------------------------------------------------------
+    def _layouts(self):
+        """Each node's input, output and weight layouts, the axes to sum
+        each input's gradient over (``_differ``) and each weight's
+        (``_grad_axes``), and the loss's layout."""
+        self._in_pl, self._out_pl, self._w_pl = {}, {}, {}
+        self._differ, self._grad_axes = {}, {}
+        for node in self._topo:
+            osh, axes = self._shardings[node.guid], self._slot_axes[node.guid]
+            ins = [None if a is None else placement(a, axes)
+                   for a in osh.inputs]
+            outs = [placement(a, axes) for a in osh.outputs]
+            ws = {spec.name: placement(a, axes)
+                  for spec, a in zip(node.op._weight_specs, osh.weights)}
+            used = set()
+            for pl in [p for p in ins if p is not None] + list(ws.values()):
+                used.update(pl.split_axes())
+            for pl in outs:
+                used.update(pl.split_axes() + pl.partial)
+            self._in_pl[node.guid], self._out_pl[node.guid] = ins, outs
+            self._w_pl[node.op.name] = ws
+            self._differ[node.guid] = [
+                () if p is None else self._in_order(used - set(p.split_axes()))
+                for p in ins]
+            self._grad_axes[node.op.name] = {
+                w: self._in_order(used - set(pl.split_axes()))
+                for w, pl in ws.items()}
+        sink = self._out_pl[self._sink.guid][0]
+        # split at most on the label dims: batch and, for [B, S, ...]
+        # outputs, the sequence
+        keep = 2 if len(sink.dims) >= 3 else 1
+        self._loss_pl = Placement(tuple(
+            axes if d < keep else () for d, axes in enumerate(sink.dims)))
+        self._loss_blocks = self.mesh.size(self._loss_pl.split_axes())
+
+    def _in_order(self, axes) -> Tuple[str, ...]:
+        return tuple(a for a in self.mesh.names if a in axes)
+
+    def weight_placement(self, op_name: str, w_name: str) -> Placement:
+        return self._w_pl[op_name][w_name]
+
+    def input_slices(self, i: int, shape: Sequence[int]
+                     ) -> Tuple[slice, ...]:
+        """This rank's block of frontend input ``i`` of global
+        ``shape`` (the reference's ``input_sharding``)."""
+        pl = self._out_pl[self._input_nodes[i].guid][0]
+        return pl.local_slices(shape, self.mesh)
+
+    def label_slices(self, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This rank's block of labels of global ``shape``: the loss
+        layout's on the label dims it shares with the output (the
+        reference's ``batch_sharding``)."""
+        dims = self._loss_pl.dims
+        pl = Placement(tuple(dims[d] if d < len(dims) else ()
+                             for d in range(len(shape))))
+        return pl.local_slices(shape, self.mesh)
+
+    # ---- initialisation --------------------------------------------------
     def init_params(self, seed: int = 0):
         """Fresh ``params[op_name][weight_name]`` and
-        ``state["<op>/<var>"]`` tensors on the model's device."""
+        ``state["<op>/<var>"]`` tensors on the model's device (under a
+        strategy: this rank's blocks of the weights)."""
         params: Dict[str, Dict[str, torch.Tensor]] = {}
         state: Dict[str, torch.Tensor] = {}
         for node in self._topo:
@@ -166,6 +276,8 @@ class CompiledModel:
             for ws in op._weight_specs:
                 w = ws.initializer.init(
                     weight_generator(seed, op.name, ws.name), ws.shape)
+                pl = self._w_pl[op.name][ws.name]
+                w = w[pl.local_slices(ws.shape, self.mesh)].contiguous()
                 params.setdefault(op.name, {})[ws.name] = w.to(
                     device=self.device, dtype=ws.dtype.to_torch())
             specs = getattr(op, "state_specs", None)
@@ -176,49 +288,125 @@ class CompiledModel:
                     shape, fill, dtype=dtype, device=self.device)
         return params, state
 
+    # ---- forward ---------------------------------------------------------
     def apply(self, params, state, inputs: Sequence[torch.Tensor],
               train: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward through the graph; returns (sink output, new state).
-        ``inputs`` bind in frontend tensor-guid order.  Autograd records
-        the pass only when ``train`` is set."""
+        ``inputs`` bind in frontend tensor-guid order (under a strategy:
+        this rank's blocks, ``input_slices``; the sink's output is then
+        this rank's block, laid out as the sink's annotation says).
+        Autograd records the pass only when ``train`` is set."""
         if len(inputs) != len(self._input_nodes):
             raise ValueError(f"expected {len(self._input_nodes)} inputs, "
                              f"got {len(inputs)}")
         ctx = LoweringContext(compute_dtype=self.compute_dtype, train=train,
                               state_in=state, device=self.device,
-                              sp_group=self.sp_group)
+                              mesh=self.mesh)
         values: Dict[Tuple[int, int], torch.Tensor] = {}
+        places: Dict[Tuple[int, int], Placement] = {}
+        resharded: Dict[tuple, torch.Tensor] = {}
         for node, x in zip(self._input_nodes, inputs):
             values[(node.guid, 0)] = x
+            places[(node.guid, 0)] = self._out_pl[node.guid][0]
         with torch.set_grad_enabled(train):
             for node in self._topo:
                 if isinstance(node.op, InputOp):
                     continue
                 edges = sorted(self.graph.in_edges[node.guid],
                                key=lambda e: e.dst_idx)
-                ins = [values[(e.src, e.src_idx)] for e in edges]
-                outs = node.op.forward(ctx, ins, params.get(node.op.name, {}))
+                outs = self._run_node(node, ctx, edges,
+                                      params.get(node.op.name, {}), values,
+                                      places, resharded)
                 for i, y in enumerate(outs):
                     values[(node.guid, i)] = y
         new_state = dict(state)
         new_state.update(ctx.state_out)
+        self._sink_pl = places[(self._sink.guid, 0)]
         return values[(self._sink.guid, 0)], new_state
+
+    def _run_node(self, node, ctx, edges, ws, values, places, resharded):
+        """One node on this rank's shards: each edge resharded from its
+        producer's layout to the input's (once per layout, whatever the
+        consumers), the f operator on inputs whose gradient is partial,
+        then the op."""
+        guid = node.guid
+        ins, in_pls = [], []
+        for e in edges:
+            src = (e.src, e.src_idx)
+            want = self._in_pl[guid][e.dst_idx]
+            if want is None:  # unconstrained: the producer's layout
+                ins.append(values[src])
+                in_pls.append(places[src])
+                continue
+            key = src + (want,)
+            if key not in resharded:
+                resharded[key] = reshard(values[src], places[src], want,
+                                         self.mesh)
+            x = resharded[key]
+            differ = self._differ[guid][e.dst_idx]
+            if differ and x.requires_grad:
+                key = key + (differ,)
+                if key not in resharded:
+                    resharded[key] = grad_all_reduce(x, differ, self.mesh)
+                x = resharded[key]
+            ins.append(x)
+            in_pls.append(want)
+        osh = self._shardings[guid]
+        ctx.slot_axes = self._slot_axes[guid]
+        ctx.in_placements = in_pls
+        ctx.out_placements = list(self._out_pl[guid])
+        outs = node.op.forward_sharded(ctx, ins, ws, osh)
+        if outs is None:
+            outs = node.op.forward(ctx, ins, ws)
+        for i in range(len(outs)):
+            places[(guid, i)] = ctx.out_placements[i]
+        return outs
 
     # ---- training --------------------------------------------------------
     def _loss_from(self, logits, labels, new_state):
+        """This rank's loss (its share of the global mean under a
+        strategy) and the logits it was taken on."""
+        logits = reshard(logits, self._sink_pl, self._loss_pl, self.mesh)
         loss = compute_loss(self.loss_type, logits, labels)
         for k, v in new_state.items():
             if k.endswith("/aux_loss"):
                 loss = loss + v
-        return loss
+        return loss_share(loss, self._loss_blocks), logits
+
+    def _job_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return job_loss(loss, self._loss_pl.split_axes(), self.mesh)
+
+    def _job_metrics(self, m: Dict[str, torch.Tensor]):
+        dims = self._loss_pl.dims
+        return job_metrics(m, dims[0], tuple(a for axes in dims[1:]
+                                             for a in axes), self.mesh)
+
+    def _sync_grads(self, grads) -> None:
+        """Sum each weight's gradient over its ``_grad_axes``, in place,
+        in one fp32 all-reduce per set of axes."""
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for op, gs in grads.items():
+            for w, g in gs.items():
+                axes = self._grad_axes[op][w]
+                if axes:
+                    by_axes.setdefault(axes, []).append(g)
+        for axes, gs in by_axes.items():
+            if any(g.dtype != torch.float32 for g in gs):
+                raise NotImplementedError(
+                    f"gradient sync of non-fp32 weights is not ported yet "
+                    f"({_ITEM_ZERO_SYNC})")
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in gs]),
+                                  axes, self.mesh)
+            for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+                g.copy_(part.view_as(g))
 
     def loss_and_grads(self, params, state, inputs, labels):
         """One training forward and backward without an update: (loss,
         logits, new state, grads keyed like params).  A weight the
-        forward does not reach gets a zero gradient.  Under sequence
-        parallelism the loss and the gradients are the job's (means over
-        the ranks) and the logits are this rank's shard.  The gradients
+        forward does not reach gets a zero gradient.  Under a strategy
+        the loss is the job's, the gradients are this rank's blocks of
+        the job's, and the logits are this rank's block.  The gradients
         are taken with respect to fresh leaves that share the weights'
         storage, so no autograd node outlives the call: a node kept from
         an earlier call would carry that call's stream into a capture."""
@@ -228,20 +416,16 @@ class CompiledModel:
         for op, w, t in leaves:
             live.setdefault(op, {})[w] = t
         logits, new_state = self.apply(live, state, inputs, train=True)
-        loss = self._loss_from(logits, labels, new_state)
+        loss, logits = self._loss_from(logits, labels, new_state)
         gs = torch.autograd.grad(loss, [t for _, _, t in leaves],
                                  allow_unused=True)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
         for (op, w, t), g in zip(leaves, gs):
             grads.setdefault(op, {})[w] = (torch.zeros_like(t) if g is None
                                            else g)
-        loss = loss.detach()
-        if self.sp_group is not None:
-            from flexflow_tpu_torch.parallel.mesh import all_reduce_mean_
-
-            all_reduce_mean_([g for ws in grads.values()
-                              for g in ws.values()] + [loss], self.sp_group)
-        return loss, logits.detach(), new_state, grads
+        self._sync_grads(grads)
+        return (self._job_loss(loss.detach()), logits.detach(), new_state,
+                grads)
 
     def _steps(self, params, opt_state, state, inputs_stacked,
                labels_stacked):
@@ -254,12 +438,8 @@ class CompiledModel:
             loss, logits, new_state, grads = self.loss_and_grads(
                 params, state, [x[i] for x in inputs_stacked], labels)
             self.optimizer.apply(params, grads, opt_state)
-            m = compute_metrics(self.metric_types, self.loss_type, logits,
-                                labels)
-            if self.sp_group is not None and m:
-                from flexflow_tpu_torch.parallel.mesh import all_reduce_mean_
-
-                all_reduce_mean_(list(m.values()), self.sp_group)
+            m = self._job_metrics(compute_metrics(
+                self.metric_types, self.loss_type, logits, labels))
             with torch.no_grad():
                 for k, v in new_state.items():
                     if v is not state[k]:
@@ -286,7 +466,7 @@ class CompiledModel:
         def steps(*xs):
             return self._steps(params, opt_state, state, xs[:-1], xs[-1])
 
-        if self.sp_group is not None:
+        if not self.capture:
             losses, m = steps(*arrays)
         else:
             losses, m = self.step_graph(
@@ -308,15 +488,22 @@ class CompiledModel:
 
     @torch.no_grad()
     def eval_step(self, params, state, inputs, labels):
-        """(loss, metrics) of one batch, no gradients."""
+        """(loss, metrics) of one batch, no gradients: the job's."""
         logits, new_state = self.apply(params, state, inputs)
-        loss = self._loss_from(logits, labels, new_state)
+        loss, logits = self._loss_from(logits, labels, new_state)
         m = compute_metrics(self.metric_types, self.loss_type, logits, labels)
-        return loss, m
+        return self._job_loss(loss), self._job_metrics(m)
+
+    def gather_output(self, y: torch.Tensor) -> torch.Tensor:
+        """The whole sink output on every rank from this rank's block
+        (the last ``apply``'s layout)."""
+        return reshard(y, self._sink_pl, Placement.replicated(y.dim()),
+                       self.mesh)
 
     def forward_fn(self):
-        """(params, state, inputs) -> logits, no gradients."""
+        """(params, state, inputs) -> logits, no gradients: the whole
+        output on every rank."""
         def fwd(params, state, inputs):
-            return self.apply(params, state, inputs)[0]
+            return self.gather_output(self.apply(params, state, inputs)[0])
 
         return fwd

@@ -18,6 +18,9 @@ config.py:18-66) and ``kv_precision`` (the KV page-pool dtype lane:
 
 ``trace_steps`` is the reference's: ``fit`` runs that many optimizer
 steps per compiled call (``CompiledModel.train_steps``).
+``zero_dp_shard``, ``sync_precision`` and ``sync_schedule`` are the
+reference's ZeRO-1 and gradient-sync options; ``compile`` refuses any
+value but their defaults (ROADMAP Queue A item 5).
 
 Flags of the reference that the port does not run yet (``remat``,
 ``grad_accum_steps``, ``kv_precision="search"``) raise when set away
@@ -100,6 +103,11 @@ class FFConfig:
     remat: bool = False
     grad_accum_steps: int = 1
     trace_steps: int = 1  # optimizer steps per compiled call in fit
+    # the reference's ZeRO-1 and gradient-sync options: compile refuses
+    # any value but the default (not ported)
+    zero_dp_shard: bool = False
+    sync_precision: str = "fp32"
+    sync_schedule: str = "off"
 
     def __post_init__(self):
         if self.num_devices < 1:
@@ -112,7 +120,8 @@ class FFConfig:
         if self.kv_precision == "search":
             raise NotImplementedError(
                 "kv_precision='search': the searched KV-precision lane "
-                "comes with the search slice; pin fp32, bf16 or int8")
+                "comes with the search slice (ROADMAP Queue A item 9); "
+                "pin fp32, bf16 or int8")
         if self.kv_precision not in ("off", "fp32", "bf16", "int8"):
             raise ValueError(
                 f"kv_precision must be off|fp32|bf16|int8|search, got "
@@ -129,8 +138,9 @@ class FFConfig:
             if getattr(self, flag) != default:
                 raise NotImplementedError(
                     f"{flag}={getattr(self, flag)!r}: {what} is not ported "
-                    f"yet; the port runs one optimizer step per batch "
-                    f"with every activation saved")
+                    f"yet (ROADMAP Queue A item 3); the port runs one "
+                    f"optimizer step per batch with every activation "
+                    f"saved")
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:

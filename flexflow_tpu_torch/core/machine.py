@@ -1,9 +1,12 @@
 """``MachineView`` — a copy of flexflow_tpu/core/machine.py:196-249.
 
 The view of one operator: a degree per output dim, a replica degree and
-a placement offset.  The port lowers the trivial view and the pure
-sequence-parallel one (compiler/lowering.py); ``MachineSpec`` comes
-with the search slice.
+a placement offset.  Each op's ``propagate(mv)`` turns it into the
+sharding of its tensors and ``parallel/mesh.py`` maps its slots onto
+mesh axes; the lowering (compiler/lowering.py) runs any combination
+of views, one process per rank, and ignores ``start_part`` as the
+reference's GSPMD lowering does.  ``MachineSpec`` comes with the
+search slice (ROADMAP Queue A item 4).
 """
 
 from __future__ import annotations

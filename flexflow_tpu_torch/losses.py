@@ -3,11 +3,18 @@
 Scalar, differentiable losses on the final op's output; the gradients
 come from autograd of the mean-reduced loss, as the reference's come
 from ``jax.grad``.
+
+Under a strategy that splits the output over ranks, each rank computes
+its share of the global mean (``loss_share``: its block's mean over
+the number of equal blocks), whose gradients are the rank's share of
+the global gradients, and ``job_loss`` sums the shares over the split
+axes.  Sequence parallelism is the case of one split axis set.
 """
 
 from __future__ import annotations
 
 import enum
+from typing import Sequence
 
 import torch
 
@@ -93,3 +100,20 @@ def compute_loss(loss_type, logits: torch.Tensor,
     if loss_type is LossType.IDENTITY:
         return logits.float().mean()
     raise ValueError(f"unknown loss {loss_type}")
+
+
+def loss_share(loss: torch.Tensor, blocks: int) -> torch.Tensor:
+    """A block's share of the global mean loss over ``blocks`` equal
+    blocks."""
+    return loss / blocks if blocks > 1 else loss
+
+
+def job_loss(share: torch.Tensor, axes: Sequence[str], mesh
+             ) -> torch.Tensor:
+    """The global loss: the ranks' shares summed over ``axes``, the
+    output's split axes."""
+    if not axes:
+        return share
+    from flexflow_tpu_torch.parallel.mesh import all_reduce_sum
+
+    return all_reduce_sum(share, axes, mesh)

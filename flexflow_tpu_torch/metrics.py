@@ -2,13 +2,17 @@
 
 ``compute_metrics`` returns per-batch sums as 0-dim tensors on the
 model's device (no host sync); ``PerfMetrics`` folds them on the host.
+Under a strategy that splits the output over ranks, ``job_metrics``
+makes the job's sums from the ranks': per-sample values summed over the
+batch axes, averaged over the sequence axes (each rank's per-sample
+value is the mean over its equal block of positions).
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -79,6 +83,25 @@ def compute_metrics(metric_types: List[MetricsType], loss_type,
             d = (logits32 - labels32.reshape(logits32.shape)).abs()
             out["mae_loss"] = d.mean(dim=tuple(range(1, d.dim()))).sum()
     return out
+
+
+def job_metrics(m: Dict[str, torch.Tensor], batch_axes: Sequence[str],
+                seq_axes: Sequence[str], mesh) -> Dict[str, torch.Tensor]:
+    """The job's metric sums from this rank's (module docstring)."""
+    if not m or not (batch_axes or seq_axes):
+        return m
+    from flexflow_tpu_torch.parallel.mesh import (
+        all_reduce_mean_,
+        all_reduce_sum,
+    )
+
+    keys = sorted(m)
+    flat = torch.stack([m[k].float() for k in keys])
+    if batch_axes:
+        flat = all_reduce_sum(flat, batch_axes, mesh)
+    if seq_axes:
+        all_reduce_mean_([flat], mesh.group(seq_axes))
+    return dict(zip(keys, flat.unbind()))
 
 
 @dataclass

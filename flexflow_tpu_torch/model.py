@@ -3,18 +3,20 @@
 The builder methods the decode and transformer graphs call
 (``create_tensor``, ``create_constant``, ``embedding``, ``reshape``,
 ``add``, ``layer_norm``, ``dense``, ``multihead_attention``,
-``decode_attention``) build a lazy graph; ``compile`` binds it to the
-config's device with the trivial single-device strategy, or for
-training with a pure sequence-parallel strategy to this rank's shard of
-the sequence (compiler/lowering.py), and initialises ``params``,
-``state`` and, for training, the optimizer state; an
+``decode_attention``, and the parallel ops ``repartition``,
+``combine``, ``replicate``, ``reduction``) build a lazy graph;
+``compile`` binds it to the config's device, with a strategy (guid ->
+``MachineView``) to this rank's shards of every tensor
+(compiler/lowering.py), and initialises ``params`` (this rank's
+blocks), ``state`` and, for training, the optimizer state; an
 inference compile first adopts a pinned ``config.kv_precision`` onto
 the decode-attention ops (``_adopt_kv_dtype``, reference model.py:50-83,
 as the reference's strategy search does for one pinned candidate),
 so the state holds that pool dtype.  ``fit``, ``evaluate`` and
-``predict`` run over numpy data (under sequence parallelism ``fit``
-only).  The strategy search and the other multi-device lowerings come
-with later slices.
+``predict`` run over numpy data; under a strategy every rank runs them
+on its blocks, the losses and metrics are the job's, and ``predict``
+returns the whole output on every rank.  The strategy search comes
+with a later slice (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from flexflow_tpu_torch.core.ptensor import (
     ParallelTensorShape,
     Tensor,
 )
-from flexflow_tpu_torch.interop import tensor_from_numpy, tensor_to_numpy
+from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
 from flexflow_tpu_torch import ops as O
 
 
@@ -200,16 +202,57 @@ class FFModel:
                                binary_type=OperatorType.EW_ADD)
         return self._add_op(op, [a, b])[0]
 
+    # parallel ops (parallel/parallel_ops.py), placed by hand in a
+    # strategy's graph
+    def repartition(self, input: Tensor, dim: int, degree: int,
+                    name=None) -> Tensor:
+        from flexflow_tpu_torch.parallel.parallel_ops import RepartitionOp
+
+        op = RepartitionOp(self._fresh_name("repartition", name),
+                           [self._shape_of(input)], dim=dim, degree=degree)
+        return self._add_op(op, [input])[0]
+
+    def combine(self, input: Tensor, dim: int, degree: int = 1,
+                name=None) -> Tensor:
+        from flexflow_tpu_torch.parallel.parallel_ops import CombineOp
+
+        op = CombineOp(self._fresh_name("combine", name),
+                       [self._shape_of(input)], dim=dim, degree=degree)
+        return self._add_op(op, [input])[0]
+
+    def replicate(self, input: Tensor, degree: int, name=None) -> Tensor:
+        from flexflow_tpu_torch.parallel.parallel_ops import ReplicateOp
+
+        op = ReplicateOp(self._fresh_name("replicate", name),
+                         [self._shape_of(input)], degree=degree)
+        return self._add_op(op, [input])[0]
+
+    def reduction(self, input: Tensor, degree: int, name=None) -> Tensor:
+        from flexflow_tpu_torch.parallel.parallel_ops import ReductionOp
+
+        op = ReductionOp(self._fresh_name("reduction", name),
+                         [self._shape_of(input)], degree=degree)
+        return self._add_op(op, [input])[0]
+
+    def node_by_name(self, name: str) -> Node:
+        for node in self.graph.nodes.values():
+            if node.op.name == name:
+                return node
+        raise KeyError(name)
+
     # ---- compile ---------------------------------------------------------
     def compile(self, optimizer=None,
                 loss_type="sparse_categorical_crossentropy",
                 metrics=("accuracy",), comp_mode: str = "training",
-                strategy=None):
+                strategy=None, pipeline=None, block_of=None):
         """Bind the graph to the config's device and initialise
         ``params``/``state`` from ``config.seed``.  ``strategy`` (guid ->
-        ``MachineView``) is None or trivial for one device, or the pure
-        sequence-parallel strategy over the job's ranks (training only);
-        other strategies raise ``NotImplementedError``.
+        ``MachineView``, optionally with a ``__meta__`` block) is None or
+        trivial for one device, or any combination of batch, sequence,
+        out-dim and replica splits over the job's ranks (training only;
+        an inference compile under a split raises, ROADMAP Queue A item
+        2).  ``pipeline``/``block_of`` (the reference's pipeline and
+        placement lowerings) raise: ROADMAP Queue A item 8.
         ``comp_mode="training"`` also sets the loss, the metrics and the
         optimizer (default: SGD at ``config.learning_rate`` with
         ``config.weight_decay``, as the reference's) and initialises
@@ -220,6 +263,11 @@ class FFModel:
         if comp_mode not in ("training", "inference"):
             raise ValueError(f"comp_mode must be 'training' or 'inference', "
                              f"got {comp_mode!r}")
+        if pipeline is not None or block_of is not None:
+            raise NotImplementedError(
+                "compile(pipeline=..., block_of=...): the pipelined and "
+                "placed lowerings are not ported yet (ROADMAP Queue A "
+                "item 8)")
         self.config.comp_mode = comp_mode
         if comp_mode == "inference":
             _adopt_kv_dtype(self.graph, self.config.kv_precision)
@@ -232,10 +280,11 @@ class FFModel:
             metric_types=metrics if comp_mode == "training" else (),
             optimizer=self.optimizer if comp_mode == "training" else None,
             strategy=strategy)
-        if comp_mode == "inference" and self.compiled.sp_size > 1:
+        if comp_mode == "inference" and self.compiled.mesh.world > 1:
             raise NotImplementedError(
-                "an inference compile under a sequence-parallel strategy "
-                "comes with a later slice")
+                "an inference compile over several ranks is not ported yet "
+                "(ROADMAP Queue A item 2); the decode path runs on one "
+                "device")
         self.params, self.state = self.compiled.init_params(self.config.seed)
         self.opt_state = (self.optimizer.init_state(self.params)
                           if comp_mode == "training" else None)
@@ -261,13 +310,13 @@ class FFModel:
         the first call, which is fenced and left off the clock with the
         step's capture, as the reference leaves its compile) and
         ``step_losses`` (every step's loss, read after the loop).  Under
-        sequence parallelism every rank runs this loop on its slice of
-        the sequence: the samples are the job's, the losses and metrics
-        the job's means, and only rank 0 prints.
+        a strategy every rank runs this loop on its blocks of the
+        batches: the samples are the job's, the losses and metrics the
+        job's, and only rank 0 prints.
 
-        Not ported yet, and raising when asked for: callbacks,
-        recompile_state, validation data or split, checkpoints and
-        resume."""
+        Not ported yet, and raising when asked for (ROADMAP Queue A item
+        3): callbacks, recompile_state, validation data or split,
+        checkpoints and resume."""
         from flexflow_tpu_torch.metrics import PerfMetrics
         from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
 
@@ -281,7 +330,8 @@ class FFModel:
         asked = sorted(k for k, v in unported.items() if v)
         if asked:
             raise NotImplementedError(
-                f"fit({', '.join(asked)}) is not ported yet")
+                f"fit({', '.join(asked)}) is not ported yet (ROADMAP Queue "
+                f"A item 3)")
         if self.compiled is None:
             raise RuntimeError("call compile() first")
         if self.config.comp_mode != "training":
@@ -350,18 +400,12 @@ class FFModel:
 
         return rank() == 0
 
-    def _refuse_sequence_parallel(self, what: str) -> None:
-        if self.compiled is not None and self.compiled.sp_size > 1:
-            raise NotImplementedError(
-                f"{what} under a sequence-parallel strategy comes with a "
-                f"later slice; the port trains (fit) under it")
-
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None):
-        """Loss and metrics over full batches, in order, no gradients."""
+        """Loss and metrics over full batches, in order, no gradients
+        (the job's, under a strategy)."""
         from flexflow_tpu_torch.metrics import PerfMetrics
         from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
 
-        self._refuse_sequence_parallel("evaluate")
         xs = x if isinstance(x, (list, tuple)) else [x]
         batch_size = batch_size or self.config.batch_size
         loader = SingleDataLoader(self.compiled, [np.asarray(a) for a in xs],
@@ -382,10 +426,10 @@ class FFModel:
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
         """Batched forward pass, one output row per input row (a short
         tail batch is padded with its last row to batch_size and
-        trimmed, as the reference does)."""
+        trimmed, as the reference does).  Under a strategy each rank
+        feeds its blocks and gets the whole output back."""
         if self.compiled is None:
             raise RuntimeError("call compile() first")
-        self._refuse_sequence_parallel("predict")
         batch_size = batch_size or self.config.batch_size
         xs = [np.asarray(a) for a in (x if isinstance(x, (list, tuple))
                                       else [x])]
@@ -398,8 +442,9 @@ class FFModel:
                 batch = [np.concatenate(
                     [b, np.repeat(b[-1:], batch_size - got, axis=0)])
                     for b in batch]
-            ins = [torch.from_numpy(np.ascontiguousarray(b)).to(
-                self.compiled.device) for b in batch]
+            ins = [torch.from_numpy(np.ascontiguousarray(
+                b[self.compiled.input_slices(j, b.shape)])).to(
+                    self.compiled.device) for j, b in enumerate(batch)]
             y = fwd(self.params, self.state, ins)
             outs.append(y[:got].float().cpu().numpy())
         if not outs:
@@ -409,13 +454,21 @@ class FFModel:
     # ------------------------------------------------------------------
     def get_weight(self, op_name: str, weight_name: str = "kernel"
                    ) -> np.ndarray:
-        return tensor_to_numpy(self.params[op_name][weight_name])
+        """The whole weight (under a strategy, gathered from the ranks:
+        every rank calls it)."""
+        return params_to_numpy(
+            {op_name: {weight_name: self.params[op_name][weight_name]}},
+            self.compiled)[op_name][weight_name]
 
     def set_weight(self, op_name: str, weight_name: str,
                    value: np.ndarray) -> None:
+        """Set the whole weight (under a strategy, each rank keeps its
+        block of ``value``)."""
         old = self.params[op_name][weight_name]
-        if tuple(old.shape) != tuple(np.shape(value)):
+        new = params_from_numpy({op_name: {weight_name: value}}, old.device,
+                                self.compiled)[op_name][weight_name]
+        if new.shape != old.shape:
             raise ValueError(f"{op_name}/{weight_name}: shape "
-                             f"{np.shape(value)} != {tuple(old.shape)}")
-        self.params[op_name][weight_name] = tensor_from_numpy(
-            value, old.device).to(old.dtype)
+                             f"{np.shape(value)} does not give this rank's "
+                             f"{tuple(old.shape)}")
+        self.params[op_name][weight_name] = new.to(old.dtype)

@@ -19,15 +19,24 @@ XLA path, ``attn_core``.  The reference's try/except around the flash
 call is not copied: a CUDA tensor that takes the flash route launches
 the kernels or raises.
 
-Under sequence parallelism (the lowering context carries a group of
-more than one rank) self-attention without dropout runs the ring
-(``parallel/ring_attention.py``) on the rank's shard, as the
-reference's ``_attention`` does (ops/attention.py:196-247); the
+On a rank's shards (``propagate``, reference ops/attention.py:272-299):
+under a replica (head) split the rank holds its heads' blocks of wq,
+wk, wv and wo, so it attends over its local heads and its output is a
+partial sum over the head axes; ``bo``, replicated there, is added on
+one rank of them only (``LoweringContext.partial_leader``).  Under a
+batch split it attends over its rows.  When the view splits the
+sequence (slot 1 has mesh axes), self-attention without dropout runs
+over the process group of those axes, as the reference's
+``_attention`` does (ops/attention.py:196-247): the all-to-all of
+``parallel/ulysses.py`` where ``_use_ulysses`` picks it (the
+reference's rule), else the zigzag or contiguous ring of
+``parallel/ring_attention.py``.  ``uses_flash`` decides the route from
+the op's global shapes, so a strategy never changes it.  The
 reference's all-gather fallback for cross-attention or dropout under a
-split sequence is resharding, which comes later, and raises here.
+split sequence raises here (ROADMAP Queue A item 2).
 
-Not ported here: attention dropout in training (raises; a later slice),
-and the Ulysses sequence-parallel branch (raises; a later slice).
+Not ported here: attention dropout in training (raises; ROADMAP Queue
+A item 3).
 """
 
 from __future__ import annotations
@@ -46,7 +55,15 @@ from flexflow_tpu_torch.kernels.flash_attention import (
     attn_core,
     flash_attention,
 )
-from flexflow_tpu_torch.ops.base import Operator, WeightSpec, register_op
+from flexflow_tpu_torch.core.machine import MachineView
+from flexflow_tpu_torch.ops.base import (
+    REPLICA_SLOT,
+    Operator,
+    OpSharding,
+    ShardAnnot,
+    WeightSpec,
+    register_op,
+)
 from flexflow_tpu_torch.ops.linear import matmul_acc32
 
 # the reference's flash defaults and threshold (flash_attention.py:666-669,
@@ -153,13 +170,14 @@ class MultiHeadAttentionOp(Operator):
         a = self.attrs
         if a["dropout"] > 0.0 and ctx.train:
             raise NotImplementedError(
-                f"{self.name}: attention dropout in training comes with a "
-                f"later slice of the port; build with dropout=0")
+                f"{self.name}: attention dropout in training is not ported "
+                f"yet (ROADMAP Queue A item 3); build with dropout=0")
         cd = ctx.compute_dtype
         # self-attention feeds one tensor three times: cast it once
         q = inputs[0].to(cd)
         k = q if inputs[1] is inputs[0] else inputs[1].to(cd)
         v = k if inputs[2] is inputs[1] else inputs[2].to(cd)
+        # [B, S, H', dk]: H' the heads of this rank's wq/wk/wv blocks
         qh, kh, vh = (_project(x, weights[n].to(cd))
                       for x, n in ((q, "wq"), (k, "wk"), (v, "wv")))
         if a["use_bias"]:
@@ -167,34 +185,67 @@ class MultiHeadAttentionOp(Operator):
             kh = kh + weights["bk"].to(cd)
             vh = vh + weights["bv"].to(cd)
         scale = 1.0 / math.sqrt(self.head_dim)
-        if ctx.sp_size > 1:
-            out = self._sequence_parallel(ctx, qh, kh, vh, scale)
+        seq_axes = ctx.axes(1)
+        if ctx.mesh is not None and seq_axes:
+            out = self._sequence_parallel(ctx, seq_axes, qh, kh, vh, scale)
         else:
             attend = flash_attention if self.uses_flash() else attn_core
-            out = attend(qh, kh, vh, a["causal"], scale)  # [B, Sq, H, dk]
+            out = attend(qh, kh, vh, a["causal"], scale)  # [B, Sq, H', dk]
         wo = weights["wo"].to(cd)
         y = matmul_acc32(out.reshape(*out.shape[:2], -1),
                          wo.reshape(-1, wo.shape[-1]))
-        if a["use_bias"]:
+        if a["use_bias"] and ctx.partial_leader():
             y = y + weights["bo"].float()
         return [y.to(inputs[0].dtype)]
 
-    def _sequence_parallel(self, ctx, qh, kh, vh, scale):
-        """Attention over the sequence split across ``ctx.sp_group``."""
-        n = ctx.sp_size
+    def _sequence_parallel(self, ctx, seq_axes, qh, kh, vh, scale):
+        """Attention over the sequence split across ``seq_axes``."""
         if self.input_shapes[0].sizes[1] != self.input_shapes[1].sizes[1]:
             raise NotImplementedError(
                 f"{self.name}: cross-attention under a split sequence needs "
-                f"K/V resharding, which comes with a later slice")
+                f"K/V gathered, which is not ported yet (ROADMAP Queue A "
+                f"item 2)")
+        n = ctx.mesh.size(seq_axes)
+        group = ctx.mesh.group(seq_axes)
         if self._use_ulysses(n):
-            raise NotImplementedError(
-                f"{self.name}: Ulysses sequence parallelism "
-                f"(sp_mode={self.attrs['sp_mode']!r}, degree {n}) comes "
-                f"with a later slice of the port; use sp_mode='ring'")
+            from flexflow_tpu_torch.parallel.ulysses import ulysses_attention
+
+            return ulysses_attention(qh, kh, vh, seq_axes, ctx.mesh,
+                                     causal=self.attrs["causal"],
+                                     scale=scale, flash=self.uses_flash())
         from flexflow_tpu_torch.parallel.ring_attention import ring_attention
 
-        return ring_attention(qh, kh, vh, ctx.sp_group,
+        return ring_attention(qh, kh, vh, group,
                               causal=self.attrs["causal"], scale=scale)
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        b, sq, e_deg = mv.dim_degrees
+        assert e_deg == 1, "embed dim of attention output stays whole"
+        r = mv.replica_degree  # head split -> partial sums over wo
+        q_annot = ShardAnnot((b, sq, 1), replica=r)
+        # self-attention: K/V stay seq-sharded too (ring attention rotates
+        # them); cross-attention with a different kv length keeps K/V whole
+        kv_seq = sq if self.input_shapes[1].sizes[1] == self.input_shapes[0].sizes[1] else 1
+        kv_annot = ShardAnnot((b, kv_seq, 1), replica=r)
+        out = ShardAnnot(mv.dim_degrees, replica=r, partial=r > 1)
+        R = REPLICA_SLOT
+        head_w = ShardAnnot((1, r, 1), replica=b, idx=(-1, R, -1))
+        ws = [
+            head_w,  # wq [E,H,dk] split over heads
+            head_w,
+            head_w,
+            ShardAnnot((r, 1, 1), replica=b, idx=(R, -1, -1)),  # wo [H,dk,E]
+        ]
+        if self.attrs["use_bias"]:
+            hb = ShardAnnot((r, 1), replica=b, idx=(R, -1))
+            ws += [hb, hb, hb, ShardAnnot((1,), replica=b * r)]
+        return OpSharding(inputs=(q_annot, kv_annot, kv_annot), weights=tuple(ws), outputs=(out,))
+
+    def splittable_output_dims(self):
+        return (0, 1)  # batch and sequence
+
+    def max_replica_degree(self) -> int:
+        return self.attrs["num_heads"]
 
     def flops(self) -> float:
         """The reference's estimate (ops/attention.py:301-308): the four

@@ -3,22 +3,41 @@
 An ``Operator`` is an immutable descriptor: op type + attributes +
 logical input/output shapes + weight specs.  ``infer`` runs at graph
 build time; ``forward(ctx, inputs, weights)`` computes the op on
-PyTorch tensors.  ``flops`` is the reference's forward-FLOP estimate
-(the training path's MFU counts 3x its sum).  The reference's degree
-propagation and the rest of its cost hooks belong to the search slice
-and are not here yet.
+PyTorch tensors: the whole tensors on one process, this rank's shards
+under a strategy (the lowering reshards every edge to the annotation
+the op's ``propagate`` asks for first).  ``propagate(mv)`` is the
+reference's degree propagation, copied: given the op's ``MachineView``
+it derives a ``ShardAnnot`` for each input, weight and output.
+``forward_sharded`` is the hook for an op whose shards need more than
+its ``forward`` on them (the vocab-split embedding).  ``flops`` is the
+reference's forward-FLOP estimate (the training path's MFU counts 3x
+its sum).  The reference's other cost hooks belong to the search slice
+(ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
+from typing import (
+    Any,
+    Dict,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+    Type,
+    TYPE_CHECKING,
+)
 
 import torch
 
+from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.optype import OperatorType
 from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
 from flexflow_tpu_torch.initializers import Initializer
+
+if TYPE_CHECKING:
+    from flexflow_tpu_torch.parallel.mesh import Mesh, Placement
 
 
 @dataclass(frozen=True)
@@ -31,6 +50,58 @@ class WeightSpec:
     initializer: Initializer
 
 
+REPLICA_SLOT = -2  # parallel_idx value meaning "the view's replica slot"
+
+
+@dataclass(frozen=True)
+class ShardAnnot:
+    """Sharding annotation of one tensor under an op's MachineView.
+
+    ``degrees[i]`` — partition degree of tensor dim i.
+    ``idx[i]``     — which view slot dim i derives from: an output-dim
+                     index, ``REPLICA_SLOT`` for the view's replica slot,
+                     or -1 when unsharded (identity by position when
+                     empty).  It puts, e.g., a Linear weight's out dim
+                     on the same mesh axes as the activation's out dim.
+    ``replica``    — replication count of the tensor over the rest of
+                     the view.
+    ``partial``    — partial-sum state: the value still needs a sum over
+                     the view's replica-slot axes."""
+
+    degrees: Tuple[int, ...]
+    replica: int = 1
+    partial: bool = False
+    idx: Tuple[int, ...] = ()
+
+    def parallel_idx(self) -> Tuple[int, ...]:
+        if self.idx:
+            return self.idx
+        return tuple(i if d > 1 else -1 for i, d in enumerate(self.degrees))
+
+    @property
+    def num_parts(self) -> int:
+        p = self.replica
+        for d in self.degrees:
+            p *= d
+        return p
+
+    @staticmethod
+    def trivial(ndim: int) -> "ShardAnnot":
+        return ShardAnnot((1,) * ndim)
+
+
+@dataclass(frozen=True)
+class OpSharding:
+    """Degree propagation of one op under one MachineView.  An
+    ``inputs`` entry of None is unconstrained: the producer's layout
+    governs (the parallel ops, whose data movement is the change of
+    layout at their own output)."""
+
+    inputs: Tuple[Optional[ShardAnnot], ...]
+    weights: Tuple[ShardAnnot, ...]
+    outputs: Tuple[ShardAnnot, ...]
+
+
 class LoweringContext:
     """Carried through one forward pass of the whole graph.  ``train``
     says whether the pass is a training step's; ``device`` is where the
@@ -38,35 +109,61 @@ class LoweringContext:
     state (the decode op's KV pools) read it from ``state_in`` and
     publish what they wrote under the same keys in ``state_out``.
 
-    Under sequence parallelism ``sp_group`` is the process group the
-    sequence dim is split over (the reference's ``mesh`` and the seq
-    slot of ``slot_axes``): this rank holds shard ``sp_rank`` of
-    ``sp_size``; ``seq_slice`` gives its positions."""
+    In the lowering ``mesh`` is the job's mesh (``parallel.mesh.Mesh``,
+    one rank for one process; None in passes outside it, such as the
+    prefill lane's), and while a node runs ``slot_axes`` maps
+    its view's slots to mesh axes and ``in_placements``/
+    ``out_placements`` are the layouts of its local inputs and
+    outputs.  An op that sums its partial output itself
+    (``reduce_partial``) records that in ``out_placements``."""
 
     def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
                  train: bool = False,
                  state_in: Optional[Dict[str, torch.Tensor]] = None,
-                 device: torch.device | str = "cpu", sp_group=None):
+                 device: torch.device | str = "cpu",
+                 mesh: "Optional[Mesh]" = None):
         self.compute_dtype = compute_dtype
         self.train = train
         self.state_in = state_in or {}
         self.state_out: Dict[str, torch.Tensor] = {}
         self.device = torch.device(device)
-        self.sp_group = sp_group
-        self.sp_size, self.sp_rank = 1, 0
-        if sp_group is not None:
-            import torch.distributed as dist
+        self.mesh = mesh
+        self.slot_axes: Optional[Dict[int, Tuple[str, ...]]] = None
+        self.in_placements: List["Placement"] = []
+        self.out_placements: List["Placement"] = []
 
-            self.sp_size = dist.get_world_size(sp_group)
-            self.sp_rank = dist.get_rank(sp_group)
+    def axes(self, slot: int) -> Tuple[str, ...]:
+        """The mesh axes of the current view's ``slot`` (() on one
+        device)."""
+        return (self.slot_axes or {}).get(slot, ())
 
-    def seq_slice(self, seq_len: int) -> slice:
-        """This rank's positions of a ``seq_len``-long sequence."""
-        if seq_len % self.sp_size:
-            raise ValueError(f"sequence length {seq_len} does not split "
-                             f"into {self.sp_size} ranks")
-        per = seq_len // self.sp_size
-        return slice(self.sp_rank * per, (self.sp_rank + 1) * per)
+    def partial_leader(self, out: int = 0) -> bool:
+        """True on the ranks at coordinate 0 of output ``out``'s partial
+        axes (every rank when it is not partial): where a term that the
+        partial sum must count once, such as a bias, is added."""
+        if self.mesh is None or not self.out_placements:
+            return True
+        return all(self.mesh.coord(a) == 0
+                   for a in self.out_placements[out].partial)
+
+    def reduce_partial(self, y: torch.Tensor, out: int = 0) -> torch.Tensor:
+        """Sum output ``out``'s partial addends over their axes here,
+        inside the op, and record the result as no longer partial."""
+        if self.mesh is None or not self.out_placements[out].partial:
+            return y
+        from flexflow_tpu_torch.parallel.mesh import reshard
+
+        src = self.out_placements[out]
+        dst = src.without_partial()
+        self.out_placements[out] = dst
+        return reshard(y, src, dst, self.mesh)
+
+    def local_sizes(self, sizes: Sequence[int], out: int = 0
+                    ) -> Tuple[int, ...]:
+        """This rank's shard sizes of output ``out``'s global ``sizes``."""
+        if self.mesh is None or not self.out_placements:
+            return tuple(sizes)
+        return self.out_placements[out].local_sizes(sizes, self.mesh)
 
 
 class Operator:
@@ -81,7 +178,7 @@ class Operator:
                  input_shapes: Sequence[ParallelTensorShape], **attrs):
         self.name = name
         self.input_shapes: Tuple[ParallelTensorShape, ...] = tuple(
-            input_shapes)
+            s.drop_parallelism() for s in input_shapes)
         self.attrs: Dict[str, Any] = dict(attrs)
         self.output_shapes: Tuple[ParallelTensorShape, ...] = tuple(
             self.infer())
@@ -98,12 +195,69 @@ class Operator:
                 weights: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
         raise NotImplementedError(type(self).__name__)
 
+    def forward_sharded(self, ctx: LoweringContext,
+                        inputs: List[torch.Tensor],
+                        weights: Dict[str, torch.Tensor],
+                        osh: OpSharding) -> Optional[List[torch.Tensor]]:
+        """Outputs computed with the op's own collectives when its
+        ``forward`` on the local shards would be wrong for this
+        sharding, or None to use ``forward``.  Called only on a mesh of
+        more than one rank."""
+        return None
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        """Default rule: elementwise-style — every input shares the
+        output's annotation (valid only when input rank == output
+        rank); weights replicated over all parts."""
+        out = ShardAnnot(mv.dim_degrees, mv.replica_degree)
+        ins = tuple(ShardAnnot(mv.dim_degrees, mv.replica_degree)
+                    for _ in self.input_shapes)
+        w = tuple(ShardAnnot((1,) * len(ws.shape), mv.num_parts)
+                  for ws in self._weight_specs)
+        return OpSharding(inputs=ins, weights=w, outputs=(out,))
+
     def flops(self) -> float:
         """Forward FLOPs estimate (reference ops/base.py:220-223)."""
         return float(sum(s.num_elements for s in self.output_shapes))
 
+    def fixed_machine_view(self) -> Optional[MachineView]:
+        """Non-None when the op's attributes pin its view (the parallel
+        ops)."""
+        return None
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        """Output dims a strategy may partition. Default: dim 0."""
+        return (0,) if self.output_shapes[0].ndim else ()
+
+    def max_replica_degree(self) -> int:
+        """>1 if the op supports partial-sum (row-parallel) execution."""
+        return 1
+
+    def signature(self) -> Tuple:
+        """Structural identity: two ops with equal signatures have equal
+        shapes and propagation (reference ops/base.py:243-258)."""
+        sig = getattr(self, "_sig_cache", None)
+        if sig is None:
+            sig = (self.op_type.value,
+                   tuple(s.sizes for s in self.input_shapes),
+                   tuple(s.dtype.value for s in self.input_shapes),
+                   tuple(sorted((k, _sig_value(v))
+                                for k, v in self.attrs.items())))
+            self._sig_cache = sig
+        return sig
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name})"
+
+
+def _sig_value(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(_sig_value(x) for x in v)
+    if isinstance(v, (int, float, str, bool, type(None))):
+        return v
+    if isinstance(v, DataType):
+        return v.value
+    return repr(v)
 
 
 OP_REGISTRY: Dict[OperatorType, Type[Operator]] = {}

@@ -31,6 +31,11 @@ scales) is updated IN PLACE (``index_put_``) instead of by the
 functional ``.at[].set`` — the pool is the largest tensor of the model,
 and a copy per layer per frame would double the step's memory traffic.
 ``state_out`` still publishes the (same) tensors under their keys.
+
+``propagate`` and the other sharding hooks are the reference's
+(decode_attention.py:395-420); serving under a split view stays
+refused (the inference compile under a split raises, ROADMAP Queue A
+item 2).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import Sequence
 
 import torch
 
+from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.optype import OperatorType
 from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
 from flexflow_tpu_torch.initializers import DEFAULT_WEIGHT_INIT, Initializer
@@ -53,8 +59,11 @@ from flexflow_tpu_torch.kernels.ragged_paged_attention import (
     ragged_paged_attention_reference,
 )
 from flexflow_tpu_torch.ops.base import (
+    REPLICA_SLOT,
     LoweringContext,
     Operator,
+    OpSharding,
+    ShardAnnot,
     WeightSpec,
     register_op,
 )
@@ -132,6 +141,36 @@ class DecodeAttentionOp(Operator):
     @property
     def kv_dtype(self) -> str:
         return self.attrs.get("kv_dtype", "fp32")
+
+    @property
+    def max_seqs(self) -> int:
+        return self.input_shapes[0].sizes[0]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        b, s, e_deg = mv.dim_degrees
+        assert s == 1, "decode token dim is length 1 — unsplittable"
+        assert e_deg == 1, "embed dim of attention output stays whole"
+        assert self.max_seqs % max(b, 1) == 0, (
+            "sequence slots must divide evenly over the batch degree")
+        r = mv.replica_degree  # head split -> partial sums over wo
+        h_annot = ShardAnnot((b, 1, 1), replica=r)
+        pt_annot = ShardAnnot((b, 1), replica=r)
+        sl_annot = ShardAnnot((b,), replica=r)
+        out = ShardAnnot(mv.dim_degrees, replica=r, partial=r > 1)
+        R = REPLICA_SLOT
+        head_w = ShardAnnot((1, r, 1), replica=b, idx=(-1, R, -1))
+        ws = (
+            head_w, head_w, head_w,
+            ShardAnnot((r, 1, 1), replica=b, idx=(R, -1, -1)),  # wo
+        )
+        return OpSharding(inputs=(h_annot, pt_annot, sl_annot),
+                          weights=ws, outputs=(out,))
+
+    def splittable_output_dims(self):
+        return (0,)  # sequence slots; the token dim is length 1
+
+    def max_replica_degree(self) -> int:
+        return self.attrs["num_heads"]
 
     def weight_specs(self):
         a = self.attrs

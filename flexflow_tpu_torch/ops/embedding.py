@@ -2,17 +2,33 @@
 flexflow_tpu/ops/embedding.py, for ``aggr="none"`` (the decode path's
 token and positional tables of the decode and training GPTs).  The
 gradient of the table is autograd's scatter-add of the gathered rows.
-The sum/avg aggregations and the vocab-split lowering come with the
-slices whose models use them."""
+``propagate`` is the reference's (embedding.py:156-184).  Under a
+batch or channel split ``forward`` runs on the rank's ids and table
+columns; under a replica (vocab) split ``forward_sharded`` is the
+reference's explicit lowering (embedding.py:95-150): each rank gathers
+the ids that fall in its block of table rows, zeros for the rest, and
+one all-reduce over the vocab axes sums the blocks, instead of a
+gather of the table.  The sum/avg aggregations come with the slices
+whose models use them (ROADMAP Queue A item 6)."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+
+from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.optype import OperatorType
 from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
 from flexflow_tpu_torch.initializers import Initializer, NormInitializer
-from flexflow_tpu_torch.ops.base import Operator, WeightSpec, register_op
+from flexflow_tpu_torch.ops.base import (
+    REPLICA_SLOT,
+    Operator,
+    OpSharding,
+    ShardAnnot,
+    WeightSpec,
+    register_op,
+)
 
 
 @register_op
@@ -23,27 +39,73 @@ class EmbeddingOp(Operator):
 
     def __init__(self, name, input_shapes, num_entries: int, out_dim: int,
                  aggr: str = "none",
-                 kernel_initializer: Initializer | None = None):
+                 kernel_initializer: Initializer | None = None,
+                 param_dtype: str = "float32"):
         if aggr != "none":
             raise NotImplementedError(
-                f"embedding aggr={aggr!r}: only 'none' is ported so far")
+                f"embedding aggr={aggr!r}: only 'none' is ported so far "
+                f"(ROADMAP Queue A item 6)")
         self._kernel_init = kernel_initializer or NormInitializer(
             stddev=0.05)
         super().__init__(name, input_shapes, num_entries=num_entries,
-                         out_dim=out_dim, aggr=aggr)
+                         out_dim=out_dim, aggr=aggr, param_dtype=param_dtype)
 
     def infer(self) -> Sequence[ParallelTensorShape]:
         x = self.input_shapes[0]
         return (ParallelTensorShape.make(x.sizes + (self.attrs["out_dim"],),
-                                         DataType.FLOAT32),)
+                                         self.attrs["param_dtype"]),)
 
     def weight_specs(self):
         a = self.attrs
         return (WeightSpec("table", (a["num_entries"], a["out_dim"]),
-                           DataType.FLOAT32, self._kernel_init),)
+                           DataType.from_any(a["param_dtype"]),
+                           self._kernel_init),)
 
     def forward(self, ctx, inputs, weights):
         return [weights["table"][inputs[0].long()]]
+
+    def forward_sharded(self, ctx, inputs, weights, osh):
+        vocab_axes = ctx.axes(REPLICA_SLOT)
+        if not vocab_axes:
+            return None
+        table = weights["table"]
+        vshard = table.shape[0]  # this rank's block of rows
+        local = inputs[0].long() - ctx.mesh.index(vocab_axes) * vshard
+        valid = (local >= 0) & (local < vshard)
+        y = table[torch.where(valid, local, 0)]
+        y = torch.where(valid[..., None], y, torch.zeros((), dtype=y.dtype,
+                                                         device=y.device))
+        return [ctx.reduce_partial(y)]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        degs = mv.dim_degrees
+        r = mv.replica_degree  # vocab split -> partial-sum rows
+        d_deg = degs[-1]  # channel split of the table
+        batch_parts = 1
+        for d in degs[:-1]:
+            batch_parts *= d
+        x = self.input_shapes[0]
+        if self.attrs["aggr"] == "none":
+            in_degs = degs[:-1]  # output = input dims + (D,)
+        else:
+            # output drops the aggregated seq dim: ids [B, S] -> out [B, D]
+            in_degs = degs[:-1] + (1,) * (x.ndim - (len(degs) - 1))
+        out_nd = len(degs)
+        return OpSharding(
+            inputs=(ShardAnnot(in_degs, replica=d_deg * r),),
+            weights=(
+                ShardAnnot(
+                    (r, d_deg), replica=batch_parts, idx=(REPLICA_SLOT, out_nd - 1)
+                ),
+            ),
+            outputs=(ShardAnnot(degs, replica=r, partial=r > 1),),
+        )
+
+    def splittable_output_dims(self):
+        return tuple(range(self.output_shapes[0].ndim))
+
+    def max_replica_degree(self) -> int:
+        return self.attrs["num_entries"]
 
     def flops(self) -> float:
         return float(self.output_shapes[0].num_elements)

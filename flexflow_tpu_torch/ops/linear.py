@@ -5,7 +5,17 @@ float32 (the reference's ``preferred_element_type=jnp.float32``), a
 float32 bias, then the activation.  ``matmul_acc32`` is that product;
 the MHA and decode-attention output projections use it too.
 Gradients flow through it by autograd; ``flops`` is the reference's
-(linear.py:142-144)."""
+(linear.py:142-144) and so is ``propagate`` (linear.py:116-140).
+
+On a rank's shards (``propagate``'s layouts): the input holds the
+rank's rows and, under a replica (contraction) split, its block of the
+in dim; the kernel its [in / r, out / t] block.  The product is then a
+partial sum over the replica axes, and the bias, replicated there, is
+added on one rank of them only (``LoweringContext.partial_leader``), so
+the sum counts it once, and so does its gradient, which the weight
+sync sums over those axes.  An activation cannot act on addends: with
+one, the op sums its output itself (``reduce_partial``) after the bias
+and before the activation."""
 
 from __future__ import annotations
 
@@ -20,7 +30,16 @@ from flexflow_tpu_torch.initializers import (
     DEFAULT_WEIGHT_INIT,
     Initializer,
 )
-from flexflow_tpu_torch.ops.base import Operator, WeightSpec, register_op
+from flexflow_tpu_torch.core.machine import MachineView
+from flexflow_tpu_torch.ops.base import (
+    REPLICA_SLOT,
+    Operator,
+    OpSharding,
+    ShardAnnot,
+    WeightSpec,
+    register_op,
+)
+
 
 class _MatmulAcc32(torch.autograd.Function):
     """fp32 product of compute-dtype operands a [M, K] and b [K, N].
@@ -81,15 +100,18 @@ class LinearOp(Operator):
     def __init__(self, name, input_shapes, out_dim: int,
                  activation: str | None = None, use_bias: bool = True,
                  kernel_initializer: Initializer | None = None,
-                 bias_initializer: Initializer | None = None):
+                 bias_initializer: Initializer | None = None,
+                 param_dtype: str = "float32"):
         if activation not in _ACTIVATIONS:
             raise NotImplementedError(
-                f"LinearOp activation {activation!r} is not ported yet; "
-                f"one of {sorted(k for k in _ACTIVATIONS if k)}")
+                f"LinearOp activation {activation!r} is not ported yet "
+                f"(ROADMAP Queue A item 6); one of "
+                f"{sorted(k for k in _ACTIVATIONS if k)}")
         self._kernel_init = kernel_initializer or DEFAULT_WEIGHT_INIT
         self._bias_init = bias_initializer or DEFAULT_BIAS_INIT
         super().__init__(name, input_shapes, out_dim=out_dim,
-                         activation=activation, use_bias=use_bias)
+                         activation=activation, use_bias=use_bias,
+                         param_dtype=param_dtype)
 
     def infer(self) -> Sequence[ParallelTensorShape]:
         x = self.input_shapes[0]
@@ -101,20 +123,50 @@ class LinearOp(Operator):
         return self.input_shapes[0].sizes[-1]
 
     def weight_specs(self):
+        pd = DataType.from_any(self.attrs["param_dtype"])
         specs = [WeightSpec("kernel", (self.in_dim, self.attrs["out_dim"]),
-                            DataType.FLOAT32, self._kernel_init)]
+                            pd, self._kernel_init)]
         if self.attrs["use_bias"]:
             specs.append(WeightSpec("bias", (self.attrs["out_dim"],),
-                                    DataType.FLOAT32, self._bias_init))
+                                    pd, self._bias_init))
         return specs
 
     def forward(self, ctx, inputs, weights):
         cd = ctx.compute_dtype
         y = matmul_acc32(inputs[0].to(cd), weights["kernel"].to(cd))
-        if self.attrs["use_bias"]:
+        if self.attrs["use_bias"] and ctx.partial_leader():
             y = y + weights["bias"].float()
+        if self.attrs["activation"] is not None:
+            y = ctx.reduce_partial(y)
         y = _ACTIVATIONS[self.attrs["activation"]](y)
         return [y.to(inputs[0].dtype)]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        degs = mv.dim_degrees
+        r = mv.replica_degree  # contraction split
+        t = degs[-1]  # out-dim split
+        batch_parts = 1
+        for d in degs[:-1]:
+            batch_parts *= d
+        nd = len(degs)
+        x_annot = ShardAnnot(
+            degs[:-1] + (r,),
+            replica=t,
+            idx=tuple(range(nd - 1)) + (REPLICA_SLOT,),
+        )
+        out = ShardAnnot(degs, replica=r, partial=r > 1)
+        w = [ShardAnnot((r, t), replica=batch_parts,
+                        idx=(REPLICA_SLOT, nd - 1))]
+        if self.attrs["use_bias"]:
+            w.append(ShardAnnot((t,), replica=batch_parts * r, idx=(nd - 1,)))
+        return OpSharding(inputs=(x_annot,), weights=tuple(w), outputs=(out,))
+
+    def splittable_output_dims(self):
+        # any batch dim + the out-channel dim
+        return tuple(range(self.output_shapes[0].ndim))
+
+    def max_replica_degree(self) -> int:
+        return self.in_dim
 
     def flops(self) -> float:
         return 2.0 * self.output_shapes[0].num_elements * self.in_dim

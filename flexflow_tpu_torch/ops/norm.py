@@ -1,6 +1,7 @@
 """LayerNorm — the port of ``LayerNormOp`` in flexflow_tpu/ops/norm.py:
 statistics in float32, biased variance, ``eps`` inside the rsqrt, the
-result cast back to the input dtype (norm.py:93-104)."""
+result cast back to the input dtype (norm.py:93-104); ``propagate`` is
+the reference's (norm.py:106-114): the normalised dims stay whole."""
 
 from __future__ import annotations
 
@@ -8,13 +9,20 @@ from typing import Sequence, Tuple
 
 import torch
 
+from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.optype import OperatorType
 from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
 from flexflow_tpu_torch.initializers import (
     ConstantInitializer,
     ZeroInitializer,
 )
-from flexflow_tpu_torch.ops.base import Operator, WeightSpec, register_op
+from flexflow_tpu_torch.ops.base import (
+    Operator,
+    OpSharding,
+    ShardAnnot,
+    WeightSpec,
+    register_op,
+)
 
 
 @register_op
@@ -60,3 +68,18 @@ class LayerNormOp(Operator):
             y = (y * weights["gamma"].reshape(bshape)
                  + weights["beta"].reshape(bshape))
         return [y.to(inputs[0].dtype)]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        degs = list(mv.dim_degrees)
+        for a in self.attrs["axes"]:
+            degs[a] = 1  # normalized dims stay whole
+        a = ShardAnnot(tuple(degs), mv.replica_degree)
+        w = ()
+        if self.attrs["elementwise_affine"]:
+            wa = ShardAnnot((1,) * len(self._param_shape()), mv.num_parts)
+            w = (wa, wa)
+        return OpSharding(inputs=(a,), weights=w, outputs=(a,))
+
+    def splittable_output_dims(self):
+        return tuple(i for i in range(self.output_shapes[0].ndim)
+                     if i not in self.attrs["axes"])

@@ -1,13 +1,22 @@
 """Shape operators — the port of ``ReshapeOp`` in
-flexflow_tpu/ops/shape_ops.py (the one the decode graph uses)."""
+flexflow_tpu/ops/shape_ops.py (the one the decode graph uses), with
+the reference's ``propagate``: a split survives only on a leading dim
+of unchanged extent.  On a rank's shard it reshapes to the shard's
+sizes."""
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.optype import OperatorType
 from flexflow_tpu_torch.core.ptensor import ParallelTensorShape
-from flexflow_tpu_torch.ops.base import Operator, register_op
+from flexflow_tpu_torch.ops.base import (
+    Operator,
+    OpSharding,
+    ShardAnnot,
+    register_op,
+)
 
 
 @register_op
@@ -33,4 +42,23 @@ class ReshapeOp(Operator):
         return (out,)
 
     def forward(self, ctx, inputs, weights):
-        return [inputs[0].reshape(self.output_shapes[0].sizes)]
+        return [inputs[0].reshape(
+            ctx.local_sizes(self.output_shapes[0].sizes))]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        x = self.input_shapes[0]
+        out = self.output_shapes[0]
+        in_degs = [1] * x.ndim
+        if x.ndim and out.ndim and x.sizes[0] == out.sizes[0]:
+            in_degs[0] = mv.dim_degrees[0]
+        return OpSharding(
+            inputs=(ShardAnnot(tuple(in_degs), mv.replica_degree),),
+            weights=(),
+            outputs=(ShardAnnot(mv.dim_degrees, mv.replica_degree),),
+        )
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        x, out = self.input_shapes[0], self.output_shapes[0]
+        if x.ndim and out.ndim and x.sizes[0] == out.sizes[0]:
+            return (0,)
+        return ()

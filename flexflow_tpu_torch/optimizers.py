@@ -46,8 +46,9 @@ def _check_fp32(ps: List[torch.Tensor]) -> None:
     bad = {t.dtype for t in ps if t.dtype != torch.float32}
     if bad:
         raise NotImplementedError(
-            f"the port's optimizers update float32 parameters in place, "
-            f"got {sorted(map(str, bad))}")
+            f"the port's optimizers update float32 parameters in place "
+            f"(other dtypes: ROADMAP Queue A item 3), got "
+            f"{sorted(map(str, bad))}")
 
 
 def _step_counter(params: Params) -> torch.Tensor:

@@ -1,49 +1,417 @@
-"""The ranks' collectives — the port's counterpart of
-flexflow_tpu/parallel/mesh.py.
+"""The mesh of ranks, layouts, resharding and the ranks' collectives —
+the port's counterpart of flexflow_tpu/parallel/mesh.py.
 
-The reference builds one ``jax.sharding.Mesh`` whose axes are the prime
-factors of the device count, and its collectives (``lax.ppermute``,
-``psum``) run inside ``shard_map`` over named axes.  The port's mesh is
-one process group over the ranks (``torch.distributed``'s default group,
-joined by ``runtime.distributed.initialize``), and its collectives are:
+Axes.  The reference builds one ``jax.sharding.Mesh`` whose axes are
+the prime factors of the device count and maps every op's view onto
+axis names with one deterministic rule.  ``prime_factors``,
+``mesh_axis_sizes``, ``assign_slot_axes`` and ``view_slot_axes`` are
+copied from it verbatim, so the same strategy lands on the same axes
+in both packages.  ``Mesh`` is the torch side: rank r sits at the
+row-major coordinates of r over the axes (``np.array(devices)
+.reshape(shape)``'s order), and every non-empty set of axes of size > 1
+has one process group per slice of the ranks along it (the whole set:
+the default group), created on every rank in one deterministic order
+when the job starts (``runtime.distributed.initialize``).  A group's
+ranks are sorted, so a member's group rank is its coordinate index
+along the set's axes, outermost first.
 
-* ``ppermute(xs, perm)`` — each rank sends its tensors to the rank the
-  permutation maps it to and receives from the rank mapped to it, as
-  ``lax.ppermute`` does.  It is differentiable: the backward sends the
-  cotangents along the inverse permutation (the transpose JAX takes of
-  ``lax.ppermute``).  A pair (r, r) is a local copy: torch.distributed
-  has no send to oneself.  Every exchange of one call threads an order
-  token through the next (``order``), and ``tie`` joins the last token
-  to the call's result, so autograd runs the backward exchanges on
-  every rank in the reverse of the forward order, whatever each rank
-  computed in between (a rank that skips a block of the causal ring
-  builds a different graph from its neighbour's), and runs all of them
-  on every rank (an exchange whose results one rank never reads is
-  still reached through the tokens).  The tensors of one exchange are
-  posted in order with fixed tags.
-* ``all_reduce_mean_(tensors)`` — the mean over the ranks, in place,
-  through one flat buffer: for the gradients (each rank's are those of
-  its shard's mean loss) and the loss and metrics.
+Layouts.  ``placement(annot, slot_axes)`` is ``annot_partition_spec``'s
+counterpart: a ``Placement`` names the mesh axes each tensor dim is
+split over and the axes over which the tensor is a partial sum.  A rank
+holds the block of the global tensor its coordinates select, or, where
+the tensor is partial, an addend of it.
+
+Resharding.  ``reshard(x, src, dst, mesh)`` is the port's stand-in for
+what GSPMD inserts where the reference's lowering constrains an edge
+(``_constrain``, compiler/lowering.py:163-168): a sum over the axes
+where ``src`` is partial and ``dst`` is not, then an all-gather along
+each dim whose axes ``dst`` drops, then a local slice along each dim
+whose axes ``dst`` adds.  Each step is an autograd Function whose
+backward is its transpose on gradients that are themselves laid out as
+the value is (the sum's backward is the identity, the gather's a
+slice, the slice's a gather).  ``grad_all_reduce`` is the identity
+whose backward sums over axes (Megatron's f operator): the lowering
+puts it on an input that is replicated over axes along which the op's
+work differs, whose gradient is then a partial sum.
+
+Collectives.  ``all_reduce_sum``, ``all_gather`` and ``all_to_all``
+(over a set of axes), ``ppermute`` (a permutation of a group's ranks,
+the ring's) and ``all_reduce_mean_`` (in place, through one flat
+buffer).  ``ppermute`` is differentiable: the backward sends the
+cotangents along the inverse permutation.  A pair (r, r) is a local
+copy: torch.distributed has no send to oneself.  Every exchange of one
+call threads an order token through the next (``order``), and ``tie``
+joins the last token to the call's result, so autograd runs the
+backward exchanges on every rank in the reverse of the forward order,
+whatever each rank computed in between, and runs all of them on every
+rank.  The tensors of one exchange are posted in order with fixed tags.
 
 Transport (``initialize`` chose it): NCCL or gloo on the tensors'
 device, except for CUDA tensors on gloo (ranks sharing a card), which
-copy each block to the host and back.  Those copies are counted in
-``ppermute.host_hops`` / ``all_reduce_mean_.host_hops`` (tensors) and
-``.host_bytes`` (bytes each way).
+copy each block to the host and back.  Every collective counts its
+``calls`` and the ``bytes`` it hands the transport; the host copies
+are counted in ``host_hops`` (tensors) and ``host_bytes`` (bytes each
+way).  ``comm_counts`` reads them all, ``reset_comm_counts`` zeroes
+them.
 """
 
 from __future__ import annotations
 
+import itertools
+import math
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from flexflow_tpu_torch.core.machine import MachineView
+from flexflow_tpu_torch.ops.base import REPLICA_SLOT, ShardAnnot
 
+
+# ---- the reference's axis rule (parallel/mesh.py:36-131), verbatim -------
+def prime_factors(n: int) -> List[int]:
+    out: List[int] = []
+    d = 2
+    while d * d <= n:
+        while n % d == 0:
+            out.append(d)
+            n //= d
+        d += 1
+    if n > 1:
+        out.append(n)
+    return out
+
+
+def mesh_axis_sizes(num_devices: int) -> List[Tuple[str, int]]:
+    factors = prime_factors(num_devices) or [1]
+    return [(f"x{i}", f) for i, f in enumerate(factors)]
+
+
+def assign_slot_axes(
+    slot_degrees: Sequence[int], pool_sizes: Sequence[int]
+) -> List[Tuple[int, ...]]:
+    """THE canonical slot→axis assignment rule: slots are visited in
+    order; each slot of degree d consumes, for every prime factor of d,
+    the first unused pool axis of that size.  Returns per-slot tuples of
+    pool-axis INDICES; raises ValueError if a degree does not factor
+    into the remaining pool."""
+    used = [False] * len(pool_sizes)
+    out: List[Tuple[int, ...]] = []
+    for d in slot_degrees:
+        taken: List[int] = []
+        for p in prime_factors(d):
+            for i, size in enumerate(pool_sizes):
+                if not used[i] and size == p:
+                    used[i] = True
+                    taken.append(i)
+                    break
+            else:
+                raise ValueError(
+                    f"degree {d} does not factor into mesh axes {list(pool_sizes)}"
+                )
+        out.append(tuple(taken))
+    return out
+
+
+def view_slot_axes(
+    mv: MachineView, axis_pool: Sequence[Tuple[str, int]]
+) -> Dict[int, Tuple[str, ...]]:
+    """Assign mesh axes to the view's slots (output dims + replica slot).
+
+    Deterministic (assign_slot_axes): slots are visited in order
+    (0..ndim-1 then REPLICA_SLOT).  Raises if the view does not factor
+    into the pool.
+    """
+    degrees = list(mv.dim_degrees) + [mv.replica_degree]
+    idx = assign_slot_axes(degrees, [s for _, s in axis_pool])
+    slots: Dict[int, Tuple[str, ...]] = {
+        i: tuple(axis_pool[j][0] for j in idx[i])
+        for i in range(len(mv.dim_degrees))
+    }
+    slots[REPLICA_SLOT] = tuple(axis_pool[j][0] for j in idx[-1])
+    return slots
+
+
+# ---- layouts -------------------------------------------------------------
+@dataclass(frozen=True)
+class Placement:
+    """How a tensor lies over the mesh: ``dims[i]`` the axes dim i is
+    split over (outermost first), ``partial`` the axes over which the
+    ranks hold addends of it.  Every other axis replicates it."""
+
+    dims: Tuple[Tuple[str, ...], ...]
+    partial: Tuple[str, ...] = ()
+
+    @staticmethod
+    def replicated(ndim: int) -> "Placement":
+        return Placement(((),) * ndim)
+
+    def without_partial(self) -> "Placement":
+        return replace(self, partial=())
+
+    def split_axes(self) -> Tuple[str, ...]:
+        return tuple(a for axes in self.dims for a in axes)
+
+    def local_sizes(self, sizes: Sequence[int], mesh: "Mesh"
+                    ) -> Tuple[int, ...]:
+        return tuple(s // mesh.size(axes) for s, axes in zip(sizes, self.dims))
+
+    def local_slices(self, sizes: Sequence[int], mesh: "Mesh"
+                     ) -> Tuple[slice, ...]:
+        """This rank's block of a tensor of global ``sizes``."""
+        out = []
+        for s, axes in zip(sizes, self.dims):
+            n = mesh.size(axes)
+            if s % n:
+                raise ValueError(f"dim of {s} does not split {n} ways over "
+                                 f"{axes}")
+            i, per = mesh.index(axes), s // n
+            out.append(slice(i * per, (i + 1) * per))
+        return tuple(out)
+
+
+def placement(annot: ShardAnnot, slot_axes: Dict[int, Tuple[str, ...]]
+              ) -> Placement:
+    """``annot`` under the view slots' axes (the reference's
+    ``annot_partition_spec``, plus the partial-sum axes: the replica
+    slot's, where the annotation is partial)."""
+    dims = []
+    for deg, slot in zip(annot.degrees, annot.parallel_idx()):
+        dims.append(() if deg <= 1 or slot == -1
+                    else tuple(slot_axes.get(slot, ())))
+    partial = tuple(slot_axes.get(REPLICA_SLOT, ())) if annot.partial else ()
+    return Placement(tuple(dims), partial)
+
+
+class Mesh:
+    """The job's ranks over the prime-factor axes of its size."""
+
+    def __init__(self, world: int, rank: int, make_groups: bool = True):
+        self.axes = [(n, s) for n, s in mesh_axis_sizes(world)]
+        self.shape = dict(self.axes)
+        self.names = tuple(n for n, _ in self.axes)
+        self.world, self.rank = world, rank
+        dims = tuple(s for _, s in self.axes)
+        self._coords = dict(zip(self.names, np.unravel_index(rank, dims)))
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        self._members: Dict[Tuple[str, ...], List[int]] = {}
+        real = [n for n in self.names if self.shape[n] > 1]
+        # every rank visits the same sets in the same order and creates
+        # every group of each set, its own or not
+        for k in range(1, len(real) + 1):
+            for axes in itertools.combinations(real, k):
+                self._make_groups(axes, make_groups)
+
+    def _make_groups(self, axes, make_groups):
+        others = [n for n in self.names if n not in axes]
+        ranks = np.arange(self.world).reshape(
+            tuple(self.shape[n] for n in self.names))
+        # move the set's axes last: each row is one group, in coordinate
+        # order along the set's axes
+        order = [self.names.index(n) for n in others + list(axes)]
+        rows = ranks.transpose(order).reshape(-1, self.size(axes))
+        for row in rows:
+            members = [int(r) for r in row]
+            if members != sorted(members):
+                raise AssertionError(f"group {members} is not in rank order")
+            if self.rank in members:
+                self._members[axes] = members
+            if not make_groups:
+                continue
+            if len(members) == self.world:
+                group = dist.group.WORLD
+            else:
+                group = dist.new_group(ranks=members)
+            if self.rank in members:
+                self._groups[axes] = group
+
+    def coord(self, axis: str) -> int:
+        return int(self._coords[axis])
+
+    def size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major coordinate index along ``axes``."""
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coord(a)
+        return i
+
+    def _key(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        return tuple(n for n in self.names if n in axes
+                     and self.shape[n] > 1)
+
+    def group(self, axes: Sequence[str]):
+        """The process group of this rank's slice along ``axes``."""
+        return self._groups[self._key(axes)]
+
+    def members(self, axes: Sequence[str]) -> List[int]:
+        """The global ranks of this rank's slice along ``axes``, in
+        coordinate order."""
+        return list(self._members[self._key(axes)])
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.axes}, rank {self.rank} at {self._coords})"
+
+
+# ---- collectives over a set of axes --------------------------------------
 def _host_hop(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def _count(fn, *tensors: torch.Tensor, hop: bool) -> None:
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    fn.calls += 1
+    fn.bytes += nbytes
+    if hop:
+        fn.host_hops += len(tensors)
+        fn.host_bytes += nbytes
+
+
+def all_reduce_sum(x: torch.Tensor, axes: Sequence[str], mesh: Mesh
+                   ) -> torch.Tensor:
+    """The sum of ``x`` over this rank's slice along ``axes`` (a new
+    tensor; ``x`` is left as it was)."""
+    group = mesh.group(axes)
+    hop = _host_hop(x, group)
+    buf = x.detach().cpu() if hop else x.detach().clone(
+        memory_format=torch.contiguous_format)
+    _count(all_reduce_sum, buf, hop=hop)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.device) if hop else buf
+
+
+def all_gather(x: torch.Tensor, dim: int, axes: Sequence[str], mesh: Mesh
+               ) -> torch.Tensor:
+    """The blocks of this rank's slice along ``axes`` concatenated along
+    ``dim`` in coordinate order (the group's rank order)."""
+    group = mesh.group(axes)
+    hop = _host_hop(x, group)
+    send = x.detach().contiguous()
+    if hop:
+        send = send.cpu()
+    _count(all_gather, send, hop=hop)
+    parts = [torch.empty_like(send) for _ in range(mesh.size(axes))]
+    dist.all_gather(parts, send, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(x.device) if hop else out
+
+
+def all_to_all(x: torch.Tensor, axes: Sequence[str], mesh: Mesh
+               ) -> torch.Tensor:
+    """``x`` [n, ...]: block j goes to the slice's rank j, and block j of
+    the result came from rank j (``all_to_all_single``)."""
+    group = mesh.group(axes)
+    hop = _host_hop(x, group)
+    send = x.detach().contiguous()
+    if hop:
+        send = send.cpu()
+    _count(all_to_all, send, hop=hop)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.to(x.device) if hop else recv
+
+
+for _fn in (all_reduce_sum, all_gather, all_to_all):
+    _fn.calls = _fn.bytes = _fn.host_hops = _fn.host_bytes = 0
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum of partial addends; the backward hands the (replicated)
+    gradient to every addend."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return all_reduce_sum(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Gather along ``dim``; the backward keeps this rank's block of the
+    (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        return all_gather(x, dim, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.axes, ctx.mesh), None, None, None
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's block along ``dim``; the backward gathers the blocks'
+    gradients into the (replicated) gradient of the whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        return _block(x, dim, axes, mesh).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.axes, ctx.mesh), None, None, None
+
+
+class _GradAllReduce(torch.autograd.Function):
+    """The identity; the backward sums the gradient over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.axes, ctx.mesh), None, None
+
+
+def _block(x, dim, axes, mesh):
+    n = mesh.size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} "
+                         f"ways over {tuple(axes)}")
+    per = x.shape[dim] // n
+    return x.narrow(dim, mesh.index(axes) * per, per)
+
+
+def reshard(x: torch.Tensor, src: Placement, dst: Placement, mesh: Mesh
+            ) -> torch.Tensor:
+    """``x``, laid out as ``src``, laid out as ``dst`` (module
+    docstring): sums, then gathers, then slices."""
+    if src == dst:
+        return x
+    if set(dst.partial) - set(src.partial):
+        raise ValueError(f"cannot reshard {src} to the partial {dst}")
+    summed = tuple(a for a in src.partial if a not in dst.partial)
+    if summed:
+        x = _AllReduce.apply(x, summed, mesh)
+    for d, (s, t) in enumerate(zip(src.dims, dst.dims)):
+        if s != t and s and t[:len(s)] != s:
+            x = _AllGather.apply(x, d, s, mesh)
+    for d, (s, t) in enumerate(zip(src.dims, dst.dims)):
+        if s == t:
+            continue
+        extra = t[len(s):] if t[:len(s)] == s else t
+        if extra:
+            x = _Slice.apply(x, d, extra, mesh)
+    return x
+
+
+def grad_all_reduce(x: torch.Tensor, axes: Sequence[str], mesh: Mesh
+                    ) -> torch.Tensor:
+    """``x``, whose gradient is summed over ``axes`` in the backward."""
+    return _GradAllReduce.apply(x, tuple(axes), mesh) if axes else x
+
+
+# ---- the ring's exchange -------------------------------------------------
 def _peers(perm: Sequence[Tuple[int, int]], me: int, n: int):
     """(destination, source) of rank ``me`` under a bijection ``perm``
     of the group's ranks."""
@@ -64,9 +432,7 @@ def _exchange(xs: Sequence[torch.Tensor], perm, group) -> List[torch.Tensor]:
     send = [x.contiguous() for x in xs]
     if hop:
         send = [x.cpu() for x in send]
-        ppermute.host_hops += len(send)
-        ppermute.host_bytes += sum(x.numel() * x.element_size()
-                                   for x in send)
+    _count(ppermute, *send, hop=hop)
     recv = [torch.empty_like(x) for x in send]
     g_dst = dist.get_global_rank(group, dst)
     g_src = dist.get_global_rank(group, src)
@@ -107,10 +473,6 @@ def ppermute(xs: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]],
     return list(out[1:]), out[0]
 
 
-ppermute.host_hops = 0
-ppermute.host_bytes = 0
-
-
 class _Tie(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, order):
@@ -142,13 +504,29 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
         hop = _host_hop(flat, group)
         if hop:
             flat = flat.cpu()
-            all_reduce_mean_.host_hops += 1
-            all_reduce_mean_.host_bytes += flat.numel() * flat.element_size()
+        _count(all_reduce_mean_, flat, hop=hop)
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         flat = flat.div_(n).to(ts[0].device)
         for t, part in zip(ts, flat.split([t.numel() for t in ts])):
             t.copy_(part.view_as(t))
 
 
-all_reduce_mean_.host_hops = 0
-all_reduce_mean_.host_bytes = 0
+for _fn in (ppermute, all_reduce_mean_):
+    _fn.calls = _fn.bytes = _fn.host_hops = _fn.host_bytes = 0
+
+COLLECTIVES = (all_reduce_sum, all_gather, all_to_all, ppermute,
+               all_reduce_mean_)
+
+
+def comm_counts() -> Dict[str, Dict[str, int]]:
+    """Every collective's counters: calls, bytes, host hops (tensors)
+    and host bytes."""
+    return {fn.__name__: {"calls": fn.calls, "bytes": fn.bytes,
+                          "host_hops": fn.host_hops,
+                          "host_bytes": fn.host_bytes}
+            for fn in COLLECTIVES}
+
+
+def reset_comm_counts() -> None:
+    for fn in COLLECTIVES:
+        fn.calls = fn.bytes = fn.host_hops = fn.host_bytes = 0

@@ -23,6 +23,14 @@ the reference's blocks and the head dim is one the kernel takes, else
 the plain partial (the reference's XLA fallback).  Blocks are merged
 with ``_merge``, differentiated through (m included); the l floor of
 1e-30 is applied once, at the end.
+
+The ring is a process group whose rank order is the shards' order.
+Under a view that splits the batch as well as the sequence (dp_s x sp)
+it is the group of the sequence's mesh axes through this rank
+(``parallel.mesh.Mesh.group``), whose ranks are sorted, so that a
+member's group rank is its coordinate index along those axes: at sp 4
+on 8 ranks the product ring of two size-2 axes
+(__graft_entry__.py:152-155).
 """
 
 from __future__ import annotations
@@ -78,7 +86,7 @@ def ring_attention(q_l: torch.Tensor, k_l: torch.Tensor, v_l: torch.Tensor,
                    scale: Optional[float] = None,
                    schedule: str = "auto") -> torch.Tensor:
     """Self-attention over a sequence split in equal contiguous shards,
-    rank i of the group holding shard i: q_l, k_l, v_l are this rank's
+    group rank i holding shard i: q_l, k_l, v_l are this rank's
     [B, S/n, H, D]; returns its [B, S/n, H, D] of the output, in q's
     dtype.  Differentiable in q_l, k_l and v_l; every rank of the group
     must call it with the same shapes and arguments.

@@ -5,9 +5,11 @@ Full numpy arrays stay on the host; each batch is a row gather copied
 to the model's device.  The shuffle draws from
 ``np.random.default_rng(seed)`` exactly as the reference's does, so the
 two packages see the same batches in the same order, and so does every
-rank of a job.  Under sequence parallelism each rank is handed its
-slice of the sequence dim (dim 1) of the inputs and the labels
-(``runtime.distributed.local_seq_slice``).  ``iter_traced(n)`` yields
+rank of a job.  Under a strategy each rank is handed its block of each
+input, as the input's annotation splits it (``CompiledModel
+.input_slices``), and of the labels, as the sink's batch and sequence
+split them (``label_slices``): the other dims are cut once here, the
+batch dim from each batch's rows.  ``iter_traced(n)`` yields
 the same batches in the same order, n at a time stacked on a leading
 step axis for ``CompiledModel.train_steps``.
 """
@@ -27,22 +29,19 @@ class SingleDataLoader:
                  batch_size: int, shuffle: bool = True, seed: int = 0,
                  drop_remainder: bool = True):
         self.device = compiled.device
-        if compiled.sp_size > 1:
-            from flexflow_tpu_torch.runtime.distributed import (
-                local_seq_slice,
-            )
-
-            if any(a.ndim < 2 for a in (*xs, y)):
-                raise ValueError("under sequence parallelism every input "
-                                 "and the labels need a sequence dim")
-            xs = [a[:, slice(*local_seq_slice(a.shape[1]))] for a in xs]
-            y = y[:, slice(*local_seq_slice(y.shape[1]))]
-        self.xs = [np.ascontiguousarray(a) for a in xs]
-        self.y = np.ascontiguousarray(y)
-        n = self.xs[0].shape[0]
-        if any(a.shape[0] != n for a in self.xs) or self.y.shape[0] != n:
+        n = xs[0].shape[0]
+        if any(a.shape[0] != n for a in xs) or y.shape[0] != n:
             raise ValueError("all inputs and the labels must share the "
                              "sample dim")
+        # each array's block: the rows of a batch (a slice of it), the
+        # rest of its dims cut here
+        shapes = [(batch_size,) + a.shape[1:] for a in xs]
+        blocks = [compiled.input_slices(i, s) for i, s in enumerate(shapes)]
+        blocks.append(compiled.label_slices((batch_size,) + y.shape[1:]))
+        self._rows = [b[0] for b in blocks]
+        self.xs = [np.ascontiguousarray(a[(slice(None),) + b[1:]])
+                   for a, b in zip(xs, blocks)]
+        self.y = np.ascontiguousarray(y[(slice(None),) + blocks[-1][1:]])
         self.num_samples = n
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -58,6 +57,12 @@ class SingleDataLoader:
     def _place(self, array: np.ndarray, idx: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array[idx]).to(self.device)
 
+    def _batch(self, idx: np.ndarray):
+        """(inputs, labels) of the batch of global rows ``idx``: this
+        rank's rows of each."""
+        return ([self._place(a, idx[r]) for a, r in zip(self.xs, self._rows)],
+                self._place(self.y, idx[self._rows[-1]]))
+
     def _order(self) -> np.ndarray:
         order = np.arange(self.num_samples)
         if self.shuffle:
@@ -68,16 +73,15 @@ class SingleDataLoader:
         order = self._order()
         bs = self.batch_size
         for b in range(self.num_batches):
-            idx = order[b * bs:(b + 1) * bs]
-            yield ([self._place(a, idx) for a in self.xs],
-                   self._place(self.y, idx))
+            yield self._batch(order[b * bs:(b + 1) * bs])
 
     def iter_traced(self, n: int):
         """Yield ``('stack', inputs, labels)`` with a leading [n] step
         axis for ``CompiledModel.train_steps``, then the batches that do
         not fill a stack as ``('single', inputs, labels)``: the
         reference's ``iter_traced`` (dataloader.py:107-140).  Stacks take
-        full batches only."""
+        full batches only, and one process (``fit`` uses them only
+        there)."""
         order = self._order()
         bs = self.batch_size
         stacks = (self.num_samples // bs) // n
@@ -89,6 +93,4 @@ class SingleDataLoader:
                    self._place(self.y, idx).reshape(
                        (n, bs) + self.y.shape[1:]))
         for b in range(stacks * n, self.num_batches):
-            idx = order[b * bs:(b + 1) * bs]
-            yield ("single", [self._place(a, idx) for a in self.xs],
-                   self._place(self.y, idx))
+            yield ("single", *self._batch(order[b * bs:(b + 1) * bs]))

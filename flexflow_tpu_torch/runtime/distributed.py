@@ -18,9 +18,15 @@ by ``torch.distributed``:
   - ``device="cpu"``: gloo on host tensors (``"gloo"``).
 
   A CUDA rank without CUDA raises: a rank never moves to the CPU.
-* ``is_initialized``, ``world_size``, ``rank``, ``transport``;
-* ``local_seq_slice(seq_len)`` and ``local_batch_slice(global_batch)``
-  — the [start, stop) of the sequence or of the batch this rank feeds;
+  Then it builds the job's mesh (``parallel.mesh.Mesh``: the ranks over
+  the prime-factor axes of the world size, with every process group of
+  every set of axes, created on every rank in one order).
+* ``is_initialized``, ``world_size``, ``rank``, ``transport``, ``mesh``
+  (the job's, or a one-rank mesh outside a job);
+* ``local_seq_slice(seq_len, axes)`` and ``local_batch_slice(
+  global_batch, axes)`` — the [start, stop) of the sequence or of the
+  batch this rank holds when it is split over ``axes`` (default: every
+  axis, i.e. over all ranks);
 * ``spawn(fn, num_processes, ...)`` — start the ranks of one job on this
   host (``torch.multiprocessing``, start method ``spawn``), run
   ``fn(rank, *args)`` in each after ``initialize``, and return their
@@ -77,7 +83,10 @@ def initialize(init_method: str, num_processes: int, process_id: int,
     # so later batched sends may involve a subset of the ranks (the
     # zigzag exchange keeps some halves local)
     dist.barrier()
+    from flexflow_tpu_torch.parallel.mesh import Mesh
+
     _JOB["transport"] = transport
+    _JOB["mesh"] = Mesh(num_processes, process_id)
     print(f"rank {process_id}/{num_processes}: {where}, transport "
           f"{transport}", flush=True)
     return transport
@@ -101,25 +110,40 @@ def transport() -> Optional[str]:
     return _JOB.get("transport") if is_initialized() else None
 
 
-def local_seq_slice(seq_len: int) -> Tuple[int, int]:
-    """[start, stop) of the sequence this rank holds under sequence
-    parallelism over every rank."""
-    n = world_size()
-    if seq_len % n:
-        raise ValueError(f"sequence length {seq_len} does not split into "
-                         f"{n} ranks")
-    per = seq_len // n
-    return rank() * per, (rank() + 1) * per
+def mesh():
+    """The job's mesh, or a one-rank mesh outside a job."""
+    if is_initialized() and "mesh" in _JOB:
+        return _JOB["mesh"]
+    from flexflow_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(1, 0, make_groups=False)
 
 
-def local_batch_slice(global_batch: int) -> Tuple[int, int]:
-    """[start, stop) rows of the global batch this rank feeds."""
-    n = world_size()
-    if global_batch % n:
-        raise ValueError(f"batch {global_batch} does not split into {n} "
-                         f"ranks")
-    per = global_batch // n
-    return rank() * per, (rank() + 1) * per
+def _local_slice(size: int, axes: Optional[Sequence[str]], what: str
+                 ) -> Tuple[int, int]:
+    m = mesh()
+    axes = m.names if axes is None else tuple(axes)
+    n = m.size(axes)
+    if size % n:
+        raise ValueError(f"{what} {size} does not split into {n} ranks")
+    per = size // n
+    i = m.index(axes)
+    return i * per, (i + 1) * per
+
+
+def local_seq_slice(seq_len: int, axes: Optional[Sequence[str]] = None
+                    ) -> Tuple[int, int]:
+    """[start, stop) of the sequence this rank holds when the sequence
+    is split over ``axes`` of the mesh (default: over every rank)."""
+    return _local_slice(seq_len, axes, "sequence length")
+
+
+def local_batch_slice(global_batch: int,
+                      axes: Optional[Sequence[str]] = None
+                      ) -> Tuple[int, int]:
+    """[start, stop) rows of the global batch this rank feeds when the
+    batch is split over ``axes`` (default: over every rank)."""
+    return _local_slice(global_batch, axes, "batch")
 
 
 def shutdown() -> None:

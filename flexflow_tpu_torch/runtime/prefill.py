@@ -128,7 +128,7 @@ def build_chunk_forward(graph, compute_dtype, device="cpu") -> Callable:
                 raise NotImplementedError(
                     f"chunked prefill only supports the seq_lens "
                     f"pos_ids reshape; {node.op.name!r} reshapes "
-                    f"something else")
+                    f"something else (ROADMAP Queue A item 9)")
     dec_set = set(dec_guids)
 
     @torch.no_grad()

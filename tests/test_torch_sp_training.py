@@ -18,11 +18,13 @@ process; weights 1.3e-2 and 6.8e-3 alphas at most, 3.0e-5 and 6.0e-6 on
 average (the largest at world 4).
 
 One world of each size is spawned per module; the same world also
-shows what the port does not lower yet: a strategy other than the
-pure sequence-parallel one, Ulysses, ``evaluate``/``predict`` under
-SP, and a ``num_devices`` that differs from the job's size.  The worker
-functions import no JAX: the spawned ranks import this module to find
-them.
+runs Ulysses (``sp_mode="ulysses"``, and ``"auto"``, which picks it for
+non-causal attention at n >= 3) and ``evaluate``/``predict`` under the
+SP strategy against one process, and shows what the port still
+refuses: pipeline and placement meta, and an inference compile under a
+split, each naming its ROADMAP item, and a ``num_devices`` that
+differs from the job's size.  The worker functions import no JAX: the
+spawned ranks import this module to find them.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from flexflow_tpu_torch import AdamOptimizer, FFConfig
 from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
 from flexflow_tpu_torch.models import build_gpt, build_transformer
+from flexflow_tpu_torch.parallel import mesh as pmesh
 from flexflow_tpu_torch.runtime import distributed
 from flexflow_tpu_torch.runtime.distributed import spawn
 
@@ -63,16 +66,6 @@ def sp_strategy(model, n):
     return views
 
 
-def sp_leg_strategy(model, n):
-    """__graft_entry__.py's sp leg: MHA at (1, n, 1), every other op
-    trivial."""
-    return {node.guid: (MachineView((1, n, 1))
-                        if node.op.op_type.value == "multihead_attention"
-                        else MachineView.trivial(
-                            node.op.output_shapes[0].ndim))
-            for node in model.graph.topo_order()}
-
-
 def _refusal(fn):
     """The message of the NotImplementedError or ValueError ``fn``
     raises, or None."""
@@ -83,49 +76,71 @@ def _refusal(fn):
     return None
 
 
+def _ulysses_input():
+    return np.random.default_rng(2).normal(size=(BATCH, 64, 32)).astype(
+        np.float32)
+
+
+def _ulysses_model(mode, n):
+    m = build_transformer(
+        FFConfig(batch_size=BATCH, device="cpu", compute_dtype="float32",
+                 num_devices=n), num_layers=1, hidden=32, num_heads=4,
+        ff_dim=32, seq_len=64, sp_mode=mode)
+    m.compile(strategy=sp_strategy(m, n) if n > 1 else None,
+              loss_type="mean_squared_error", metrics=[])
+    return m
+
+
 def _train_rank(rank, params, ids, n):
     """One rank: 3 Adam steps through fit under the SP strategy, then
-    what the port refuses."""
+    Ulysses, evaluate and predict, and what the port refuses."""
     cfg = FFConfig(batch_size=BATCH, device="cpu", compute_dtype="float32",
                    num_devices=n)
     m = build_gpt(cfg, **TINY)
     m.compile(optimizer=AdamOptimizer(alpha=ALPHA), strategy=sp_strategy(m, n),
               **COMPILE)
     m.params = params_from_numpy(params)
+    fresh = build_gpt(cfg, **TINY)  # evaluate and predict at the start
+    fresh.compile(strategy=sp_strategy(fresh, n), **COMPILE)
+    fresh.params = params_from_numpy(params, "cpu", fresh.compiled)
     history = m.fit(ids[:, :-1], ids[:, 1:], shuffle=False, verbose=False)
+    label_block = m.compiled.label_slices((BATCH, 64))[1]
     out = {"losses": list(m.step_losses), "history": history,
-           "params": params_to_numpy(m.params), "sp_size": m.compiled.sp_size,
+           "params": params_to_numpy(m.params, m.compiled),
+           "sp_size": 64 // (label_block.stop - label_block.start),
            "slices": (distributed.local_seq_slice(64),
                       distributed.local_batch_slice(8),
                       distributed.transport())}
 
-    def compile_with(strategy_fn, config=cfg):
+    def compile_with(strategy_fn, config=cfg, **kw):
         model = build_gpt(config, **TINY)
-        model.compile(strategy=strategy_fn(model), **COMPILE)
+        model.compile(strategy=strategy_fn(model), **dict(COMPILE, **kw))
         return model
 
-    out["sp_leg"] = _refusal(lambda: compile_with(
-        lambda mm: sp_leg_strategy(mm, n)))
-    out["data_parallel"] = _refusal(lambda: compile_with(lambda mm: {
-        node.guid: MachineView.data_parallel(
-            node.op.output_shapes[0].ndim, n)
-        for node in mm.graph.topo_order()}))
-    out["no_strategy"] = _refusal(lambda: compile_with(lambda mm: None))
+    def with_meta(block):
+        return lambda mm: dict(sp_strategy(mm, n), __meta__=block)
+
+    out["pipeline_meta"] = _refusal(lambda: compile_with(
+        with_meta({"pipeline": {"num_stages": 2}})))
+    out["placement_meta"] = _refusal(lambda: compile_with(
+        with_meta({"placement": {"blocks": 2}})))
+    out["pipeline"] = _refusal(lambda: compile_with(
+        lambda mm: sp_strategy(mm, n), pipeline=object()))
+    out["inference"] = _refusal(lambda: compile_with(
+        lambda mm: sp_strategy(mm, n), comp_mode="inference"))
     out["num_devices"] = _refusal(lambda: compile_with(
         lambda mm: sp_strategy(mm, n),
         config=FFConfig(batch_size=BATCH, device="cpu", num_devices=n + 1)))
-    out["evaluate"] = _refusal(lambda: m.evaluate(ids[:, :-1], ids[:, 1:]))
-    out["predict"] = _refusal(lambda: m.predict(ids[:, :-1]))
-    x = torch.zeros((BATCH, 64 // n, 32))
+    out["evaluate"] = fresh.evaluate(ids[:, :-1], ids[:, 1:])
+    out["predict"] = fresh.predict(ids[:, :-1])
+    x = _ulysses_input()
     for mode in ("ulysses", "auto"):
-        tm = build_transformer(
-            FFConfig(batch_size=BATCH, device="cpu", compute_dtype="float32",
-                     num_devices=n), num_layers=1, hidden=32, num_heads=4,
-            ff_dim=32, seq_len=64, sp_mode=mode)
-        tm.compile(strategy=sp_strategy(tm, n), loss_type="mean_squared_error",
-                   metrics=[])
-        out[mode] = _refusal(lambda: tm.compiled.apply(tm.params, tm.state,
-                                                       [x]))
+        tm = _ulysses_model(mode, n)
+        pmesh.reset_comm_counts()
+        with torch.no_grad():
+            y = tm.compiled.forward_fn()(tm.params, tm.state, [
+                torch.from_numpy(x[tm.compiled.input_slices(0, x.shape)])])
+        out[mode] = (y.numpy(), pmesh.comm_counts()["all_to_all"]["calls"])
     return out
 
 
@@ -147,14 +162,20 @@ def jax_start():
 
 @pytest.fixture(scope="module")
 def one_process(jax_start):
-    """The port's one-process run: (step losses, history, weights)."""
-    m = build_gpt(FFConfig(batch_size=BATCH, device="cpu",
-                           compute_dtype="float32"), **TINY)
+    """The port's one-process run: (step losses, history, weights,
+    evaluate and predict at the start weights)."""
+    cfg = FFConfig(batch_size=BATCH, device="cpu", compute_dtype="float32")
+    ids = _ids()
+    fresh = build_gpt(cfg, **TINY)
+    fresh.compile(**COMPILE)
+    fresh.params = params_from_numpy(jax_start)
+    m = build_gpt(cfg, **TINY)
     m.compile(optimizer=AdamOptimizer(alpha=ALPHA), **COMPILE)
     m.params = params_from_numpy(jax_start)
-    ids = _ids()
     history = m.fit(ids[:, :-1], ids[:, 1:], shuffle=False, verbose=False)
-    return np.asarray(m.step_losses), history, params_to_numpy(m.params)
+    return (np.asarray(m.step_losses), history, params_to_numpy(m.params),
+            fresh.evaluate(ids[:, :-1], ids[:, 1:]),
+            fresh.predict(ids[:, :-1]))
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
@@ -222,7 +243,7 @@ def test_sp_fit_matches_jax_sp_leg(world, jax_start):
 
 def test_sp_fit_matches_one_process(world, one_process):
     _, ranks = world
-    losses, history, params = one_process
+    losses, history, params, _, _ = one_process
     for r in ranks:
         np.testing.assert_allclose(r["losses"], losses, rtol=TOLS[0])
         _assert_weights_close(r["params"], params)
@@ -234,22 +255,35 @@ def test_sp_fit_matches_one_process(world, one_process):
 
 
 def test_strategies_the_port_does_not_lower_raise(world):
+    """What the lowering still refuses under SP, each naming the
+    ROADMAP item that lifts it (the SP strategies themselves lower)."""
     _, ranks = world
+    want = {"pipeline_meta": "item 8", "placement_meta": "item 8",
+            "pipeline": "item 8", "inference": "item 2"}
     for r in ranks:
-        for key in ("sp_leg", "data_parallel"):
+        for key, item in want.items():
             assert r[key] and r[key].startswith("NotImplementedError"), (
                 key, r[key])
-            assert "Queue A item 8" in r[key]
-        assert r["no_strategy"].startswith("NotImplementedError")
+            assert f"ROADMAP Queue A {item}" in r[key], (key, r[key])
 
 
 def test_ulysses_raises(world):
+    """Ulysses under the SP strategy gives one process's output (the
+    whole output, gathered on every rank); ``auto`` takes it (all-to-all
+    exchanges) for non-causal attention at n >= 3 only.  The name is
+    kept from the refusal this check replaced: Ulysses no longer
+    raises."""
     n, ranks = world
+    one = _ulysses_model("ring", 1)
+    with torch.no_grad():
+        ref = one.compiled.forward_fn()(one.params, one.state, [
+            torch.from_numpy(_ulysses_input())]).numpy()
     for r in ranks:
-        assert r["ulysses"].startswith("NotImplementedError")
-        assert "Ulysses" in r["ulysses"]
-        # auto picks Ulysses for non-causal attention at n >= 3 only
-        assert (r["auto"] is not None) == (n >= 3), r["auto"]
+        for mode in ("ulysses", "auto"):
+            y, exchanges = r[mode]
+            np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-6)
+            assert (exchanges > 0) == (mode == "ulysses" or n >= 3), (
+                mode, exchanges)
 
 
 def test_num_devices_must_equal_the_job(world):
@@ -276,8 +310,17 @@ def test_each_rank_feeds_its_slice(world):
         distributed.initialize("file:///nonexistent", 1, 0, device="tpu")
 
 
-def test_evaluate_and_predict_refuse_sequence_parallel(world):
+def test_evaluate_and_predict_refuse_sequence_parallel(world, one_process):
+    """``evaluate`` and ``predict`` under the SP strategy equal one
+    process's from the same weights: the job's loss and metrics, the
+    whole output on every rank.  The name is kept from the refusal this
+    check replaced: neither refuses any more."""
     _, ranks = world
+    _, _, _, evaluated, predicted = one_process
     for r in ranks:
-        for key in ("evaluate", "predict"):
-            assert r[key].startswith("NotImplementedError"), (key, r[key])
+        assert r["evaluate"].keys() == evaluated.keys()
+        for k, v in evaluated.items():
+            np.testing.assert_allclose(r["evaluate"][k], v, rtol=TOLS[0])
+        assert r["predict"].shape == predicted.shape
+        np.testing.assert_allclose(r["predict"], predicted, rtol=1e-5,
+                                   atol=1e-6)
