@@ -1,9 +1,11 @@
 """Drive the PyTorch port's serving, training and multi-rank training
 paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--calibration-out DIR]
     python3 chip_smoke.py --decode-times ROOT [--seed N]
     python3 chip_smoke.py --step-times ROOT [--seed N]
+    python3 chip_smoke.py --searched-only RUNS [--seed N]
+                          [--calibration-out DIR]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -11,7 +13,11 @@ The second form only times the decode kernels of the checkout at ROOT
 third times phase 6's training step of that checkout, captured and
 eager, with the flash kernels' launches per step.  Run either for two
 checkouts in one process order (parent, change, change, parent) to
-compare two commits on one card.
+compare two commits on one card.  The fourth builds the kernels and
+runs phase 9 alone RUNS times, against phase 6's first step taken
+alone; on a machine with four cards it measures the searched path and
+the link constants of ``MachineSpec.h100_sxm``.  ``--calibration-out``
+keeps each phase 9 run's calibration table.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -134,12 +140,46 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    batches, ``fit`` 3 steps: rows 1-3 12 launches per rank per step, row
    4 none, all-to-all exchanges, the first step's loss against phase 7's
    one-process bf16 loss within 5e-3;
-9. print one JSON line listing every ported kernel.
+9. searched training path, 4 ranks spawned as phase 7's: (a) calibrate
+   phase 6's model for 4 ranks on the card (``FFConfig(calibrate=True)``
+   inside ``search.driver.optimize_strategy``: one forward per (op,
+   view) at its per-rank shapes, CUDA events, L2 flushed) and check
+   every record finite and positive, the attention probes' launches of
+   the flash forward (row 1) and two records measured again (their
+   spread printed); (b) the search on ``MachineSpec.h100_sxm(4)`` with
+   that table (no deadline, the proposal flags off, the native engines
+   required): print the calibration and search seconds apart, the
+   one-rank search's seconds, the views per op class and the
+   simulator's step (calibrated and roofline) for the searched, the
+   data-parallel and phase 8's Megatron strategies, then export the
+   strategy; (c) the ranks compile with ``strategy=None`` (rank 0's
+   search served by (b)'s cost cache, sent to every rank) and ``fit``
+   10 steps: every rank holds (b)'s graph digest and one set of views,
+   the first step's loss within 5e-3 of phase 6's, losses finite and
+   falling, every weight replica bit-equal, and the attention kernels'
+   launches as the views imply (rows 1-3 12 per step; a sequence split
+   of degree s on the ring 12 x (2 s + 1) of row 4 instead); then the
+   same model under data parallelism and under ``compile(strategy=None)``
+   with FFConfig's defaults (the uncalibrated search; its graph digest
+   checked against (b)'s roofline search and its first-step loss within
+   5e-3 of phase 6's), 20 synchronised steps of each of the three in
+   blocks of 10 in the order A B C C B A: each strategy's step p50, its
+   two blocks' p50s and their spread, beside its predicted step (on the
+   shared card labelled as the shared-card transport); with NCCL the
+   link probes (a 4-byte all-reduce's device time per ring hop, 5
+   replays; one 128 KB reshard's host time beyond its bytes, median and
+   p10-p90 of 200); (d) each rank imports (b)'s exported strategy file
+   onto its compiled graph and checks it gives the same views.  Before
+   the ranks spawn, the flash kernels are held to their plain versions
+   (phase 3's limits) at every per-rank shape the calibration launched
+   and the three strategies imply; every launch of the ranks is
+   recorded, and a shape beyond that prediction is checked after;
+10. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
-It needs one card; with four it runs phases 7 and 8 one rank per card.
+It needs one card; with four it runs phases 7-9 one rank per card.
 """
 
 from __future__ import annotations
@@ -305,6 +345,22 @@ ULYSSES_STEPS = 3
 HYB_FLASH_SHAPES = (
     ("megatron", TRAIN_BATCH // 2, TRAIN["seq_len"], TRAIN["num_heads"] // 2),
     ("ulysses", SP_BATCH, SP["seq_len"], SP["num_heads"] // HYB_RANKS))
+
+# phase 9, the searched path: phase 6's model and batches over 4 ranks,
+# the strategy chosen by compile(strategy=None)
+SEARCH_RANKS = 4
+SEARCH_STEPS = 10  # fit steps under the searched strategy
+# then 20 synchronised steps per strategy (searched, data parallel and
+# the uncalibrated default search's pick) in two blocks of
+# SEARCH_TIMED_BLOCK, in the order A B C C B A: each strategy is timed
+# early and late, and its two blocks give the spread of one strategy
+SEARCH_TIMED_BLOCK = 10
+CAL_BUDGET_S = 60.0  # FFConfig.calibration_budget_s's default
+CAL_REPROBES = 2  # records measured again for their spread
+LINK_PROBE_RUNS = 200  # calls timed by each link probe (NCCL only)
+LINK_PROBE_REPEATS = 5  # replays of the captured all-reduces, each timed
+RESHARD_PROBE_SHAPE = (8, 8, 512)  # a 128 KB fp32 activation
+SEARCH_TIMEOUT_S = 1200
 
 # published peaks (NVIDIA data sheets): device-memory bytes/s, dense
 # fp32 (non-tensor-core) operations/s and dense bf16 tensor-core
@@ -1759,30 +1815,123 @@ def check_hybrid_flash_shapes(seed):
     """The three flash kernels at the per-rank shapes of phase 8's legs
     (HYB_FLASH_SHAPES, causal), bf16 and fp32, against their plain
     versions with the limits of the training shape."""
-    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
-    d = TRAIN["hidden"] // TRAIN["num_heads"]
-    out = {}
-    for leg, b, s, h in HYB_FLASH_SHAPES:
-        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-            q, k, v, do = flash_operands(b, s, s, h, d, dt, gen)
-            errs = flash_errors(q, k, v, do, True, 1.0 / math.sqrt(d))
-            where = f"{leg} shape B={b} S={s} H={h} D={d} causal"
-            for kind in ("fwd", "dq", "dkv"):
-                check(errs[kind] <= FLASH_TOL[tag],
-                      f"flash {kind} kernel vs plain version ({tag}, "
-                      f"{where}): error {errs[kind]:.3e} > {FLASH_TOL[tag]}")
-            check(errs["fwd_row"] <= ROW_TOL[tag],
-                  f"flash fwd kernel vs plain version ({tag}, {where}): out "
-                  f"error {errs['fwd_row']:.3e} of a row's max > "
-                  f"{ROW_TOL[tag]}")
-            check_bwd_rows(errs, tag, where)
-            out[f"{leg}_{tag}"] = {"shape": [b, s, h, d], **{
-                k: errs[k] for k in ("fwd", "fwd_row", "dq", "dkv",
-                                     "bwd_row")}}
-            del q, k, v, do
+    out = check_flash_shapes(seed + 12, [
+        ("full", b, s, s, h, True) for _, b, s, h in HYB_FLASH_SHAPES])
     print("flash kernels at phase 8's per-rank shapes vs plain versions: "
           + json.dumps(out))
     return out
+
+
+FULL_ENTRIES = ("ffflash_fwd", "ffflash_bwd_dq", "ffflash_bwd_dkv")
+
+
+def check_flash_shapes(seed, shapes):
+    """Each (kind, B, Sq, Sk, H, causal) of ``shapes`` at D 64, bf16 and
+    fp32, against the plain versions: kind "full" is rows 1-3 with the
+    training shape's limits (FLASH_TOL, ROW_TOL, BWD_ROW_TOL), kind
+    "partial" row 4 with phase 3's partial-kernel limits.  Returns
+    {shape key: errors}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d = TRAIN["hidden"] // TRAIN["num_heads"]
+    scale = 1.0 / math.sqrt(d)
+    out = {}
+    for kind, b, sq, sk, h, causal in shapes:
+        for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v, do = flash_operands(b, sq, sk, h, d, dt, gen)
+            where = (f"{kind} B={b} Sq={sq} Sk={sk} H={h} D={d} "
+                     f"causal={causal}")
+            if kind == "partial":
+                err, ml_err, _, acc_row = partial_error(q, k, v, causal,
+                                                        scale)
+                check(err <= FLASH_TOL[tag] and ml_err <= KERNEL_TOL
+                      and acc_row <= ROW_TOL[tag],
+                      f"partial kernel vs plain version ({tag}, {where}): "
+                      f"acc error {err:.3e} > {FLASH_TOL[tag]}, acc row "
+                      f"error {acc_row:.3e} > {ROW_TOL[tag]} or m/l error "
+                      f"{ml_err:.3e} > {KERNEL_TOL}")
+                got = {"acc": err, "acc_row": acc_row, "m_l": ml_err}
+            else:
+                errs = flash_errors(q, k, v, do, causal, scale)
+                for row in ("fwd", "dq", "dkv"):
+                    check(errs[row] <= FLASH_TOL[tag],
+                          f"flash {row} kernel vs plain version ({tag}, "
+                          f"{where}): error {errs[row]:.3e} > "
+                          f"{FLASH_TOL[tag]}")
+                check(errs["fwd_row"] <= ROW_TOL[tag],
+                      f"flash fwd kernel vs plain version ({tag}, {where}): "
+                      f"out error {errs['fwd_row']:.3e} of a row's max > "
+                      f"{ROW_TOL[tag]}")
+                check_bwd_rows(errs, tag, where)
+                got = {r: errs[r] for r in ("fwd", "fwd_row", "dq", "dkv",
+                                            "bwd_row")}
+            key = f"{kind}_{b}x{sq}x{sk}x{h}{'_causal' if causal else ''}"
+            out[f"{key}_{tag}"] = got
+            del q, k, v, do
+    return out
+
+
+@contextlib.contextmanager
+def recorded_flash_launches(into):
+    """While open, adds (kernel library entry, B, Sq, Sk, H, causal) of
+    every flash kernel launch in this process to the set ``into``.  The
+    wrappers' launch counts are untouched."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+
+    launch = fa._launch
+
+    def record(name, tensors, q, k, causal, scale):
+        b, sq, h, _ = q.shape
+        into.add((name, b, sq, k.shape[1], h, bool(causal)))
+        return launch(name, tensors, q, k, causal, scale)
+
+    fa._launch = record
+    try:
+        yield into
+    finally:
+        fa._launch = launch
+
+
+def launches_to_shapes(launches):
+    """Recorded launches -> the check_flash_shapes entries covering
+    them."""
+    return sorted({("partial" if name == "ffflash_fwd_partial" else "full",
+                    b, sq, sk, h, causal)
+                   for name, b, sq, sk, h, causal in launches})
+
+
+def shapes_to_launches(shapes):
+    """check_flash_shapes entries -> the launches they hold to their
+    plain versions."""
+    out = set()
+    for kind, b, sq, sk, h, causal in shapes:
+        for name in (("ffflash_fwd_partial",) if kind == "partial"
+                     else FULL_ENTRIES):
+            out.add((name, b, sq, sk, h, causal))
+    return out
+
+
+def strategy_flash_shapes(graph, views):
+    """The check_flash_shapes entries of the flash launches the views'
+    attention ops make on each rank: a whole sequence on B / dp rows and
+    H / r heads (Ulysses: H / (r s) heads) takes rows 1-3; the zigzag
+    ring of degree s takes row 4 on half chunks of S / 2s, causal on the
+    diagonal blocks and not on the others."""
+    out = set()
+    for guid, v in views.items():
+        op = graph.nodes[guid].op
+        if op.op_type.value != "multihead_attention" or not op.uses_flash():
+            continue
+        bdeg, s, _ = v.dim_degrees
+        b = op.input_shapes[0].sizes[0] // bdeg
+        seq = op.input_shapes[0].sizes[1]
+        h = op.attrs["num_heads"] // v.replica_degree
+        causal = bool(op.attrs["causal"])
+        if s > 1 and not op._use_ulysses(s):
+            half = seq // (2 * s)
+            out |= {("partial", b, half, half, h, c) for c in {causal, False}}
+        else:
+            out.add(("full", b, seq, seq, h // s, causal))
+    return sorted(out)
 
 
 def sweep_flash_shapes(seed):
@@ -2760,6 +2909,566 @@ def phase_hybrid_train(seed, name, first_loss_bf16, sp_refs):
             {k: u0["launches"][k] for k in rows}, report)
 
 
+# ---------------------------------------------------------------------------
+def search_config(seed, num_devices, **kw):
+    """Phase 9's FFConfig: phase 6's dtype and batch, the H100 spec at
+    ``num_devices`` (FFConfig's default), the proposal flags off and no
+    search deadline, so every search of the phase is the same function
+    of the graph and the calibration table."""
+    from flexflow_tpu_torch import FFConfig
+
+    return FFConfig(batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                    seed=seed, num_devices=num_devices, search_timeout_s=0,
+                    enable_pipeline_search=False,
+                    enable_placement_search=False, **kw)
+
+
+def views_by_class(graph, views):
+    """Op class -> {view: count}."""
+    out = {}
+    for guid, v in views.items():
+        kind = graph.nodes[guid].op.op_type.value
+        out.setdefault(kind, {})
+        out[kind][str(v)] = out[kind].get(str(v), 0) + 1
+    return out
+
+
+def expected_attention_launches(graph, views, steps):
+    """Kernel launches the views' attention ops make in ``steps``
+    training steps: a sequence split of degree s on the zigzag ring is
+    2 s + 1 partial-forward (row 4) calls per layer per step, a whole
+    sequence one call of each of rows 1-3."""
+    want = {"flash_forward": 0, "flash_backward_dq": 0,
+            "flash_backward_dkv": 0, "flash_forward_partial": 0}
+    for guid, v in views.items():
+        op = graph.nodes[guid].op
+        if op.op_type.value != "multihead_attention":
+            continue
+        s = v.dim_degrees[1]
+        if s > 1 and not op._use_ulysses(s):
+            want["flash_forward_partial"] += (2 * s + 1) * steps
+        else:
+            for k in ("flash_forward", "flash_backward_dq",
+                      "flash_backward_dkv"):
+                want[k] += steps
+    return want
+
+
+def link_probes(mesh):
+    """On NCCL: {"link_latency_s": [per replay], "reshard_overhead_s":
+    {median, p10, p90}, "allreduce_4b_host_s": median}.  The link
+    latency is the device's: LINK_PROBE_RUNS 4-byte all-reduces captured
+    in one CUDA graph, its replay timed between two CUDA events
+    (LINK_PROBE_REPEATS replays, each timed), each all-reduce over its 2
+    (n - 1) ring hops.  The reshard overhead is the host's: one
+    batch-split to replicated reshard of a 128 KB activation, timed by
+    the host clock to its synchronise (LINK_PROBE_RUNS calls), less its
+    bytes at NVLink's and HBM's rates: what a boundary costs an eager
+    step beyond its bytes."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.core.machine import MachineSpec
+    from flexflow_tpu_torch.parallel.mesh import Placement, reshard
+
+    n = dist.get_world_size()
+    spec = MachineSpec.h100_sxm(n)
+
+    def host_s(fn):
+        for _ in range(5):
+            fn()
+        times = []
+        for _ in range(LINK_PROBE_RUNS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return np.asarray(times)
+
+    x = torch.ones(1, device="cuda")
+    allreduce_host = float(np.median(host_s(lambda: dist.all_reduce(x))))
+    # the device's time alone: the all-reduces captured in one CUDA graph,
+    # so no host gap between them lands in the window
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            dist.all_reduce(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(LINK_PROBE_RUNS):
+            dist.all_reduce(x)
+    graph.replay()
+    hop = []
+    for _ in range(LINK_PROBE_REPEATS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        hop.append(start.elapsed_time(end) * 1e-3 / LINK_PROBE_RUNS
+                   / (2 * (n - 1)))
+    act = torch.ones(RESHARD_PROBE_SHAPE, device="cuda")
+    nd = len(RESHARD_PROBE_SHAPE)
+    src = Placement((tuple(mesh.names),) + ((),) * (nd - 1))
+    shard = act.narrow(0, 0, RESHARD_PROBE_SHAPE[0] // n).contiguous()
+    t = host_s(lambda: reshard(shard, src, Placement.replicated(nd), mesh))
+    nbytes = act.numel() * act.element_size()
+    beyond = (t - nbytes * (n - 1) / n / spec.ici_bandwidth
+              - 2.0 * nbytes / spec.hbm_bandwidth)
+    return {"link_latency_s": hop,
+            "reshard_overhead_s": {
+                "median": float(np.median(beyond)),
+                "p10": float(np.quantile(beyond, 0.1)),
+                "p90": float(np.quantile(beyond, 0.9))},
+            "allreduce_4b_host_s": allreduce_host}
+
+
+def _searched_rank(rank, seed, ids, cal_path, cache_path, strat_path):
+    """One rank of phase 9: compile(strategy=None) (rank 0 searches with
+    the table, here served by the search's cost cache, and sends every
+    rank its export), the export's round trip, ``fit`` SEARCH_STEPS
+    steps with the launch and collective counts set to 0 just before,
+    the weight blocks; then the same model under data parallelism and
+    under compile(strategy=None) with FFConfig's defaults (no
+    calibration: the roofline search), 2 x SEARCH_TIMED_BLOCK synchronised
+    steps of each in blocks (A B C C B A); every flash launch's shape;
+    on NCCL the link probes."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import AdamOptimizer
+    from flexflow_tpu_torch.compiler.lowering import data_parallel_strategy
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import build_gpt
+    from flexflow_tpu_torch.parallel import mesh
+    from flexflow_tpu_torch.runtime import distributed
+    from flexflow_tpu_torch.runtime.distributed import transport
+    from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
+    from flexflow_tpu_torch.search.strategy_io import import_strategy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    x, y = ids[:, :-1], ids[:, 1:]
+    kernels = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv,
+               fa.flash_forward_partial)
+    compile_kw = dict(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                      loss_type="sparse_categorical_crossentropy",
+                      metrics=["accuracy"])
+    shapes = set()
+
+    def timed_steps(model, k):
+        """k synchronised steps: (seconds, loss) each."""
+        c, dev = model.compiled, model.compiled.device
+        out = []
+        for i in range(k):
+            rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+            xb, yb = x[rows], y[rows]
+            ins = [torch.from_numpy(np.ascontiguousarray(
+                xb[c.input_slices(0, xb.shape)])).to(dev)]
+            lab = torch.from_numpy(np.ascontiguousarray(
+                yb[c.label_slices(yb.shape)])).to(dev)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.params, model.opt_state, model.state, loss, _ = (
+                c.train_step(model.params, model.opt_state, model.state,
+                             ins, lab))
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0, float(loss)))
+        return out
+
+    cfg = search_config(seed, n, calibration_file=cal_path,
+                        cost_cache_file=cache_path)
+    model = build_gpt(cfg, **TRAIN)
+    t0 = time.perf_counter()
+    model.compile(**compile_kw)
+    compile_s = time.perf_counter() - t0
+    graph, views = model.graph, model.strategy
+    imported = import_strategy(strat_path, graph)
+    flops = sum(nd.op.flops() for nd in graph.nodes.values())
+    for k in kernels:
+        k.launches = 0
+    mesh.reset_comm_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with recorded_flash_launches(shapes):
+        history = model.fit(x, y, batch_size=TRAIN_BATCH, shuffle=False,
+                            verbose=False)
+    torch.cuda.synchronize()
+    out = {"transport": transport(), "device": str(torch.cuda.current_device()),
+           "digest": stable_graph_digest(graph),
+           "round_trip": {g: str(v) for g, v in imported.items()}
+           == {g: str(v) for g, v in views.items()},
+           "views": {graph.nodes[g].op.name: str(v) for g, v in views.items()},
+           "search_stats": model.search_stats, "compile_s": compile_s,
+           "fit_wall_s": time.perf_counter() - t0, "history": history,
+           "losses": list(model.step_losses),
+           "samples_per_s": model.last_throughput,
+           "launches": {k.__name__: k.launches for k in kernels},
+           "want_launches": expected_attention_launches(
+               graph, views, len(model.step_losses)),
+           "collectives": mesh.comm_counts(),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flops": flops}
+    out["blocks"] = weight_blocks(model)
+
+    dp = build_gpt(search_config(seed, n), **TRAIN)
+    dp.compile(strategy=data_parallel_strategy(dp.graph, n), **compile_kw)
+    default = build_gpt(search_config(seed, n), **TRAIN)
+    default.compile(**compile_kw)
+    out["default_digest"] = stable_graph_digest(default.graph)
+    out["default_views"] = {default.graph.nodes[g].op.name: str(v)
+                            for g, v in default.strategy.items()}
+    # one untimed step each on the first batch: the default pick's is
+    # its first-step loss
+    out["warmup"] = {tag: timed_steps(m, 1)[0]
+                     for tag, m in (("data_parallel", dp),
+                                    ("default", default))}
+    models = {"searched": model, "data_parallel": dp, "default": default}
+    out["timed"] = {tag: [] for tag in models}
+    order = list(models) + list(models)[::-1]
+    with recorded_flash_launches(shapes):
+        for tag in order:
+            out["timed"][tag].append(timed_steps(models[tag],
+                                                 SEARCH_TIMED_BLOCK))
+    out["timed_order"] = order
+    out["flash_shapes"] = sorted(shapes)
+    del model, dp, default, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["link_probes"] = (link_probes(distributed.mesh())
+                          if out["transport"] == "nccl" else None)
+    return out
+
+
+def first_step_loss(seed):
+    """Phase 6's first step alone: its model, first batch and loss (one
+    process, bf16, eager), for a run of phase 9 without phases 1-8."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.compiler.graphs import eager
+    from flexflow_tpu_torch.models import build_gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_gpt(FFConfig(batch_size=TRAIN_BATCH,
+                               compute_dtype="bfloat16", seed=seed), **TRAIN)
+    model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    rng = np.random.default_rng(seed + 3)
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
+    dev = model.compiled.device
+    with eager():
+        loss = model.compiled.train_step(
+            model.params, model.opt_state, model.state,
+            [torch.from_numpy(ids[:, :-1]).to(dev)],
+            torch.from_numpy(ids[:, 1:]).to(dev))[3]
+    first = float(loss)
+    print(f"phase 6's first step alone: loss {first}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return first
+
+
+def phase_searched_train(seed, name, first_loss_bf16, calibration_out=None):
+    """Phase 9, the searched path: (a) calibrate phase 6's model for
+    SEARCH_RANKS ranks on the card, (b) run the strategy search on
+    ``MachineSpec.h100_sxm(4)`` with that table, and the uncalibrated
+    (roofline) search of FFConfig's defaults, then hold the flash
+    kernels to their plain versions at every shape the calibration
+    launched and the strategies will, (c) spawn the ranks (as phases
+    7-8) to compile with ``strategy=None`` and train, and (d) round-trip
+    the exported strategy.  Copies the calibration table to
+    ``calibration_out`` when given.  Returns each attention kernel's
+    launches: the calibration's, and rank 0's under the searched
+    strategy."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.compiler.lowering import data_parallel_strategy
+    from flexflow_tpu_torch.core.machine import MachineView
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.models import build_gpt
+    from flexflow_tpu_torch.obs.metrics import METRICS
+    from flexflow_tpu_torch.runtime.distributed import spawn
+    from flexflow_tpu_torch.search import driver, strategy_io
+    from flexflow_tpu_torch.search.calibration import (
+        CalibrationTable,
+        measure_op_view,
+    )
+    from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
+    from flexflow_tpu_torch.search.simulator import Simulator
+    from flexflow_tpu_torch import native
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(native.get_lib() is not None,
+          "the native search engines did not build (g++ from native/src)")
+    cards = torch.cuda.device_count()
+    shared = cards < SEARCH_RANKS
+    tmp = tempfile.TemporaryDirectory()
+    cal_path = os.path.join(tmp.name, "calibration.json")
+    cache_path = os.path.join(tmp.name, "cost_cache.json")
+    strat_path = os.path.join(tmp.name, "strategy.json")
+
+    # (a) + (b): one optimize_strategy call, which probes first and
+    # reports the two times apart, as the reference's does
+    cfg = search_config(seed, SEARCH_RANKS, calibrate=True,
+                        calibration_file=cal_path,
+                        calibration_budget_s=CAL_BUDGET_S,
+                        cost_cache_file=cache_path)
+    frontend = build_gpt(cfg, **TRAIN)
+    probes = METRICS.counter("calibration.probes")
+    native_hits = METRICS.counter("dp.native_hits")
+    probes0, hits0 = probes.value, native_hits.value
+    for k in (fa.flash_forward, fa.flash_forward_partial):
+        k.launches = 0
+    cal_shapes = set()
+    t0 = time.perf_counter()
+    with recorded_flash_launches(cal_shapes):
+        graph, views = driver.optimize_strategy(frontend.graph, cfg,
+                                                return_graph=True)
+    wall = time.perf_counter() - t0
+    stats = dict(driver.LAST_SEARCH_STATS)
+    cal_launches = {k.__name__: k.launches
+                    for k in (fa.flash_forward, fa.flash_forward_partial)}
+    table = CalibrationTable.load(cal_path)
+    if calibration_out:
+        shutil.copyfile(cal_path, calibration_out)
+    records = dict(table._t)
+    check(table.backend == "cuda", f"calibration backend {table.backend}")
+    check(len(records) > 0, "calibration measured no record")
+    check(all(math.isfinite(v) and v > 0 for v in records.values()),
+          "a calibration record is not finite and positive")
+    check(cal_launches["flash_forward"] > 0,
+          "the attention probes never launched the flash forward (row 1)")
+    spread = {}  # CAL_REPROBES records measured again
+    for node in frontend.graph.topo_order():
+        kind = node.op.op_type.value
+        if kind not in ("multihead_attention", "linear") or kind in spread:
+            continue
+        mv = views.get(node.guid)
+        if mv is None or table.get(node.op, mv) is None:
+            mv = MachineView.trivial(node.op.output_shapes[0].ndim)
+        recorded = table.get(node.op, mv)
+        check(recorded is not None,
+              f"no calibration record for {node.op.name} at {mv}")
+        with recorded_flash_launches(cal_shapes):
+            again = measure_op_view(node.op, mv, device="cuda",
+                                    compute_dtype=torch.bfloat16)
+        spread[kind] = {"op": node.op.name, "view": str(mv),
+                        "recorded_ms": recorded * 1e3,
+                        "again_ms": again * 1e3, "ratio": again / recorded}
+    check(len(spread) == CAL_REPROBES, f"re-probed {sorted(spread)}")
+    # the uncalibrated search of FFConfig's defaults: what
+    # compile(strategy=None) picks on 4 cards unless asked to calibrate
+    dcfg = search_config(seed, SEARCH_RANKS)
+    dgraph, dviews = driver.optimize_strategy(
+        build_gpt(dcfg, **TRAIN).graph, dcfg, return_graph=True)
+    default_s = driver.LAST_SEARCH_STATS["search_seconds"]
+    cal = Simulator.for_config(search_config(seed, SEARCH_RANKS),
+                               calibration=table)
+    roof = Simulator.for_config(search_config(seed, SEARCH_RANKS))
+    dp_views = data_parallel_strategy(frontend.graph, SEARCH_RANKS)
+    meg_views = megatron_strategy(frontend)
+    predicted = {}
+    for tag, sim in (("calibrated", cal), ("roofline", roof)):
+        predicted[tag] = {
+            "searched_ms": sim.simulate(graph, views) * 1e3,
+            "data_parallel_ms": sim.simulate(frontend.graph, dp_views) * 1e3,
+            "default_ms": sim.simulate(dgraph, dviews) * 1e3,
+            "megatron_dp2_tp2_ms": sim.simulate(frontend.graph,
+                                                meg_views) * 1e3}
+    digest = stable_graph_digest(graph)
+    default_digest = stable_graph_digest(dgraph)
+    strategy_io.export_strategy(strat_path, graph, views)
+    one = search_config(seed, 1)
+    driver.optimize_strategy(build_gpt(one, **TRAIN).graph, one,
+                             return_graph=True)
+    one_rank_s = driver.LAST_SEARCH_STATS["search_seconds"]
+    search = {
+        "machine": "h100_sxm(4)", "wall_s": wall,
+        "calibration_seconds": stats["calibration_seconds"],
+        "search_seconds": stats["search_seconds"],
+        "one_rank_search_seconds": one_rank_s,
+        "default_search_seconds": default_s,
+        "calibration_probes": probes.value - probes0,
+        "calibration_records": len(records),
+        "calibration_row1_launches": cal_launches["flash_forward"],
+        "reprobe_spread": spread,
+        "native_dp_hits": native_hits.value - hits0,
+        "full_sims": stats["full_sims"], "delta_sims": stats["delta_sims"],
+        "rewritten": graph.num_nodes != frontend.graph.num_nodes,
+        "nodes": [frontend.graph.num_nodes, graph.num_nodes],
+        "views_by_op_class": views_by_class(graph, views),
+        "default_views_by_op_class": views_by_class(dgraph, dviews),
+        "predicted_step": predicted, "digest": digest,
+        "default_digest": default_digest}
+    print("searched path, calibration and search: " + json.dumps(search))
+    check(search["native_dp_hits"] > 0, "the native DP engine never served")
+
+    # the flash kernels against their plain versions at every per-rank
+    # shape of this phase: the calibration's launches and the three
+    # strategies the ranks will train
+    shapes = set(launches_to_shapes(cal_shapes))
+    for g, v in ((graph, views), (dgraph, dviews),
+                 (frontend.graph, dp_views)):
+        shapes.update(strategy_flash_shapes(g, v))
+    shapes = sorted(shapes)
+    flash_checks = check_flash_shapes(seed + 13, shapes)
+    checked = shapes_to_launches(shapes)
+    print(f"flash kernels at phase 9's {len(shapes)} per-rank shapes vs "
+          f"plain versions: " + json.dumps(flash_checks))
+    plain = stable_graph_digest(frontend.graph)
+    dp_strs = {g: str(v) for g, v in dp_views.items()}
+    searched_is_dp = digest == plain and {
+        g: str(v) for g, v in views.items()} == dp_strs
+    default_is_dp = default_digest == plain and {
+        g: str(v) for g, v in dviews.items()} == dp_strs
+    del frontend, table
+    gc.collect()
+
+    # (c) + (d): the ranks
+    rng = np.random.default_rng(seed + 3)  # phase 6's batches
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        TRAIN_BATCHES * TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
+    ids = ids[:SEARCH_STEPS * TRAIN_BATCH]
+    t0 = time.perf_counter()
+    ranks = spawn(_searched_rank, SEARCH_RANKS,
+                  (seed, ids, cal_path, cache_path, strat_path),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SEARCH_TIMEOUT_S)
+    phase_wall = time.perf_counter() - t0
+    tmp.cleanup()
+    r0 = ranks[0]
+    # shapes the ranks launched that the prediction above missed: held
+    # to their plain versions here
+    ran = set()
+    for r in ranks:
+        ran.update(tuple(x) for x in r["flash_shapes"])
+    unpredicted = launches_to_shapes(ran - checked)
+    if unpredicted:
+        print(f"flash kernels at shapes the ranks ran beyond the "
+              f"prediction {unpredicted} vs plain versions: "
+              + json.dumps(check_flash_shapes(seed + 14, unpredicted)))
+    want_transport = "gloo-host" if shared else "nccl"
+    cards_used = 1 if shared else SEARCH_RANKS
+    steps = len(r0["losses"])
+    tokens = TRAIN_BATCH * TRAIN["seq_len"]
+    bf16_peak = card_peaks(name)[2]
+    pred = predicted["calibrated"]
+    timing = {}
+    for tag in ("searched", "data_parallel", "default"):
+        blocks = [[max(r["timed"][tag][j][i][0] for r in ranks)
+                   for i in range(SEARCH_TIMED_BLOCK)] for j in range(2)]
+        p50 = float(np.median(blocks[0] + blocks[1]))
+        halves = [float(np.median(b)) for b in blocks]
+        timing[tag] = {
+            "steps": 2 * SEARCH_TIMED_BLOCK, "step_p50_ms": p50 * 1e3,
+            "block_p50_ms": [t * 1e3 for t in halves],
+            "block_spread": abs(halves[0] - halves[1]) / p50,
+            "tokens_per_s": tokens / p50,
+            "predicted_ms": pred[f"{tag}_ms"],
+            "predicted_roofline_ms": predicted["roofline"][f"{tag}_ms"],
+            "predicted_over_measured": pred[f"{tag}_ms"] / (p50 * 1e3)}
+    timing["searched"]["mfu_vs_dense_bf16_peak"] = (
+        3.0 * r0["flops"] / (timing["searched"]["step_p50_ms"] * 1e-3)
+        / (bf16_peak * cards_used))
+    first = r0["losses"][0]
+    parity = {"one_process": first_loss_bf16, "searched": first,
+              "rel_err": abs(first - first_loss_bf16) / abs(first_loss_bf16),
+              "default": r0["warmup"]["default"][1],
+              "default_rel_err": abs(r0["warmup"]["default"][1]
+                                     - first_loss_bf16)
+              / abs(first_loss_bf16),
+              "tol": SP_LOSS_TOL["bf16"]}
+    transport_tag = ("nccl, one card per rank" if not shared else
+                     "shared-card transport (gloo, host copies): not the "
+                     "NVLink the simulator prices")
+    probes_nccl = r0["link_probes"]
+    report = {
+        "ranks": SEARCH_RANKS, "cards_used": cards_used,
+        "transport": [r["transport"] for r in ranks],
+        "rank_devices": [r["device"] for r in ranks],
+        "phase_wall_s": phase_wall, "steps": steps,
+        "compile_s": [r["compile_s"] for r in ranks],
+        "result_cache_hit": r0["search_stats"].get("result_cache_hit"),
+        "fit_wall_s": [r["fit_wall_s"] for r in ranks],
+        "samples_per_s": r0["samples_per_s"],
+        "timed_order": r0["timed_order"], "timing": timing,
+        "searched_over_data_parallel": timing["searched"]["step_p50_ms"]
+        / timing["data_parallel"]["step_p50_ms"],
+        "default_over_data_parallel": timing["default"]["step_p50_ms"]
+        / timing["data_parallel"]["step_p50_ms"],
+        "searched_is_data_parallel": searched_is_dp,
+        "default_is_data_parallel": default_is_dp,
+        "ratio_transport": transport_tag,
+        "link_probes": probes_nccl,
+        "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+        "collectives_per_rank_per_step": [
+            {c: {u: v / steps for u, v in cnt.items()}
+             for c, cnt in r["collectives"].items() if cnt["calls"]}
+            for r in ranks],
+        "kernel_launches_per_rank": [r["launches"] for r in ranks],
+        "flash_shapes_ran": launches_to_shapes(ran),
+        "loss_first_step": first, "loss_last_step": r0["losses"][-1],
+        "first_step_parity": parity, "epoch_history": r0["history"]}
+    print("searched training path: " + json.dumps(report))
+    print("searched training path step losses: "
+          + json.dumps([round(v, 5) for v in r0["losses"]]))
+
+    check(steps == SEARCH_STEPS, f"{steps} searched steps ran")
+    for i, r in enumerate(ranks):
+        check(r["transport"] == want_transport,
+              f"rank {i}: transport {r['transport']}, want {want_transport}")
+        check(r["digest"] == digest,
+              f"rank {i}: graph digest {r['digest']}, the search's {digest}")
+        check(r["views"] == r0["views"], f"rank {i} lowered other views")
+        check(r["default_digest"] == default_digest
+              and r["default_views"] == r0["default_views"],
+              f"rank {i}: the default compile's graph digest "
+              f"{r['default_digest']}, the roofline search's "
+              f"{default_digest}, or other views than rank 0's")
+        check(r["round_trip"], f"rank {i}: the exported strategy imported "
+              f"into other views")
+        check(r["losses"] == r0["losses"], f"rank {i} reports other losses")
+        for k, want in r["want_launches"].items():
+            check(r["launches"][k] == want,
+                  f"rank {i}: {k} launched {r['launches'][k]} times in "
+                  f"{steps} steps, want {want}")
+    check(bool(np.isfinite(r0["losses"]).all()),
+          "a searched step's loss is not finite")
+    check(r0["losses"][-1] < r0["losses"][0],
+          f"searched loss did not fall: {r0['losses'][0]:.4f} at step 1, "
+          f"{r0['losses'][-1]:.4f} at step {steps}")
+    check(parity["rel_err"] <= parity["tol"],
+          f"searched first-step loss {first:.6f} vs one process "
+          f"{first_loss_bf16:.6f}: {parity['rel_err']:.3e} > {parity['tol']}")
+    check(parity["default_rel_err"] <= parity["tol"],
+          f"the default search's first-step loss {parity['default']:.6f} "
+          f"vs one process {first_loss_bf16:.6f}: "
+          f"{parity['default_rel_err']:.3e} > {parity['tol']}")
+    for tag, blocks in r0["timed"].items():
+        check(all(math.isfinite(loss) for b in blocks for _, loss in b),
+              f"a timed {tag} step's loss is not finite")
+    blocks = {}
+    for i, r in enumerate(ranks):
+        for wname, (key, dig) in r["blocks"].items():
+            seen = blocks.setdefault((wname, tuple(key)), dig)
+            check(seen == dig, f"rank {i}: replica of {wname} block {key} "
+                  f"differs in bits after the last step")
+    print(f"searched training path: {len(blocks)} weight blocks, every "
+          f"replica bit-equal after {steps} steps")
+    return cal_launches, r0["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2769,6 +3478,13 @@ def main(argv=None) -> int:
     ap.add_argument("--step-times", metavar="ROOT", default=None,
                     help="only time phase 6's training step of the "
                          "checkout at ROOT, captured and eager")
+    ap.add_argument("--searched-only", metavar="RUNS", type=int,
+                    default=None,
+                    help="only run phase 9, RUNS times, against one "
+                         "process's first training step")
+    ap.add_argument("--calibration-out", metavar="DIR", default=None,
+                    help="keep each phase 9 run's calibration table in "
+                         "DIR as calibration_<run>.json")
     args = ap.parse_args(argv)
     if args.decode_times is not None:
         phase_device()
@@ -2777,6 +3493,22 @@ def main(argv=None) -> int:
     if args.step_times is not None:
         phase_device()
         step_times(args.step_times, args.seed)
+        return 0
+    if args.calibration_out:
+        os.makedirs(args.calibration_out, exist_ok=True)
+
+    def calibration_out(run):
+        return (os.path.join(args.calibration_out, f"calibration_{run}.json")
+                if args.calibration_out else None)
+
+    if args.searched_only is not None:
+        name = phase_device()
+        phase_build()
+        first = first_step_loss(args.seed)
+        for run in range(1, args.searched_only + 1):
+            print(f"phase 9, run {run} of {args.searched_only}")
+            phase_searched_train(args.seed, name, first,
+                                 calibration_out(run))
         return 0
 
     name = phase_device()
@@ -2791,6 +3523,8 @@ def main(argv=None) -> int:
     sp_launches, _, sp_refs = phase_sp_train(args.seed, name)
     megatron_launches, ulysses_launches, _ = phase_hybrid_train(
         args.seed, name, first_loss, sp_refs)
+    cal_launches, searched_launches = phase_searched_train(
+        args.seed, name, first_loss, calibration_out(1))
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -2842,6 +3576,8 @@ def main(argv=None) -> int:
             "launches": flash_launches[wrapper],
             "launches_megatron_per_rank": megatron_launches[wrapper],
             "launches_ulysses_per_rank": ulysses_launches[wrapper],
+            "launches_searched_per_rank": searched_launches[wrapper],
+            "launches_calibration": cal_launches.get(wrapper, 0),
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],
             "plain_ms": bf16["plain_ms"],
@@ -2859,6 +3595,9 @@ def main(argv=None) -> int:
         "source": "flexflow_tpu_torch/csrc/flash_attention.cu",
         "replaces": "flexflow_tpu/kernels/flash_attention.py:527",
         "launches": sp_launches["flash_forward_partial"],
+        "launches_searched_per_rank": searched_launches[
+            "flash_forward_partial"],
+        "launches_calibration": cal_launches["flash_forward_partial"],
         "max_abs_err": max(r["max_abs_err"] for k, r in partial.items()
                            if k.startswith("bf16")),
         "ms": main_row["ms"],

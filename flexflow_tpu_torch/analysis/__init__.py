@@ -1,0 +1,47 @@
+"""Static analysis for the graph and its strategies — the port of
+flexflow_tpu/analysis/ that the strategy search calls on its default
+path (``search/dp.py``, ``search/driver.py``):
+
+1. ``invariants`` — graph well-formedness after every rewrite
+   (``PCG0xx``), armed by ``FLEXFLOW_TPU_VERIFY=1`` or
+   ``FFConfig.verify``.
+2. ``sharding``   — strategy/``MachineView`` legality and
+   search/lowering coherence (``SHD101``-``SHD110``), the always-on gate
+   in ``optimize_strategy``.
+
+The reference's equivalence proofs, placement, swap and comm-plan lints
+guard modules the port has not ported yet (ROADMAP Queue A items 5, 8
+and 10).
+"""
+
+from flexflow_tpu_torch.analysis.findings import (
+    AnalysisError,
+    Finding,
+    emit_findings,
+    errors_only,
+)
+from flexflow_tpu_torch.analysis.invariants import (
+    CHECK_STATS,
+    GraphInvariantError,
+    assert_graph_ok,
+    check_graph,
+    scoped_verify,
+    set_verify,
+    verification_enabled,
+)
+from flexflow_tpu_torch.analysis.sharding import lint_strategy
+
+__all__ = [
+    "AnalysisError",
+    "Finding",
+    "emit_findings",
+    "errors_only",
+    "CHECK_STATS",
+    "GraphInvariantError",
+    "assert_graph_ok",
+    "check_graph",
+    "scoped_verify",
+    "set_verify",
+    "verification_enabled",
+    "lint_strategy",
+]

@@ -129,6 +129,30 @@ def refuse_unlowered(what: str, item: str) -> None:
         f"pipeline")
 
 
+def data_parallel_strategy(graph: Graph, degree: int
+                           ) -> Dict[int, MachineView]:
+    """Batch-dim partitioning for every op — the reference's
+    ``data_parallel_strategy`` (lowering.py:58-80, its
+    --only-data-parallel path): each op takes the largest divisor of
+    ``degree`` that divides its batch, pinned ops their fixed view."""
+    divisors = sorted(
+        (d for d in range(1, degree + 1) if degree % d == 0), reverse=True)
+    strategy: Dict[int, MachineView] = {}
+    for node in graph.topo_order():
+        fixed = node.op.fixed_machine_view()
+        if fixed is not None:
+            strategy[node.guid] = fixed
+            continue
+        out = node.op.output_shapes[0]
+        batch = out.sizes[0] if out.ndim else 1
+        d = 1
+        if out.ndim and 0 in node.op.splittable_output_dims():
+            d = next(dd for dd in divisors if batch % dd == 0)
+        strategy[node.guid] = (MachineView.data_parallel(out.ndim, d)
+                               if d > 1 else MachineView.trivial(out.ndim))
+    return strategy
+
+
 def strategy_views(strategy) -> Dict[int, MachineView]:
     """The views by guid of a strategy, refusing the ``__meta__`` blocks
     the lowering does not run."""

@@ -1,5 +1,5 @@
-"""FFConfig — the subset of flexflow_tpu/config.py the decode and
-training paths read.
+"""FFConfig — the subset of flexflow_tpu/config.py the decode, training
+and search paths read.
 
 ``device`` is explicit and defaults to ``"cuda"``: the entry points run
 on the card unless the caller asks for the CPU (the tests pass
@@ -22,6 +22,18 @@ steps per compiled call (``CompiledModel.train_steps``).
 reference's ZeRO-1 and gradient-sync options; ``compile`` refuses any
 value but their defaults (ROADMAP Queue A item 5).
 
+The strategy search's fields are the reference's, with its defaults
+(config.py:106, 115-160): ``machine_spec`` (default
+``MachineSpec.h100_sxm(num_devices)``, or ``machine_model_file``'s),
+``search_budget``, ``search_alpha``, ``only_data_parallel``,
+``search_num_devices`` (``search_devices``), ``search_timeout_s``,
+``search_improvement_margin``, ``base_optimize_threshold``,
+``substitution_json``, ``calibration_file``, ``calibrate``,
+``calibration_budget_s``, ``cost_cache_file``, ``objective``, ``verify``
+and the two proposal flags ``enable_pipeline_search`` and
+``enable_placement_search``.  ``compile(strategy=None)`` reads them
+(model.py).
+
 Flags of the reference that the port does not run yet (``remat``,
 ``grad_accum_steps``, ``kv_precision="search"``) raise when set away
 from their defaults; they are never silently ignored.
@@ -33,6 +45,8 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from flexflow_tpu_torch.core.machine import MachineSpec
 
 _DTYPES = {
     "float32": torch.float32,
@@ -108,6 +122,25 @@ class FFConfig:
     zero_dp_shard: bool = False
     sync_precision: str = "fp32"
     sync_schedule: str = "off"
+    # the strategy search (reference config.py:103-160, its defaults)
+    machine_spec: Optional[MachineSpec] = None
+    machine_model_file: Optional[str] = None
+    search_budget: int = 16
+    search_alpha: float = 1.05
+    only_data_parallel: bool = False
+    search_num_devices: int = 0  # 0: num_devices
+    base_optimize_threshold: int = 10
+    search_timeout_s: float = 45.0  # <= 0: no deadline
+    enable_pipeline_search: bool = True
+    enable_placement_search: bool = True
+    search_improvement_margin: float = 0.03
+    substitution_json: Optional[str] = None
+    calibration_file: Optional[str] = None
+    calibrate: bool = False
+    calibration_budget_s: float = 60.0
+    cost_cache_file: Optional[str] = None
+    objective: str = "train"  # "train" | "serve"
+    verify: bool = False
 
     def __post_init__(self):
         if self.num_devices < 1:
@@ -132,6 +165,14 @@ class FFConfig:
         if self.serve_slo_classes is not None:
             self.serve_slo_classes = parse_slo_classes(
                 self.serve_slo_classes)
+        if self.objective not in ("train", "serve"):
+            raise ValueError(
+                f"objective must be train|serve, got {self.objective!r}")
+        if self.machine_spec is None:
+            self.machine_spec = (
+                MachineSpec.from_file(self.machine_model_file)
+                if self.machine_model_file
+                else MachineSpec.h100_sxm(self.num_devices))
         for flag, default, what in (
                 ("remat", False, "activation rematerialisation"),
                 ("grad_accum_steps", 1, "gradient accumulation")):
@@ -141,6 +182,10 @@ class FFConfig:
                     f"yet (ROADMAP Queue A item 3); the port runs one "
                     f"optimizer step per batch with every activation "
                     f"saved")
+
+    @property
+    def search_devices(self) -> int:
+        return self.search_num_devices or self.num_devices
 
     @property
     def torch_compute_dtype(self) -> torch.dtype:

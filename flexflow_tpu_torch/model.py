@@ -15,8 +15,29 @@ as the reference's strategy search does for one pinned candidate),
 so the state holds that pool dtype.  ``fit``, ``evaluate`` and
 ``predict`` run over numpy data; under a strategy every rank runs them
 on its blocks, the losses and metrics are the job's, and ``predict``
-returns the whole output on every rank.  The strategy search comes
-with a later slice (ROADMAP Queue A item 7).
+returns the whole output on every rank.
+
+``compile(strategy=None)`` chooses the strategy as the reference's
+does (model.py:539, 816-850): ``config.only_data_parallel`` gives
+``data_parallel_strategy``; otherwise the Unity search runs
+(``search.driver.optimize_strategy(..., return_graph=True)``), the
+best rewritten graph becomes ``self.graph`` and the lowering takes it.
+A job of several ranks searches once: rank 0 calibrates (when asked)
+and searches, and sends every rank its export (``strategy_io``) with
+the rewritten graph; each rank checks the graph's
+``stable_graph_digest`` and imports the views through the export's
+digest gate, so no two ranks can lower different strategies.  After
+the flat search the reference also costs pipeline and placement
+proposals (``enable_pipeline_search``/``enable_placement_search``,
+both on by default); their lowerings are not ported (ROADMAP Queue A
+item 8), so a training compile over several ranks with either flag on
+raises, and with both off takes the flat search's winner, as the
+reference does with those settings.  At one rank neither proposal can
+win (a pipeline needs stages <= ranks, a placement two ranks), and the
+search runs as in the reference.  ``self.strategy`` holds the chosen
+views and ``self.search_stats`` the search's ``LAST_SEARCH_STATS``
+(its seconds, calibration seconds and counters; rank 0's on every
+rank).
 """
 
 from __future__ import annotations
@@ -67,6 +88,30 @@ def _adopt_kv_dtype(graph, dtype) -> None:
         graph._invalidate()
 
 
+# ops the search builds (the batched-embedding rewrite) that the port
+# prices but does not run yet
+_UNLOWERED_OPS = (OperatorType.STACK, OperatorType.UNSTACK,
+                  OperatorType.BATCHED_EMBEDDING)
+
+
+def _check_searched_graph(graph) -> None:
+    """The searched graph must name each op once (weights are keyed by
+    op name) and hold only ops the port runs."""
+    names = [nd.op.name for nd in graph.nodes.values()]
+    if len(set(names)) != len(names):
+        dup = sorted({n for n in names if names.count(n) > 1})
+        raise RuntimeError(
+            f"the searched graph names ops {dup[:4]} more than once; their "
+            f"weights would be shared")
+    found = sorted({nd.op.op_type.value for nd in graph.nodes.values()
+                    if nd.op.op_type in _UNLOWERED_OPS})
+    if found:
+        raise NotImplementedError(
+            f"the strategy search chose a rewrite with {found}, ops the "
+            f"port does not run yet (ROADMAP Queue A item 6); pass a "
+            f"strategy or set only_data_parallel=True")
+
+
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
@@ -82,6 +127,8 @@ class FFModel:
         self.optimizer = None
         self.last_throughput = None
         self.step_losses: List[float] = []
+        self.strategy = None
+        self.search_stats: Dict = {}
 
     def _fresh_name(self, base: str, name: Optional[str]) -> str:
         if name:
@@ -269,6 +316,9 @@ class FFModel:
                 "placed lowerings are not ported yet (ROADMAP Queue A "
                 "item 8)")
         self.config.comp_mode = comp_mode
+        if strategy is None:
+            strategy = self._choose_strategy(comp_mode)
+        self.strategy = strategy
         if comp_mode == "inference":
             _adopt_kv_dtype(self.graph, self.config.kv_precision)
         if comp_mode == "training":
@@ -288,6 +338,99 @@ class FFModel:
         self.params, self.state = self.compiled.init_params(self.config.seed)
         self.opt_state = (self.optimizer.init_state(self.params)
                           if comp_mode == "training" else None)
+
+    def _choose_strategy(self, comp_mode: str):
+        """The views ``compile(strategy=None)`` lowers (module
+        docstring): data parallelism under ``only_data_parallel``, else
+        the search's, with ``self.graph`` replaced by its graph."""
+        from flexflow_tpu_torch.compiler.lowering import (
+            data_parallel_strategy,
+        )
+        from flexflow_tpu_torch.runtime import distributed
+
+        cfg = self.config
+        world = distributed.world_size()
+        if comp_mode == "inference" and world > 1:
+            raise NotImplementedError(
+                "an inference compile over several ranks is not ported yet "
+                "(ROADMAP Queue A item 2); the decode path runs on one "
+                "device")
+        if cfg.only_data_parallel:
+            return data_parallel_strategy(self.graph, cfg.num_devices)
+        if (comp_mode == "training" and world > 1
+                and not cfg.zero_dp_shard
+                and (cfg.enable_pipeline_search
+                     or cfg.enable_placement_search)):
+            raise NotImplementedError(
+                "compile(strategy=None) over several ranks: after the flat "
+                "search the reference also costs pipeline and placement "
+                "proposals (FFConfig.enable_pipeline_search / "
+                "enable_placement_search), whose lowerings are not ported "
+                "yet (ROADMAP Queue A item 8); set both False to take the "
+                "flat search's winner, as the reference does with those "
+                "settings")
+        if world == 1:
+            from flexflow_tpu_torch.search import driver
+
+            graph, views = driver.optimize_strategy(
+                self.graph, cfg, return_graph=True)
+            self.search_stats = dict(driver.LAST_SEARCH_STATS)
+        else:
+            graph, views = self._search_on_rank0()
+        _check_searched_graph(graph)
+        self.graph = graph
+        return views
+
+    def _search_on_rank0(self):
+        """Rank 0 searches; every rank gets its (graph, views): the
+        graph and export rank 0 sends, the views imported through the
+        export's digest gate.  Every rank refuses the unported search
+        options of the config they share before the broadcast, and an
+        error of rank 0's search is broadcast in place of its result,
+        so every rank raises it and none waits for a result that never
+        comes."""
+        import pickle
+
+        import torch.distributed as dist
+
+        from flexflow_tpu_torch.runtime import distributed
+        from flexflow_tpu_torch.search import driver, strategy_io
+        from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
+
+        driver.refuse_unported(self.config)
+        payload = [None]
+        if distributed.rank() == 0:
+            try:
+                graph, views = driver.optimize_strategy(
+                    self.graph, self.config, return_graph=True)
+                payload[0] = {
+                    "graph": graph,
+                    "digest": stable_graph_digest(graph),
+                    "export": strategy_io.strategy_to_dict(graph, views),
+                    "stats": dict(driver.LAST_SEARCH_STATS),
+                }
+            except Exception as e:
+                try:
+                    pickle.dumps(e)
+                    payload[0] = {"error": e}
+                except Exception:
+                    payload[0] = {"error": RuntimeError(
+                        f"rank 0's strategy search raised "
+                        f"{type(e).__name__}: {e}")}
+        dist.broadcast_object_list(payload, src=0)
+        got = payload[0]
+        if "error" in got:
+            raise got["error"]
+        graph = got["graph"]
+        if stable_graph_digest(graph) != got["digest"]:
+            raise RuntimeError(
+                f"rank {distributed.rank()}: the searched graph arrived with "
+                f"digest {stable_graph_digest(graph)}, rank 0 sent "
+                f"{got['digest']}")
+        views = strategy_io.strategy_from_dict(
+            got["export"], graph, source="rank 0's searched strategy")
+        self.search_stats = got["stats"]
+        return graph, views
 
     # ---- training loop ---------------------------------------------------
     def fit(self, x=None, y=None, batch_size: Optional[int] = None,

@@ -11,14 +11,15 @@ from flexflow_tpu_torch.ops.base import (
 from flexflow_tpu_torch.ops.attention import MultiHeadAttentionOp
 from flexflow_tpu_torch.ops.decode_attention import DecodeAttentionOp
 from flexflow_tpu_torch.ops.elementwise import ElementBinaryOp
-from flexflow_tpu_torch.ops.embedding import EmbeddingOp
+from flexflow_tpu_torch.ops.embedding import BatchedEmbeddingOp, EmbeddingOp
 from flexflow_tpu_torch.ops.inout import ConstantOp, InputOp
 from flexflow_tpu_torch.ops.linear import LinearOp
 from flexflow_tpu_torch.ops.norm import LayerNormOp
-from flexflow_tpu_torch.ops.shape_ops import ReshapeOp
+from flexflow_tpu_torch.ops.shape_ops import ReshapeOp, StackOp, UnstackOp
 
 __all__ = [
     "OP_REGISTRY",
+    "BatchedEmbeddingOp",
     "ConstantOp",
     "DecodeAttentionOp",
     "ElementBinaryOp",
@@ -30,6 +31,8 @@ __all__ = [
     "MultiHeadAttentionOp",
     "Operator",
     "ReshapeOp",
+    "StackOp",
+    "UnstackOp",
     "WeightSpec",
     "register_op",
 ]

@@ -42,7 +42,7 @@ A item 3).
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -97,6 +97,9 @@ class MultiHeadAttentionOp(Operator):
     when the sequence is split across ranks)."""
 
     op_type = OperatorType.MULTIHEAD_ATTENTION
+    # sp_mode picks the multi-rank scheme; a one-card probe never runs
+    # the collective, so records are shared across modes
+    _CALIBRATION_INERT_ATTRS = frozenset({"sp_mode"})
 
     def __init__(self, name, input_shapes, embed_dim: int, num_heads: int,
                  kdim: int = 0, vdim: int = 0, dropout: float = 0.0,
@@ -129,6 +132,34 @@ class MultiHeadAttentionOp(Operator):
         if mode == "ulysses":
             return True
         return mode == "auto" and not a["causal"] and n >= 3
+
+    def ring_comm_bytes(self, mv) -> Tuple[float, int, int]:
+        """(forward wire bytes per device, seq degree, view slot the
+        collective rides) when the view splits the SEQUENCE dim —
+        execution then runs the sequence-parallel scheme ``sp_mode``
+        selects: the ring rotates the K and V shards n-1 ppermute hops
+        each (parallel/ring_attention.py), the Ulysses exchange moves
+        (n-1)/n of each of q/k/v/out through one all-to-all pair
+        (parallel/ulysses.py).  The backward re-runs the collective;
+        the cost model doubles it.  Charged so sequence parallelism is
+        not ranked as free compute-splitting (the compute roofline
+        alone would say it is).
+
+        Zero for cross-attention (Sk != Sq — propagate keeps K/V whole
+        and execution takes the non-ring path) and the bytes shrink by
+        the head-parallel replica degree (each device moves only its
+        own heads' columns)."""
+        q, k = self.input_shapes[0], self.input_shapes[1]
+        n = mv.dim_degrees[1] if len(mv.dim_degrees) > 1 else 1
+        if n <= 1 or k.sizes[1] != q.sizes[1]:
+            return 0.0, 1, 1
+        b_loc = q.sizes[0] / max(mv.dim_degrees[0], 1)
+        e = self.attrs["embed_dim"] / max(mv.replica_degree, 1)
+        shard = b_loc * (q.sizes[1] / n) * e * q.dtype.itemsize
+        if self._use_ulysses(n):
+            # q/k/v/out each move (n-1)/n of one local shard, once
+            return 4.0 * (n - 1) / n * shard, n, 1
+        return 2.0 * (n - 1) * shard, n, 1  # K and V, n-1 hops each
 
     def infer(self) -> Sequence[ParallelTensorShape]:
         q = self.input_shapes[0]

@@ -9,10 +9,13 @@ the op's ``propagate`` asks for first).  ``propagate(mv)`` is the
 reference's degree propagation, copied: given the op's ``MachineView``
 it derives a ``ShardAnnot`` for each input, weight and output.
 ``forward_sharded`` is the hook for an op whose shards need more than
-its ``forward`` on them (the vocab-split embedding).  ``flops`` is the
-reference's forward-FLOP estimate (the training path's MFU counts 3x
-its sum).  The reference's other cost hooks belong to the search slice
-(ROADMAP Queue A item 7).
+its ``forward`` on them (the vocab-split embedding).  The cost hooks are
+the reference's: ``flops`` (the forward-FLOP estimate; the training
+path's MFU counts 3x its sum), ``bytes_accessed`` (the roofline's HBM
+bytes), ``fixed_machine_view``/``splittable_output_dims``/
+``max_replica_degree`` (the search's view space) and
+``calibration_signature`` (the identity a measured record is keyed by,
+``signature`` less the ``_CALIBRATION_INERT_ATTRS``).
 """
 
 from __future__ import annotations
@@ -72,6 +75,15 @@ class ShardAnnot:
     replica: int = 1
     partial: bool = False
     idx: Tuple[int, ...] = ()
+
+    def __hash__(self):
+        # cached: the cost model's memo dicts hash annotations millions
+        # of times per search (reference ops/base.py:80-87)
+        h = self.__dict__.get("_hash")
+        if h is None:
+            h = hash((self.degrees, self.replica, self.partial, self.idx))
+            object.__setattr__(self, "_hash", h)
+        return h
 
     def parallel_idx(self) -> Tuple[int, ...]:
         if self.idx:
@@ -220,6 +232,18 @@ class Operator:
         """Forward FLOPs estimate (reference ops/base.py:220-223)."""
         return float(sum(s.num_elements for s in self.output_shapes))
 
+    def bytes_accessed(self) -> float:
+        """HBM bytes of one forward: every input and output once, every
+        weight once (reference ops/base.py:225-233)."""
+        b = sum(s.num_bytes for s in self.input_shapes)
+        b += sum(s.num_bytes for s in self.output_shapes)
+        for w in self._weight_specs:
+            n = 1
+            for d in w.shape:
+                n *= d
+            b += n * w.dtype.itemsize
+        return float(b)
+
     def fixed_machine_view(self) -> Optional[MachineView]:
         """Non-None when the op's attributes pin its view (the parallel
         ops)."""
@@ -233,6 +257,11 @@ class Operator:
         """>1 if the op supports partial-sum (row-parallel) execution."""
         return 1
 
+    # attrs that never change the lone-op kernel a one-card probe
+    # measures (they select a multi-device scheme): left out of
+    # calibration_signature, so one record serves every mode
+    _CALIBRATION_INERT_ATTRS: frozenset = frozenset()
+
     def signature(self) -> Tuple:
         """Structural identity: two ops with equal signatures have equal
         shapes and propagation (reference ops/base.py:243-258)."""
@@ -245,6 +274,16 @@ class Operator:
                                 for k, v in self.attrs.items())))
             self._sig_cache = sig
         return sig
+
+    def calibration_signature(self) -> Tuple:
+        """The identity of a measured record: ``signature()`` less the
+        ``_CALIBRATION_INERT_ATTRS`` (reference ops/base.py:260-277)."""
+        if not self._CALIBRATION_INERT_ATTRS:
+            return self.signature()
+        sig = self.signature()
+        attrs = tuple((k, v) for k, v in sig[3]
+                      if k not in self._CALIBRATION_INERT_ATTRS)
+        return sig[:3] + (attrs,) + sig[4:]
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name})"

@@ -96,6 +96,9 @@ class DecodeAttentionOp(Operator):
     "fp32", as in the reference)."""
 
     op_type = OperatorType.DECODE_ATTENTION
+    # use_kernel selects the execution path, not the math: one probe
+    # record serves both
+    _CALIBRATION_INERT_ATTRS = frozenset({"use_kernel"})
 
     def __init__(self, name, input_shapes, embed_dim: int, num_heads: int,
                  page_size: int = 16, pages_per_seq: int = 8,
@@ -146,6 +149,10 @@ class DecodeAttentionOp(Operator):
     def max_seqs(self) -> int:
         return self.input_shapes[0].sizes[0]
 
+    @property
+    def max_seq_len(self) -> int:
+        return self.attrs["page_size"] * self.attrs["pages_per_seq"]
+
     def propagate(self, mv: MachineView) -> OpSharding:
         b, s, e_deg = mv.dim_degrees
         assert s == 1, "decode token dim is length 1 — unsplittable"
@@ -171,6 +178,114 @@ class DecodeAttentionOp(Operator):
 
     def max_replica_degree(self) -> int:
         return self.attrs["num_heads"]
+
+    # ---- cost hooks (reference ops/decode_attention.py:420-527) -------
+    def flops(self) -> float:
+        a = self.attrs
+        bsz = self.max_seqs
+        e, h, dk = a["embed_dim"], a["num_heads"], self.head_dim
+        proj = 2.0 * bsz * e * h * dk * 4  # q, k, v, o projections
+        attn = 2.0 * bsz * h * self.max_seq_len * dk * 2
+        return proj + attn
+
+    # KV quantize-overhead pricing (the EQuARX discipline the cost
+    # model's wire-precision terms follow, machine_model.QUANT_PASSES):
+    # writing a quantized token costs streaming passes over the
+    # per-step fp32 token buffer (read the projections, round, write
+    # payload + scales).  The READ side's dequant runs in-register on
+    # bytes already streamed — its price IS the smaller stream, so no
+    # extra read pass is charged.
+    KV_QUANT_PASSES = 3.0
+
+    def _kv_payload_bytes_per_token(self) -> float:
+        """K + V PAYLOAD bytes per cached token in the pool dtype
+        (scales excluded — they shard differently)."""
+        itemsize = {"fp32": 4.0, "bf16": 2.0, "int8": 1.0}[self.kv_dtype]
+        return 2.0 * self.attrs["num_heads"] * self.head_dim * itemsize
+
+    def _kv_scale_bytes_per_token(self) -> float:
+        """The int8 pool's per-(page, slot) fp32 k/v scales: 8 bytes
+        per cached token, replicated over a head split."""
+        return 8.0 if self.kv_dtype == "int8" else 0.0
+
+    def kv_bytes_per_token(self) -> float:
+        """K + V bytes one cached token occupies across all heads, in
+        the POOL dtype (int8 includes its two fp32 scales)."""
+        return (self._kv_payload_bytes_per_token()
+                + self._kv_scale_bytes_per_token())
+
+    def kv_cache_bytes(self, mv: MachineView, serving=None) -> float:
+        """Per-device resident bytes of this layer's page pool under
+        ``mv`` — the KV-residency term of the simulator's HBM check.
+        Batch degree shards sequences (each device holds its sequences'
+        pages — realized by the executor's slot-aligned allocation),
+        the replica degree shards heads; both divide the payload, while
+        an int8 pool's scales divide only by batch (each replica needs
+        every token's scale).  When the serving arrival model declares
+        an expected shared prefix (``ServingSpec.shared_prefix_pages``
+        — realized by the executor's radix prefix sharing), residency
+        is the SHARED total: the common-prefix pages exist once, not
+        once per sequence."""
+        tokens = self.attrs["num_pages"] * self.attrs["page_size"]
+        b = max(mv.dim_degrees[0], 1) if mv.dim_degrees else 1
+        r = max(mv.replica_degree, 1)
+        per_dev = (tokens * self._kv_payload_bytes_per_token() / (b * r)
+                   + tokens * self._kv_scale_bytes_per_token() / b)
+        if serving is not None:
+            factor = getattr(serving, "shared_residency_factor", None)
+            if factor is not None:
+                per_dev *= factor()
+        return per_dev
+
+    def bytes_accessed(self) -> float:
+        # activations + weights + the full-occupancy cache read (the
+        # decode-dominant term: attention streams every live KV byte)
+        base = super().bytes_accessed()
+        return base + (self.max_seqs * self.max_seq_len
+                       * self.kv_bytes_per_token())
+
+    def sharded_bytes_accessed(self, mv: MachineView,
+                               serving=None) -> float:
+        """Per-shard bytes under ``mv`` — the decode op's replacement
+        for the cost model's uniform ``bytes_accessed() / parts`` rule:
+        a head split divides the KV stream like a batch split does (each
+        device reads only its own heads' columns), and under a serving
+        arrival model the cache read scales with the RAGGED p99 shard
+        load instead of full occupancy (search/serving.py
+        ``load_factor`` — the currency the serve objective ranks in)."""
+        b = max(mv.dim_degrees[0], 1) if mv.dim_degrees else 1
+        r = max(mv.replica_degree, 1)
+        # activations shard with the sequence slots; the projection
+        # weights shard with the HEADS (a batch split replicates them —
+        # every device streams the full wq..wo, the head split's real
+        # second win beside the balanced cache read)
+        act = sum(s.num_bytes for s in self.input_shapes)
+        act += sum(s.num_bytes for s in self.output_shapes)
+        wbytes = 0.0
+        for ws in self._weight_specs:
+            n = 1
+            for d in ws.shape:
+                n *= d
+            wbytes += n * ws.dtype.itemsize
+        live = self.max_seqs * self.max_seq_len
+        # attention streams each sequence's OWN pages (a prefix shared
+        # in residency is still read once per attending sequence), so
+        # the stream term never takes the shared-residency discount —
+        # the pool DTYPE is what shrinks it
+        kv = live * self._kv_payload_bytes_per_token() / (b * r)
+        # each replica streams every one of its sequences' scales
+        kv += live * self._kv_scale_bytes_per_token() / b
+        if serving is not None:
+            kv *= serving.load_factor(b)
+        quant = 0.0
+        if self.kv_dtype != "fp32":
+            # quantize overhead on the write path (KV_QUANT_PASSES,
+            # class comment): per step each slot collapses one fp32
+            # K + V token to the pool dtype
+            tok_fp32 = (self.max_seqs * 2.0 * self.attrs["num_heads"]
+                        * self.head_dim * 4.0)
+            quant = self.KV_QUANT_PASSES * tok_fp32 / (b * r)
+        return act / b + wbytes / r + kv + quant
 
     def weight_specs(self):
         a = self.attrs

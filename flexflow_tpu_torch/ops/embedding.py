@@ -9,11 +9,13 @@ reference's explicit lowering (embedding.py:95-150): each rank gathers
 the ids that fall in its block of table rows, zeros for the rest, and
 one all-reduce over the vocab axes sums the blocks, instead of a
 gather of the table.  The sum/avg aggregations come with the slices
-whose models use them (ROADMAP Queue A item 6)."""
+whose models use them (ROADMAP Queue A item 6).  ``BatchedEmbeddingOp``
+is the search's descriptor of the reference's batched lookup: shapes,
+propagation and costs, no forward yet (item 6)."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -109,3 +111,115 @@ class EmbeddingOp(Operator):
 
     def flops(self) -> float:
         return float(self.output_shapes[0].num_elements)
+
+    def bytes_accessed(self) -> float:
+        # gather traffic dominates: one row per id (reference
+        # ops/embedding.py:189-193)
+        x = self.input_shapes[0]
+        rows = x.num_elements
+        return float(rows * self.attrs["out_dim"] * 4
+                     + self.output_shapes[0].num_bytes)
+
+
+@register_op
+class BatchedEmbeddingOp(Operator):
+    """K stacked lookups: ids [K, B(, S)] (int), table [K, V, D] ->
+    [K, B, D] (aggr sum/avg) or [K, B, S, D] (none) — the reference's
+    ``BatchedEmbeddingOp`` (embedding.py:196-307), which its strategy
+    search builds from K same-signature embeddings
+    (search/substitution.py ``BatchEmbeddingsXfer``).  The port keeps its
+    shapes, degree propagation and cost hooks, so its search prices the
+    rewrite exactly as the reference's; running it is not ported yet
+    (ROADMAP Queue A item 6): ``forward`` raises, and ``compile`` refuses
+    a searched graph that holds it (model.py)."""
+
+    op_type = OperatorType.BATCHED_EMBEDDING
+
+    def __init__(
+        self,
+        name,
+        input_shapes,
+        num_tables: int,
+        num_entries: int,
+        out_dim: int,
+        aggr: str = "none",
+        kernel_initializer: Initializer | None = None,
+        param_dtype: str = "float32",
+    ):
+        assert aggr in ("none", "sum", "avg")
+        self._kernel_init = kernel_initializer or NormInitializer(stddev=0.05)
+        super().__init__(
+            name,
+            input_shapes,
+            num_tables=num_tables,
+            num_entries=num_entries,
+            out_dim=out_dim,
+            aggr=aggr,
+            param_dtype=param_dtype,
+        )
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        x = self.input_shapes[0]  # [K, B(, S)]
+        a = self.attrs
+        if a["aggr"] == "none":
+            sizes = x.sizes + (a["out_dim"],)
+        else:
+            sizes = x.sizes[:2] + (a["out_dim"],)
+        return (ParallelTensorShape.make(sizes, DataType.from_any(a["param_dtype"])),)
+
+    def weight_specs(self) -> Sequence[WeightSpec]:
+        a = self.attrs
+        return (
+            WeightSpec(
+                "table",
+                (a["num_tables"], a["num_entries"], a["out_dim"]),
+                DataType.from_any(a["param_dtype"]),
+                self._kernel_init,
+            ),
+        )
+
+    def forward(self, ctx, inputs, weights):
+        raise NotImplementedError(
+            f"{self.name}: the batched embedding is not ported yet (ROADMAP "
+            f"Queue A item 6)")
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        degs = mv.dim_degrees  # over output [K, B, D] (or [K, B, S, D])
+        r = mv.replica_degree  # vocab split -> partial rows
+        k_deg, d_deg = degs[0], degs[-1]
+        batch_parts = 1
+        for d in degs[1:-1]:
+            batch_parts *= d
+        x = self.input_shapes[0]
+        if self.attrs["aggr"] == "none":
+            in_degs = degs[:-1]
+        else:
+            in_degs = degs[:-1] + (1,) * (x.ndim - (len(degs) - 1))
+        out_nd = len(degs)
+        return OpSharding(
+            inputs=(ShardAnnot(in_degs, replica=d_deg * r),),
+            weights=(
+                ShardAnnot(
+                    (k_deg, r, d_deg),
+                    replica=batch_parts,
+                    idx=(0, REPLICA_SLOT, out_nd - 1),
+                ),
+            ),
+            outputs=(ShardAnnot(degs, replica=r, partial=r > 1),),
+        )
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))
+
+    def max_replica_degree(self) -> int:
+        return self.attrs["num_entries"]
+
+    def flops(self) -> float:
+        return float(self.output_shapes[0].num_elements)
+
+    def bytes_accessed(self) -> float:
+        x = self.input_shapes[0]
+        rows = x.num_elements
+        return float(
+            rows * self.attrs["out_dim"] * 4 + self.output_shapes[0].num_bytes
+        )

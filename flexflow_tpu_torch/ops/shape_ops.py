@@ -2,7 +2,9 @@
 flexflow_tpu/ops/shape_ops.py (the one the decode graph uses), with
 the reference's ``propagate``: a split survives only on a leading dim
 of unchanged extent.  On a rank's shard it reshapes to the shard's
-sizes."""
+sizes.  ``StackOp`` and ``UnstackOp`` are the search's descriptors of
+the reference's branch-stacking pair (shapes, propagation, costs; no
+forward yet: ROADMAP Queue A item 6)."""
 
 from __future__ import annotations
 
@@ -62,3 +64,88 @@ class ReshapeOp(Operator):
         if x.ndim and out.ndim and x.sizes[0] == out.sizes[0]:
             return (0,)
         return ()
+
+
+@register_op
+class StackOp(Operator):
+    """K same-shaped inputs -> [K, ...]: the reference's ``StackOp``
+    (shape_ops.py:253-295), the feed of the batched embedding its
+    search builds.  Shapes, propagation and costs only; ``forward``
+    raises (ROADMAP Queue A item 6)."""
+
+    op_type = OperatorType.STACK
+
+    def __init__(self, name, input_shapes):
+        first = input_shapes[0]
+        for s in input_shapes[1:]:
+            assert s.sizes == first.sizes and s.dtype == first.dtype
+        super().__init__(name, input_shapes)
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        x = self.input_shapes[0]
+        return (
+            ParallelTensorShape.make(
+                (len(self.input_shapes),) + x.sizes, x.dtype
+            ),
+        )
+
+    def forward(self, ctx, inputs, weights):
+        raise NotImplementedError(
+            f"{self.name}: stack is not ported yet (ROADMAP Queue A item "
+            f"6)")
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        # inputs unconstrained: GSPMD moves each branch's tensor to
+        # wherever the sharded stack places it (like parallel ops)
+        out = ShardAnnot(mv.dim_degrees, mv.replica_degree)
+        return OpSharding(
+            inputs=(None,) * len(self.input_shapes),
+            weights=(),
+            outputs=(out,),
+        )
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))
+
+    def flops(self) -> float:
+        return 0.0
+
+
+@register_op
+class UnstackOp(Operator):
+    """[K, ...] -> K outputs [...] (inverse of StackOp): the reference's
+    ``UnstackOp`` (shape_ops.py:298-332).  The view ranges over the
+    OUTPUT dims; the branch dim is gathered.  Shapes, propagation and
+    costs only; ``forward`` raises (ROADMAP Queue A item 6)."""
+
+    op_type = OperatorType.UNSTACK
+
+    def __init__(self, name, input_shapes):
+        super().__init__(name, input_shapes)
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        x = self.input_shapes[0]
+        k = x.sizes[0]
+        return tuple(
+            ParallelTensorShape.make(x.sizes[1:], x.dtype) for _ in range(k)
+        )
+
+    def forward(self, ctx, inputs, weights):
+        raise NotImplementedError(
+            f"{self.name}: unstack is not ported yet (ROADMAP Queue A item "
+            f"6)")
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        out = ShardAnnot(mv.dim_degrees, mv.replica_degree)
+        in_a = ShardAnnot((1,) + mv.dim_degrees, mv.replica_degree)
+        return OpSharding(
+            inputs=(in_a,),
+            weights=(),
+            outputs=(out,) * len(self.output_shapes),
+        )
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))
+
+    def flops(self) -> float:
+        return 0.0

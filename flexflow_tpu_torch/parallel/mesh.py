@@ -70,7 +70,7 @@ from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.ops.base import REPLICA_SLOT, ShardAnnot
 
 
-# ---- the reference's axis rule (parallel/mesh.py:36-131), verbatim -------
+# ---- the reference's axis rule (parallel/mesh.py:27-131), verbatim -------
 def prime_factors(n: int) -> List[int]:
     out: List[int] = []
     d = 2
@@ -112,6 +112,27 @@ def assign_slot_axes(
                     f"degree {d} does not factor into mesh axes {list(pool_sizes)}"
                 )
         out.append(tuple(taken))
+    return out
+
+
+def place_zero_factors(
+    extents: Sequence[int], factor_sizes: Sequence[int]
+) -> List[Tuple[int, int]]:
+    """THE greedy placement rule for ZeRO-1 optimizer-state sharding,
+    which the search's memory model (search/machine_model.py
+    op_memory) prices: weight dims are visited largest-remaining-extent
+    first, replication factors in pool order, and a factor lands on the
+    first visited dim it divides evenly.  Returns (dim, factor_index)
+    placements; factors that fit nowhere are not placed."""
+    remaining = list(range(len(factor_sizes)))
+    ext = list(extents)
+    out: List[Tuple[int, int]] = []
+    for d in sorted(range(len(ext)), key=lambda i: -ext[i]):
+        for fi in list(remaining):
+            if ext[d] > 1 and ext[d] % factor_sizes[fi] == 0:
+                out.append((d, fi))
+                ext[d] //= factor_sizes[fi]
+                remaining.remove(fi)
     return out
 
 
