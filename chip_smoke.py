@@ -6,6 +6,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --step-times ROOT [--seed N]
     python3 chip_smoke.py --searched-only RUNS [--seed N]
                           [--calibration-out DIR]
+    python3 chip_smoke.py --pipeline-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -17,7 +18,9 @@ compare two commits on one card.  The fourth builds the kernels and
 runs phase 9 alone RUNS times, against phase 6's first step taken
 alone; on a machine with four cards it measures the searched path and
 the link constants of ``MachineSpec.h100_sxm``.  ``--calibration-out``
-keeps each phase 9 run's calibration table.
+keeps each phase 9 run's calibration table.  The fifth builds the
+kernels and runs phase 10 alone, against phase 6's first step taken
+alone.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -174,12 +177,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (phase 3's limits) at every per-rank shape the calibration launched
    and the three strategies imply; every launch of the ranks is
    recorded, and a shape beyond that prediction is checked after;
-10. print one JSON line listing every ported kernel.
+10. pipeline and inter-op placement, 4 ranks spawned as phase 7's:
+   phase 6's model on phase 6's batches (a) pipelined,
+   ``compile(pipeline=PipelineConfig(2, 4))`` (pp 2 x dp 2, GPipe over
+   point-to-point sends), and (b) placed, the embeddings and layers 0-5
+   on ranks 0-1 and layers 6-11 and the head on ranks 2-3 (two
+   ``start_part`` blocks, each data-parallel): each ``fit`` 10 steps
+   with the counts set to 0 just before, then 3 synchronised steps;
+   checked: the lowering, the first step's loss within 5e-3 of phase
+   6's, losses finite and falling, rows 1-3 launched exactly 24 (a) and
+   6 (b) times per rank per step and row 4 never, every weight held by
+   some rank and every replica bit-equal; printed: step p50/p99 (the
+   slowest rank's), host bytes and collectives per rank per step, peak
+   memory per rank; (c) ``compile(strategy=None)`` with FFConfig's
+   defaults (both proposal flags on, ``MachineSpec.h100_sxm(4)``, no
+   calibration, no deadline) and 2 ``fit`` steps: the lowering and
+   graph digest the search gives here in the parent (the CPU tests pin
+   the same pick), rows 1-3 12 per step; (d) ``__graft_entry__.py``'s
+   search-discovered pipeline leg on ``h100_sxm(4)`` cut to two hosts
+   of 2 with 48 MB: it lowers pipelined and its first step's loss is
+   within 1e-5 of one process's.  Before the ranks spawn, the flash
+   kernels are held to their plain versions at the legs' per-rank
+   shapes; a launched shape beyond them is checked after;
+11. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
-It needs one card; with four it runs phases 7-9 one rank per card.
+It needs one card; with four it runs phases 7-10 one rank per card.
 """
 
 from __future__ import annotations
@@ -365,6 +390,18 @@ SEARCH_TIMEOUT_S = 1200
 # published peaks (NVIDIA data sheets): device-memory bytes/s, dense
 # fp32 (non-tensor-core) operations/s and dense bf16 tensor-core
 # operations/s, by card
+# phase 10, pipeline and inter-op placement: phase 6's model and
+# batches over PIPE_RANKS ranks, pipelined (pp PIPE_STAGES x dp 2,
+# PIPE_MICRO microbatches), placed (embeddings and layers 0-5 on the
+# first half of the ranks, the rest on the second), and as
+# compile(strategy=None) picks with FFConfig's defaults
+PIPE_RANKS = 4
+PIPE_STAGES = 2
+PIPE_MICRO = 4
+PIPE_LAYERS_A = 6
+PIPE_STEPS = 10
+PIPE_TIMED_STEPS = 3
+PIPE_DEFAULT_STEPS = 2
 CARD_PEAKS = (
     ("H100 PCIe", 2.0e12, 51e12, 756e12),
     ("H100 NVL", 3.9e12, 60e12, 835e12),
@@ -3469,6 +3506,420 @@ def phase_searched_train(seed, name, first_loss_bf16, calibration_out=None):
     return cal_launches, r0["launches"]
 
 
+# ---------------------------------------------------------------------------
+def placed_strategy(model, ranks):
+    """Phase 10's placed strategy: the embeddings and layers 0-5 on ranks
+    [0, ranks/2) and layers 6-11 and the head on [ranks/2, ranks), each
+    block data-parallel over its ranks (``start_part`` 0 and ranks/2)."""
+    from flexflow_tpu_torch.compiler.lowering import data_parallel_strategy
+    from flexflow_tpu_torch.core.machine import MachineView
+
+    half = ranks // 2
+    views = data_parallel_strategy(model.graph, half)
+    last = PIPE_LAYERS_A - 1
+    seen_b = False
+    for node in model.graph.topo_order():
+        name = node.op.name
+        if name.startswith("layer") and int(name[5:name.index("_")]) > last:
+            seen_b = True
+        if seen_b:
+            v = views[node.guid]
+            views[node.guid] = MachineView(dim_degrees=v.dim_degrees,
+                                           replica_degree=v.replica_degree,
+                                           start_part=half)
+    return views
+
+
+def pipe_model(seed, dtype, ranks, strategy=None, pipeline=None, **cfg):
+    """Phase 6's model and optimizer over ``ranks`` ranks, compiled with
+    ``strategy(model)`` or ``pipeline``."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.models import build_gpt
+
+    model = build_gpt(FFConfig(batch_size=TRAIN_BATCH, compute_dtype=dtype,
+                               seed=seed, num_devices=ranks, **cfg), **TRAIN)
+    model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"],
+                  strategy=strategy(model) if strategy else None,
+                  pipeline=pipeline)
+    return model
+
+
+def pipe_weight_blocks(model):
+    """Per weight this rank holds: (its block's coordinates on the mesh
+    that holds it, sha1 of its bits)."""
+    import hashlib
+
+    c = model.compiled
+    out = {}
+    for op, ws in model.params.items():
+        mesh = (c.segments[c._op_segment[op]].comp.mesh
+                if hasattr(c, "segments") else c.mesh)
+        for w, t in ws.items():
+            pl = c.weight_placement(op, w)
+            key = [mesh.index(axes) if axes else 0 for axes in pl.dims]
+            raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+            out[f"{op}/{w}"] = (key, hashlib.sha1(raw.tobytes()).hexdigest())
+    return out
+
+
+def leg_model(ranks, **cfg):
+    """``__graft_entry__.py``'s search-discovered pipeline leg: four
+    memory-bound prime-width blocks and a head, fp32, batch 16."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+
+    model = FFModel(FFConfig(batch_size=16, num_devices=ranks,
+                             compute_dtype="float32", search_timeout_s=0,
+                             **cfg))
+    t = model.create_tensor([16, 1021])
+    for i in range(4):
+        t = model.dense(t, 1021, activation="relu", name=f"layer{i}_fc")
+    model.dense(t, 1021, name="head")
+    model.compile(optimizer=SGDOptimizer(lr=0.01),
+                  loss_type="mean_squared_error", metrics=[])
+    return model
+
+
+def leg_spec():
+    """``MachineSpec.h100_sxm(4)`` cut to two hosts of 2 cards with the
+    leg's 48 MB of device memory: no flat strategy fits, so the search
+    must propose a pipeline (the leg's own spec is a CPU one with the
+    same cut)."""
+    import dataclasses
+
+    from flexflow_tpu_torch.core.machine import MachineSpec
+
+    return dataclasses.replace(MachineSpec.h100_sxm(PIPE_RANKS),
+                               devices_per_host=PIPE_RANKS // 2,
+                               hbm_capacity=48e6)
+
+
+def _pipeline_rank(rank, seed, ids, leg_x, leg_y):
+    """One rank of phase 10: the pipelined lowering (pp 2 x dp 2, M 4),
+    then the placed one (two blocks of 2 ranks), each through ``fit``
+    for PIPE_STEPS steps with the launch and collective counts set to 0
+    just before and PIPE_TIMED_STEPS synchronised steps after, with the
+    weight blocks' digests; then ``compile(strategy=None)`` with
+    FFConfig's defaults and PIPE_DEFAULT_STEPS ``fit`` steps; then the
+    search-discovered leg's one step.  Every flash launch's shape is
+    recorded."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import mesh
+    from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
+    from flexflow_tpu_torch.runtime.distributed import transport
+    from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = dist.get_world_size()
+    x, y = ids[:, :-1], ids[:, 1:]
+    kernels = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv,
+               fa.flash_forward_partial)
+    shapes = set()
+
+    def drive(model, steps):
+        """``fit`` with every count set to 0 just before."""
+        for k in kernels:
+            k.launches = 0
+        mesh.reset_comm_counts()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with recorded_flash_launches(shapes):
+            history = model.fit(x[:steps * TRAIN_BATCH],
+                                y[:steps * TRAIN_BATCH],
+                                batch_size=TRAIN_BATCH, shuffle=False,
+                                verbose=False)
+        torch.cuda.synchronize()
+        return {"fit_wall_s": time.perf_counter() - t0,
+                "launches": {k.__name__: k.launches for k in kernels},
+                "collectives": mesh.comm_counts(), "history": history,
+                "losses": list(model.step_losses),
+                "samples_per_s": model.last_throughput,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def timed(model, first, k):
+        """k synchronised steps on the batches from ``first`` on."""
+        c, dev = model.compiled, model.compiled.device
+        out = []
+        for i in range(first, first + k):
+            rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+            xb, yb = x[rows], y[rows]
+            ins = [torch.from_numpy(np.ascontiguousarray(
+                xb[c.input_slices(0, xb.shape)])).to(dev)]
+            lab = torch.from_numpy(np.ascontiguousarray(
+                yb[c.label_slices(yb.shape)])).to(dev)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorded_flash_launches(shapes):
+                model.params, model.opt_state, model.state, loss, _ = (
+                    c.train_step(model.params, model.opt_state, model.state,
+                                 ins, lab))
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    out = {"transport": transport(), "device": str(torch.cuda.current_device())}
+    legs = (("pipelined", dict(pipeline=PipelineConfig(
+                 num_stages=PIPE_STAGES, num_microbatches=PIPE_MICRO))),
+            ("placed", dict(strategy=lambda m: placed_strategy(m, n))))
+    for leg, kw in legs:
+        t0 = time.perf_counter()
+        model = pipe_model(seed, "bfloat16", n, **kw)
+        res = {"compile_s": time.perf_counter() - t0,
+               "kind": type(model.compiled).__name__,
+               "held": sorted(model.params)}
+        res.update(drive(model, PIPE_STEPS))
+        res["step_times_s"] = timed(model, PIPE_STEPS, PIPE_TIMED_STEPS)
+        res["blocks"] = pipe_weight_blocks(model)
+        out[leg] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    model = pipe_model(seed, "bfloat16", n, search_timeout_s=0)
+    res = {"kind": type(model.compiled).__name__,
+           "digest": stable_graph_digest(model.graph),
+           "views": sorted({str(v) for v in model.strategy.values()})}
+    res.update(drive(model, PIPE_DEFAULT_STEPS))
+    out["default"] = res
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = leg_model(n, machine_spec=leg_spec())
+    c, dev = model.compiled, model.compiled.device
+    ins = [torch.from_numpy(np.ascontiguousarray(
+        leg_x[c.input_slices(0, leg_x.shape)])).to(dev)]
+    lab = torch.from_numpy(np.ascontiguousarray(
+        leg_y[c.label_slices(leg_y.shape)])).to(dev)
+    loss = c.train_step(model.params, model.opt_state, model.state, ins,
+                        lab)[3]
+    p = getattr(c, "pipeline", None)
+    out["leg"] = {"kind": type(c).__name__, "loss": float(loss),
+                  "pipeline": None if p is None else [p.num_stages,
+                                                      p.num_microbatches]}
+    out["flash_shapes"] = sorted(shapes)
+    return out
+
+
+def phase_pipeline_train(seed, name, first_loss_bf16):
+    """Phase 10, pipeline and inter-op placement over PIPE_RANKS ranks
+    (spawned as phases 7-9): phase 6's model on phase 6's batches,
+    pipelined (pp 2 x dp 2, M 4), placed (two blocks of 2 ranks), and
+    lowered as ``compile(strategy=None)`` picks with FFConfig's
+    defaults; then the search-discovered pipeline leg.  Before the ranks
+    spawn, the flash kernels are held to their plain versions at every
+    per-rank shape the legs imply, and the default pick is computed here
+    for the ranks' to equal.  Returns each attention kernel's launches
+    per rank under the pipelined and the placed legs."""
+    import dataclasses
+
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.models import build_gpt
+    from flexflow_tpu_torch.runtime.distributed import spawn
+    from flexflow_tpu_torch.search import strategy_io
+    from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    shared = cards < PIPE_RANKS
+    rng = np.random.default_rng(seed + 3)  # phase 6's batches
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        TRAIN_BATCHES * TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
+    ids = ids[:(PIPE_STEPS + PIPE_TIMED_STEPS) * TRAIN_BATCH]
+    rng = np.random.default_rng(seed + 11)
+    leg_x = rng.normal(size=(16, 1021)).astype(np.float32)
+    leg_y = rng.normal(size=(16, 1021)).astype(np.float32)
+
+    # the default pick, searched here as rank 0 will
+    dcfg = FFConfig(batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                    seed=seed, num_devices=PIPE_RANKS, search_timeout_s=0)
+    graph, export, _, proposal = build_gpt(dcfg, **TRAIN)._search("training")
+    meta = export.get(strategy_io.META_KEY) or {}
+    want_default = ("PlacedCompiledModel" if "placement" in meta else
+                    "StagedPipelinedModel" if proposal is not None else
+                    "PipelinedCompiledModel" if "pipeline" in meta else
+                    "CompiledModel")
+    want_digest = stable_graph_digest(graph)
+    views = strategy_io.strategy_from_dict(export, graph)
+    dp_default = {v.dim_degrees[0] for v in views.values()
+                  if v.dim_degrees}
+    per_rank = TRAIN_BATCH // max(dp_default)
+
+    # the leg's one-process step (fp32, no TF32) and its proposal
+    one = leg_model(1, only_data_parallel=True,
+                    machine_spec=dataclasses.replace(leg_spec(),
+                                                     num_devices=1))
+    dev = one.compiled.device
+    leg_ref = float(one.compiled.train_step(
+        one.params, one.opt_state, one.state,
+        [torch.from_numpy(leg_x).to(dev)], torch.from_numpy(leg_y).to(dev))[3])
+    del one
+
+    heads = TRAIN["num_heads"]
+    micro = TRAIN_BATCH // (PIPE_RANKS // PIPE_STAGES) // PIPE_MICRO
+    predicted = [("full", micro, TRAIN["seq_len"], TRAIN["seq_len"], heads,
+                  True),
+                 ("full", TRAIN_BATCH // (PIPE_RANKS // 2), TRAIN["seq_len"],
+                  TRAIN["seq_len"], heads, True),
+                 ("full", per_rank, TRAIN["seq_len"], TRAIN["seq_len"],
+                  heads, True)]
+    predicted = sorted(set(predicted))
+    flash_errs = check_flash_shapes(seed, predicted)
+    print("flash kernels at phase 10's per-rank shapes vs plain versions: "
+          + json.dumps(flash_errs))
+
+    t0 = time.perf_counter()
+    ranks = spawn(_pipeline_rank, PIPE_RANKS, (seed, ids, leg_x, leg_y),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    want_transport = "gloo-host" if shared else "nccl"
+    cards_used = 1 if shared else PIPE_RANKS
+    bf16_peak = card_peaks(name)[2]
+    layers = TRAIN["num_layers"]
+    rows = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+    want_launches = {"pipelined": layers // PIPE_STAGES * PIPE_MICRO,
+                     "placed": layers // 2,
+                     "default": layers}
+    report = {"ranks": PIPE_RANKS, "cards_used": cards_used,
+              "transport": [r["transport"] for r in ranks],
+              "rank_devices": [r["device"] for r in ranks],
+              "phase_wall_s": wall}
+    flops = sum(nd.op.flops() for nd in graph.nodes.values())
+    for leg in ("pipelined", "placed", "default"):
+        legs = [r[leg] for r in ranks]
+        r0 = legs[0]
+        steps = len(r0["losses"])
+        entry = {"kind": r0["kind"], "steps": steps,
+                 "fit_wall_s": [r["fit_wall_s"] for r in legs],
+                 "samples_per_s": r0["samples_per_s"],
+                 "peak_memory_gb_per_rank": [r["peak_memory_gb"]
+                                             for r in legs],
+                 "kernel_launches_per_rank": [r["launches"] for r in legs],
+                 "launches_per_rank_per_step": {
+                     k: r0["launches"][k] / steps for k in rows},
+                 "collectives_per_rank_per_step": [
+                     {c: {u: v / steps for u, v in cnt.items()}
+                      for c, cnt in r["collectives"].items() if cnt["calls"]}
+                     for r in legs],
+                 "host_bytes_per_rank_per_step": [
+                     sum(cnt["host_bytes"] for cnt in r["collectives"]
+                         .values()) / steps for r in legs],
+                 "loss_first_step": r0["losses"][0],
+                 "loss_last_step": r0["losses"][-1],
+                 "first_step_rel_err_vs_one_process": abs(
+                     r0["losses"][0] - first_loss_bf16) / abs(
+                         first_loss_bf16)}
+        if "step_times_s" in r0:
+            step_max = [max(r["step_times_s"][i] for r in legs)
+                        for i in range(PIPE_TIMED_STEPS)]
+            entry["step_p50_ms"] = float(np.median(step_max)) * 1e3
+            entry["step_p99_ms"] = float(np.quantile(step_max, 0.99)) * 1e3
+            entry["tokens_per_s"] = (TRAIN_BATCH * TRAIN["seq_len"]
+                                     / float(np.median(step_max)))
+            entry["mfu_vs_dense_bf16_peak"] = (
+                3.0 * flops / float(np.median(step_max))
+                / (bf16_peak * cards_used))
+            entry["held_ops_per_rank"] = [len(r["held"]) for r in legs]
+        if leg == "default":
+            entry.update({"digest": r0["digest"], "views": r0["views"],
+                          "want_kind": want_default,
+                          "want_digest": want_digest})
+        report[leg] = entry
+    leg0 = ranks[0]["leg"]
+    report["search_proposes"] = dict(
+        leg0, one_process_loss=leg_ref,
+        rel_err=abs(leg0["loss"] - leg_ref) / abs(leg_ref),
+        spec="h100_sxm(4), 2 hosts of 2, hbm 48e6")
+    print("pipeline training path: " + json.dumps(report))
+
+    for i, r in enumerate(ranks):
+        check(r["transport"] == want_transport,
+              f"rank {i}: transport {r['transport']}, want {want_transport}")
+    for leg, kind in (("pipelined", "PipelinedCompiledModel"),
+                      ("placed", "PlacedCompiledModel"),
+                      ("default", want_default)):
+        legs = [r[leg] for r in ranks]
+        r0 = legs[0]
+        steps = len(r0["losses"])
+        want_steps = PIPE_DEFAULT_STEPS if leg == "default" else PIPE_STEPS
+        check(steps == want_steps, f"{leg}: {steps} steps ran")
+        for i, r in enumerate(legs):
+            check(r["kind"] == kind, f"rank {i} {leg}: lowered {r['kind']}, "
+                  f"want {kind}")
+            check(r["losses"] == r0["losses"],
+                  f"rank {i} {leg}: reports other losses")
+            for kname in rows:
+                got = r["launches"][kname]
+                check(got == want_launches[leg] * steps,
+                      f"rank {i} {leg}: {kname} launched {got} times in "
+                      f"{steps} steps, want {want_launches[leg] * steps}")
+            check(r["launches"]["flash_forward_partial"] == 0,
+                  f"rank {i} {leg}: the partial kernel launched")
+            hops = sum(c["host_hops"] for c in r["collectives"].values())
+            check((hops > 0) == shared,
+                  f"rank {i} {leg}: {hops} host hops with transport "
+                  f"{ranks[i]['transport']}")
+        ls = r0["losses"]
+        check(bool(np.isfinite(ls).all()), f"a {leg} step's loss is not "
+              f"finite")
+        rel = abs(ls[0] - first_loss_bf16) / abs(first_loss_bf16)
+        check(rel <= SP_LOSS_TOL["bf16"],
+              f"{leg} first-step loss {ls[0]:.6f} vs one process "
+              f"{first_loss_bf16:.6f}: {rel:.3e} > {SP_LOSS_TOL['bf16']}")
+        if leg != "default":
+            check(ls[-1] < ls[0], f"{leg} loss did not fall: {ls[0]:.4f} "
+                  f"at step 1, {ls[-1]:.4f} at step {len(ls)}")
+            blocks = {}
+            for i, r in enumerate(legs):
+                for wname, (key, digest) in r["blocks"].items():
+                    seen = blocks.setdefault((wname, tuple(key)), digest)
+                    check(seen == digest,
+                          f"rank {i} {leg}: replica of {wname} block {key} "
+                          f"differs in bits after the last step")
+            check({w for w, _ in blocks} == {
+                f"{nd.op.name}/{ws.name}" for nd in graph.nodes.values()
+                for ws in nd.op._weight_specs},
+                f"{leg}: the ranks do not hold every weight")
+            print(f"pipeline training path ({leg}): {len(blocks)} weight "
+                  f"blocks, every replica bit-equal after "
+                  f"{steps + PIPE_TIMED_STEPS} steps")
+    d0 = ranks[0]["default"]
+    for i, r in enumerate(ranks):
+        check(r["default"]["digest"] == want_digest,
+              f"rank {i}: the default pick's graph digest "
+              f"{r['default']['digest']} is not the search's {want_digest}")
+        check(r["default"]["views"] == d0["views"],
+              f"rank {i}: the default pick's views differ from rank 0's")
+    leg_rel = report["search_proposes"]["rel_err"]
+    for i, r in enumerate(ranks):
+        check(r["leg"]["kind"] == "PipelinedCompiledModel",
+              f"rank {i}: the search-discovered leg lowered "
+              f"{r['leg']['kind']}")
+        check(r["leg"]["loss"] == leg0["loss"],
+              f"rank {i}: the leg reports another loss")
+    check(leg_rel <= SP_LOSS_TOL["fp32"],
+          f"the search-discovered leg's loss {leg0['loss']:.7f} vs one "
+          f"process {leg_ref:.7f}: {leg_rel:.3e} > {SP_LOSS_TOL['fp32']}")
+    extra = sorted(set(launches_to_shapes(ranks[0]["flash_shapes"]))
+                   - set(predicted))
+    for r in ranks[1:]:
+        extra = sorted(set(extra) | (set(launches_to_shapes(
+            r["flash_shapes"])) - set(predicted)))
+    if extra:
+        print("flash kernels at launched shapes beyond the prediction: "
+              + json.dumps(check_flash_shapes(seed, extra)))
+    return {leg: {k: ranks[0][leg]["launches"][k] for k in
+                  rows + ("flash_forward_partial",)}
+            for leg in ("pipelined", "placed")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3482,6 +3933,9 @@ def main(argv=None) -> int:
                     default=None,
                     help="only run phase 9, RUNS times, against one "
                          "process's first training step")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="only run phase 10, against phase 6's first "
+                         "step taken alone")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -3511,6 +3965,12 @@ def main(argv=None) -> int:
                                  calibration_out(run))
         return 0
 
+    if args.pipeline_only:
+        name = phase_device()
+        phase_build()
+        phase_pipeline_train(args.seed, name, first_step_loss(args.seed))
+        return 0
+
     name = phase_device()
     libs = phase_build()
     phase_sass(libs)
@@ -3525,6 +3985,7 @@ def main(argv=None) -> int:
         args.seed, name, first_loss, sp_refs)
     cal_launches, searched_launches = phase_searched_train(
         args.seed, name, first_loss, calibration_out(1))
+    pipe_launches = phase_pipeline_train(args.seed, name, first_loss)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -3577,6 +4038,9 @@ def main(argv=None) -> int:
             "launches_megatron_per_rank": megatron_launches[wrapper],
             "launches_ulysses_per_rank": ulysses_launches[wrapper],
             "launches_searched_per_rank": searched_launches[wrapper],
+            "launches_pipelined_per_rank": pipe_launches["pipelined"][
+                wrapper],
+            "launches_placed_per_rank": pipe_launches["placed"][wrapper],
             "launches_calibration": cal_launches.get(wrapper, 0),
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],
@@ -3596,6 +4060,10 @@ def main(argv=None) -> int:
         "replaces": "flexflow_tpu/kernels/flash_attention.py:527",
         "launches": sp_launches["flash_forward_partial"],
         "launches_searched_per_rank": searched_launches[
+            "flash_forward_partial"],
+        "launches_pipelined_per_rank": pipe_launches["pipelined"][
+            "flash_forward_partial"],
+        "launches_placed_per_rank": pipe_launches["placed"][
             "flash_forward_partial"],
         "launches_calibration": cal_launches["flash_forward_partial"],
         "max_abs_err": max(r["max_abs_err"] for k, r in partial.items()

@@ -25,15 +25,19 @@ sequence, out dims or heads/contractions over the job's ranks
 Ulysses).  The decode frame, the chunk pass and the training step (one
 or n) run as captured CUDA graphs over static buffers
 (``compiler/graphs.py``; eagerly inside ``compiler.graphs.eager()``);
-multi-rank steps stay eager.
+multi-rank steps stay eager.  Pipeline and inter-op placement:
+``compile(pipeline=PipelineConfig(...))`` (GPipe over a ``pp`` axis of
+ranks), two-block ``start_part`` strategies and the search's pipeline,
+staged and placement proposals behind ``compile(strategy=None)``.
 Entry points run on the card unless the config says ``device="cpu"``.
 """
 
 from flexflow_tpu_torch.config import FFConfig
+from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.losses import LossType
 from flexflow_tpu_torch.metrics import MetricsType
 from flexflow_tpu_torch.model import FFModel
 from flexflow_tpu_torch.optimizers import AdamOptimizer, SGDOptimizer
 
 __all__ = ["AdamOptimizer", "FFConfig", "FFModel", "LossType",
-           "MetricsType", "SGDOptimizer"]
+           "MachineView", "MetricsType", "SGDOptimizer"]

@@ -8,10 +8,14 @@ path (``search/dp.py``, ``search/driver.py``):
 2. ``sharding``   — strategy/``MachineView`` legality and
    search/lowering coherence (``SHD101``-``SHD110``), the always-on gate
    in ``optimize_strategy``.
+3. ``placement``  — pipeline stage cuts and two-block placements
+   (``SHD150``-``SHD155``), the gate on every proposal the search
+   returns, every imported ``__meta__.pipeline``/``placement`` block
+   and every placed strategy compile lowers.
 
-The reference's equivalence proofs, placement, swap and comm-plan lints
-guard modules the port has not ported yet (ROADMAP Queue A items 5, 8
-and 10).
+The reference's equivalence proofs, swap and comm-plan lints guard
+modules the port has not ported yet (ROADMAP Queue A items 5, 7 and
+10).
 """
 
 from flexflow_tpu_torch.analysis.findings import (
@@ -29,6 +33,11 @@ from flexflow_tpu_torch.analysis.invariants import (
     set_verify,
     verification_enabled,
 )
+from flexflow_tpu_torch.analysis.placement import (
+    lint_pipeline_stages,
+    lint_placement,
+    placement_meta,
+)
 from flexflow_tpu_torch.analysis.sharding import lint_strategy
 
 __all__ = [
@@ -44,4 +53,7 @@ __all__ = [
     "set_verify",
     "verification_enabled",
     "lint_strategy",
+    "lint_pipeline_stages",
+    "lint_placement",
+    "placement_meta",
 ]

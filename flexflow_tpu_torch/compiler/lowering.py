@@ -58,11 +58,19 @@ does not.  The reported loss is the sum of the ranks' shares over the
 sink's split axes; the metrics (per-sample sums) are summed over its
 batch axes and averaged over its sequence axes.
 
+A ``CompiledModel`` may also be given a mesh (``mesh=``): a block of
+the job's ranks, each segment of the placed and staged lowerings
+(placement_lowering.py, staged_pipeline_lowering.py), or the pipelined
+lowering's mesh with a leading ``pp`` axis, which the views never map
+onto (pipeline_lowering.py subclasses this class).  ``holds``,
+``gather_weights`` and ``local_weights`` say which weights a rank
+keeps and carry whole weights in and out.
+
 Not lowered, and raising ``NotImplementedError`` with the ROADMAP
 item that lifts it: ZeRO (``zero_dp_shard``, per-group
 ``zero_groups``), compressed or scheduled gradient sync
-(``sync_precision``, ``sync_schedule``), pipeline and placement meta,
-and the inference compile under a split (model.py).
+(``sync_precision``, ``sync_schedule``), and the inference compile
+under a split (model.py).
 """
 
 from __future__ import annotations
@@ -117,7 +125,6 @@ _MEAN_LOSSES = (LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
 # compile options of the reference the port refuses, and the ROADMAP
 # Queue A item that lifts each
 _ITEM_ZERO_SYNC = "ROADMAP Queue A item 5"
-_ITEM_PIPELINE = "ROADMAP Queue A item 8"
 
 
 def refuse_unlowered(what: str, item: str) -> None:
@@ -125,8 +132,7 @@ def refuse_unlowered(what: str, item: str) -> None:
     lower, naming the ROADMAP item that lifts it."""
     raise NotImplementedError(
         f"{what} is not lowered by the port yet ({item}); the port syncs "
-        f"fp32 gradients in one all-reduce per set of axes and runs no "
-        f"pipeline")
+        f"fp32 gradients in one all-reduce per set of axes")
 
 
 def data_parallel_strategy(graph: Graph, degree: int
@@ -155,17 +161,14 @@ def data_parallel_strategy(graph: Graph, degree: int
 
 def strategy_views(strategy) -> Dict[int, MachineView]:
     """The views by guid of a strategy, refusing the ``__meta__`` blocks
-    the lowering does not run."""
+    the lowering does not run (``pipeline`` and ``placement`` are
+    ``FFModel.compile``'s, which chooses the lowering by them)."""
     if not strategy:
         return {}
     meta = strategy.get("__meta__") or {}
-    for key, item in (("pipeline", _ITEM_PIPELINE),
-                      ("placement", _ITEM_PIPELINE),
-                      ("sync_schedule", _ITEM_ZERO_SYNC),
-                      ("sync_precision", _ITEM_ZERO_SYNC),
-                      ("zero_groups", _ITEM_ZERO_SYNC)):
+    for key in ("sync_schedule", "sync_precision", "zero_groups"):
         if meta.get(key):
-            refuse_unlowered(f"strategy __meta__.{key}", item)
+            refuse_unlowered(f"strategy __meta__.{key}", _ITEM_ZERO_SYNC)
     return {k: v for k, v in strategy.items() if k != "__meta__"}
 
 
@@ -178,7 +181,8 @@ class CompiledModel:
                  loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
                  metric_types: Sequence = (),
                  optimizer: Optional[Optimizer] = None,
-                 strategy: Optional[Dict[int, MachineView]] = None):
+                 strategy: Optional[Dict[int, MachineView]] = None,
+                 mesh=None):
         from flexflow_tpu_torch.runtime import distributed
 
         self.graph = graph
@@ -186,7 +190,7 @@ class CompiledModel:
         self.device = config.torch_device()
         self.compute_dtype = config.torch_compute_dtype
         world = distributed.world_size()
-        if config.num_devices != world:
+        if mesh is None and config.num_devices != world:
             raise ValueError(
                 f"FFConfig.num_devices={config.num_devices} but the job has "
                 f"{world} rank(s) (runtime.distributed.initialize)")
@@ -212,7 +216,12 @@ class CompiledModel:
         self._sink = sinks[-1]
         self.step_graph = StepGraph(self.device)
 
-        self.mesh = distributed.mesh()
+        # a block of the job's ranks (the placed and staged lowerings'
+        # segments) or the pipelined lowering's pp-leading mesh; the
+        # views map onto every axis but ``pp`` (reference lowering.py
+        # :144-155)
+        self.mesh = distributed.mesh() if mesh is None else mesh
+        pool = [(n, s) for n, s in self.mesh.axes if n != "pp"]
         self._shardings: Dict[int, OpSharding] = {}
         self._slot_axes: Dict[int, Dict[int, Tuple[str, ...]]] = {}
         for node in self._topo:
@@ -221,9 +230,9 @@ class CompiledModel:
                 mv = node.op.fixed_machine_view() or MachineView.trivial(
                     node.op.output_shapes[0].ndim)
             self._shardings[node.guid] = node.op.propagate(mv)
-            self._slot_axes[node.guid] = view_slot_axes(mv, self.mesh.axes)
+            self._slot_axes[node.guid] = view_slot_axes(mv, pool)
         # one process captures its steps; several run them eagerly
-        self.capture = world == 1
+        self.capture = world == 1 and mesh is None
         self._layouts()
         if self._loss_blocks > 1 and self.loss_type not in _MEAN_LOSSES:
             raise NotImplementedError(
@@ -297,6 +306,8 @@ class CompiledModel:
         state: Dict[str, torch.Tensor] = {}
         for node in self._topo:
             op = node.op
+            if not self.holds(op.name):
+                continue
             for ws in op._weight_specs:
                 w = ws.initializer.init(
                     weight_generator(seed, op.name, ws.name), ws.shape)
@@ -312,6 +323,44 @@ class CompiledModel:
                     shape, fill, dtype=dtype, device=self.device)
         return params, state
 
+    # ---- whole weights ---------------------------------------------------
+    def holds(self, op_name: str) -> bool:
+        """Whether this rank keeps ``op_name``'s weights (every op here;
+        a stage or segment of the other lowerings keeps its own)."""
+        return True
+
+    def weight_names(self):
+        """Every (op, weight) of the graph, in topological order."""
+        return [(n.op.name, ws.name) for n in self._topo
+                for ws in n.op._weight_specs]
+
+    def gather_weights(self, params, names=None):
+        """The whole weights of ``names`` (default: every weight) on
+        every rank, from the blocks the ranks hold: a collective, every
+        rank calls it with the same names."""
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for op, w in (self.weight_names() if names is None else names):
+            v = params[op][w]
+            out.setdefault(op, {})[w] = reshard(
+                v, self.weight_placement(op, w),
+                Placement.replicated(v.dim()), self.mesh)
+        return out
+
+    def local_weights(self, whole, device):
+        """This rank's blocks of the whole weights ``whole`` (numpy
+        arrays by op and weight), of the ops it holds."""
+        from flexflow_tpu_torch.interop import tensor_from_numpy
+
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for op, ws in whole.items():
+            if not self.holds(op):
+                continue
+            for w, v in ws.items():
+                v = v[self.weight_placement(op, w).local_slices(
+                    v.shape, self.mesh)]
+                out.setdefault(op, {})[w] = tensor_from_numpy(v, device)
+        return out
+
     # ---- forward ---------------------------------------------------------
     def apply(self, params, state, inputs: Sequence[torch.Tensor],
               train: bool = False
@@ -321,6 +370,14 @@ class CompiledModel:
         this rank's blocks, ``input_slices``; the sink's output is then
         this rank's block, laid out as the sink's annotation says).
         Autograd records the pass only when ``train`` is set."""
+        values, places, new_state = self.forward_values(
+            params, state, inputs, train)
+        self._sink_pl = places[(self._sink.guid, 0)]
+        return values[(self._sink.guid, 0)], new_state
+
+    def forward_values(self, params, state, inputs, train=False):
+        """The forward pass: (every value by (guid, output index), its
+        layout, the new state)."""
         if len(inputs) != len(self._input_nodes):
             raise ValueError(f"expected {len(self._input_nodes)} inputs, "
                              f"got {len(inputs)}")
@@ -337,17 +394,21 @@ class CompiledModel:
             for node in self._topo:
                 if isinstance(node.op, InputOp):
                     continue
-                edges = sorted(self.graph.in_edges[node.guid],
-                               key=lambda e: e.dst_idx)
-                outs = self._run_node(node, ctx, edges,
-                                      params.get(node.op.name, {}), values,
-                                      places, resharded)
-                for i, y in enumerate(outs):
-                    values[(node.guid, i)] = y
+                self._visit(node, ctx, params, values, places, resharded)
         new_state = dict(state)
         new_state.update(ctx.state_out)
-        self._sink_pl = places[(self._sink.guid, 0)]
-        return values[(self._sink.guid, 0)], new_state
+        return values, places, new_state
+
+    def _visit(self, node, ctx, params, values, places, resharded):
+        """Run ``node`` into ``values`` (the pipelined lowering runs its
+        block stack here instead)."""
+        edges = sorted(self.graph.in_edges[node.guid],
+                       key=lambda e: e.dst_idx)
+        outs = self._run_node(node, ctx, edges,
+                              params.get(node.op.name, {}), values,
+                              places, resharded)
+        for i, y in enumerate(outs):
+            values[(node.guid, i)] = y
 
     def _run_node(self, node, ctx, edges, ws, values, places, resharded):
         """One node on this rank's shards: each edge resharded from its

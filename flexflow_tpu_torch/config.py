@@ -29,9 +29,11 @@ The strategy search's fields are the reference's, with its defaults
 ``search_num_devices`` (``search_devices``), ``search_timeout_s``,
 ``search_improvement_margin``, ``base_optimize_threshold``,
 ``substitution_json``, ``calibration_file``, ``calibrate``,
-``calibration_budget_s``, ``cost_cache_file``, ``objective``, ``verify``
-and the two proposal flags ``enable_pipeline_search`` and
-``enable_placement_search``.  ``compile(strategy=None)`` reads them
+``calibration_budget_s``, ``cost_cache_file``, ``objective``, ``verify``,
+the two proposal flags ``enable_pipeline_search`` and
+``enable_placement_search`` with ``placement_search_max_nodes``, and
+the strategy files ``export_strategy_file`` and
+``import_strategy_file``.  ``compile(strategy=None)`` reads them
 (model.py).
 
 Flags of the reference that the port does not run yet (``remat``,
@@ -133,6 +135,7 @@ class FFConfig:
     search_timeout_s: float = 45.0  # <= 0: no deadline
     enable_pipeline_search: bool = True
     enable_placement_search: bool = True
+    placement_search_max_nodes: int = 80
     search_improvement_margin: float = 0.03
     substitution_json: Optional[str] = None
     calibration_file: Optional[str] = None
@@ -141,6 +144,11 @@ class FFConfig:
     cost_cache_file: Optional[str] = None
     objective: str = "train"  # "train" | "serve"
     verify: bool = False
+    # strategy files (reference config.py:160-161): compile exports the
+    # lowered strategy with its __meta__ (pipeline, placement) and
+    # imports one through the digest gate instead of searching
+    export_strategy_file: Optional[str] = None
+    import_strategy_file: Optional[str] = None
 
     def __post_init__(self):
         if self.num_devices < 1:

@@ -32,6 +32,21 @@ class MetricsType(enum.Enum):
         return x if isinstance(x, MetricsType) else MetricsType(x)
 
 
+_SUM_KEYS = {"accuracy": "train_correct",
+             "sparse_categorical_crossentropy": "sparse_cce_loss",
+             "categorical_crossentropy": "cce_loss",
+             "mean_squared_error": "mse_loss",
+             "root_mean_squared_error": "rmse_loss",
+             "mean_absolute_error": "mae_loss"}
+
+
+def metric_keys(metric_types) -> List[str]:
+    """The keys ``compute_metrics`` returns for ``metric_types``,
+    sorted."""
+    return sorted({"train_all"} | {_SUM_KEYS[MetricsType.from_any(m).value]
+                                   for m in metric_types})
+
+
 @torch.no_grad()
 def compute_metrics(metric_types: List[MetricsType], loss_type,
                     logits: torch.Tensor,

@@ -27,14 +27,25 @@ and searches, and sends every rank its export (``strategy_io``) with
 the rewritten graph; each rank checks the graph's
 ``stable_graph_digest`` and imports the views through the export's
 digest gate, so no two ranks can lower different strategies.  After
-the flat search the reference also costs pipeline and placement
-proposals (``enable_pipeline_search``/``enable_placement_search``,
-both on by default); their lowerings are not ported (ROADMAP Queue A
-item 8), so a training compile over several ranks with either flag on
-raises, and with both off takes the flat search's winner, as the
-reference does with those settings.  At one rank neither proposal can
-win (a pipeline needs stages <= ranks, a placement two ranks), and the
-search runs as in the reference.  ``self.strategy`` holds the chosen
+the flat search, for training without ZeRO and with
+``enable_pipeline_search``/``enable_placement_search`` (both on by
+default), the search costs the reference's proposals in its order
+(model.py:850-935): a stacked-block pipeline
+(``search/pipeline_search.py::propose_pipeline``), else a two-block
+inter-op placement (``search/placement_search.py``), else, when no
+flat strategy fits, a general staged pipeline.  The winner rides the
+export's ``__meta__`` (``pipeline``, ``placement``) to every rank,
+which checks it with the placement lints (``analysis/placement.py``)
+and lowers it: ``compile`` picks the placed lowering for a two-block
+``start_part`` strategy (always linted first), the pipelined one under
+``pipeline`` (``compile(pipeline=PipelineConfig(...), block_of=...)``
+or an adopted proposal), the staged one for a stage cut (whose
+refusals keep the flat lowering, the reference's one fallback), else
+the flat one.  ``config.import_strategy_file`` imports a strategy
+file through the digest gate instead of searching, its ``__meta__``
+adopted the same way; ``config.export_strategy_file`` writes the
+lowered strategy with it.  ``self.pipeline_proposal`` holds an
+adopted stage cut.  ``self.strategy`` holds the chosen
 views and ``self.search_stats`` the search's ``LAST_SEARCH_STATS``
 (its seconds, calibration seconds and counters; rank 0's on every
 rank).
@@ -56,7 +67,7 @@ from flexflow_tpu_torch.core.ptensor import (
     ParallelTensorShape,
     Tensor,
 )
-from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
+from flexflow_tpu_torch.interop import params_from_numpy
 from flexflow_tpu_torch import ops as O
 
 
@@ -128,6 +139,7 @@ class FFModel:
         self.last_throughput = None
         self.step_losses: List[float] = []
         self.strategy = None
+        self.pipeline_proposal = None
         self.search_stats: Dict = {}
 
     def _fresh_name(self, base: str, name: Optional[str]) -> str:
@@ -196,6 +208,13 @@ class FFModel:
                            elementwise_affine=elementwise_affine, eps=eps)
         return self._add_op(op, [input])[0]
 
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   momentum: float = 0.9, name=None) -> Tensor:
+        op = O.BatchNormOp(self._fresh_name("batchnorm", name),
+                           [self._shape_of(input)], relu=relu,
+                           momentum=momentum)
+        return self._add_op(op, [input])[0]
+
     def embedding(self, input: Tensor, num_entries: int, out_dim: int,
                   aggr: str = "none", kernel_initializer=None,
                   name=None) -> Tensor:
@@ -242,6 +261,16 @@ class FFModel:
         op = O.ReshapeOp(self._fresh_name("reshape", name),
                          [self._shape_of(input)], shape=tuple(shape))
         return self._add_op(op, [input])[0]
+
+    def flat(self, input: Tensor, name=None) -> Tensor:
+        op = O.FlatOp(self._fresh_name("flat", name), [self._shape_of(input)])
+        return self._add_op(op, [input])[0]
+
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name=None) -> Tensor:
+        op = O.ConcatOp(self._fresh_name("concat", name),
+                        [self._shape_of(t) for t in tensors], axis=axis)
+        return self._add_op(op, list(tensors))[0]
 
     def add(self, a: Tensor, b: Tensor, name=None) -> Tensor:
         op = O.ElementBinaryOp(self._fresh_name("ew_add", name),
@@ -298,38 +327,49 @@ class FFModel:
         trivial for one device, or any combination of batch, sequence,
         out-dim and replica splits over the job's ranks (training only;
         an inference compile under a split raises, ROADMAP Queue A item
-        2).  ``pipeline``/``block_of`` (the reference's pipeline and
-        placement lowerings) raise: ROADMAP Queue A item 8.
+        2), with two ``start_part`` blocks the placed lowering.
+        ``pipeline`` (a ``PipelineConfig``) runs the repeated blocks
+        (``layer<i>_`` names, or ``block_of``) as a GPipe pipeline over
+        ``num_stages`` stages of ranks, with the reference's guards.
         ``comp_mode="training"`` also sets the loss, the metrics and the
         optimizer (default: SGD at ``config.learning_rate`` with
         ``config.weight_decay``, as the reference's) and initialises
         ``opt_state``."""
-        from flexflow_tpu_torch.compiler.lowering import CompiledModel
         from flexflow_tpu_torch.optimizers import SGDOptimizer
 
         if comp_mode not in ("training", "inference"):
             raise ValueError(f"comp_mode must be 'training' or 'inference', "
                              f"got {comp_mode!r}")
-        if pipeline is not None or block_of is not None:
-            raise NotImplementedError(
-                "compile(pipeline=..., block_of=...): the pipelined and "
-                "placed lowerings are not ported yet (ROADMAP Queue A "
-                "item 8)")
         self.config.comp_mode = comp_mode
-        if strategy is None:
-            strategy = self._choose_strategy(comp_mode)
-        self.strategy = strategy
-        if comp_mode == "inference":
-            _adopt_kv_dtype(self.graph, self.config.kv_precision)
+        self.pipeline_proposal = None  # a stale proposal from an earlier
+        # compile must not choose this one's lowering
+        if pipeline is not None and (
+                pipeline.num_stages < 1
+                or self.config.num_devices % pipeline.num_stages != 0):
+            raise ValueError(
+                f"pipeline.num_stages={pipeline.num_stages} must divide "
+                f"num_devices={self.config.num_devices}")
+        if pipeline is not None and self.config.zero_dp_shard:
+            raise NotImplementedError(
+                "zero_dp_shard is not supported with pipeline= yet — the "
+                "pipelined lowering manages its own per-stage placement; "
+                "silently ignoring the flag would leave optimizer state "
+                "replicated while the user expects 1/N memory")
         if comp_mode == "training":
             self.optimizer = optimizer or SGDOptimizer(
                 lr=self.config.learning_rate,
                 weight_decay=self.config.weight_decay)
-        self.compiled = CompiledModel(
-            self.graph, self.config, loss_type=loss_type,
-            metric_types=metrics if comp_mode == "training" else (),
-            optimizer=self.optimizer if comp_mode == "training" else None,
-            strategy=strategy)
+        if strategy is None:
+            strategy, pipeline = self._choose_strategy(comp_mode, pipeline)
+        else:
+            pipeline = self._adopt_meta(strategy, pipeline)
+        self.strategy = strategy
+        if comp_mode == "inference":
+            _adopt_kv_dtype(self.graph, self.config.kv_precision)
+        self.compiled = self._lower(
+            strategy, pipeline, block_of, loss_type,
+            metrics if comp_mode == "training" else (),
+            self.optimizer if comp_mode == "training" else None)
         if comp_mode == "inference" and self.compiled.mesh.world > 1:
             raise NotImplementedError(
                 "an inference compile over several ranks is not ported yet "
@@ -339,10 +379,12 @@ class FFModel:
         self.opt_state = (self.optimizer.init_state(self.params)
                           if comp_mode == "training" else None)
 
-    def _choose_strategy(self, comp_mode: str):
-        """The views ``compile(strategy=None)`` lowers (module
-        docstring): data parallelism under ``only_data_parallel``, else
-        the search's, with ``self.graph`` replaced by its graph."""
+    def _choose_strategy(self, comp_mode: str, pipeline):
+        """(views, pipeline) for ``compile(strategy=None)`` (module
+        docstring): data parallelism over one stage's ranks under
+        ``pipeline``, an imported strategy file, data parallelism under
+        ``only_data_parallel``, else the search's, with ``self.graph``
+        replaced by its graph and a winning proposal adopted."""
         from flexflow_tpu_torch.compiler.lowering import (
             data_parallel_strategy,
         )
@@ -355,60 +397,141 @@ class FFModel:
                 "an inference compile over several ranks is not ported yet "
                 "(ROADMAP Queue A item 2); the decode path runs on one "
                 "device")
+        if pipeline is not None:
+            # dp over the ranks left after the pp axis is carved off
+            return data_parallel_strategy(
+                self.graph, cfg.num_devices // pipeline.num_stages), pipeline
+        if cfg.import_strategy_file:
+            strategy = self._import_strategy()
+            return strategy, self._adopt_meta(strategy, None)
         if cfg.only_data_parallel:
-            return data_parallel_strategy(self.graph, cfg.num_devices)
-        if (comp_mode == "training" and world > 1
-                and not cfg.zero_dp_shard
-                and (cfg.enable_pipeline_search
-                     or cfg.enable_placement_search)):
-            raise NotImplementedError(
-                "compile(strategy=None) over several ranks: after the flat "
-                "search the reference also costs pipeline and placement "
-                "proposals (FFConfig.enable_pipeline_search / "
-                "enable_placement_search), whose lowerings are not ported "
-                "yet (ROADMAP Queue A item 8); set both False to take the "
-                "flat search's winner, as the reference does with those "
-                "settings")
+            return data_parallel_strategy(self.graph, cfg.num_devices), None
         if world == 1:
-            from flexflow_tpu_torch.search import driver
-
-            graph, views = driver.optimize_strategy(
-                self.graph, cfg, return_graph=True)
-            self.search_stats = dict(driver.LAST_SEARCH_STATS)
+            graph, export, stats, proposal = self._search(comp_mode)
         else:
-            graph, views = self._search_on_rank0()
+            graph, export, stats, proposal = self._search_on_rank0(comp_mode)
         _check_searched_graph(graph)
         self.graph = graph
-        return views
+        self.search_stats = stats
+        from flexflow_tpu_torch.search import strategy_io
 
-    def _search_on_rank0(self):
-        """Rank 0 searches; every rank gets its (graph, views): the
-        graph and export rank 0 sends, the views imported through the
-        export's digest gate.  Every rank refuses the unported search
-        options of the config they share before the broadcast, and an
-        error of rank 0's search is broadcast in place of its result,
-        so every rank raises it and none waits for a result that never
-        comes."""
+        meta = export.get(strategy_io.META_KEY) or {}
+        # no flat strategy fits: the search returns no views (a staged
+        # proposal may still lower)
+        views = (strategy_io.strategy_from_dict(
+            export, graph, source="the searched strategy")
+            if len(export) > 1 else {})
+        pipeline = self._adopt_meta(
+            dict(views, __meta__={k: meta[k] for k in ("pipeline",
+                                                        "placement")
+                                  if k in meta}), None)
+        if proposal is not None:
+            self.pipeline_proposal = proposal
+        return views, pipeline
+
+    def _search(self, comp_mode: str):
+        """The flat search, then the pipeline and placement proposals in
+        the reference's order and under its conditions (model.py:850-935:
+        training only, no ZeRO; a pipeline first, then a two-block
+        placement, then, when no flat strategy fits, a general staged
+        pipeline).  Returns (graph, the export of the views to lower with
+        the winning proposal in ``__meta__``, the search's stats, the
+        staged proposal or None)."""
+        import math
+
+        from flexflow_tpu_torch.compiler.lowering import (
+            data_parallel_strategy,
+        )
+        from flexflow_tpu_torch.search import driver, strategy_io
+
+        cfg = self.config
+        graph, views = driver.optimize_strategy(self.graph, cfg,
+                                                return_graph=True)
+        stats = dict(driver.LAST_SEARCH_STATS)
+        meta, proposal = {}, None
+        if ((cfg.enable_pipeline_search or cfg.enable_placement_search)
+                and not cfg.zero_dp_shard and comp_mode == "training"):
+            from flexflow_tpu_torch.search.pipeline_search import (
+                propose_pipeline,
+            )
+            from flexflow_tpu_torch.search.simulator import Simulator
+
+            # same cost currency as the flat search that just ran
+            calibration = driver.coherent_calibration(cfg)
+            sim = Simulator.for_config(cfg, calibration=calibration)
+            baseline = sim.simulate(graph, views)
+            prop = (propose_pipeline(graph, cfg, sim, baseline)
+                    if cfg.enable_pipeline_search else None)
+            if prop is not None and (
+                    cfg.num_devices % prop.num_stages == 0
+                    and cfg.batch_size % prop.num_microbatches == 0):
+                views = data_parallel_strategy(
+                    graph, cfg.num_devices // prop.num_stages)
+                meta["pipeline"] = {"num_stages": prop.num_stages,
+                                    "num_microbatches":
+                                        prop.num_microbatches}
+            elif cfg.enable_placement_search:
+                from flexflow_tpu_torch.analysis import placement_meta
+                from flexflow_tpu_torch.search.placement_search import (
+                    propose_placement,
+                )
+
+                placed = propose_placement(graph, cfg, baseline,
+                                           calibration=calibration)
+                if placed is not None:
+                    views = placed
+                    meta["placement"] = placement_meta(graph, placed, cfg)
+                elif not math.isfinite(baseline):
+                    # nothing flat fits: cost the general staged shape
+                    from flexflow_tpu_torch.search.pipeline_search import (
+                        propose_pipeline_general,
+                    )
+                    from flexflow_tpu_torch.utils.logging import SEARCH_LOG
+
+                    proposal = propose_pipeline_general(graph, cfg, sim,
+                                                        baseline)
+                    if proposal is not None:
+                        SEARCH_LOG.log(
+                            f"staged-pipeline candidate: S="
+                            f"{proposal.num_stages} M="
+                            f"{proposal.num_microbatches} modeled "
+                            f"{proposal.cost * 1e3:.3f} ms/iter "
+                            f"(flat is infeasible)")
+                        meta["pipeline"] = {
+                            "num_stages": proposal.num_stages,
+                            "num_microbatches": proposal.num_microbatches,
+                            "stages": [[graph.nodes[g].op.name for g in st]
+                                       for st in proposal.stage_guids]}
+        export = strategy_io.strategy_to_dict(graph, views, meta or None)
+        return graph, export, stats, proposal
+
+    def _search_on_rank0(self, comp_mode: str):
+        """Rank 0 runs ``_search``; every rank gets its (graph, export,
+        stats, proposal), the graph checked against the digest rank 0
+        sent (``_choose_strategy`` then imports the views and the
+        proposal's ``__meta__`` through the export's digest gate and the
+        placement lints, so no two ranks can lower differently).  Every
+        rank refuses the unported search options of the config they
+        share before the broadcast, and an error of rank 0's search or
+        proposals is broadcast in place of its result, so every rank
+        raises it and none waits for a result that never comes."""
         import pickle
 
         import torch.distributed as dist
 
         from flexflow_tpu_torch.runtime import distributed
-        from flexflow_tpu_torch.search import driver, strategy_io
+        from flexflow_tpu_torch.search import driver
         from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
 
         driver.refuse_unported(self.config)
         payload = [None]
         if distributed.rank() == 0:
             try:
-                graph, views = driver.optimize_strategy(
-                    self.graph, self.config, return_graph=True)
-                payload[0] = {
-                    "graph": graph,
-                    "digest": stable_graph_digest(graph),
-                    "export": strategy_io.strategy_to_dict(graph, views),
-                    "stats": dict(driver.LAST_SEARCH_STATS),
-                }
+                graph, export, stats, proposal = self._search(comp_mode)
+                payload[0] = {"graph": graph,
+                              "digest": stable_graph_digest(graph),
+                              "export": export, "stats": stats,
+                              "proposal": proposal}
             except Exception as e:
                 try:
                     pickle.dumps(e)
@@ -427,10 +550,230 @@ class FFModel:
                 f"rank {distributed.rank()}: the searched graph arrived with "
                 f"digest {stable_graph_digest(graph)}, rank 0 sent "
                 f"{got['digest']}")
-        views = strategy_io.strategy_from_dict(
-            got["export"], graph, source="rank 0's searched strategy")
-        self.search_stats = got["stats"]
-        return graph, views
+        return graph, got["export"], got["stats"], got["proposal"]
+
+    def _import_strategy(self):
+        """``config.import_strategy_file`` through the digest gate and
+        the flat lint (reference model.py:562-592; the port has no
+        partial import), its ``__meta__`` kept under the ``"__meta__"``
+        key for ``_adopt_meta``."""
+        from flexflow_tpu_torch.analysis import (
+            AnalysisError,
+            emit_findings,
+            errors_only,
+            lint_strategy,
+        )
+        from flexflow_tpu_torch.search.strategy_io import (
+            import_strategy,
+            read_meta,
+        )
+
+        path = self.config.import_strategy_file
+        try:
+            strategy = import_strategy(path, self.graph)
+        except AnalysisError as e:
+            err = AnalysisError(
+                f"{e}\n(hint: a strategy exported after a REWRITING "
+                f"search is keyed to the rewritten graph and cannot "
+                f"re-apply to a fresh frontend build — use the persistent "
+                f"cost cache (FFConfig.cost_cache_file) for cross-process "
+                f"reuse of rewritten searches)")
+            err.findings = list(e.findings)
+            raise err from e
+        bad = errors_only(lint_strategy(self.graph, strategy,
+                                        self.config.num_devices))
+        if bad:
+            emit_findings(bad)
+            raise AnalysisError(f"imported strategy {path!r} is illegal for "
+                                f"this graph/mesh", bad)
+        strategy["__meta__"] = read_meta(path)
+        return strategy
+
+    def _adopt_meta(self, strategy, pipeline):
+        """Check a strategy's ``__meta__.placement`` and
+        ``__meta__.pipeline`` blocks against this graph (SHD150-155; an
+        illegal block raises ``AnalysisError`` with its findings) and
+        adopt the pipeline one (reference model.py:590-620, 720-816): a
+        stage cut becomes ``self.pipeline_proposal`` (the staged
+        lowering), S x M alone a ``PipelineConfig`` as if passed to
+        ``compile(pipeline=...)``.  Returns the pipeline to lower."""
+        from flexflow_tpu_torch.analysis import (
+            AnalysisError,
+            Finding,
+            emit_findings,
+            errors_only,
+            lint_pipeline_stages,
+            lint_placement,
+            placement_meta,
+        )
+
+        meta = (strategy or {}).get("__meta__") or {}
+        views = {k: v for k, v in (strategy or {}).items()
+                 if k != "__meta__"}
+        if meta.get("placement") is not None:
+            bad = errors_only(lint_placement(self.graph, views,
+                                             self.config))
+            if not bad and placement_meta(
+                    self.graph, views, self.config) != meta["placement"]:
+                bad = [Finding(
+                    code="SHD153", pass_name="placement",
+                    message=("imported __meta__.placement block frame "
+                             "disagrees with the device blocks the "
+                             "strategy's start_part views actually form"))]
+            if bad:
+                emit_findings(bad)
+                raise AnalysisError(
+                    "imported placement proposal is illegal for this "
+                    "graph/strategy", bad)
+        pmeta = meta.get("pipeline")
+        if pmeta is None:
+            return pipeline
+        bad, stage_guids, ns, nm = [], None, 0, 0
+        # a hand-edited meta block may carry ANY JSON type: malformed
+        # shapes become findings, never a bare TypeError
+        if not isinstance(pmeta, dict):
+            bad = [Finding(code="SHD150", pass_name="placement",
+                           message="imported __meta__.pipeline is not an "
+                                   "object")]
+        else:
+            ns = pmeta.get("num_stages", 0)
+            nm = pmeta.get("num_microbatches", 0)
+            stages = pmeta.get("stages")
+            if (not isinstance(ns, int) or not isinstance(nm, int)
+                    or isinstance(ns, bool) or isinstance(nm, bool)):
+                bad = [Finding(
+                    code="SHD150", pass_name="placement",
+                    message=(f"imported __meta__.pipeline has non-integer "
+                             f"num_stages/num_microbatches ({ns!r}, "
+                             f"{nm!r})"))]
+            elif stages is not None and not (
+                    isinstance(stages, list)
+                    and all(isinstance(st, list)
+                            and all(isinstance(op, str) for op in st)
+                            for st in stages)):
+                bad = [Finding(
+                    code="SHD150", pass_name="placement",
+                    message=("imported __meta__.pipeline stages is not a "
+                             "list of op-name lists"))]
+            elif stages is not None:
+                by_name = {n.op.name: n.guid for n in self.graph.topo_order()}
+                stage_guids = [[by_name.get(op, -1) for op in st]
+                               for st in stages]
+        if not bad:
+            bad = errors_only(lint_pipeline_stages(
+                self.graph, stage_guids, ns, nm, self.config))
+        if bad:
+            emit_findings(bad)
+            raise AnalysisError(
+                "imported pipeline proposal is illegal for this "
+                "graph/strategy", bad)
+        if stage_guids is not None:
+            from flexflow_tpu_torch.search.pipeline_search import (
+                StagedPipelineProposal,
+            )
+
+            self.pipeline_proposal = StagedPipelineProposal(
+                num_stages=ns, num_microbatches=nm, stage_guids=stage_guids,
+                cost=float("nan"), executable=False)
+            return pipeline
+        if pipeline is None:
+            from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
+
+            if self.config.zero_dp_shard:
+                raise NotImplementedError(
+                    "zero_dp_shard is not supported with an imported "
+                    "pipeline proposal")
+            pipeline = PipelineConfig(num_stages=ns, num_microbatches=nm)
+        return pipeline
+
+    def _lower(self, strategy, pipeline, block_of, loss_type, metrics,
+               optimizer):
+        """The compiled model of ``strategy``: the placed lowering for a
+        two-block ``start_part`` strategy it can run (after the always-on
+        placement lint), the pipelined one under ``pipeline``, the staged
+        one for an adopted stage cut (its refusals keep the flat
+        lowering, as the reference's do), else the flat one.  Exports
+        the strategy with its proposal first (from rank 0) when
+        ``config.export_strategy_file`` is set."""
+        from flexflow_tpu_torch.analysis import (
+            AnalysisError,
+            emit_findings,
+            errors_only,
+            lint_placement,
+            placement_meta,
+        )
+        from flexflow_tpu_torch.compiler.lowering import (
+            CompiledModel,
+            strategy_views,
+        )
+        from flexflow_tpu_torch.compiler.placement_lowering import placeable
+
+        cfg = self.config
+        views = strategy_views(strategy)
+        placed = (pipeline is None and bool(views)
+                  and placeable(self.graph, views, cfg))
+        bad = (errors_only(lint_placement(self.graph, views, cfg))
+               if placed else [])
+        from flexflow_tpu_torch.runtime.distributed import rank
+
+        if cfg.export_strategy_file and rank() == 0:  # one writer per job
+            from flexflow_tpu_torch.search.strategy_io import export_strategy
+
+            meta = {}
+            if placed and not bad:
+                meta["placement"] = placement_meta(self.graph, views, cfg)
+            if self.pipeline_proposal is not None:
+                p = self.pipeline_proposal
+                meta["pipeline"] = {
+                    "num_stages": p.num_stages,
+                    "num_microbatches": p.num_microbatches,
+                    "stages": [[self.graph.nodes[g].op.name for g in st]
+                               for st in p.stage_guids]}
+            elif pipeline is not None:
+                meta["pipeline"] = {
+                    "num_stages": pipeline.num_stages,
+                    "num_microbatches": pipeline.num_microbatches}
+            export_strategy(cfg.export_strategy_file, self.graph, views,
+                            meta=meta or None)
+        if placed:
+            if bad:
+                emit_findings(bad)
+                raise AnalysisError(
+                    "placed strategy is illegal for this graph/mesh", bad)
+            from flexflow_tpu_torch.compiler.placement_lowering import (
+                PlacedCompiledModel,
+            )
+
+            return PlacedCompiledModel(self.graph, views, cfg, loss_type,
+                                       list(metrics), optimizer)
+        if pipeline is not None:
+            from flexflow_tpu_torch.compiler.pipeline_lowering import (
+                PipelinedCompiledModel,
+            )
+
+            return PipelinedCompiledModel(
+                self.graph, cfg, loss_type, list(metrics), optimizer, views,
+                pipeline=pipeline, block_of=block_of)
+        if (self.pipeline_proposal is not None
+                and cfg.comp_mode == "training"):
+            from flexflow_tpu_torch.compiler.staged_pipeline_lowering import (
+                StagedPipelinedModel,
+            )
+            from flexflow_tpu_torch.utils.logging import SEARCH_LOG
+
+            p = self.pipeline_proposal
+            try:
+                return StagedPipelinedModel(
+                    self.graph, p.stage_guids, p.num_microbatches, cfg,
+                    loss_type, list(metrics), optimizer)
+            except (NotImplementedError, ValueError) as e:
+                # stateful stages etc.: keep the flat lowering (the
+                # proposal stays on self.pipeline_proposal)
+                SEARCH_LOG.log(f"staged pipeline refused ({e}); the flat "
+                               f"lowering runs")
+        return CompiledModel(self.graph, cfg, loss_type=loss_type,
+                             metric_types=metrics, optimizer=optimizer,
+                             strategy=strategy)
 
     # ---- training loop ---------------------------------------------------
     def fit(self, x=None, y=None, batch_size: Optional[int] = None,
@@ -597,16 +940,19 @@ class FFModel:
     # ------------------------------------------------------------------
     def get_weight(self, op_name: str, weight_name: str = "kernel"
                    ) -> np.ndarray:
-        """The whole weight (under a strategy, gathered from the ranks:
-        every rank calls it)."""
-        return params_to_numpy(
-            {op_name: {weight_name: self.params[op_name][weight_name]}},
-            self.compiled)[op_name][weight_name]
+        """The whole weight (under a strategy, gathered from the ranks
+        that hold it: every rank calls it)."""
+        from flexflow_tpu_torch.interop import tensor_to_numpy
+
+        return tensor_to_numpy(self.compiled.gather_weights(
+            self.params, [(op_name, weight_name)])[op_name][weight_name])
 
     def set_weight(self, op_name: str, weight_name: str,
                    value: np.ndarray) -> None:
-        """Set the whole weight (under a strategy, each rank keeps its
-        block of ``value``)."""
+        """Set the whole weight (under a strategy, each rank that holds
+        it keeps its block of ``value``)."""
+        if not self.compiled.holds(op_name):
+            return
         old = self.params[op_name][weight_name]
         new = params_from_numpy({op_name: {weight_name: value}}, old.device,
                                 self.compiled)[op_name][weight_name]

@@ -14,8 +14,14 @@ from flexflow_tpu_torch.ops.elementwise import ElementBinaryOp
 from flexflow_tpu_torch.ops.embedding import BatchedEmbeddingOp, EmbeddingOp
 from flexflow_tpu_torch.ops.inout import ConstantOp, InputOp
 from flexflow_tpu_torch.ops.linear import LinearOp
-from flexflow_tpu_torch.ops.norm import LayerNormOp
-from flexflow_tpu_torch.ops.shape_ops import ReshapeOp, StackOp, UnstackOp
+from flexflow_tpu_torch.ops.norm import BatchNormOp, LayerNormOp
+from flexflow_tpu_torch.ops.shape_ops import (
+    ConcatOp,
+    FlatOp,
+    ReshapeOp,
+    StackOp,
+    UnstackOp,
+)
 
 __all__ = [
     "OP_REGISTRY",
@@ -31,6 +37,9 @@ __all__ = [
     "MultiHeadAttentionOp",
     "Operator",
     "ReshapeOp",
+    "FlatOp",
+    "ConcatOp",
+    "BatchNormOp",
     "StackOp",
     "UnstackOp",
     "WeightSpec",

@@ -1,15 +1,17 @@
 """Embedding lookup — the port of ``EmbeddingOp`` in
-flexflow_tpu/ops/embedding.py, for ``aggr="none"`` (the decode path's
-token and positional tables of the decode and training GPTs).  The
-gradient of the table is autograd's scatter-add of the gathered rows.
-``propagate`` is the reference's (embedding.py:156-184).  Under a
-batch or channel split ``forward`` runs on the rank's ids and table
-columns; under a replica (vocab) split ``forward_sharded`` is the
-reference's explicit lowering (embedding.py:95-150): each rank gathers
-the ids that fall in its block of table rows, zeros for the rest, and
-one all-reduce over the vocab axes sums the blocks, instead of a
-gather of the table.  The sum/avg aggregations come with the slices
-whose models use them (ROADMAP Queue A item 6).  ``BatchedEmbeddingOp``
+flexflow_tpu/ops/embedding.py: ``aggr="none"`` (ids [..., S] ->
+[..., S, D], the GPTs' token and positional tables) and the
+reference's ``"sum"`` and ``"avg"`` over the ids' last dim (ids [B, S]
+-> [B, D], the DLRM-style towers).  The gradient of the table is
+autograd's scatter-add of the gathered rows.  ``propagate`` is the
+reference's (embedding.py:156-184).  Under a batch or channel split
+``forward`` runs on the rank's ids and table columns; under a replica
+(vocab) split ``forward_sharded`` is the reference's explicit lowering
+(embedding.py:95-150): each rank gathers the ids that fall in its
+block of table rows, zeros for the rest, sums them over the aggregated
+dim, and one all-reduce over the vocab axes sums the blocks (avg
+divides after it), instead of a gather of the table.
+``BatchedEmbeddingOp``
 is the search's descriptor of the reference's batched lookup: shapes,
 propagation and costs, no forward yet (item 6)."""
 
@@ -43,10 +45,7 @@ class EmbeddingOp(Operator):
                  aggr: str = "none",
                  kernel_initializer: Initializer | None = None,
                  param_dtype: str = "float32"):
-        if aggr != "none":
-            raise NotImplementedError(
-                f"embedding aggr={aggr!r}: only 'none' is ported so far "
-                f"(ROADMAP Queue A item 6)")
+        assert aggr in ("none", "sum", "avg")
         self._kernel_init = kernel_initializer or NormInitializer(
             stddev=0.05)
         super().__init__(name, input_shapes, num_entries=num_entries,
@@ -54,8 +53,23 @@ class EmbeddingOp(Operator):
 
     def infer(self) -> Sequence[ParallelTensorShape]:
         x = self.input_shapes[0]
-        return (ParallelTensorShape.make(x.sizes + (self.attrs["out_dim"],),
-                                         self.attrs["param_dtype"]),)
+        a = self.attrs
+        if a["aggr"] == "none":
+            sizes = x.sizes + (a["out_dim"],)
+        else:
+            sizes = (x.sizes[:-1] + (a["out_dim"],) if x.ndim > 1
+                     else (x.sizes[0], a["out_dim"]))
+        return (ParallelTensorShape.make(sizes, a["param_dtype"]),)
+
+    def _aggregate(self, y: torch.Tensor, ids: torch.Tensor,
+                   mean: bool = True) -> torch.Tensor:
+        """``aggr`` over the ids' last dim: sum, or (``mean``) avg."""
+        aggr = self.attrs["aggr"]
+        if aggr == "none" or ids.dim() <= 1:
+            return y
+        if aggr == "avg" and mean:
+            return y.mean(dim=-2)
+        return y.sum(dim=-2)
 
     def weight_specs(self):
         a = self.attrs
@@ -64,7 +78,8 @@ class EmbeddingOp(Operator):
                            self._kernel_init),)
 
     def forward(self, ctx, inputs, weights):
-        return [weights["table"][inputs[0].long()]]
+        ids = inputs[0].long()
+        return [self._aggregate(weights["table"][ids], ids)]
 
     def forward_sharded(self, ctx, inputs, weights, osh):
         vocab_axes = ctx.axes(REPLICA_SLOT)
@@ -77,7 +92,11 @@ class EmbeddingOp(Operator):
         y = table[torch.where(valid, local, 0)]
         y = torch.where(valid[..., None], y, torch.zeros((), dtype=y.dtype,
                                                          device=y.device))
-        return [ctx.reduce_partial(y)]
+        ids = inputs[0]
+        y = ctx.reduce_partial(self._aggregate(y, ids, mean=False))
+        if self.attrs["aggr"] == "avg" and ids.dim() > 1:
+            y = y / ids.shape[-1]
+        return [y]
 
     def propagate(self, mv: MachineView) -> OpSharding:
         degs = mv.dim_degrees

@@ -1,7 +1,11 @@
-"""LayerNorm — the port of ``LayerNormOp`` in flexflow_tpu/ops/norm.py:
-statistics in float32, biased variance, ``eps`` inside the rsqrt, the
-result cast back to the input dtype (norm.py:93-104); ``propagate`` is
-the reference's (norm.py:106-114): the normalised dims stay whole."""
+"""LayerNorm and BatchNorm — the port of ``LayerNormOp`` and
+``BatchNormOp`` in flexflow_tpu/ops/norm.py.  LayerNorm: statistics in
+float32, biased variance, ``eps`` inside the rsqrt, the result cast
+back to the input dtype (norm.py:93-104); ``propagate`` is the
+reference's (norm.py:106-114): the normalised dims stay whole.
+BatchNorm: the batch's statistics and running statistics in the model
+state (norm.py:126-186), the op the staged pipeline refuses as
+state-carrying."""
 
 from __future__ import annotations
 
@@ -83,3 +87,93 @@ class LayerNormOp(Operator):
     def splittable_output_dims(self):
         return tuple(i for i in range(self.output_shapes[0].ndim)
                      if i not in self.attrs["axes"])
+
+
+def _sum_over(v: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of ``v`` over ``axes``, replicated, and differentiable:
+    each rank's addend gets the gradient summed over the ranks that use
+    the total (parallel/mesh.py's convention for replicated values)."""
+    from flexflow_tpu_torch.parallel.mesh import _AllReduce, grad_all_reduce
+
+    return grad_all_reduce(_AllReduce.apply(v, tuple(axes), mesh), axes,
+                           mesh)
+
+
+@register_op
+class BatchNormOp(Operator):
+    """NHWC batch norm over every dim but the last (per channel); also
+    [N, C].  attrs: relu, momentum, eps (reference ``BatchNormOp``,
+    norm.py:126-186, src/ops/batch_norm.cc).  The running statistics are
+    model state (``state_specs``): a training pass updates them from the
+    batch's statistics, an evaluation pass normalises with them.  Under
+    a split of the batch (or any dim but the channels) the statistics
+    are the whole batch's, summed over the ranks that split it, as the
+    reference's GSPMD mean over a sharded axis is."""
+
+    op_type = OperatorType.BATCHNORM
+
+    def __init__(self, name, input_shapes, relu: bool = True,
+                 momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__(name, input_shapes, relu=relu, momentum=momentum,
+                         eps=eps)
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        return (self.input_shapes[0],)
+
+    @property
+    def channels(self) -> int:
+        return self.input_shapes[0].sizes[-1]
+
+    def weight_specs(self) -> Sequence[WeightSpec]:
+        c = (self.channels,)
+        return (WeightSpec("scale", c, DataType.FLOAT32,
+                           ConstantInitializer(1.0)),
+                WeightSpec("bias", c, DataType.FLOAT32, ZeroInitializer()))
+
+    def state_specs(self):
+        c = (self.channels,)
+        return (("running_mean", c, torch.float32, 0.0),
+                ("running_var", c, torch.float32, 1.0))
+
+    def forward(self, ctx, inputs, weights):
+        x = inputs[0].float()
+        axes = tuple(range(x.dim() - 1))
+        split = ()
+        if ctx.mesh is not None and ctx.in_placements:
+            split = tuple(a for d in ctx.in_placements[0].dims[:-1]
+                          for a in d)
+        m = self.attrs["momentum"]
+        rm = ctx.state_in[f"{self.name}/running_mean"]
+        rv = ctx.state_in[f"{self.name}/running_var"]
+        if ctx.train:
+            if split:
+                n = (x.numel() // x.shape[-1]) * ctx.mesh.size(split)
+                mean = _sum_over(x.sum(dim=axes), split, ctx.mesh) / n
+                var = _sum_over(((x - mean) ** 2).sum(dim=axes), split,
+                                ctx.mesh) / n
+            else:
+                mean = x.mean(dim=axes)
+                var = ((x - mean) ** 2).mean(dim=axes)
+            ctx.state_out[f"{self.name}/running_mean"] = (
+                m * rm + (1 - m) * mean.detach())
+            ctx.state_out[f"{self.name}/running_var"] = (
+                m * rv + (1 - m) * var.detach())
+        else:
+            mean, var = rm, rv
+            ctx.state_out[f"{self.name}/running_mean"] = rm
+            ctx.state_out[f"{self.name}/running_var"] = rv
+        y = (x - mean) * torch.rsqrt(var + self.attrs["eps"])
+        y = y * weights["scale"] + weights["bias"]
+        if self.attrs["relu"]:
+            y = torch.relu(y)
+        return [y.to(inputs[0].dtype)]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        a = ShardAnnot(mv.dim_degrees, mv.replica_degree)
+        c_deg = mv.dim_degrees[-1]
+        rep = mv.num_parts // max(c_deg, 1)
+        wa = ShardAnnot((c_deg,), rep, idx=(len(mv.dim_degrees) - 1,))
+        return OpSharding(inputs=(a,), weights=(wa, wa), outputs=(a,))
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))

@@ -1,14 +1,17 @@
-"""Shape operators — the port of ``ReshapeOp`` in
-flexflow_tpu/ops/shape_ops.py (the one the decode graph uses), with
-the reference's ``propagate``: a split survives only on a leading dim
-of unchanged extent.  On a rank's shard it reshapes to the shard's
-sizes.  ``StackOp`` and ``UnstackOp`` are the search's descriptors of
+"""Shape operators — the port of ``ReshapeOp``, ``FlatOp`` and
+``ConcatOp`` in flexflow_tpu/ops/shape_ops.py, with the reference's
+``propagate``: a reshape's split survives only on a leading dim of
+unchanged extent, a flat's only on the batch dim, a concat's on every
+dim but the concat axis.  On a rank's shard each reshapes or
+concatenates the shard.  ``StackOp`` and ``UnstackOp`` are the search's descriptors of
 the reference's branch-stacking pair (shapes, propagation, costs; no
 forward yet: ROADMAP Queue A item 6)."""
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
+
+import torch
 
 from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.optype import OperatorType
@@ -64,6 +67,67 @@ class ReshapeOp(Operator):
         if x.ndim and out.ndim and x.sizes[0] == out.sizes[0]:
             return (0,)
         return ()
+
+
+@register_op
+class FlatOp(Operator):
+    """[B, ...] -> [B, prod(...)] (reference: src/ops/flat.cc)."""
+
+    op_type = OperatorType.FLAT
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        x = self.input_shapes[0]
+        feat = 1
+        for s in x.sizes[1:]:
+            feat *= s
+        return (ParallelTensorShape.make((x.sizes[0], feat), x.dtype),)
+
+    def forward(self, ctx, inputs, weights):
+        x = inputs[0]
+        return [x.reshape(x.shape[0], -1)]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        x = self.input_shapes[0]
+        in_degs = (mv.dim_degrees[0],) + (1,) * (x.ndim - 1)
+        return OpSharding(
+            inputs=(ShardAnnot(in_degs, mv.replica_degree),),
+            weights=(),
+            outputs=(ShardAnnot(mv.dim_degrees, mv.replica_degree),),
+        )
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return (0,)
+
+
+@register_op
+class ConcatOp(Operator):
+    op_type = OperatorType.CONCAT
+
+    def __init__(self, name, input_shapes, axis: int):
+        super().__init__(name, input_shapes, axis=int(axis))
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        ax = self.attrs["axis"]
+        first = self.input_shapes[0]
+        total = sum(s.sizes[ax] for s in self.input_shapes)
+        sizes = list(first.sizes)
+        sizes[ax] = total
+        return (ParallelTensorShape.make(tuple(sizes), first.dtype),)
+
+    def forward(self, ctx, inputs, weights):
+        return [torch.cat(inputs, dim=self.attrs["axis"])]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        ax = self.attrs["axis"]
+        assert mv.dim_degrees[ax] == 1, "cannot partition the concat axis"
+        a = ShardAnnot(mv.dim_degrees, mv.replica_degree)
+        return OpSharding(
+            inputs=(a,) * len(self.input_shapes), weights=(), outputs=(a,)
+        )
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        ax = self.attrs["axis"] % self.output_shapes[0].ndim
+        return tuple(i for i in range(self.output_shapes[0].ndim) if i != ax)
 
 
 @register_op

@@ -46,6 +46,15 @@ backward exchanges on every rank in the reverse of the forward order,
 whatever each rank computed in between, and runs all of them on every
 rank.  The tensors of one exchange are posted in order with fixed tags.
 
+Point to point (the pipelined, placed and staged lowerings):
+``Sends`` posts sends without waiting and waits for them together,
+``recv`` receives one tensor by tag, and ``broadcast`` hands one rank's
+tensor to a group.  Sub-meshes: a ``Mesh`` may cover a block of the
+job's ranks ``[start, start + width)`` and take other axes (the
+pipelined lowering's leading ``pp``); every rank builds every mesh of
+the job, member or not, so that each ``dist.new_group`` is called by
+every rank in one order (``runtime.distributed.mesh_over``).
+
 Transport (``initialize`` chose it): NCCL or gloo on the tensors'
 device, except for CUDA tensors on gloo (ranks sharing a card), which
 copy each block to the host and back.  Every collective counts its
@@ -179,16 +188,17 @@ class Placement:
                     ) -> Tuple[int, ...]:
         return tuple(s // mesh.size(axes) for s, axes in zip(sizes, self.dims))
 
-    def local_slices(self, sizes: Sequence[int], mesh: "Mesh"
-                     ) -> Tuple[slice, ...]:
-        """This rank's block of a tensor of global ``sizes``."""
+    def local_slices(self, sizes: Sequence[int], mesh: "Mesh",
+                     at: Optional[int] = None) -> Tuple[slice, ...]:
+        """This rank's block of a tensor of global ``sizes`` (or the
+        block of the mesh's rank ``at``, counted from its start)."""
         out = []
         for s, axes in zip(sizes, self.dims):
             n = mesh.size(axes)
             if s % n:
                 raise ValueError(f"dim of {s} does not split {n} ways over "
                                  f"{axes}")
-            i, per = mesh.index(axes), s // n
+            i, per = mesh.index(axes, at), s // n
             out.append(slice(i * per, (i + 1) * per))
         return tuple(out)
 
@@ -207,27 +217,44 @@ def placement(annot: ShardAnnot, slot_axes: Dict[int, Tuple[str, ...]]
 
 
 class Mesh:
-    """The job's ranks over the prime-factor axes of its size."""
+    """The ranks ``[start, start + width)`` of a job of ``world`` ranks
+    over named axes: by default the prime-factor axes of ``width``
+    (``mesh_axis_sizes``), else ``axes`` (the pipelined lowering's
+    leading ``pp`` axis).  Every rank of the job builds every mesh its
+    job uses, member or not, because ``dist.new_group`` must be called
+    by every rank in one order; a rank outside the block keeps no
+    group and has coordinates 0."""
 
-    def __init__(self, world: int, rank: int, make_groups: bool = True):
-        self.axes = [(n, s) for n, s in mesh_axis_sizes(world)]
+    def __init__(self, world: int, rank: int, make_groups: bool = True,
+                 axes: Optional[Sequence[Tuple[str, int]]] = None,
+                 start: int = 0, width: Optional[int] = None):
+        width = world if width is None else width
+        if start < 0 or start + width > world:
+            raise ValueError(f"ranks [{start}, {start + width}) are not "
+                             f"in a job of {world}")
+        self.axes = ([(n, s) for n, s in axes] if axes is not None
+                     else mesh_axis_sizes(width))
+        if math.prod(s for _, s in self.axes) != width:
+            raise ValueError(f"axes {self.axes} do not cover {width} ranks")
         self.shape = dict(self.axes)
         self.names = tuple(n for n, _ in self.axes)
-        self.world, self.rank = world, rank
+        self.world, self.rank = width, rank
+        self.job_world, self.start = world, start
         dims = tuple(s for _, s in self.axes)
-        self._coords = dict(zip(self.names, np.unravel_index(rank, dims)))
+        here = rank - start if start <= rank < start + width else 0
+        self._coords = dict(zip(self.names, np.unravel_index(here, dims)))
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._members: Dict[Tuple[str, ...], List[int]] = {}
         real = [n for n in self.names if self.shape[n] > 1]
         # every rank visits the same sets in the same order and creates
         # every group of each set, its own or not
         for k in range(1, len(real) + 1):
-            for axes in itertools.combinations(real, k):
-                self._make_groups(axes, make_groups)
+            for axes_ in itertools.combinations(real, k):
+                self._make_groups(axes_, make_groups)
 
     def _make_groups(self, axes, make_groups):
         others = [n for n in self.names if n not in axes]
-        ranks = np.arange(self.world).reshape(
+        ranks = self.start + np.arange(self.world).reshape(
             tuple(self.shape[n] for n in self.names))
         # move the set's axes last: each row is one group, in coordinate
         # order along the set's axes
@@ -241,7 +268,7 @@ class Mesh:
                 self._members[axes] = members
             if not make_groups:
                 continue
-            if len(members) == self.world:
+            if len(members) == self.job_world:
                 group = dist.group.WORLD
             else:
                 group = dist.new_group(ranks=members)
@@ -254,11 +281,15 @@ class Mesh:
     def size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in axes)
 
-    def index(self, axes: Sequence[str]) -> int:
-        """This rank's row-major coordinate index along ``axes``."""
+    def index(self, axes: Sequence[str], at: Optional[int] = None) -> int:
+        """This rank's (or the mesh's rank ``at``'s) row-major coordinate
+        index along ``axes``."""
+        coords = self._coords if at is None else dict(zip(
+            self.names, np.unravel_index(at, tuple(self.shape[n]
+                                                   for n in self.names))))
         i = 0
         for a in axes:
-            i = i * self.shape[a] + self.coord(a)
+            i = i * self.shape[a] + int(coords[a])
         return i
 
     def _key(self, axes: Sequence[str]) -> Tuple[str, ...]:
@@ -532,11 +563,70 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
             t.copy_(part.view_as(t))
 
 
-for _fn in (ppermute, all_reduce_mean_):
+def _transport_of(x: torch.Tensor) -> bool:
+    return x.is_cuda and dist.get_backend() == "gloo"
+
+
+class Sends:
+    """Point-to-point sends between ranks (the pipelined, placed and
+    staged lowerings' activation and cotangent hops), posted without
+    waiting and waited for together: a rank never blocks on a send, so
+    no order of sends and receives between stages can deadlock.  Each
+    message is a tensor with an integer tag, which the receiver names
+    in ``recv``."""
+
+    def __init__(self):
+        self._pending: List[Tuple[object, torch.Tensor]] = []
+
+    def send(self, x: torch.Tensor, dst: int, tag: int) -> None:
+        """Post ``x`` to global rank ``dst``."""
+        hop = _transport_of(x)
+        buf = x.detach().contiguous()
+        if hop:
+            buf = buf.cpu()
+        _count(send_recv, buf, hop=hop)
+        self._pending.append((dist.isend(buf, dst, tag=tag), buf))
+
+    def wait(self) -> None:
+        for work, _ in self._pending:
+            work.wait()
+        self._pending.clear()
+
+
+def recv(like: torch.Tensor, src: int, tag: int) -> torch.Tensor:
+    """The tensor global rank ``src`` sent with ``tag``, shaped and
+    typed as ``like``, on ``like``'s device."""
+    hop = _transport_of(like)
+    buf = torch.empty(like.shape, dtype=like.dtype,
+                      device="cpu" if hop else like.device)
+    dist.recv(buf, src, tag=tag)
+    return buf.to(like.device) if hop else buf
+
+
+def send_recv():
+    """Not called: it carries ``Sends.send``'s counters, as each
+    collective function carries its own (``comm_counts()
+    ["send_recv"]``)."""
+
+
+def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group`` (default:
+    the job); ``x`` gives the shape and dtype elsewhere (a new
+    tensor)."""
+    group = group or dist.group.WORLD
+    hop = _host_hop(x, group)
+    buf = x.detach().cpu() if hop else x.detach().clone(
+        memory_format=torch.contiguous_format)
+    _count(broadcast, buf, hop=hop)
+    dist.broadcast(buf, src, group=group)
+    return buf.to(x.device) if hop else buf
+
+
+for _fn in (ppermute, all_reduce_mean_, send_recv, broadcast):
     _fn.calls = _fn.bytes = _fn.host_hops = _fn.host_bytes = 0
 
 COLLECTIVES = (all_reduce_sum, all_gather, all_to_all, ppermute,
-               all_reduce_mean_)
+               all_reduce_mean_, send_recv, broadcast)
 
 
 def comm_counts() -> Dict[str, Dict[str, int]]:

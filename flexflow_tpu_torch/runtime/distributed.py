@@ -21,8 +21,11 @@ by ``torch.distributed``:
   Then it builds the job's mesh (``parallel.mesh.Mesh``: the ranks over
   the prime-factor axes of the world size, with every process group of
   every set of axes, created on every rank in one order).
-* ``is_initialized``, ``world_size``, ``rank``, ``transport``, ``mesh``
-  (the job's, or a one-rank mesh outside a job);
+* ``is_initialized``, ``world_size``, ``rank``, ``num_hosts``,
+  ``transport``, ``mesh``
+  (the job's, or a one-rank mesh outside a job), ``mesh_over`` (a mesh
+  over a block of the job's ranks or with other axes, built once per
+  job: the pipelined, placed and staged lowerings');
 * ``local_seq_slice(seq_len, axes)`` and ``local_batch_slice(
   global_batch, axes)`` — the [start, stop) of the sequence or of the
   batch this rank holds when it is split over ``axes`` (default: every
@@ -83,7 +86,13 @@ def initialize(init_method: str, num_processes: int, process_id: int,
     # so later batched sends may involve a subset of the ranks (the
     # zigzag exchange keeps some halves local)
     dist.barrier()
+    import socket
+
     from flexflow_tpu_torch.parallel.mesh import Mesh
+
+    hosts = [None] * num_processes
+    dist.all_gather_object(hosts, socket.gethostname())
+    _JOB["hosts"] = len(set(hosts))
 
     _JOB["transport"] = transport
     _JOB["mesh"] = Mesh(num_processes, process_id)
@@ -104,6 +113,11 @@ def rank() -> int:
     return dist.get_rank() if is_initialized() else 0
 
 
+def num_hosts() -> int:
+    """How many hosts the job's ranks run on (1 outside a job)."""
+    return _JOB.get("hosts", 1) if is_initialized() else 1
+
+
 def transport() -> Optional[str]:
     """The transport ``initialize`` chose: ``"nccl"``, ``"gloo-host"``
     (ranks sharing a card) or ``"gloo"`` (CPU); None outside a job."""
@@ -117,6 +131,31 @@ def mesh():
     from flexflow_tpu_torch.parallel.mesh import Mesh
 
     return Mesh(1, 0, make_groups=False)
+
+
+def mesh_over(axes=None, start: int = 0, width: Optional[int] = None):
+    """The mesh of the job's ranks ``[start, start + width)`` over
+    ``axes`` (``parallel.mesh.Mesh``; default width: the job's, default
+    axes: the prime factors of the width).  Built once per job and
+    geometry: every rank of the job must call it with the same
+    arguments in the same order, because building it creates process
+    groups on every rank."""
+    from flexflow_tpu_torch.parallel.mesh import Mesh
+
+    world = world_size()
+    width = world if width is None else width
+    key = (None if axes is None else tuple(tuple(a) for a in axes),
+           start, width)
+    if not is_initialized():
+        return Mesh(1, 0, make_groups=False, axes=axes, start=start,
+                    width=width)
+    if key == (None, 0, world):
+        return mesh()
+    meshes = _JOB.setdefault("meshes", {})
+    if key not in meshes:
+        meshes[key] = Mesh(world, rank(), axes=axes, start=start,
+                           width=width)
+    return meshes[key]
 
 
 def _local_slice(size: int, axes: Optional[Sequence[str]], what: str

@@ -39,8 +39,9 @@ the "live backend" the reference reads from ``jax.devices()``.  The
 branches that need a module of a later slice raise
 ``NotImplementedError`` naming its ROADMAP Queue A item instead of
 running: the serve objective and ``kv_precision="search"`` (item 9),
-``sync_schedule="search"`` (item 5), ``co_search`` and the match-worker
-pool ``FLEXFLOW_TPU_MATCH_WORKERS`` (item 8).  The default training
+``sync_schedule="search"``, ``co_search`` and the match-worker pool
+``FLEXFLOW_TPU_MATCH_WORKERS`` (item 5, with the comm plan and sync
+modules they come with).  The default training
 search reaches none of them.
 """
 
@@ -135,7 +136,7 @@ def _pooled_matches(xfers, graph, config, num_devices):
     if workers >= 2:
         raise NotImplementedError(
             "FLEXFLOW_TPU_MATCH_WORKERS: the match-worker pool is not "
-            "ported yet (ROADMAP Queue A item 8); unset it for the "
+            "ported yet (ROADMAP Queue A item 5); unset it for the "
             "serial sweep, which finds the same matches")
     return None
 
@@ -1054,7 +1055,7 @@ def refuse_unported(config: FFConfig) -> None:
             (getattr(config, "sync_schedule", "off") == "search",
              "sync_schedule='search' (search/sync_schedule.py)", 5),
             (getattr(config, "co_search", False),
-             "co_search (search/comm_plan.py)", 8)):
+             "co_search (search/comm_plan.py)", 5)):
         if asked:
             raise NotImplementedError(
                 f"optimize_strategy: {what} is not ported yet (ROADMAP "

@@ -49,6 +49,15 @@ OPTIMIZERS = {
             lambda: SGDOptimizer(lr=0.1, momentum=0.9, weight_decay=0.01)),
     "adam": (lambda: ff.AdamOptimizer(alpha=1e-2, weight_decay=0.01),
              lambda: AdamOptimizer(alpha=1e-2, weight_decay=0.01)),
+    "sgd_nesterov": (
+        lambda: ff.SGDOptimizer(lr=0.1, momentum=0.9, nesterov=True,
+                                weight_decay=0.01),
+        lambda: SGDOptimizer(lr=0.1, momentum=0.9, nesterov=True,
+                             weight_decay=0.01)),
+    "adamw": (lambda: ff.AdamOptimizer(alpha=1e-2, weight_decay=0.05,
+                                       adamw=True),
+              lambda: AdamOptimizer(alpha=1e-2, weight_decay=0.05,
+                                    adamw=True)),
 }
 
 

@@ -2,7 +2,7 @@
 search as the JAX package's ``compile`` does and lowers what it finds,
 on one gloo world of 4 CPU ranks against the JAX package on 4 virtual
 devices with the same flags and machine spec (``tpu_v5e(4)``, no
-deadline, both proposal flags False).
+deadline, both proposal flags False, and again with both on).
 
 A tiny GPT (vocab 128, 2 layers, hidden 32, 4 heads, ff 64, seq 64,
 batch 8) trains 2 ``fit`` steps in fp32 with Adam from the JAX model's
@@ -10,8 +10,10 @@ initial weights.  Checked: the port picks the JAX package's views (per
 stable node digest) on a graph of the same ``stable_graph_digest``;
 every rank holds one digest and one set of views (rank 0 searched and
 sent them); the losses within 1e-5 relative of the JAX package's; a
-compile over 4 ranks with the default proposal flags raises, naming
-ROADMAP Queue A item 8; ``objective="serve"`` raises on every rank;
+compile over 4 ranks with FFConfig's default proposal flags (rank 0
+also costs the pipeline and placement proposals) lowers the JAX
+package's pick with its losses; ``objective="serve"`` raises on every
+rank;
 and an error of rank 0's search raises on every rank.  The search on this spec splits the two
 embeddings' channels 2 ways and the vocab head's 4 ways and keeps the
 rest whole, so the lowering reshards between the splits.
@@ -61,10 +63,11 @@ def _data():
     return ids[:, :-1], ids[:, 1:]
 
 
-def _rank(rank, start, x, y):
-    """One rank: the searched compile and 2 fit steps, then compiles
-    that must raise on every rank: the default proposal flags,
-    ``objective="serve"``, and a search that fails on rank 0 alone."""
+def _rank(rank, start, default_start, x, y):
+    """One rank: the searched compile and 2 fit steps, the same with the
+    default proposal flags, then compiles that must raise on every
+    rank: ``objective="serve"``, and a search that fails on rank 0
+    alone."""
     cfg = tff.FFConfig(batch_size=BATCH, device="cpu", num_devices=N,
                        compute_dtype="float32",
                        machine_spec=MachineSpec.tpu_v5e(N), **SEARCH)
@@ -80,7 +83,14 @@ def _rank(rank, start, x, y):
                                compute_dtype="float32",
                                machine_spec=MachineSpec.tpu_v5e(N),
                                search_timeout_s=0), **GPT)
-    out["default_flags"] = _compile_error(d)
+    d.compile(optimizer=tff.AdamOptimizer(alpha=ALPHA), **CCE)
+    d.params = params_from_numpy(default_start, "cpu", d.compiled)
+    d.opt_state = d.optimizer.init_state(d.params)
+    d.fit(x, y, shuffle=False, verbose=False)
+    out["default_flags"] = {"kind": type(d.compiled).__name__,
+                            "digest": stable_graph_digest(d.graph),
+                            "views": views_by_digest(d.graph, d.strategy),
+                            "losses": list(d.step_losses)}
     # a search option the port refuses: every rank raises it
     out["serve"] = _compile_error(build_gpt(tff.FFConfig(
         batch_size=BATCH, device="cpu", num_devices=N,
@@ -110,9 +120,10 @@ def _compile_error(model):
     return None
 
 
-def _jax_run(x, y, out):
+def _jax_run(x, y, out, **flags):
     """The JAX package's compile(strategy=None) on 4 virtual devices and
-    its 2 steps; fills ``out``."""
+    its 2 steps (with ``flags``, default: the proposal flags off); fills
+    ``out``."""
     import jax
     import jax.numpy as jnp
 
@@ -123,9 +134,10 @@ def _jax_run(x, y, out):
 
     jm = jmods.build_gpt(ff.FFConfig(
         batch_size=BATCH, num_devices=N, compute_dtype="float32",
-        machine_spec=RefSpec.tpu_v5e(N), cost_cache_file="", **SEARCH),
-        **GPT)
+        machine_spec=RefSpec.tpu_v5e(N), cost_cache_file="",
+        **(flags or SEARCH)), **GPT)
     jm.compile(optimizer=ff.AdamOptimizer(alpha=ALPHA), **CCE)
+    out["kind"] = type(jm.compiled).__name__
     out["digest"] = digest(jm.graph)
     out["views"] = views_by_digest(jm.graph, jm.strategy)
     out["start"] = {op: {w: np.array(v) for w, v in ws.items()}
@@ -147,10 +159,12 @@ def _jax_run(x, y, out):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     x, y = _data()
-    ref = {}
+    ref, default = {}, {}
     _jax_run(x, y, ref)
+    _jax_run(x, y, default, search_timeout_s=0)  # FFConfig's flags
+    ref["default"] = default
     rdzv = tmp_path_factory.mktemp("searched") / "rendezvous"
-    ranks = spawn(_rank, N, (ref["start"], x, y),
+    ranks = spawn(_rank, N, (ref["start"], default["start"], x, y),
                   init_method=f"file://{rdzv}", device="cpu", timeout=600)
     return ranks, ref
 
@@ -181,11 +195,20 @@ def test_losses_match_the_jax_package(world):
 
 
 def test_default_proposal_flags_over_ranks_raise_naming_item_8(world):
-    ranks, _ = world
+    """With FFConfig's defaults (both proposal flags on) the compile
+    over 4 ranks runs the flat search and the proposals, as the JAX
+    package's does, and lowers the JAX package's pick: the same
+    lowering, graph and views, and the same losses from its weights.
+    (The name is kept from the refusal this check replaced: the
+    proposals are ported, ROADMAP Queue A item 8.)"""
+    ranks, ref = world
+    want = ref["default"]
     for r in ranks:
-        msg = r["default_flags"]
-        assert msg is not None and "Queue A item 8" in msg, msg
-        assert "enable_pipeline_search" in msg
+        got = r["default_flags"]
+        assert got["kind"] == want["kind"]
+        assert got["digest"] == want["digest"]
+        assert got["views"] == want["views"]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
 
 
 def test_unported_search_option_raises_on_every_rank(world):

@@ -21,9 +21,10 @@ One world of each size is spawned per module; the same world also
 runs Ulysses (``sp_mode="ulysses"``, and ``"auto"``, which picks it for
 non-causal attention at n >= 3) and ``evaluate``/``predict`` under the
 SP strategy against one process, and shows what the port still
-refuses: pipeline and placement meta, and an inference compile under a
-split, each naming its ROADMAP item, and a ``num_devices`` that
-differs from the job's size.  The worker functions import no JAX: the
+refuses: ``__meta__.sync_schedule`` and ``zero_groups``, and an
+inference compile under a split, each naming its ROADMAP item, a
+pipeline whose stages do not divide the ranks, and a ``num_devices``
+that differs from the job's size.  The worker functions import no JAX: the
 spawned ranks import this module to find them.
 """
 
@@ -38,6 +39,7 @@ from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
 from flexflow_tpu_torch.models import build_gpt, build_transformer
 from flexflow_tpu_torch.parallel import mesh as pmesh
+from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
 from flexflow_tpu_torch.runtime import distributed
 from flexflow_tpu_torch.runtime.distributed import spawn
 
@@ -120,12 +122,13 @@ def _train_rank(rank, params, ids, n):
     def with_meta(block):
         return lambda mm: dict(sp_strategy(mm, n), __meta__=block)
 
-    out["pipeline_meta"] = _refusal(lambda: compile_with(
-        with_meta({"pipeline": {"num_stages": 2}})))
-    out["placement_meta"] = _refusal(lambda: compile_with(
-        with_meta({"placement": {"blocks": 2}})))
+    out["sync_schedule_meta"] = _refusal(lambda: compile_with(
+        with_meta({"sync_schedule": {"buckets": [["layer0_ff1"]]}})))
+    out["zero_groups_meta"] = _refusal(lambda: compile_with(
+        with_meta({"zero_groups": ["layer0_ff1"]})))
     out["pipeline"] = _refusal(lambda: compile_with(
-        lambda mm: sp_strategy(mm, n), pipeline=object()))
+        lambda mm: sp_strategy(mm, n),
+        pipeline=PipelineConfig(num_stages=3, num_microbatches=2)))
     out["inference"] = _refusal(lambda: compile_with(
         lambda mm: sp_strategy(mm, n), comp_mode="inference"))
     out["num_devices"] = _refusal(lambda: compile_with(
@@ -256,15 +259,20 @@ def test_sp_fit_matches_one_process(world, one_process):
 
 def test_strategies_the_port_does_not_lower_raise(world):
     """What the lowering still refuses under SP, each naming the
-    ROADMAP item that lifts it (the SP strategies themselves lower)."""
+    ROADMAP item that lifts it (the SP strategies themselves lower), and
+    a pipeline whose stages do not divide the ranks (the pipelined
+    lowering's own guard)."""
     _, ranks = world
-    want = {"pipeline_meta": "item 8", "placement_meta": "item 8",
-            "pipeline": "item 8", "inference": "item 2"}
+    want = {"sync_schedule_meta": ("NotImplementedError",
+                                   "ROADMAP Queue A item 5"),
+            "zero_groups_meta": ("NotImplementedError",
+                                 "ROADMAP Queue A item 5"),
+            "pipeline": ("ValueError", "must divide num_devices"),
+            "inference": ("NotImplementedError", "ROADMAP Queue A item 2")}
     for r in ranks:
-        for key, item in want.items():
-            assert r[key] and r[key].startswith("NotImplementedError"), (
-                key, r[key])
-            assert f"ROADMAP Queue A {item}" in r[key], (key, r[key])
+        for key, (kind, text) in want.items():
+            assert r[key] and r[key].startswith(kind), (key, r[key])
+            assert text in r[key], (key, r[key])
 
 
 def test_ulysses_raises(world):
