@@ -7,6 +7,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --searched-only RUNS [--seed N]
                           [--calibration-out DIR]
     python3 chip_smoke.py --pipeline-only [--seed N]
+    python3 chip_smoke.py --bert-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -20,7 +21,7 @@ alone; on a machine with four cards it measures the searched path and
 the link constants of ``MachineSpec.h100_sxm``.  ``--calibration-out``
 keeps each phase 9 run's calibration table.  The fifth builds the
 kernels and runs phase 10 alone, against phase 6's first step taken
-alone.
+alone.  The sixth builds the kernels and runs phase 11 alone.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -119,7 +120,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    split over 4 ranks (``runtime.distributed.spawn``: one card each with
    NCCL on a 4-card machine, else all on card 0 with the shared-card
    transport, gloo with counted host hops; an exclusive compute mode
-   fails), every MHA on the zigzag ring; ``fit`` 20 steps and check that
+   fails), every MHA on the zigzag ring; ``fit`` 10 steps and check that
    the partial kernel launched 12 x 9 times per step on every rank and
    the flash kernels of phase 6 never, that the loss fell, and that the
    first step's loss equals a one-process run's on the flash route
@@ -165,8 +166,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    same model under data parallelism and under ``compile(strategy=None)``
    with FFConfig's defaults (the uncalibrated search; its graph digest
    checked against (b)'s roofline search and its first-step loss within
-   5e-3 of phase 6's), 20 synchronised steps of each of the three in
-   blocks of 10 in the order A B C C B A: each strategy's step p50, its
+   5e-3 of phase 6's), 10 synchronised steps of each of the three in
+   blocks of 5 in the order A B C C B A: each strategy's step p50, its
    two blocks' p50s and their spread, beside its predicted step (on the
    shared card labelled as the shared-card transport); with NCCL the
    link probes (a 4-byte all-reduce's device time per ring hop, 5
@@ -199,7 +200,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    within 1e-5 of one process's.  Before the ranks spawn, the flash
    kernels are held to their plain versions at the legs' per-rank
    shapes; a launched shape beyond them is checked after;
-11. print one JSON line listing every ported kernel.
+11. BERT-base through ``fit``, one card: ``build_bert`` at its
+   defaults (vocab 30522, 12 layers, hidden 768, 12 heads, ff 3072,
+   seq 512, 2 classes, attention dropout 0.1), batch 8, bf16 compute,
+   Adam, seeded weights, random ids and labels.  Rows 1-3 first meet
+   their plain versions at the validation passes' shape (B 8, S 512,
+   H 12, not causal), and after the phase at any other shape it
+   launched them at.  (a) ``fit`` 2 epochs
+   of 16 captured steps with ``validation_data`` (2 batches), a
+   ``checkpoint_dir`` and a counting callback; rows 1-3 never launch in
+   a dropout training step and row 1 runs 12 times per validation
+   batch (Sk = 512: the flash route); printed: step p50/p99
+   (synchronised captured steps), tokens/s, MFU, peak memory (each
+   peak above the allocation before its model was built), the host
+   seconds of a checkpoint save and the device ms of one layer's mask
+   draw; (b) a fresh model resumes from epoch 1's snapshot: its epoch-2
+   losses and weights equal (a)'s bit for bit; (c) remat on against
+   off, 4 steps: losses and weights bit-equal, remat's peak memory
+   lower; (d) ``grad_accum_steps=2`` against 1, 4 steps: losses within
+   bf16 5e-3, its peak memory lower; (e) the captured step against eager with dropout, 4
+   steps: bit-equal; two seeds on one batch draw different masks (the
+   losses differ), one seed twice the same;
+12. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -341,7 +363,7 @@ SP = dict(vocab=32000, num_layers=12, hidden=768, num_heads=12,
 SP_BATCH = 2
 SP_RANKS = 4
 SP_HALF_CHUNK = SP["seq_len"] // (2 * SP_RANKS)
-SP_STEPS = 20
+SP_STEPS = 10  # kept short: the whole script stays inside its time limit
 SP_TIMED_STEPS = 5
 SP_PROFILE_STEPS = 2
 SP_PARITY_LAYERS = 2
@@ -375,11 +397,11 @@ HYB_FLASH_SHAPES = (
 # the strategy chosen by compile(strategy=None)
 SEARCH_RANKS = 4
 SEARCH_STEPS = 10  # fit steps under the searched strategy
-# then 20 synchronised steps per strategy (searched, data parallel and
+# then 10 synchronised steps per strategy (searched, data parallel and
 # the uncalibrated default search's pick) in two blocks of
 # SEARCH_TIMED_BLOCK, in the order A B C C B A: each strategy is timed
 # early and late, and its two blocks give the spread of one strategy
-SEARCH_TIMED_BLOCK = 10
+SEARCH_TIMED_BLOCK = 5  # kept short, as SP_STEPS
 CAL_BUDGET_S = 60.0  # FFConfig.calibration_budget_s's default
 CAL_REPROBES = 2  # records measured again for their spread
 LINK_PROBE_RUNS = 200  # calls timed by each link probe (NCCL only)
@@ -402,6 +424,16 @@ PIPE_LAYERS_A = 6
 PIPE_STEPS = 10
 PIPE_TIMED_STEPS = 3
 PIPE_DEFAULT_STEPS = 2
+# phase 11: build_bert at its defaults, the OSDI'22 BERT configuration
+BERT = dict(vocab=30522, num_layers=12, hidden=768, num_heads=12,
+            ff_dim=3072, seq_len=512, num_classes=2, dropout=0.1)
+BERT_BATCH = 8
+BERT_BATCHES = 16  # steps per epoch
+BERT_EPOCHS = 2
+BERT_VAL_BATCHES = 2
+BERT_CMP_STEPS = 4  # remat, accumulation and capture comparisons
+BERT_TIMED_STEPS = 10
+BERT_GA_TOL = 5e-3  # bf16 compute, relative loss
 CARD_PEAKS = (
     ("H100 PCIe", 2.0e12, 51e12, 756e12),
     ("H100 NVL", 3.9e12, 60e12, 835e12),
@@ -3920,6 +3952,327 @@ def phase_pipeline_train(seed, name, first_loss_bf16):
             for leg in ("pipelined", "placed")}
 
 
+# ---------------------------------------------------------------------------
+class CountingCallback:
+    """A keras-protocol callback that records what ``fit`` calls."""
+
+    def __init__(self):
+        self.model = None
+        self.calls = []
+
+    def set_model(self, model):
+        self.model = model
+        self.calls.append("set_model")
+
+    def on_train_begin(self, logs=None):
+        self.calls.append("on_train_begin")
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self.calls.append(f"on_epoch_begin:{epoch}")
+
+    def on_epoch_end(self, epoch, logs=None):
+        self.calls.append(f"on_epoch_end:{epoch}:{sorted(logs)}")
+
+    def on_train_end(self, logs=None):
+        self.calls.append("on_train_end")
+
+
+def bert_model(seed, **cfg):
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.models import build_bert
+
+    model = build_bert(FFConfig(batch_size=BERT_BATCH,
+                                compute_dtype="bfloat16", seed=seed, **cfg),
+                       **BERT)
+    model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    return model
+
+
+def free_models():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def bert_steps(model, batches, seed0, ctx=None, base=0):
+    """One ``train_step`` per batch, step i with seed seed0 + i: (the
+    losses on the host, the peak memory in GB of the steps above
+    ``base`` bytes, the allocation before the model was built)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    with ctx or contextlib.nullcontext():
+        for i, (ins, lab) in enumerate(batches):
+            model.params, model.opt_state, model.state, loss, _ = (
+                model.compiled.train_step(model.params, model.opt_state,
+                                          model.state, ins, lab,
+                                          seed=seed0 + i))
+            losses.append(loss.clone())
+    torch.cuda.synchronize()
+    return (torch.stack(losses).cpu(),
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def mask_draw_ms(seed):
+    """Device ms of one layer's attention-dropout mask draw at phase
+    11's shape (ops/base.py's hash over [B, H, S, S]), CUDA events,
+    median of TIMING_RUNS."""
+    from flexflow_tpu_torch.ops.base import draw_keep_mask, stream_key
+
+    shape = (BERT_BATCH, BERT["num_heads"], BERT["seq_len"],
+             BERT["seq_len"])
+    key = stream_key(torch.full((), seed + 1, dtype=torch.int64,
+                                device="cuda"), "layer0_mha")
+
+    def draw():
+        return draw_keep_mask(key, 1.0 - BERT["dropout"], shape,
+                              (0, 0, 0, 0), shape)
+
+    mask = draw()
+    kept = float(mask.float().mean())
+    for _ in range(3):
+        draw()
+    times = []
+    for _ in range(TIMING_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        draw()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), kept
+
+
+def phase_bert_train(seed, name):
+    """Phase 11 (module docstring): returns the flash rows' launches in
+    (a)'s ``fit`` and the report.  Rows 1-3 are held to their plain
+    versions at the validation passes' shape (``evaluate`` has no
+    dropout, and Sk 512 takes the flash route), and at any other shape
+    the phase launches them at."""
+    seq, heads = BERT["seq_len"], BERT["num_heads"]
+    check(BERT["hidden"] // heads == TRAIN["hidden"] // TRAIN["num_heads"],
+          "check_flash_shapes holds the kernels at phase 6's head width")
+    predicted = [("full", BERT_BATCH, seq, seq, heads, False)]
+    print("bert path: flash kernels at the validation passes' shape vs "
+          "plain versions: " + json.dumps(check_flash_shapes(seed, predicted)))
+    shapes = set()
+    with recorded_flash_launches(shapes):
+        fit_launches, report = bert_legs(seed, name)
+    extra = sorted(set(launches_to_shapes(shapes)) - set(predicted))
+    if extra:
+        print("bert path: flash kernels at launched shapes beyond the "
+              "prediction: " + json.dumps(check_flash_shapes(seed, extra)))
+    report["flash_shapes"] = sorted(shapes)
+    print("bert path: " + json.dumps(report))
+    return fit_launches, report
+
+
+def bert_legs(seed, name):
+    """Phase 11's (a)-(f): the flash rows' launches in (a)'s ``fit``
+    and the report."""
+    import shutil
+    import tempfile
+
+    from flexflow_tpu_torch.compiler.graphs import eager
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    free_models()
+    rows = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)
+    layers = BERT["num_layers"]
+    rng = np.random.default_rng(seed + 11)
+    n_train = BERT_BATCHES * BERT_BATCH
+    n_val = BERT_VAL_BATCHES * BERT_BATCH
+    ids = rng.integers(0, BERT["vocab"], size=(n_train + n_val,
+                                               BERT["seq_len"])
+                       ).astype(np.int32)
+    labels = rng.integers(0, BERT["num_classes"],
+                          size=(n_train + n_val,)).astype(np.int32)
+    x, y = ids[:n_train], labels[:n_train]
+    vx, vy = ids[n_train:], labels[n_train:]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = bert_model(seed)
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for ws in model.params.values()
+                   for w in ws.values())
+    flops = sum(n.op.flops() for n in model.graph.nodes.values())
+    print(f"bert path: compiled in {time.perf_counter() - t0:.2f} s, "
+          f"{n_params} parameters, forward FLOPs per step {flops:.6e}")
+    dev = model.compiled.device
+    batches = [([torch.from_numpy(x[i:i + BERT_BATCH]).to(dev)],
+                torch.from_numpy(y[i:i + BERT_BATCH]).to(dev))
+               for i in range(0, n_train, BERT_BATCH)]
+
+    # (a) fit with validation, checkpoints and a callback
+    ckpt_dir = tempfile.mkdtemp(prefix="bert_ckpt_")
+    cb = CountingCallback()
+    for kn in rows:
+        kn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=BERT_BATCH, epochs=BERT_EPOCHS,
+                        shuffle=True, verbose=False, callbacks=[cb],
+                        validation_data=(vx, vy), checkpoint_dir=ckpt_dir)
+    fit_wall = time.perf_counter() - t0
+    fit_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    fit_launches = {kn.__name__: kn.launches for kn in rows}
+    losses_a = list(model.step_losses)
+    after_a = [t.clone() for t in train_tensors(model)]
+    val_batches = BERT_VAL_BATCHES * BERT_EPOCHS
+    check(len(losses_a) == BERT_EPOCHS * BERT_BATCHES,
+          f"fit ran {len(losses_a)} steps")
+    check(fit_launches == {"flash_forward": layers * val_batches,
+                           "flash_backward_dq": 0,
+                           "flash_backward_dkv": 0},
+          f"fit launched {fit_launches}: want row 1 {layers} times per "
+          f"validation batch ({val_batches}) and rows 1-3 never in a "
+          f"dropout training step")
+    want_calls = (["set_model", "on_train_begin"]
+                  + [c for e in range(BERT_EPOCHS) for c in (
+                      f"on_epoch_begin:{e}",
+                      f"on_epoch_end:{e}:{sorted(history[e])}")]
+                  + ["on_train_end"])
+    check(cb.calls == want_calls, f"callbacks saw {cb.calls}")
+    check(all("val_loss" in h and "val_accuracy" in h for h in history),
+          f"history lacks val_* keys: {history}")
+    check(bool(np.isfinite(losses_a).all()), "a BERT step's loss is not "
+          "finite")
+    mgr = CheckpointManager(ckpt_dir)
+    check(mgr.all_steps() == [0, 1], f"snapshots {mgr.all_steps()}")
+    t0 = time.perf_counter()
+    mgr.save(99, model)
+    save_s = time.perf_counter() - t0
+    draw_ms, kept = mask_draw_ms(seed)
+
+    # step time: synchronised captured steps (their own seeds)
+    start = [t.clone() for t in train_tensors(model)]
+    times = []
+    graph = model.compiled.step_graph
+    for i in range(BERT_TIMED_STEPS):
+        ins, lab = batches[i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.params, model.opt_state, model.state, _, _ = (
+            model.compiled.train_step(model.params, model.opt_state,
+                                      model.state, ins, lab,
+                                      seed=1000 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.median(times))
+    bf16_peak = card_peaks(name)[2]
+
+    # (e) capture against eager with dropout; seeds draw new masks
+    cmp = batches[:BERT_CMP_STEPS]
+    runs = {}
+    for tag, ctx in (("captured", None), ("eager", eager())):
+        restore(model, start)
+        ls, _ = bert_steps(model, cmp, 2000, ctx)
+        runs[tag] = (ls, [t.clone() for t in train_tensors(model)])
+    check(torch.equal(runs["captured"][0], runs["eager"][0])
+          and same_bits(runs["captured"][1], runs["eager"][1]),
+          f"captured steps {runs['captured'][0].tolist()} differ from "
+          f"eager {runs['eager'][0].tolist()} with dropout")
+    del runs
+    seed_losses = []
+    for sd in (3000, 3001, 3000):
+        restore(model, start)
+        ls, _ = bert_steps(model, cmp[:1], sd)
+        seed_losses.append(float(ls[0]))
+    check(seed_losses[0] != seed_losses[1],
+          f"two seeds drew the same masks: losses {seed_losses}")
+    check(seed_losses[0] == seed_losses[2],
+          f"one seed twice drew different masks: losses {seed_losses}")
+    del start
+
+    # (b) resume from epoch 1's snapshot
+    resume_dir = tempfile.mkdtemp(prefix="bert_resume_")
+    shutil.copytree(os.path.join(ckpt_dir, "step_0"),
+                    os.path.join(resume_dir, "step_0"))
+    del model, graph
+    free_models()
+    resumed = bert_model(seed)
+    hist_b = resumed.fit(x, y, batch_size=BERT_BATCH, epochs=BERT_EPOCHS,
+                         shuffle=True, verbose=False,
+                         validation_data=(vx, vy), checkpoint_dir=resume_dir,
+                         resume=True)
+    losses_b = list(resumed.step_losses)
+    check(len(hist_b) == 1 and losses_b == losses_a[BERT_BATCHES:]
+          and same_bits([t.clone() for t in train_tensors(resumed)],
+                        after_a),
+          f"resumed epoch-2 losses {losses_b} or weights differ in bits "
+          f"from the uninterrupted run's {losses_a[BERT_BATCHES:]}")
+    del resumed, after_a
+    free_models()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shutil.rmtree(resume_dir, ignore_errors=True)
+
+    # (c) remat, (d) accumulation: fresh models from the seed's weights
+    # peak memory: the captured steps' (their first call runs eagerly,
+    # then captures into the graph's own pool) and then that of eager
+    # steps alone, each above the allocation before its model was built
+    # (the earlier legs' weights, kept for the comparisons, excluded)
+    legs = {}
+    for tag, cfg in (("plain", {}), ("remat", {"remat": True}),
+                     ("ga2", {"grad_accum_steps": 2})):
+        base = torch.cuda.memory_allocated()
+        m = bert_model(seed, **cfg)
+        ls, peak = bert_steps(m, cmp, 4000, base=base)
+        legs[tag] = (ls, [t.clone() for t in train_tensors(m)], peak)
+        del m
+        free_models()
+        base = torch.cuda.memory_allocated()
+        m = bert_model(seed, **cfg)
+        _, peak_eager = bert_steps(m, cmp[:2], 4000, eager(), base=base)
+        legs[tag] += (peak_eager,)
+        del m
+        free_models()
+    check(torch.equal(legs["plain"][0], legs["remat"][0])
+          and same_bits(legs["plain"][1], legs["remat"][1]),
+          f"remat losses {legs['remat'][0].tolist()} or weights differ "
+          f"in bits from {legs['plain'][0].tolist()}")
+    for i, kind in ((2, "captured"), (3, "eager")):
+        for tag in ("remat", "ga2"):
+            check(legs[tag][i] < legs["plain"][i],
+                  f"{tag} peak memory ({kind}) {legs[tag][i]:.3f} GB not "
+                  f"below plain's {legs['plain'][i]:.3f}")
+    ga_rel = float(((legs["ga2"][0] - legs["plain"][0]).abs()
+                    / legs["plain"][0].abs()).max())
+    check(ga_rel <= BERT_GA_TOL, f"grad_accum_steps=2 losses "
+          f"{legs['ga2'][0].tolist()} vs {legs['plain'][0].tolist()}: "
+          f"{ga_rel:.3e} > {BERT_GA_TOL}")
+
+    report = {
+        "config": dict(BERT, batch=BERT_BATCH, compute="bfloat16",
+                       optimizer="adam"),
+        "parameters": n_params,
+        "fit_steps": len(losses_a), "fit_wall_s": fit_wall,
+        "step_p50_ms": p50 * 1e3,
+        "step_p99_ms": float(np.quantile(times, 0.99)) * 1e3,
+        "tokens_per_s": BERT_BATCH * BERT["seq_len"] / p50,
+        "mfu_vs_dense_bf16_peak": 3.0 * flops / p50 / bf16_peak,
+        "peak_memory_gb_fit": fit_peak,
+        "checkpoint_save_host_s": save_s,
+        "mask_draw_ms_one_layer": draw_ms,
+        "mask_kept_fraction": kept,
+        "mask_draw_share_of_step": layers * draw_ms / (p50 * 1e3),
+        "fit_launches": fit_launches,
+        "history": history,
+        "loss_first_step": losses_a[0], "loss_last_step": losses_a[-1],
+        "seed_losses": seed_losses,
+        "peak_memory_gb_captured": {k: v[2] for k, v in legs.items()},
+        "peak_memory_gb_eager": {k: v[3] for k, v in legs.items()},
+        "losses_4_steps": {k: v[0].tolist() for k, v in legs.items()},
+        "ga2_rel_loss_err": ga_rel,
+        "phase_wall_s": time.perf_counter() - t_phase}
+    return fit_launches, report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3936,6 +4289,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline-only", action="store_true",
                     help="only run phase 10, against phase 6's first "
                          "step taken alone")
+    ap.add_argument("--bert-only", action="store_true",
+                    help="only run phase 11, BERT-base through fit")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -3965,6 +4320,12 @@ def main(argv=None) -> int:
                                  calibration_out(run))
         return 0
 
+    if args.bert_only:
+        name = phase_device()
+        phase_build()
+        phase_bert_train(args.seed, name)
+        return 0
+
     if args.pipeline_only:
         name = phase_device()
         phase_build()
@@ -3986,6 +4347,7 @@ def main(argv=None) -> int:
     cal_launches, searched_launches = phase_searched_train(
         args.seed, name, first_loss, calibration_out(1))
     pipe_launches = phase_pipeline_train(args.seed, name, first_loss)
+    bert_launches, _ = phase_bert_train(args.seed, name)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -4041,6 +4403,7 @@ def main(argv=None) -> int:
             "launches_pipelined_per_rank": pipe_launches["pipelined"][
                 wrapper],
             "launches_placed_per_rank": pipe_launches["placed"][wrapper],
+            "launches_bert_fit": bert_launches[wrapper],
             "launches_calibration": cal_launches.get(wrapper, 0),
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],

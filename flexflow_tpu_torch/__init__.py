@@ -29,7 +29,16 @@ multi-rank steps stay eager.  Pipeline and inter-op placement:
 ``compile(pipeline=PipelineConfig(...))`` (GPipe over a ``pp`` axis of
 ranks), two-block ``start_part`` strategies and the search's pipeline,
 staged and placement proposals behind ``compile(strategy=None)``.
-Entry points run on the card unless the config says ``device="cpu"``.
+The training surface: ``build_bert`` (``models``), attention and op
+dropout, ``FFConfig(remat=True)`` and ``grad_accum_steps``, and ``fit``
+with keras-protocol callbacks, validation data or split,
+``recompile_state``, ``checkpoint_dir`` and ``resume``
+(``runtime/checkpoint.py``, ``runtime/recompile.py``,
+``FFModel.recompile``).  Entry points run on the card unless the config
+says ``device="cpu"``.
+
+The exports are the reference's ``_LAZY`` names that the port has
+(flexflow_tpu/__init__.py:22-53), loaded on first use.
 """
 
 from flexflow_tpu_torch.config import FFConfig
@@ -39,5 +48,46 @@ from flexflow_tpu_torch.metrics import MetricsType
 from flexflow_tpu_torch.model import FFModel
 from flexflow_tpu_torch.optimizers import AdamOptimizer, SGDOptimizer
 
+_LAZY = {
+    "OperatorType": ("flexflow_tpu_torch.core.optype", "OperatorType"),
+    "DataType": ("flexflow_tpu_torch.core.ptensor", "DataType"),
+    "ParallelDim": ("flexflow_tpu_torch.core.ptensor", "ParallelDim"),
+    "ParallelTensorShape": ("flexflow_tpu_torch.core.ptensor",
+                            "ParallelTensorShape"),
+    "Tensor": ("flexflow_tpu_torch.core.ptensor", "Tensor"),
+    "MachineSpec": ("flexflow_tpu_torch.core.machine", "MachineSpec"),
+    "Graph": ("flexflow_tpu_torch.core.graph", "Graph"),
+    "GlorotUniformInitializer": ("flexflow_tpu_torch.initializers",
+                                 "GlorotUniformInitializer"),
+    "ZeroInitializer": ("flexflow_tpu_torch.initializers",
+                        "ZeroInitializer"),
+    "ConstantInitializer": ("flexflow_tpu_torch.initializers",
+                            "ConstantInitializer"),
+    "NormInitializer": ("flexflow_tpu_torch.initializers",
+                        "NormInitializer"),
+    "CheckpointManager": ("flexflow_tpu_torch.runtime.checkpoint",
+                          "CheckpointManager"),
+    "RecompileState": ("flexflow_tpu_torch.runtime.recompile",
+                       "RecompileState"),
+    "measure_operator_cost": ("flexflow_tpu_torch.runtime.profiler",
+                              "measure_operator_cost"),
+    "RecursiveLogger": ("flexflow_tpu_torch.utils.logging",
+                        "RecursiveLogger"),
+    "OBS_BUS": ("flexflow_tpu_torch.obs.events", "BUS"),
+    "METRICS": ("flexflow_tpu_torch.obs.metrics", "METRICS"),
+    "DriftReport": ("flexflow_tpu_torch.obs.drift", "DriftReport"),
+}
+
 __all__ = ["AdamOptimizer", "FFConfig", "FFModel", "LossType",
-           "MachineView", "MetricsType", "SGDOptimizer"]
+           "MachineView", "MetricsType", "SGDOptimizer", *_LAZY]
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        value = getattr(importlib.import_module(module), attr)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

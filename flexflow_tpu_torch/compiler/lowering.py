@@ -9,6 +9,23 @@ without.  A training step is the reference's ``_raw_step``: the loss
 (plus any ``*/aux_loss`` state terms), gradients by autograd, the
 optimizer update (in place, see optimizers.py), then the metrics.
 
+Every training step takes a seed (a 0-d int64 tensor; ``train_steps``
+takes one per step, staged into the captured step like any input, so
+every replay draws new dropout masks: ops/base.py).  Under
+``config.remat`` each weighted op that carries no state runs inside
+``torch.utils.checkpoint`` (non-reentrant, without RNG state: its masks
+come from the seed, so the recompute draws the first pass's), as the
+reference wraps it in ``jax.checkpoint`` (lowering.py:266-279); its
+activations are recomputed in the backward.  Under
+``config.grad_accum_steps`` ga > 1 a step is the reference's
+``_raw_step_accum`` (lowering.py:613-693): this rank's batch runs as
+ga microbatches of consecutive rows, each one forward and backward
+(the model state threaded through them), the gradients summed and
+divided by ga, synced once, one optimizer update; the loss is the mean
+of the microbatch losses and the metrics are sums.  A microbatch's
+``row_base`` places its rows in the batch, so its masks are its rows
+of the one-microbatch step's.
+
 ``train_steps`` runs N steps over ``[N, B, ...]`` stacks as ONE
 captured CUDA graph (compiler/graphs.py): the reference's jitted
 ``lax.scan`` (lowering.py:697-731).  Step i reads slice i of the static
@@ -75,6 +92,7 @@ under a split (model.py).
 
 from __future__ import annotations
 
+import copy
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -133,6 +151,23 @@ def refuse_unlowered(what: str, item: str) -> None:
     raise NotImplementedError(
         f"{what} is not lowered by the port yet ({item}); the port syncs "
         f"fp32 gradients in one all-reduce per set of axes")
+
+
+def step_seeds(seeds, n: int, graph: Graph) -> torch.Tensor:
+    """``n`` int64 step seeds as a tensor: ``seeds`` (a tensor, array or
+    sequence), or zeros when None and no op of ``graph`` draws dropout
+    masks (with dropout, the same seed every step would draw the same
+    masks every step, so None raises)."""
+    if seeds is None:
+        drawing = [node.op.name for node in graph.nodes.values()
+                   if node.op.draws_dropout()]
+        if drawing:
+            raise ValueError(
+                f"{drawing[0]} draws dropout masks in training: give each "
+                f"step its own seed (train_step(seed=...), "
+                f"train_steps(seeds=...)) so each draws new masks")
+        return torch.zeros(n, dtype=torch.int64)
+    return torch.as_tensor(seeds, dtype=torch.int64).reshape(n)
 
 
 def data_parallel_strategy(graph: Graph, degree: int
@@ -234,11 +269,6 @@ class CompiledModel:
         # one process captures its steps; several run them eagerly
         self.capture = world == 1 and mesh is None
         self._layouts()
-        if self._loss_blocks > 1 and self.loss_type not in _MEAN_LOSSES:
-            raise NotImplementedError(
-                f"loss {self.loss_type.value} with the sink split over "
-                f"ranks: the port takes losses that are means over "
-                f"positions (ROADMAP Queue A item 3)")
 
     # ---- layouts ---------------------------------------------------------
     def _layouts(self):
@@ -274,6 +304,16 @@ class CompiledModel:
         self._loss_pl = Placement(tuple(
             axes if d < keep else () for d, axes in enumerate(sink.dims)))
         self._loss_blocks = self.mesh.size(self._loss_pl.split_axes())
+        # a rank's share of the job's loss is its block's loss over this
+        # many blocks: every block for the means over positions, the
+        # batch blocks for the per-sample sums averaged over the batch,
+        # none for the sum
+        if self.loss_type in _MEAN_LOSSES:
+            self._loss_div = self._loss_blocks
+        elif self.loss_type is LossType.MEAN_SQUARED_ERROR_AVG_REDUCE:
+            self._loss_div = self.mesh.size(self._loss_pl.dims[0])
+        else:
+            self._loss_div = 1
 
     def _in_order(self, axes) -> Tuple[str, ...]:
         return tuple(a for a in self.mesh.names if a in axes)
@@ -363,19 +403,22 @@ class CompiledModel:
 
     # ---- forward ---------------------------------------------------------
     def apply(self, params, state, inputs: Sequence[torch.Tensor],
-              train: bool = False
+              train: bool = False, seed: Optional[torch.Tensor] = None,
+              row_base: int = 0
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward through the graph; returns (sink output, new state).
         ``inputs`` bind in frontend tensor-guid order (under a strategy:
         this rank's blocks, ``input_slices``; the sink's output is then
         this rank's block, laid out as the sink's annotation says).
-        Autograd records the pass only when ``train`` is set."""
+        Autograd records the pass only when ``train`` is set; ``seed``
+        and ``row_base`` key its dropout masks (``LoweringContext``)."""
         values, places, new_state = self.forward_values(
-            params, state, inputs, train)
+            params, state, inputs, train, seed, row_base)
         self._sink_pl = places[(self._sink.guid, 0)]
         return values[(self._sink.guid, 0)], new_state
 
-    def forward_values(self, params, state, inputs, train=False):
+    def forward_values(self, params, state, inputs, train=False, seed=None,
+                       row_base: int = 0):
         """The forward pass: (every value by (guid, output index), its
         layout, the new state)."""
         if len(inputs) != len(self._input_nodes):
@@ -383,7 +426,7 @@ class CompiledModel:
                              f"got {len(inputs)}")
         ctx = LoweringContext(compute_dtype=self.compute_dtype, train=train,
                               state_in=state, device=self.device,
-                              mesh=self.mesh)
+                              mesh=self.mesh, seed=seed, row_base=row_base)
         values: Dict[Tuple[int, int], torch.Tensor] = {}
         places: Dict[Tuple[int, int], Placement] = {}
         resharded: Dict[tuple, torch.Tensor] = {}
@@ -443,10 +486,43 @@ class CompiledModel:
         ctx.out_placements = list(self._out_pl[guid])
         outs = node.op.forward_sharded(ctx, ins, ws, osh)
         if outs is None:
-            outs = node.op.forward(ctx, ins, ws)
+            if (self.config.remat and torch.is_grad_enabled()
+                    and node.op._weight_specs
+                    and getattr(node.op, "state_specs", None) is None):
+                outs = self._remat(node.op, ctx, ins, ws)
+            else:
+                outs = node.op.forward(ctx, ins, ws)
         for i in range(len(outs)):
             places[(guid, i)] = ctx.out_placements[i]
         return outs
+
+    @staticmethod
+    def _remat(op, ctx, ins, ws):
+        """``op.forward`` under ``torch.utils.checkpoint``: its saved
+        activations are dropped and recomputed in the backward.  Each
+        run takes a fresh copy of the node's context as it is now, so
+        the recompute sees this node's layouts and seed, not those of
+        the node the forward pass has moved on to."""
+        from torch.utils.checkpoint import checkpoint
+
+        base = copy.copy(ctx)
+        in_pl, out_pl = list(ctx.in_placements), list(ctx.out_placements)
+        names = list(ws)
+        n_in = len(ins)
+        got = {}
+
+        def run(*flat):
+            c = copy.copy(base)
+            c.in_placements, c.out_placements = list(in_pl), list(out_pl)
+            outs = op.forward(c, list(flat[:n_in]),
+                              dict(zip(names, flat[n_in:])))
+            got["placements"] = c.out_placements
+            return tuple(outs)
+
+        outs = checkpoint(run, *ins, *(ws[n] for n in names),
+                          use_reentrant=False, preserve_rng_state=False)
+        ctx.out_placements = got["placements"]
+        return list(outs)
 
     # ---- training --------------------------------------------------------
     def _loss_from(self, logits, labels, new_state):
@@ -457,7 +533,7 @@ class CompiledModel:
         for k, v in new_state.items():
             if k.endswith("/aux_loss"):
                 loss = loss + v
-        return loss_share(loss, self._loss_blocks), logits
+        return loss_share(loss, self._loss_div), logits
 
     def _job_loss(self, loss: torch.Tensor) -> torch.Tensor:
         return job_loss(loss, self._loss_pl.split_axes(), self.mesh)
@@ -486,12 +562,14 @@ class CompiledModel:
             for g, part in zip(gs, flat.split([g.numel() for g in gs])):
                 g.copy_(part.view_as(g))
 
-    def loss_and_grads(self, params, state, inputs, labels):
+    def loss_and_grads(self, params, state, inputs, labels, seed=None,
+                       row_base: int = 0, sync: bool = True):
         """One training forward and backward without an update: (loss,
         logits, new state, grads keyed like params).  A weight the
         forward does not reach gets a zero gradient.  Under a strategy
         the loss is the job's, the gradients are this rank's blocks of
-        the job's, and the logits are this rank's block.  The gradients
+        the job's (unsynced without ``sync``), and the logits are this
+        rank's block.  The gradients
         are taken with respect to fresh leaves that share the weights'
         storage, so no autograd node outlives the call: a node kept from
         an earlier call would carry that call's stream into a capture."""
@@ -500,7 +578,8 @@ class CompiledModel:
         live: Dict[str, Dict[str, torch.Tensor]] = {}
         for op, w, t in leaves:
             live.setdefault(op, {})[w] = t
-        logits, new_state = self.apply(live, state, inputs, train=True)
+        logits, new_state = self.apply(live, state, inputs, train=True,
+                                       seed=seed, row_base=row_base)
         loss, logits = self._loss_from(logits, labels, new_state)
         gs = torch.autograd.grad(loss, [t for _, _, t in leaves],
                                  allow_unused=True)
@@ -508,50 +587,89 @@ class CompiledModel:
         for (op, w, t), g in zip(leaves, gs):
             grads.setdefault(op, {})[w] = (torch.zeros_like(t) if g is None
                                            else g)
-        self._sync_grads(grads)
+        if sync:
+            self._sync_grads(grads)
         return (self._job_loss(loss.detach()), logits.detach(), new_state,
                 grads)
 
+    def _step(self, params, opt_state, state, inputs, labels, seed):
+        """One optimizer step (``ga`` microbatches under
+        ``grad_accum_steps``): (the job's loss, its metric sums)."""
+        ga = self.config.grad_accum_steps
+        rows = labels.shape[0]
+        if rows % ga:
+            raise ValueError(f"this rank's batch of {rows} must divide by "
+                             f"grad_accum_steps {ga}")
+        per = rows // ga
+        gsum, losses, local = None, [], None
+        cur = state
+        for j in range(ga):
+            sl = slice(j * per, (j + 1) * per)
+            lab = labels[sl] if ga > 1 else labels
+            loss, logits, cur, grads = self.loss_and_grads(
+                params, cur, [x[sl] if ga > 1 else x for x in inputs], lab,
+                seed=seed, row_base=j * per, sync=False)
+            m = compute_metrics(self.metric_types, self.loss_type, logits,
+                                lab)
+            losses.append(loss)
+            if gsum is None:
+                gsum, local = grads, m
+                continue
+            for op, gs in grads.items():
+                for w, g in gs.items():
+                    gsum[op][w].add_(g)
+            local = {k: local[k] + v for k, v in m.items()}
+        if ga > 1:
+            for gs in gsum.values():
+                for g in gs.values():
+                    g.div_(ga)
+        self._sync_grads(gsum)
+        self.optimizer.apply(params, gsum, opt_state)
+        with torch.no_grad():
+            for k, v in cur.items():
+                if v is not state[k]:
+                    state[k].copy_(v)
+        loss = losses[0] if ga == 1 else torch.stack(losses).mean()
+        return loss, self._job_metrics(local)
+
     def _steps(self, params, opt_state, state, inputs_stacked,
-               labels_stacked):
+               labels_stacked, seeds):
         """``labels_stacked.shape[0]`` optimizer steps in order, step i
-        on slice i of the stacks; returns (losses [N], metrics stacked
-        over N)."""
+        on slice i of the stacks with seed ``seeds[i]``; returns (losses
+        [N], metrics stacked over N)."""
         losses, ms = [], []
         for i in range(labels_stacked.shape[0]):
-            labels = labels_stacked[i]
-            loss, logits, new_state, grads = self.loss_and_grads(
-                params, state, [x[i] for x in inputs_stacked], labels)
-            self.optimizer.apply(params, grads, opt_state)
-            m = self._job_metrics(compute_metrics(
-                self.metric_types, self.loss_type, logits, labels))
-            with torch.no_grad():
-                for k, v in new_state.items():
-                    if v is not state[k]:
-                        state[k].copy_(v)
+            loss, m = self._step(params, opt_state, state,
+                                 [x[i] for x in inputs_stacked],
+                                 labels_stacked[i], seeds[i])
             losses.append(loss)
             ms.append(m)
         return (torch.stack(losses),
                 {k: torch.stack([m[k] for m in ms]) for k in ms[0]})
 
     def train_steps(self, params, opt_state, state, inputs_stacked,
-                    labels_stacked):
+                    labels_stacked, seeds=None):
         """N optimizer steps in one call (reference ``train_steps``):
         ``inputs_stacked`` a list of [N, B, ...] tensors or arrays,
-        ``labels_stacked`` [N, B, ...].  Returns (params, opt_state,
-        state, losses [N], metrics stacked over N); the first three are
-        the same objects, updated in place, and the last two are the
-        compiled step's static buffers (see the module docstring).
-        Nothing here waits for the device."""
+        ``labels_stacked`` [N, B, ...], ``seeds`` N int64 step seeds
+        (``step_seeds``: needed when the graph draws dropout masks).
+        Returns (params, opt_state, state, losses [N], metrics stacked
+        over N); the first three are the same objects,
+        updated in place, and the last two are the compiled step's
+        static buffers (see the module docstring).  Nothing here waits
+        for the device."""
         if self.optimizer is None:
             raise RuntimeError("train_step needs a model compiled with "
                                "comp_mode='training'")
-        arrays = [*inputs_stacked, labels_stacked]
+        arrays = [*inputs_stacked, labels_stacked,
+                  step_seeds(seeds, labels_stacked.shape[0], self.graph)]
 
         def steps(*xs):
-            return self._steps(params, opt_state, state, xs[:-1], xs[-1])
+            return self._steps(params, opt_state, state, xs[:-2], xs[-2],
+                               xs[-1])
 
         if not self.capture:
+            arrays[-1] = arrays[-1].to(self.device)
             losses, m = steps(*arrays)
         else:
             losses, m = self.step_graph(
@@ -561,13 +679,14 @@ class CompiledModel:
                        if isinstance(t, torch.Tensor)])
         return params, opt_state, state, losses, m
 
-    def train_step(self, params, opt_state, state, inputs, labels):
+    def train_step(self, params, opt_state, state, inputs, labels,
+                   seed: Optional[int] = None):
         """One optimizer step, ``train_steps`` with N = 1: returns
         (params, opt_state, state, loss, metrics); the loss and metrics
         are views of the static buffers the next step overwrites."""
         params, opt_state, state, losses, m = self.train_steps(
             params, opt_state, state, [x[None] for x in inputs],
-            labels[None])
+            labels[None], None if seed is None else [seed])
         return (params, opt_state, state, losses[0],
                 {k: v[0] for k, v in m.items()})
 

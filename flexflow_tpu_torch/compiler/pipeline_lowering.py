@@ -288,9 +288,12 @@ class PipelinedCompiledModel(CompiledModel):
             p: Dict[str, Dict[str, torch.Tensor]] = {}
             for (op, w), t in zip(keys, ts):
                 p.setdefault(op, {})[w] = t
+            # microbatch m holds rows [m * rows, (m + 1) * rows) of this
+            # pass's block: its dropout masks are those rows'
             sctx = LoweringContext(compute_dtype=ctx.compute_dtype,
                                    train=ctx.train, device=ctx.device,
-                                   mesh=self.mesh)
+                                   mesh=self.mesh, seed=ctx.seed,
+                                   row_base=ctx.row_base + m * x.shape[0])
             values = {first: x}
             places = {first: pl}
             resharded: Dict[tuple, torch.Tensor] = {}

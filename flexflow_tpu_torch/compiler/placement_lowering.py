@@ -42,7 +42,7 @@ in one call.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -407,7 +407,7 @@ class SegmentedModel:
         return x[m * per:(m + 1) * per]
 
     def _run(self, params, state, inputs, labels, train: bool,
-             want_output: bool = False):
+             want_output: bool = False, seed=None):
         """One pass over the microbatches: (this rank's gradients or
         None, the job's loss and metric sums (without ``labels``: none),
         the whole output on the last segment's ranks or None)."""
@@ -438,8 +438,10 @@ class SegmentedModel:
                 bounds = [self._recv_boundary(k, m).requires_grad_(train)
                           for k in me.in_keys]
                 real = [self._micro(x, m) for x in seg_inputs]
+                rows = (real + bounds)[0].shape[0] if real + bounds else 0
                 values, places, _ = me.comp.forward_values(
-                    live, state, bounds + real, train)
+                    live, state, bounds + real, train, seed=seed,
+                    row_base=m * rows)
                 kept = []
                 for k in me.out_keys:
                     self._send_boundary(sends, k, values[k], places[k], m,
@@ -510,14 +512,18 @@ class SegmentedModel:
 
     # ---- the compiled model's surface ----------------------------------------
     def train_steps(self, params, opt_state, state, inputs_stacked,
-                    labels_stacked):
+                    labels_stacked, seeds=None):
         """``CompiledModel.train_steps``: N steps in order, each one
         training step of the segments (module docstring)."""
+        from flexflow_tpu_torch.compiler.lowering import step_seeds
+
+        n = labels_stacked.shape[0]
+        seeds = step_seeds(seeds, n, self.graph).to(self.device)
         losses, ms = [], []
-        for i in range(labels_stacked.shape[0]):
+        for i in range(n):
             grads, loss, m, _ = self._run(
                 params, state, [x[i] for x in inputs_stacked],
-                labels_stacked[i], train=True)
+                labels_stacked[i], train=True, seed=seeds[i])
             if params:
                 self.optimizer.apply(params, grads, opt_state)
             loss, m = self._publish(loss, m)
@@ -526,10 +532,11 @@ class SegmentedModel:
         return (params, opt_state, state, torch.stack(losses),
                 {k: torch.stack([m[k] for m in ms]) for k in ms[0]})
 
-    def train_step(self, params, opt_state, state, inputs, labels):
+    def train_step(self, params, opt_state, state, inputs, labels,
+                   seed: Optional[int] = None):
         params, opt_state, state, losses, m = self.train_steps(
             params, opt_state, state, [x[None] for x in inputs],
-            labels[None])
+            labels[None], None if seed is None else [seed])
         return (params, opt_state, state, losses[0],
                 {k: v[0] for k, v in m.items()})
 

@@ -36,9 +36,15 @@ the strategy files ``export_strategy_file`` and
 ``import_strategy_file``.  ``compile(strategy=None)`` reads them
 (model.py).
 
-Flags of the reference that the port does not run yet (``remat``,
-``grad_accum_steps``, ``kv_precision="search"``) raise when set away
-from their defaults; they are never silently ignored.
+``remat`` and ``grad_accum_steps`` are the reference's two memory
+levers (config.py:258-266, lowering.py:266-279 and :613-693): every
+weighted op that mutates no state recomputes its activations in the
+backward, and each optimizer step runs its batch as that many
+microbatches (the batch must divide by it; checked at the step).
+
+A flag of the reference that the port does not run yet
+(``kv_precision="search"``) raises when set; it is never silently
+ignored.
 """
 
 from __future__ import annotations
@@ -181,15 +187,9 @@ class FFConfig:
                 MachineSpec.from_file(self.machine_model_file)
                 if self.machine_model_file
                 else MachineSpec.h100_sxm(self.num_devices))
-        for flag, default, what in (
-                ("remat", False, "activation rematerialisation"),
-                ("grad_accum_steps", 1, "gradient accumulation")):
-            if getattr(self, flag) != default:
-                raise NotImplementedError(
-                    f"{flag}={getattr(self, flag)!r}: {what} is not ported "
-                    f"yet (ROADMAP Queue A item 3); the port runs one "
-                    f"optimizer step per batch with every activation "
-                    f"saved")
+        if int(self.grad_accum_steps) < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got "
+                             f"{self.grad_accum_steps}")
 
     @property
     def search_devices(self) -> int:

@@ -55,9 +55,12 @@ over all Sk keys and zero q/k gradients; in the partials (the XLA twin
 (The Pallas kernel's value on such rows depends on its block size.)
 
 Also here, as in the reference module, is the attention math the MHA op
-takes below the flash threshold: ``attn_logits_probs`` and the
-compact-residual ``attn_core`` (reference ``_attn_logits_probs``,
-``_attn_core`` and its custom VJP), and ``_pick_block``.
+takes below the flash threshold or with dropout in training:
+``attn_logits_probs``, the compact-residual ``attn_core`` and
+``attn_core_dropout`` (reference ``_attn_logits_probs``, ``_attn_core``,
+``_attn_core_dropout`` and their custom VJPs; the reference computes
+dropout attention in einsums outside any Pallas kernel, so the port's
+uses ``torch.bmm`` with fp32 accumulation) and ``_pick_block``.
 """
 
 from __future__ import annotations
@@ -472,6 +475,80 @@ class AttnCore(torch.autograd.Function):
 def attn_core(q, k, v, causal: bool, scale: float):
     """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D] in q's dtype."""
     return AttnCore.apply(q, k, v, bool(causal), float(scale))
+
+
+def _bmm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [N, M, K] @ b [N, K, P] -> float32, products of the operands'
+    dtype accumulated in fp32 (the reference's
+    ``preferred_element_type=jnp.float32``; bf16 on the card's tensor
+    cores through ``out_dtype``)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> [B*H, S, D]."""
+    b, s, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+def _heads_back(y: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """[B*H, S, D] -> [B, S, H, D]."""
+    return y.view(b, h, *y.shape[1:]).permute(0, 2, 1, 3)
+
+
+class AttnCoreDropout(torch.autograd.Function):
+    """Attention with post-softmax dropout and the reference's compact
+    residuals (``_attn_core_dropout``, flash_attention.py:429-464):
+    saves q, k, v, the probabilities rounded to q's dtype BEFORE the
+    keep-scaling, and the bool mask.  Every product multiplies operands
+    of q's dtype and accumulates in fp32 (``_bmm32``); the logits come
+    from ``attn_logits_probs``.  The backward is the reference's: the
+    where-VJP of the dropout, then the softmax VJP from the saved
+    probabilities, zero logit gradients on rows with no live key."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal: bool, scale: float,
+                keep: float):
+        b, sq, h, _ = q.shape
+        probs = attn_logits_probs(q, k, causal, scale).to(q.dtype)
+        dropped = torch.where(mask, probs.float() / keep, 0.0).to(q.dtype)
+        out = _bmm32(dropped.view(b * h, sq, -1), _heads_first(v))
+        ctx.save_for_backward(q, k, v, probs, mask)
+        ctx.causal, ctx.scale, ctx.keep = causal, scale, keep
+        return _heads_back(out, b, h).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, p, mask = ctx.saved_tensors
+        b, sq, h, _ = q.shape
+        sk = k.shape[1]
+        pf = p.float()
+        dropped = torch.where(mask, pf / ctx.keep, 0.0).to(q.dtype)
+        gh = _heads_first(g.to(q.dtype))
+        gv = _bmm32(dropped.view(b * h, sq, sk).transpose(1, 2), gh)
+        g_dropped = _bmm32(gh, _heads_first(v).transpose(1, 2)).view(
+            b, h, sq, sk)
+        gp = torch.where(mask, g_dropped / ctx.keep, 0.0)
+        gs = pf * (gp - (pf * gp).sum(dim=-1, keepdim=True)) * ctx.scale
+        if ctx.causal:
+            gs = gs.masked_fill(_dead_rows(sq, sk, gs.device)[:, None], 0.0)
+        gs = gs.to(q.dtype).view(b * h, sq, sk)
+        gq = _bmm32(gs, _heads_first(k))
+        gk = _bmm32(gs.transpose(1, 2), _heads_first(q))
+        return (_heads_back(gq, b, h).to(q.dtype),
+                _heads_back(gk, b, h).to(k.dtype),
+                _heads_back(gv, b, h).to(v.dtype), None, None, None, None)
+
+
+def attn_core_dropout(q, k, v, mask, causal: bool, scale: float,
+                      keep: float):
+    """q [B, Sq, H, D], k/v [B, Sk, H, D], mask bool [B, H, Sq, Sk] ->
+    [B, Sq, H, D] in q's dtype: softmax(q k^T * scale) with the kept
+    probabilities divided by ``keep`` and the rest zeroed, times v."""
+    return AttnCoreDropout.apply(q, k, v, mask, bool(causal), float(scale),
+                                 float(keep))
 
 
 def _pick_block(size: int, want: int):

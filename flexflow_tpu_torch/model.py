@@ -2,9 +2,12 @@
 
 The builder methods the decode and transformer graphs call
 (``create_tensor``, ``create_constant``, ``embedding``, ``reshape``,
-``add``, ``layer_norm``, ``dense``, ``multihead_attention``,
-``decode_attention``, and the parallel ops ``repartition``,
-``combine``, ``replicate``, ``reduction``) build a lazy graph;
+``layer_norm``, ``dense``, ``multihead_attention``, ``batch_matmul``,
+``dropout``, ``softmax``, ``mean``, ``top_k``, ``gather``, the
+reference's elementwise verbs (``relu`` ... ``scalar_true_divide``,
+``add`` ... ``min``), ``decode_attention``, and the parallel ops
+``repartition``, ``combine``, ``replicate``, ``reduction``) build a
+lazy graph;
 ``compile`` binds it to the config's device, with a strategy (guid ->
 ``MachineView``) to this rank's shards of every tensor
 (compiler/lowering.py), and initialises ``params`` (this rank's
@@ -15,7 +18,11 @@ as the reference's strategy search does for one pinned candidate),
 so the state holds that pool dtype.  ``fit``, ``evaluate`` and
 ``predict`` run over numpy data; under a strategy every rank runs them
 on its blocks, the losses and metrics are the job's, and ``predict``
-returns the whole output on every rank.
+returns the whole output on every rank.  ``fit`` also takes the
+reference's callbacks, ``recompile_state``, validation data or split,
+``checkpoint_dir`` and ``resume`` (``runtime/checkpoint.py``), and
+``recompile()`` re-lowers the graph as it was lowered, carrying the
+training state over.
 
 ``compile(strategy=None)`` chooses the strategy as the reference's
 does (model.py:539, 816-850): ``config.only_data_parallel`` gives
@@ -123,6 +130,57 @@ def _check_searched_graph(graph) -> None:
             f"strategy or set only_data_parallel=True")
 
 
+def _merge_matching(new, old):
+    """``new``'s structure, with ``old``'s tensors at the key paths
+    present in both with equal shapes and dtypes (reference
+    model.py:37-47)."""
+    if isinstance(new, dict) and isinstance(old, dict):
+        return {k: _merge_matching(v, old[k]) if k in old else v
+                for k, v in new.items()}
+    if (isinstance(new, torch.Tensor) and isinstance(old, torch.Tensor)
+            and new.shape == old.shape and new.dtype == old.dtype):
+        return old
+    return new
+
+
+def _split_validation(x, y, fraction: float, validation_data):
+    """(train x, train y, validation data): the last ``fraction`` of the
+    samples, before any shuffle, by keras's formula (reference
+    model.py:1830-1856)."""
+    if validation_data is not None:
+        raise ValueError(
+            "pass either validation_data or validation_split, not both")
+    if not 0.0 < fraction < 1.0:
+        raise ValueError(f"validation_split={fraction} not in (0, 1)")
+    many = isinstance(x, (list, tuple))
+    xs = [np.asarray(a) for a in (x if many else [x])]
+    y = np.asarray(y)
+    n = len(y)
+    cut = int(n * (1.0 - fraction))  # keras's formula
+    if cut == n or cut == 0:
+        raise ValueError(f"validation_split={fraction} of {n} samples "
+                         f"leaves an empty train or validation set")
+    val = ([a[cut:] for a in xs] if many else xs[0][cut:], y[cut:])
+    return ([a[:cut] for a in xs] if many else xs[0][:cut]), y[:cut], val
+
+
+def _check_validation(validation_data, batch_size: int) -> None:
+    """The reference's checks, before training (model.py:1858-1878)."""
+    if not isinstance(validation_data, (tuple, list)) or len(
+            validation_data) != 2:
+        raise ValueError("validation_data must be an (x, y) pair "
+                         "(sample weights are not supported)")
+    n = len(np.asarray(validation_data[1]))
+    if n < batch_size:
+        raise ValueError(
+            f"validation set ({n} samples) is smaller than batch_size "
+            f"({batch_size}) — evaluate() runs full batches only, so no "
+            f"validation metric could ever be computed")
+    if n % batch_size:
+        print(f"# warning: validation tail of {n % batch_size} samples "
+              f"(< batch_size {batch_size}) is dropped each epoch")
+
+
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
@@ -141,6 +199,8 @@ class FFModel:
         self.strategy = None
         self.pipeline_proposal = None
         self.search_stats: Dict = {}
+        self._rng_counter = 0  # the step seed: +1 per optimizer step
+        self._compile_ctx = None
 
     def _fresh_name(self, base: str, name: Optional[str]) -> str:
         if name:
@@ -272,11 +332,122 @@ class FFModel:
                         [self._shape_of(t) for t in tensors], axis=axis)
         return self._add_op(op, list(tensors))[0]
 
-    def add(self, a: Tensor, b: Tensor, name=None) -> Tensor:
-        op = O.ElementBinaryOp(self._fresh_name("ew_add", name),
+    def batch_matmul(self, A: Tensor, B: Tensor, a_seq_length_dim: int = -1,
+                     b_seq_length_dim: int = -1, name=None) -> Tensor:
+        op = O.BatchMatmulOp(self._fresh_name("bmm", name),
+                             [self._shape_of(A), self._shape_of(B)],
+                             a_seq_length_dim=a_seq_length_dim,
+                             b_seq_length_dim=b_seq_length_dim)
+        return self._add_op(op, [A, B])[0]
+
+    def dropout(self, input: Tensor, rate: float = 0.5, seed: int = 0,
+                name=None) -> Tensor:
+        op = O.DropoutOp(self._fresh_name("dropout", name),
+                         [self._shape_of(input)], rate=rate, seed=seed)
+        return self._add_op(op, [input])[0]
+
+    def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
+        op = O.SoftmaxOp(self._fresh_name("softmax", name),
+                         [self._shape_of(input)], axis=axis)
+        return self._add_op(op, [input])[0]
+
+    def mean(self, input: Tensor, dims: Sequence[int], keepdims: bool = False,
+             name=None) -> Tensor:
+        op = O.MeanOp(self._fresh_name("mean", name), [self._shape_of(input)],
+                      dims=tuple(dims), keepdims=keepdims)
+        return self._add_op(op, [input])[0]
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = True,
+              name=None) -> Tuple[Tensor, Tensor]:
+        op = O.TopKOp(self._fresh_name("topk", name), [self._shape_of(input)],
+                      k=k, sorted=sorted)
+        outs = self._add_op(op, [input])
+        return outs[0], outs[1]
+
+    def gather(self, input: Tensor, indices: Tensor, axis: int = 0,
+               name=None) -> Tensor:
+        op = O.GatherOp(self._fresh_name("gather", name),
+                        [self._shape_of(input), self._shape_of(indices)],
+                        axis=axis)
+        return self._add_op(op, [input, indices])[0]
+
+    # elementwise (the reference's names, model.py:377-451)
+    def _unary(self, t: OperatorType, input: Tensor, name=None, scalar=0.0,
+               approximate=True):
+        op = O.ElementUnaryOp(self._fresh_name(t.value, name),
+                              [self._shape_of(input)], unary_type=t,
+                              scalar=scalar, approximate=approximate)
+        return self._add_op(op, [input])[0]
+
+    def _binary(self, t: OperatorType, a: Tensor, b: Tensor, name=None):
+        op = O.ElementBinaryOp(self._fresh_name(t.value, name),
                                [self._shape_of(a), self._shape_of(b)],
-                               binary_type=OperatorType.EW_ADD)
+                               binary_type=t)
         return self._add_op(op, [a, b])[0]
+
+    def relu(self, x, name=None):
+        return self._unary(OperatorType.RELU, x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary(OperatorType.SIGMOID, x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary(OperatorType.TANH, x, name)
+
+    def elu(self, x, name=None):
+        return self._unary(OperatorType.ELU, x, name)
+
+    def gelu(self, x, name=None, approximate=True):
+        """tanh-approximate by default; ``approximate=False`` for the
+        exact erf form."""
+        return self._unary(OperatorType.GELU, x, name,
+                           approximate=approximate)
+
+    def exp(self, x, name=None):
+        return self._unary(OperatorType.EXP, x, name)
+
+    def log(self, x, name=None):
+        return self._unary(OperatorType.LOG, x, name)
+
+    def identity(self, x, name=None):
+        return self._unary(OperatorType.IDENTITY, x, name)
+
+    def rsqrt(self, x, name=None):
+        return self._unary(OperatorType.RSQRT, x, name)
+
+    def pow(self, x, exponent: float, name=None):
+        return self._unary(OperatorType.POW, x, name, scalar=exponent)
+
+    def scalar_add(self, x, scalar: float, name=None):
+        return self._unary(OperatorType.SCALAR_ADD, x, name, scalar=scalar)
+
+    def scalar_sub(self, x, scalar: float, name=None):
+        return self._unary(OperatorType.SCALAR_SUB, x, name, scalar=scalar)
+
+    def scalar_multiply(self, x, scalar: float, name=None):
+        return self._unary(OperatorType.SCALAR_MUL, x, name, scalar=scalar)
+
+    def scalar_true_divide(self, x, scalar: float, name=None):
+        return self._unary(OperatorType.SCALAR_TRUE_DIV, x, name,
+                           scalar=scalar)
+
+    def add(self, a, b, name=None):
+        return self._binary(OperatorType.EW_ADD, a, b, name)
+
+    def subtract(self, a, b, name=None):
+        return self._binary(OperatorType.EW_SUB, a, b, name)
+
+    def multiply(self, a, b, name=None):
+        return self._binary(OperatorType.EW_MUL, a, b, name)
+
+    def divide(self, a, b, name=None):
+        return self._binary(OperatorType.EW_DIV, a, b, name)
+
+    def max(self, a, b, name=None):
+        return self._binary(OperatorType.EW_MAX, a, b, name)
+
+    def min(self, a, b, name=None):
+        return self._binary(OperatorType.EW_MIN, a, b, name)
 
     # parallel ops (parallel/parallel_ops.py), placed by hand in a
     # strategy's graph
@@ -366,9 +537,13 @@ class FFModel:
         self.strategy = strategy
         if comp_mode == "inference":
             _adopt_kv_dtype(self.graph, self.config.kv_precision)
+        self._compile_ctx = dict(
+            strategy=strategy, pipeline=pipeline, block_of=block_of,
+            loss_type=loss_type,
+            metrics=metrics if comp_mode == "training" else ())
         self.compiled = self._lower(
             strategy, pipeline, block_of, loss_type,
-            metrics if comp_mode == "training" else (),
+            self._compile_ctx["metrics"],
             self.optimizer if comp_mode == "training" else None)
         if comp_mode == "inference" and self.compiled.mesh.world > 1:
             raise NotImplementedError(
@@ -378,6 +553,30 @@ class FFModel:
         self.params, self.state = self.compiled.init_params(self.config.seed)
         self.opt_state = (self.optimizer.init_state(self.params)
                           if comp_mode == "training" else None)
+
+    def recompile(self):
+        """Re-lower the (possibly altered) graph as it was lowered
+        (flat, pipelined, placed or staged: ``_lower`` with the last
+        compile's strategy and options), carrying params, model state
+        and optimizer slots over by name and shape (reference model.py:
+        1534-1600); a weight whose shape an alteration changed keeps its
+        fresh initialisation."""
+        if self._compile_ctx is None:
+            raise RuntimeError("call compile() first")
+        ctx = self._compile_ctx
+        training = self.config.comp_mode == "training"
+        self.compiled = self._lower(
+            ctx["strategy"], ctx["pipeline"], ctx["block_of"],
+            ctx["loss_type"], ctx["metrics"],
+            self.optimizer if training else None)
+        old = (self.params, self.state, self.opt_state)
+        self.params, self.state = self.compiled.init_params(self.config.seed)
+        self.params = _merge_matching(self.params, old[0] or {})
+        self.state = _merge_matching(self.state, old[1] or {})
+        if training:
+            self.opt_state = _merge_matching(
+                self.optimizer.init_state(self.params), old[2] or {})
+        return self.compiled
 
     def _choose_strategy(self, comp_mode: str, pipeline):
         """(views, pipeline) for ``compile(strategy=None)`` (module
@@ -783,66 +982,96 @@ class FFModel:
             validation_split: float = 0.0,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
             resume: bool = False):
-        """The training loop (reference ``FFModel.fit``, the subset of
-        one device): batches from ``SingleDataLoader`` (the reference's
+        """The training loop (reference ``FFModel.fit``, model.py:
+        1790-2100): batches from ``SingleDataLoader`` (the reference's
         seeded shuffle), one training step each, metrics summed on the
         device and read once per epoch.  With ``config.trace_steps`` n >
-        1, a job of one process and at least n batches, the batches go
-        n at a time through ``train_steps`` (one graph replay for n
-        steps) and the rest one by one, as the reference's
-        ``iter_traced`` loop does (model.py:1935-1990).  Returns the
-        history, one dict per epoch with the metrics' report and the
-        epoch's last loss.  Sets ``last_throughput`` (samples/s after
-        the first call, which is fenced and left off the clock with the
-        step's capture, as the reference leaves its compile) and
-        ``step_losses`` (every step's loss, read after the loop).  Under
-        a strategy every rank runs this loop on its blocks of the
-        batches: the samples are the job's, the losses and metrics the
-        job's, and only rank 0 prints.
+        1, a job of one process, no ``recompile_state`` and at least n
+        batches, the batches go n at a time through ``train_steps`` (one
+        graph replay for n steps) and the rest one by one, as the
+        reference's ``iter_traced`` loop does.  Every optimizer step
+        advances ``_rng_counter`` by one and takes it as its seed, so a
+        traced run draws the masks of a stepwise one.
 
-        Not ported yet, and raising when asked for (ROADMAP Queue A item
-        3): callbacks, recompile_state, validation data or split,
-        checkpoints and resume."""
+        ``callbacks`` follow the keras protocol, duck-typed: ``set_model``
+        (when the callback has no model yet), ``on_train_begin``,
+        ``on_epoch_begin(epoch)``, ``on_epoch_end(epoch, logs)`` (False
+        stops training after the epoch, as does a model's
+        ``stop_training`` set True), ``on_train_end``.
+        ``recompile_state`` (``runtime.recompile.RecompileState``) is
+        checked once per step; the step it re-lowers the model in drops
+        its metrics.  ``validation_data=(vx, vy)`` is evaluated after
+        each epoch and joins the logs as ``val_*`` keys;
+        ``validation_split=f`` holds out the last fraction of (x, y),
+        before any shuffle, by keras's formula.  ``checkpoint_dir``
+        snapshots the training state every ``checkpoint_every`` epochs
+        and after the last (``runtime.checkpoint``); ``resume=True``
+        restores the newest complete snapshot and continues at its next
+        epoch, the shuffle stream fast-forwarded to it.
+
+        Returns the history, one dict per epoch with the metrics'
+        report, the epoch's last loss and the ``val_*`` keys.  Sets
+        ``last_throughput`` (samples/s after the first call, which is
+        fenced and left off the clock with the step's capture, as the
+        reference leaves its compile) and ``step_losses`` (every step's
+        loss, read after the loop).  Under a strategy every rank runs
+        this loop on its blocks of the batches: the samples are the
+        job's, the losses and metrics the job's, and only rank 0
+        prints."""
         from flexflow_tpu_torch.metrics import PerfMetrics
         from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
+        from flexflow_tpu_torch.runtime.distributed import world_size
 
-        unported = {"callbacks": bool(callbacks),
-                    "recompile_state": recompile_state is not None,
-                    "validation_data": validation_data is not None,
-                    "validation_split": bool(validation_split),
-                    "checkpoint_dir": checkpoint_dir is not None,
-                    "checkpoint_every": checkpoint_every != 1,
-                    "resume": resume}
-        asked = sorted(k for k, v in unported.items() if v)
-        if asked:
-            raise NotImplementedError(
-                f"fit({', '.join(asked)}) is not ported yet (ROADMAP Queue "
-                f"A item 3)")
         if self.compiled is None:
             raise RuntimeError("call compile() first")
         if self.config.comp_mode != "training":
             raise RuntimeError("model was compiled with comp_mode="
                                "'inference'; recompile with comp_mode="
                                "'training' to fit()")
-        xs = x if isinstance(x, (list, tuple)) else [x]
         batch_size = batch_size or self.config.batch_size
+        if validation_split:
+            x, y, validation_data = _split_validation(
+                x, y, validation_split, validation_data)
+        if validation_data is not None:
+            _check_validation(validation_data, batch_size)
+        ckpt = None
+        start_epoch = 0
+        if checkpoint_dir is not None:
+            from flexflow_tpu_torch.runtime.checkpoint import (
+                CheckpointManager,
+            )
+
+            ckpt = CheckpointManager(checkpoint_dir)
+            if resume and ckpt.latest_step() is not None:
+                start_epoch = ckpt.restore(self) + 1
+        elif resume:
+            raise ValueError("resume=True requires checkpoint_dir")
+        for cb in callbacks:
+            if hasattr(cb, "set_model") and getattr(cb, "model", None) is None:
+                cb.set_model(self)
+        xs = x if isinstance(x, (list, tuple)) else [x]
         epochs = epochs or self.config.epochs
         loader = SingleDataLoader(self.compiled, [np.asarray(a) for a in xs],
                                   np.asarray(y), batch_size, shuffle=shuffle,
                                   seed=self.config.seed)
+        loader.skip_epochs(start_epoch)  # a resumed epoch N: its order
         if loader.num_batches == 0:
             raise ValueError(f"no full batch: {loader.num_samples} samples "
                              f"< batch_size {batch_size}")
-        from flexflow_tpu_torch.runtime.distributed import world_size
-
+        for cb in callbacks:
+            cb.on_train_begin()
         trace_n = max(1, int(self.config.trace_steps))
         use_trace = (trace_n > 1 and world_size() == 1
+                     and recompile_state is None
                      and loader.num_batches >= trace_n)
         metrics = PerfMetrics()
         history = []
         losses = []
         t_start, steps_at_t0, steps_done = None, 0, 0
-        for epoch in range(epochs):
+        self.stop_training = False
+        for epoch in range(start_epoch, epochs):
+            for cb in callbacks:
+                cb.on_epoch_begin(epoch)
             metrics.reset()
             acc = None
             batches = (loader.iter_traced(trace_n) if use_trace else
@@ -850,27 +1079,64 @@ class FFModel:
             for kind, inputs, labels in batches:
                 if kind == "single":  # train_step: a stack of one
                     inputs, labels = [x[None] for x in inputs], labels[None]
+                n = len(labels)
+                seeds = np.arange(self._rng_counter + 1,
+                                  self._rng_counter + n + 1, dtype=np.int64)
+                self._rng_counter += n
                 (self.params, self.opt_state, self.state, step_loss,
                  ms) = self.compiled.train_steps(
-                    self.params, self.opt_state, self.state, inputs, labels)
+                    self.params, self.opt_state, self.state, inputs, labels,
+                    seeds)
                 # the results are static buffers that the next call
                 # overwrites: keep a copy of the losses; the metric sums
                 # are new tensors
                 losses.append(step_loss.clone())
-                m = {k: v.sum(dim=0) for k, v in ms.items()}
-                acc = m if acc is None else {k: acc[k] + v
-                                             for k, v in m.items()}
-                steps_done += len(step_loss)
+                if (recompile_state is not None
+                        and recompile_state.check(self)):
+                    acc = None  # the re-lowered step's metrics may differ
+                else:
+                    m = {k: v.sum(dim=0) for k, v in ms.items()}
+                    acc = m if acc is None else {k: acc[k] + v
+                                                 for k, v in m.items()}
+                steps_done += n
                 if t_start is None:
                     float(losses[-1][-1])  # fence: off the clock
                     t_start = time.perf_counter()
                     steps_at_t0 = steps_done
-            metrics.update(acc)
+            if acc is not None:
+                metrics.update(acc)
             logs = metrics.report()
             logs["loss"] = float(losses[-1][-1])
             if verbose and self._prints():
                 print(f"epoch {epoch}: loss={logs['loss']:.4f} {metrics}")
+            if validation_data is not None:
+                vx, vy = validation_data
+                val = self.evaluate(x=vx, y=vy, batch_size=batch_size)
+                for k, v in val.items():
+                    if k != "samples":
+                        logs[f"val_{k}"] = v
+                if verbose and self._prints():
+                    print("  validation: " + " ".join(
+                        f"{k}: {v:.4f}" for k, v in logs.items()
+                        if k.startswith("val_")))
             history.append(logs)
+            stop = False
+            for cb in callbacks:
+                if cb.on_epoch_end(epoch, logs) is False:
+                    stop = True
+            stop = stop or bool(self.stop_training)
+            if ckpt is not None and (
+                    (epoch + 1) % max(1, checkpoint_every) == 0
+                    or epoch == epochs - 1 or stop):
+                ckpt.save(epoch, self)
+            if stop:
+                break
+        for cb in callbacks:
+            cb.on_train_end()
+        if ckpt is not None:
+            ckpt.close()
+        if not losses:
+            return history
         elapsed = time.perf_counter() - t_start  # float(loss) above fenced
         if steps_done > steps_at_t0 and elapsed > 0:
             self.last_throughput = ((steps_done - steps_at_t0) * batch_size

@@ -1,8 +1,10 @@
-"""Transformer encoder and GPT — the port of ``encoder_layer``,
-``build_transformer`` and ``build_gpt`` in
+"""Transformer encoder, BERT and GPT — the port of ``encoder_layer``,
+``build_transformer``, ``build_bert`` and ``build_gpt`` in
 flexflow_tpu/models/transformer.py.  Op names equal the reference's, so
 a ``params[op][weight]`` dict carries across the two packages.
-(``build_bert`` needs the mean and tanh ops and comes later.)"""
+``build_bert`` at its defaults is the OSDI'22 BERT benchmark model
+(BERT-base widths: vocab 30522, 12 layers, hidden 768, 12 heads, ff
+3072, seq 512, attention dropout 0.1; batch 8 in that benchmark)."""
 
 from __future__ import annotations
 
@@ -47,6 +49,28 @@ def build_transformer(config: FFConfig, num_layers: int = 12,
                           dropout=dropout, layer_norm=layer_norm,
                           causal=causal, sp_mode=sp_mode)
     model.dense(t, hidden, name="head")
+    return model
+
+
+def build_bert(config: FFConfig, vocab: int = 30522, num_layers: int = 12,
+               hidden: int = 768, num_heads: int = 12, ff_dim: int = 3072,
+               seq_len: int = 512, num_classes: int = 2,
+               dropout: float = 0.1) -> FFModel:
+    """BERT-base-style classifier: token embedding + LN, the encoder
+    stack with attention dropout, a mean-pool over the sequence, a tanh
+    pooler and the classification head.  Input: ``input_ids`` [B,
+    seq_len] int32; labels [B] class ids."""
+    model = FFModel(config)
+    b = config.batch_size
+    ids = model.create_tensor([b, seq_len], dtype="int32", name="input_ids")
+    t = model.embedding(ids, vocab, hidden, aggr="none", name="tok_embed")
+    t = model.layer_norm(t, name="embed_ln")
+    for i in range(num_layers):
+        t = encoder_layer(model, t, hidden, num_heads, ff_dim, f"layer{i}",
+                          dropout=dropout, layer_norm=True)
+    t = model.mean(t, dims=[1], name="pool")
+    t = model.dense(t, hidden, activation="tanh", name="pooler")
+    model.dense(t, num_classes, name="classifier")
     return model
 
 

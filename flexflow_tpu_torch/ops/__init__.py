@@ -8,13 +8,25 @@ from flexflow_tpu_torch.ops.base import (
     WeightSpec,
     register_op,
 )
-from flexflow_tpu_torch.ops.attention import MultiHeadAttentionOp
+from flexflow_tpu_torch.ops.attention import (
+    BatchMatmulOp,
+    MultiHeadAttentionOp,
+)
 from flexflow_tpu_torch.ops.decode_attention import DecodeAttentionOp
-from flexflow_tpu_torch.ops.elementwise import ElementBinaryOp
+from flexflow_tpu_torch.ops.elementwise import (
+    ElementBinaryOp,
+    ElementUnaryOp,
+)
 from flexflow_tpu_torch.ops.embedding import BatchedEmbeddingOp, EmbeddingOp
 from flexflow_tpu_torch.ops.inout import ConstantOp, InputOp
 from flexflow_tpu_torch.ops.linear import LinearOp
-from flexflow_tpu_torch.ops.norm import BatchNormOp, LayerNormOp
+from flexflow_tpu_torch.ops.norm import (
+    BatchNormOp,
+    DropoutOp,
+    LayerNormOp,
+    SoftmaxOp,
+)
+from flexflow_tpu_torch.ops.reductions import GatherOp, MeanOp, TopKOp
 from flexflow_tpu_torch.ops.shape_ops import (
     ConcatOp,
     FlatOp,
@@ -25,6 +37,13 @@ from flexflow_tpu_torch.ops.shape_ops import (
 
 __all__ = [
     "OP_REGISTRY",
+    "BatchMatmulOp",
+    "DropoutOp",
+    "ElementUnaryOp",
+    "GatherOp",
+    "MeanOp",
+    "SoftmaxOp",
+    "TopKOp",
     "BatchedEmbeddingOp",
     "ConstantOp",
     "DecodeAttentionOp",

@@ -35,8 +35,17 @@ the op's global shapes, so a strategy never changes it.  The
 reference's all-gather fallback for cross-attention or dropout under a
 split sequence raises here (ROADMAP Queue A item 2).
 
-Not ported here: attention dropout in training (raises; ROADMAP Queue
-A item 3).
+Attention dropout in training takes the reference's route
+(ops/attention.py:200-270): never the flash kernels, always
+``attn_core_dropout`` with the mask ``LoweringContext.dropout_mask``
+draws for [B, H, Sq, Sk] (this rank's batch rows and heads of the whole
+mask under a batch or head split).  Outside training the op takes its
+usual route.
+
+``BatchMatmulOp`` is the reference's (ops/attention.py:312-382):
+[..., M, K] x [..., K, N] in the compute dtype with an fp32 product,
+cast back to the first input's dtype; the reference's sequence-length
+masking reads ``ctx.seq_length``, which no port path sets.
 """
 
 from __future__ import annotations
@@ -51,8 +60,10 @@ from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
 from flexflow_tpu_torch.initializers import DEFAULT_WEIGHT_INIT, Initializer
 from flexflow_tpu_torch.kernels.flash_attention import (
     HEAD_DIMS,
+    _bmm32,
     _pick_block,
     attn_core,
+    attn_core_dropout,
     flash_attention,
 )
 from flexflow_tpu_torch.core.machine import MachineView
@@ -192,6 +203,9 @@ class MultiHeadAttentionOp(Operator):
             ]
         return specs
 
+    def draws_dropout(self) -> bool:
+        return self.attrs["dropout"] > 0.0
+
     def uses_flash(self) -> bool:
         q, k = self.input_shapes[0], self.input_shapes[1]
         return flash_route(q.sizes[1], k.sizes[1], self.head_dim,
@@ -199,10 +213,6 @@ class MultiHeadAttentionOp(Operator):
 
     def forward(self, ctx, inputs, weights):
         a = self.attrs
-        if a["dropout"] > 0.0 and ctx.train:
-            raise NotImplementedError(
-                f"{self.name}: attention dropout in training is not ported "
-                f"yet (ROADMAP Queue A item 3); build with dropout=0")
         cd = ctx.compute_dtype
         # self-attention feeds one tensor three times: cast it once
         q = inputs[0].to(cd)
@@ -217,8 +227,23 @@ class MultiHeadAttentionOp(Operator):
             vh = vh + weights["bv"].to(cd)
         scale = 1.0 / math.sqrt(self.head_dim)
         seq_axes = ctx.axes(1)
+        dropout_active = a["dropout"] > 0.0 and ctx.train
         if ctx.mesh is not None and seq_axes:
+            if dropout_active:
+                raise NotImplementedError(
+                    f"{self.name}: attention dropout under a split sequence "
+                    f"needs K/V gathered, which is not ported yet (ROADMAP "
+                    f"Queue A item 2)")
             out = self._sequence_parallel(ctx, seq_axes, qh, kh, vh, scale)
+        elif dropout_active:
+            keep = 1.0 - a["dropout"]
+            mask = ctx.dropout_mask(self.name, keep,
+                                    self.mask_shape(),
+                                    self._mask_starts(ctx, qh.shape[2]),
+                                    (qh.shape[0], qh.shape[2], qh.shape[1],
+                                     kh.shape[1]))
+            out = attn_core_dropout(qh, kh, vh, mask, a["causal"], scale,
+                                    keep)
         else:
             attend = flash_attention if self.uses_flash() else attn_core
             out = attend(qh, kh, vh, a["causal"], scale)  # [B, Sq, H', dk]
@@ -228,6 +253,23 @@ class MultiHeadAttentionOp(Operator):
         if a["use_bias"] and ctx.partial_leader():
             y = y + weights["bo"].float()
         return [y.to(inputs[0].dtype)]
+
+    def mask_shape(self) -> Tuple[int, int, int, int]:
+        """The whole attention-dropout mask's shape, [B, H, Sq, Sk]."""
+        q, k = self.input_shapes[0], self.input_shapes[1]
+        return (q.sizes[0], self.attrs["num_heads"], q.sizes[1], k.sizes[1])
+
+    def _mask_starts(self, ctx, local_heads: int) -> Tuple[int, ...]:
+        """Where this rank's [b, h', Sq, Sk] block of the mask starts:
+        its batch rows (the query's layout) and its heads (the replica
+        slot's axes, as wq's head dim)."""
+        b0 = ctx.block_starts(self.input_shapes[0].sizes,
+                              ctx.in_placements[0] if ctx.in_placements
+                              else None)[0]
+        h0 = 0
+        if ctx.mesh is not None:
+            h0 = ctx.mesh.index(ctx.axes(REPLICA_SLOT)) * local_heads
+        return (b0, h0, 0, 0)
 
     def _sequence_parallel(self, ctx, seq_axes, qh, kh, vh, scale):
         """Attention over the sequence split across ``seq_axes``."""
@@ -288,3 +330,57 @@ class MultiHeadAttentionOp(Operator):
         proj = 2.0 * bsz * (sq * e * h * dk * 2 + sk * e * h * dk * 2)
         attn = 2.0 * bsz * h * sq * sk * dk * 2
         return proj + attn
+
+
+@register_op
+class BatchMatmulOp(Operator):
+    """[B, M, K] x [B, K, N] -> [B, M, N]; the seq-length masking dims
+    are the reference's attrs (model.h:451-455)."""
+
+    op_type = OperatorType.BATCH_MATMUL
+
+    def __init__(self, name, input_shapes, a_seq_length_dim: int = -1,
+                 b_seq_length_dim: int = -1):
+        super().__init__(name, input_shapes,
+                         a_seq_length_dim=a_seq_length_dim,
+                         b_seq_length_dim=b_seq_length_dim)
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        a, b = self.input_shapes
+        if a.sizes[-1] != b.sizes[-2] or a.sizes[:-2] != b.sizes[:-2]:
+            raise ValueError(f"batch_matmul of {a.sizes} and {b.sizes}")
+        return (ParallelTensorShape.make(a.sizes[:-1] + (b.sizes[-1],),
+                                         a.dtype),)
+
+    def forward(self, ctx, inputs, weights):
+        x, y = inputs
+        cd = ctx.compute_dtype
+        xs, ys = x.shape, y.shape
+        z = _bmm32(x.to(cd).reshape(-1, *xs[-2:]),
+                   y.to(cd).reshape(-1, *ys[-2:]))
+        return [z.view(*xs[:-1], ys[-1]).to(x.dtype)]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        degs = mv.dim_degrees  # [..., M, N]
+        r = mv.replica_degree  # K split
+        m, n = degs[-2], degs[-1]
+        batch = degs[:-2]
+        nd = len(degs)
+        bidx = tuple(range(nd - 2))
+        a_annot = ShardAnnot(batch + (m, r), replica=n,
+                             idx=bidx + (nd - 2, REPLICA_SLOT))
+        b_annot = ShardAnnot(batch + (r, n), replica=m,
+                             idx=bidx + (REPLICA_SLOT, nd - 1))
+        out = ShardAnnot(degs, replica=r, partial=r > 1)
+        return OpSharding(inputs=(a_annot, b_annot), weights=(),
+                          outputs=(out,))
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))
+
+    def max_replica_degree(self) -> int:
+        return self.input_shapes[0].sizes[-1]
+
+    def flops(self) -> float:
+        out = self.output_shapes[0]
+        return 2.0 * out.num_elements * self.input_shapes[0].sizes[-1]

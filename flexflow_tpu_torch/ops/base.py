@@ -16,13 +16,30 @@ bytes), ``fixed_machine_view``/``splittable_output_dims``/
 ``max_replica_degree`` (the search's view space) and
 ``calibration_signature`` (the identity a measured record is keyed by,
 ``signature`` less the ``_CALIBRATION_INERT_ATTRS``).
+
+The op RNG (``LoweringContext.op_rng``, ``dropout_mask``): a dropout
+mask is a counter-based hash of three things, computed in torch int64
+ops on the model's device: the step's seed (a 0-d int64 tensor the
+training step takes, so a captured step draws new masks at every
+replay), ``zlib.crc32`` of the op's name, and each element's index in
+the WHOLE tensor of the step (the global batch, every head).  So a rank
+under a batch or head split draws exactly its block of the one-process
+mask, a gradient-accumulation microbatch its rows of it, remat's
+recompute the mask of the first pass, and the CPU the card's mask.
+The reference keys ops by Python's salted ``hash(op_name)``
+(ops/base.py:145-148), which changes from one interpreter to the next;
+the port does not copy that (ROADMAP, reference-side oddities).
+Values stay below 2**32 in int64, so no product overflows and ``>>``
+never meets a sign bit.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+import zlib
 from typing import (
     Any,
+    Callable,
     Dict,
     List,
     Optional,
@@ -114,6 +131,57 @@ class OpSharding:
     outputs: Tuple[ShardAnnot, ...]
 
 
+_M32 = 0xFFFFFFFF
+_MIX = 0x45D9F3B  # < 2**27: a product with a 32-bit value fits int64
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash of int64 values in [0, 2**32),
+    elementwise; returns a new tensor."""
+    x = (x >> 16).bitwise_xor_(x).mul_(_MIX).bitwise_and_(_M32)
+    x = (x >> 16).bitwise_xor_(x).mul_(_MIX).bitwise_and_(_M32)
+    return (x >> 16).bitwise_xor_(x)
+
+
+def op_key(op_name: str) -> int:
+    """An op's stream key: crc32 of its name, the same in every
+    process (the reference's ``hash(op_name)`` is salted per process)."""
+    return zlib.crc32(op_name.encode())
+
+
+def stream_key(seed: torch.Tensor, op_name: str) -> torch.Tensor:
+    """The 0-d int64 key of ``op_name``'s draws at step ``seed``."""
+    seed = seed.to(torch.int64)
+    k = _mix32((seed & _M32) ^ _mix32(torch.full_like(seed, op_key(op_name))))
+    return _mix32(k ^ ((seed >> 32) & _M32))
+
+
+def draw_keep_mask(key: torch.Tensor, keep: float,
+                   global_shape: Sequence[int], starts: Sequence[int],
+                   local_shape: Sequence[int]) -> torch.Tensor:
+    """bool [local_shape]: True where an element is kept, for the block
+    of a tensor of ``global_shape`` that starts at ``starts``.  Element
+    i of the whole tensor (row-major) is kept iff the hash of
+    (i, ``key``) is below ``keep * 2**32``."""
+    dev = key.device
+    idx = torch.zeros((1,) * len(local_shape), dtype=torch.int64,
+                      device=dev)
+    for d, (g, s, n) in enumerate(zip(global_shape, starts, local_shape)):
+        view = [1] * len(local_shape)
+        view[d] = n
+        ar = torch.arange(s, s + n, dtype=torch.int64,
+                          device=dev).view(view)
+        idx = idx * g + ar  # the last dim's add makes the full tensor
+    numel = 1
+    for g in global_shape:
+        numel *= g
+    if numel <= (1 << 32):  # every index fits 32 bits
+        h = _mix32(idx.bitwise_xor_(key))
+    else:
+        h = _mix32(_mix32((idx & _M32) ^ key).bitwise_xor_(idx >> 32))
+    return h < int(round(keep * (1 << 32)))
+
+
 class LoweringContext:
     """Carried through one forward pass of the whole graph.  ``train``
     says whether the pass is a training step's; ``device`` is where the
@@ -127,22 +195,66 @@ class LoweringContext:
     its view's slots to mesh axes and ``in_placements``/
     ``out_placements`` are the layouts of its local inputs and
     outputs.  An op that sums its partial output itself
-    (``reduce_partial``) records that in ``out_placements``."""
+    (``reduce_partial``) records that in ``out_placements``.
+
+    ``seed`` is the training step's 0-d int64 seed tensor (zero when the
+    pass has none, as the reference's ``op_rng`` falls back to key 0)
+    and ``row_base`` the offset of this pass's rows within this rank's
+    block of the batch: a gradient-accumulation or pipeline microbatch
+    sets it, so its masks are its rows of the whole batch's.
+    ``mask_source``, None outside tests, replaces the drawn masks:
+    ``mask_source(ctx, op_name, local_shape, keep)`` returns the bool
+    keep mask (the parity tests hand in the reference's masks)."""
+
+    mask_source: Optional[Callable] = None
 
     def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
                  train: bool = False,
                  state_in: Optional[Dict[str, torch.Tensor]] = None,
                  device: torch.device | str = "cpu",
-                 mesh: "Optional[Mesh]" = None):
+                 mesh: "Optional[Mesh]" = None,
+                 seed: Optional[torch.Tensor] = None, row_base: int = 0):
         self.compute_dtype = compute_dtype
         self.train = train
         self.state_in = state_in or {}
         self.state_out: Dict[str, torch.Tensor] = {}
         self.device = torch.device(device)
         self.mesh = mesh
+        self.seed = seed
+        self.row_base = row_base
         self.slot_axes: Optional[Dict[int, Tuple[str, ...]]] = None
         self.in_placements: List["Placement"] = []
         self.out_placements: List["Placement"] = []
+
+    def op_rng(self, op_name: str) -> torch.Tensor:
+        """The 0-d int64 key of ``op_name``'s draws in this pass (the
+        reference's ``fold_in(rng, hash(op_name))``)."""
+        seed = self.seed
+        if seed is None:
+            seed = torch.zeros((), dtype=torch.int64, device=self.device)
+        return stream_key(seed, op_name)
+
+    def dropout_mask(self, op_name: str, keep: float,
+                     global_shape: Sequence[int], starts: Sequence[int],
+                     local_shape: Sequence[int]) -> torch.Tensor:
+        """The keep mask of this rank's block (``local_shape``, starting
+        at ``starts`` in a tensor of ``global_shape``; dim 0 is the
+        batch, offset further by ``row_base``)."""
+        if LoweringContext.mask_source is not None:
+            return LoweringContext.mask_source(self, op_name,
+                                               tuple(local_shape), keep)
+        starts = (starts[0] + self.row_base,) + tuple(starts[1:])
+        return draw_keep_mask(self.op_rng(op_name), keep, global_shape,
+                              starts, local_shape)
+
+    def block_starts(self, global_shape: Sequence[int],
+                     placement: "Optional[Placement]") -> Tuple[int, ...]:
+        """Where this rank's block of a tensor of ``global_shape`` laid
+        out as ``placement`` starts (zeros on one rank)."""
+        if self.mesh is None or placement is None:
+            return (0,) * len(global_shape)
+        return tuple(s.start for s in placement.local_slices(global_shape,
+                                                              self.mesh))
 
     def axes(self, slot: int) -> Tuple[str, ...]:
         """The mesh axes of the current view's ``slot`` (() on one
@@ -248,6 +360,10 @@ class Operator:
         """Non-None when the op's attributes pin its view (the parallel
         ops)."""
         return None
+
+    def draws_dropout(self) -> bool:
+        """Whether a training pass of the op draws dropout masks."""
+        return False
 
     def splittable_output_dims(self) -> Tuple[int, ...]:
         """Output dims a strategy may partition. Default: dim 0."""

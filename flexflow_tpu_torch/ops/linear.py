@@ -87,9 +87,13 @@ def matmul_acc32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.view(*a.shape[:-1], b.shape[-1])
 
 
-_ACTIVATIONS = {
+_ACTIVATIONS = {  # the reference's table (linear.py:40-47), on fp32
     None: lambda x: x,
     "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "softmax": lambda x: torch.softmax(x, dim=-1),
 }
 
 
@@ -104,8 +108,7 @@ class LinearOp(Operator):
                  param_dtype: str = "float32"):
         if activation not in _ACTIVATIONS:
             raise NotImplementedError(
-                f"LinearOp activation {activation!r} is not ported yet "
-                f"(ROADMAP Queue A item 6); one of "
+                f"LinearOp activation {activation!r} not supported; one of "
                 f"{sorted(k for k in _ACTIVATIONS if k)}")
         self._kernel_init = kernel_initializer or DEFAULT_WEIGHT_INIT
         self._bias_init = bias_initializer or DEFAULT_BIAS_INIT
@@ -138,6 +141,11 @@ class LinearOp(Operator):
             y = y + weights["bias"].float()
         if self.attrs["activation"] is not None:
             y = ctx.reduce_partial(y)
+        if (self.attrs["activation"] == "softmax" and ctx.out_placements
+                and ctx.out_placements[0].dims[-1]):
+            raise NotImplementedError(
+                f"{self.name}: a softmax over an out dim split across ranks "
+                f"needs the whole row; keep the out dim whole")
         y = _ACTIVATIONS[self.attrs["activation"]](y)
         return [y.to(inputs[0].dtype)]
 

@@ -1,5 +1,11 @@
-"""LayerNorm and BatchNorm — the port of ``LayerNormOp`` and
-``BatchNormOp`` in flexflow_tpu/ops/norm.py.  LayerNorm: statistics in
+"""Softmax, LayerNorm, BatchNorm and Dropout — the port of
+flexflow_tpu/ops/norm.py.  Softmax: float32 over ``axis``, cast back
+(norm.py:32-54; the softmax dim stays whole under a split).  Dropout
+(norm.py:190-207): in training, ``x / keep`` where the mask keeps and 0
+elsewhere, in x's dtype; the mask is ``LoweringContext.dropout_mask``'s
+(ops/base.py: a hash of the step's seed, the op's name and each
+element's index in the whole tensor, so any split draws its block of
+the one-process mask); outside training the identity.  LayerNorm: statistics in
 float32, biased variance, ``eps`` inside the rsqrt, the result cast
 back to the input dtype (norm.py:93-104); ``propagate`` is the
 reference's (norm.py:106-114): the normalised dims stay whole.
@@ -21,12 +27,40 @@ from flexflow_tpu_torch.initializers import (
     ZeroInitializer,
 )
 from flexflow_tpu_torch.ops.base import (
+    LoweringContext,
     Operator,
     OpSharding,
     ShardAnnot,
     WeightSpec,
     register_op,
 )
+
+
+@register_op
+class SoftmaxOp(Operator):
+    op_type = OperatorType.SOFTMAX
+
+    def __init__(self, name, input_shapes, axis: int = -1):
+        super().__init__(name, input_shapes, axis=int(axis))
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        return (self.input_shapes[0],)
+
+    def forward(self, ctx, inputs, weights):
+        x = inputs[0]
+        return [torch.softmax(x.float(), dim=self.attrs["axis"]).to(x.dtype)]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        ax = self.attrs["axis"] % self.output_shapes[0].ndim
+        degs = list(mv.dim_degrees)
+        degs[ax] = 1  # the softmax dim needs the whole row
+        a = ShardAnnot(tuple(degs), mv.replica_degree)
+        return OpSharding(inputs=(a,), weights=(), outputs=(a,))
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        ax = self.attrs["axis"] % self.output_shapes[0].ndim
+        return tuple(i for i in range(self.output_shapes[0].ndim)
+                     if i != ax)
 
 
 @register_op
@@ -174,6 +208,37 @@ class BatchNormOp(Operator):
         rep = mv.num_parts // max(c_deg, 1)
         wa = ShardAnnot((c_deg,), rep, idx=(len(mv.dim_degrees) - 1,))
         return OpSharding(inputs=(a,), weights=(wa, wa), outputs=(a,))
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))
+
+
+@register_op
+class DropoutOp(Operator):
+    op_type = OperatorType.DROPOUT
+
+    def __init__(self, name, input_shapes, rate: float = 0.5,
+                 seed: int = 0):
+        super().__init__(name, input_shapes, rate=float(rate),
+                         seed=int(seed))
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        return (self.input_shapes[0],)
+
+    def forward(self, ctx: LoweringContext, inputs, weights):
+        x = inputs[0]
+        rate = self.attrs["rate"]
+        if not ctx.train or rate <= 0.0:
+            return [x]
+        keep = 1.0 - rate
+        pl = ctx.in_placements[0] if ctx.in_placements else None
+        shape = self.input_shapes[0].sizes
+        mask = ctx.dropout_mask(self.name, keep, shape,
+                                ctx.block_starts(shape, pl), x.shape)
+        return [torch.where(mask, x / keep, 0.0).to(x.dtype)]
+
+    def draws_dropout(self) -> bool:
+        return self.attrs["rate"] > 0.0
 
     def splittable_output_dims(self) -> Tuple[int, ...]:
         return tuple(range(self.output_shapes[0].ndim))

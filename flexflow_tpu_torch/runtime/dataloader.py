@@ -69,6 +69,12 @@ class SingleDataLoader:
             self.rng.shuffle(order)
         return order
 
+    def skip_epochs(self, n: int) -> None:
+        """Draw and drop ``n`` epochs' orders: the next epoch sees the
+        order epoch ``n`` would have (a resumed ``fit``)."""
+        for _ in range(n):
+            self._order()
+
     def __iter__(self):
         order = self._order()
         bs = self.batch_size

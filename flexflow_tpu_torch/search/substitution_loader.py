@@ -18,8 +18,7 @@ PM_* parameters) and compute ops that clone a same-typed source op's
 attributes (the reference's matchOpX convention, substitution.h:156).
 Rules outside this subset are skipped and counted — the loader reports
 ``skipped`` so callers can see coverage honestly.  A rule whose
-destination builds an op the port has not ported (concat, split, a
-unary elementwise op, a linear with an activation other than relu)
+destination builds an op the port has not ported (concat, split)
 raises ``NotImplementedError`` naming ROADMAP Queue A item 6 when it
 applies, instead of being skipped silently.
 """
@@ -527,13 +526,15 @@ class PatternRule:
                 return None
         if dpat.type not in _DONORLESS_TYPES or not in_shapes:
             return None
-        if (dpat.type in (OperatorType.CONCAT, OperatorType.SPLIT)
-                or dpat.type in _UNARY_TYPES):
+        if dpat.type in (OperatorType.CONCAT, OperatorType.SPLIT):
             raise NotImplementedError(
                 f"substitution rule builds a {dpat.type.value} op, which "
                 f"the port has not ported yet (ROADMAP Queue A item 6)")
         try:
-            from flexflow_tpu_torch.ops.elementwise import ElementBinaryOp
+            from flexflow_tpu_torch.ops.elementwise import (
+                ElementBinaryOp,
+                ElementUnaryOp,
+            )
 
             if dpat.type in _EW_BINARY_TYPES:
                 if len(in_shapes) != 2:
@@ -541,6 +542,11 @@ class PatternRule:
                 return ElementBinaryOp(
                     _un(dpat.type.value), list(in_shapes),
                     binary_type=dpat.type,
+                )
+            if dpat.type in _UNARY_TYPES:
+                return ElementUnaryOp(
+                    _un(dpat.type.value), [in_shapes[0]],
+                    unary_type=dpat.type,
                 )
         except NotImplementedError:
             raise

@@ -106,17 +106,37 @@ def test_mha_forward_and_grads_match_jax(seq, causal, bias, dtype):
 
 
 def test_attention_dropout_in_training_raises():
+    """Attention dropout in training now runs on one device (the
+    dropout route, ``attn_core_dropout`` under the op's own mask); what
+    still raises is dropout under a split sequence (ROADMAP Queue A
+    item 2).  Outside training dropout is inactive, as in the
+    reference."""
+    from flexflow_tpu_torch.kernels.flash_attention import attn_core
+
     shape = ParallelTensorShape.make((1, 8, 16), "float32")
     op = MultiHeadAttentionOp("mha", [shape] * 3, embed_dim=16, num_heads=1,
                               dropout=0.1)
-    x = torch.zeros(1, 8, 16)
-    ws = {w.name: torch.zeros(w.shape) for w in op._weight_specs}
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 8, 16, generator=gen)
+    ws = {w.name: torch.randn(w.shape, generator=gen) * 0.3
+          for w in op._weight_specs}
+    split = LoweringContext(compute_dtype=torch.float32, train=True,
+                            mesh=object())
+    split.slot_axes = {1: ("x0",)}
     with pytest.raises(NotImplementedError, match="dropout"):
-        op.forward(LoweringContext(compute_dtype=torch.float32, train=True),
-                   [x, x, x], ws)
-    # dropout is inactive outside training, as in the reference
-    y = op.forward(LoweringContext(compute_dtype=torch.float32), [x, x, x], ws)
-    assert y[0].shape == (1, 8, 16)
+        op.forward(split, [x, x, x], ws)
+    train = op.forward(LoweringContext(compute_dtype=torch.float32,
+                                       train=True), [x, x, x], ws)[0]
+    y = op.forward(LoweringContext(compute_dtype=torch.float32), [x, x, x],
+                   ws)[0]
+    assert y.shape == train.shape == (1, 8, 16)
+    assert not torch.allclose(train, y)  # the masks applied in training
+    qh = torch.einsum("bse,ehd->bshd", x, ws["wq"])
+    kh = torch.einsum("bse,ehd->bshd", x, ws["wk"])
+    vh = torch.einsum("bse,ehd->bshd", x, ws["wv"])
+    plain = attn_core(qh, kh, vh, False, 0.25)
+    want = torch.einsum("bshd,hde->bse", plain, ws["wo"])
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("sq,sk,d,use_flash,want", [

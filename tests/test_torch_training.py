@@ -185,19 +185,30 @@ def test_fit_returns_history_with_loss_and_accuracy():
 
 
 def test_fit_refuses_what_is_not_ported():
+    """``fit`` now takes callbacks, validation data or split,
+    checkpoints and resume, and ``FFConfig`` remat and
+    ``grad_accum_steps``; what it refuses is the reference's errors:
+    both validation forms, a split leaving an empty set, a validation
+    set under one batch, ``resume`` without a directory, and a
+    ``grad_accum_steps`` below 1."""
     pm = build_transformer(FFConfig(batch_size=2, device="cpu"), num_layers=1,
                            hidden=16, num_heads=2, ff_dim=16, seq_len=4)
     pm.compile(loss_type="mean_squared_error", metrics=[])
     x = np.zeros((2, 4, 16), np.float32)
-    for kw in (dict(validation_split=0.5), dict(checkpoint_dir="ckpt"),
-               dict(callbacks=[object()])):
-        with pytest.raises(NotImplementedError):
+    for kw, match in ((dict(validation_split=0.5), "validation set"),
+                      (dict(validation_split=0.6), "empty"),
+                      (dict(validation_split=1.5), "not in"),
+                      (dict(validation_split=0.5, validation_data=(x, x)),
+                       "either"),
+                      (dict(validation_data=(x[:1], x[:1])), "smaller"),
+                      (dict(validation_data=x), "pair"),
+                      (dict(resume=True), "checkpoint_dir")):
+        with pytest.raises(ValueError, match=match):
             pm.fit(x, x, **kw)
+    with pytest.raises(ValueError, match="grad_accum_steps"):
+        FFConfig(device="cpu", grad_accum_steps=0)
     for flag, value in (("remat", True), ("grad_accum_steps", 2)):
-        with pytest.raises(NotImplementedError, match=flag):
-            FFConfig(device="cpu", **{flag: value})
-
-
+        assert getattr(FFConfig(device="cpu", **{flag: value}), flag) == value
 def test_default_optimizer_is_sgd_at_the_config_rate():
     pm = build_transformer(FFConfig(batch_size=2, device="cpu",
                                     learning_rate=0.05, weight_decay=0.0),
