@@ -8,6 +8,7 @@ paths on one NVIDIA GPU and check them.
                           [--calibration-out DIR]
     python3 chip_smoke.py --pipeline-only [--seed N]
     python3 chip_smoke.py --bert-only [--seed N]
+    python3 chip_smoke.py --sync-only RUNS [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -21,7 +22,9 @@ alone; on a machine with four cards it measures the searched path and
 the link constants of ``MachineSpec.h100_sxm``.  ``--calibration-out``
 keeps each phase 9 run's calibration table.  The fifth builds the
 kernels and runs phase 10 alone, against phase 6's first step taken
-alone.  The sixth builds the kernels and runs phase 11 alone.
+alone.  The sixth builds the kernels and runs phase 11 alone.  The
+seventh builds the kernels and runs phase 12 alone RUNS times, against
+phase 6's first step taken alone.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -221,7 +224,33 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bf16 5e-3, its peak memory lower; (e) the captured step against eager with dropout, 4
    steps: bit-equal; two seeds on one batch draw different masks (the
    losses differ), one seed twice the same;
-12. print one JSON line listing every ported kernel.
+12. gradient sync, 4 ranks spawned as phase 7's: phase 6's model and
+   batches under dp 4, each leg a fresh model through ``fit`` with the
+   counts set to 0 just before: (a) the monolithic fp32 sum, 3 steps;
+   (b) ``zero_dp_shard=True``, 3 steps: its first loss equal to (a)'s,
+   its later losses and its weights within SYNC_LOSS_TOL and
+   SYNC_WEIGHT_TOL of (a)'s (its gradient is reduce-scattered where
+   (a)'s is all-reduced, so the summation order differs), about 1/4 of
+   (a)'s optimizer-slot bytes per rank; (c) ``sync_precision="int8"``
+   with ``sync_ef="auto"``, 4 steps: every compressed group int8_ef
+   with residuals, the first loss within 5e-3 of phase 6's, the loss
+   falling, one compressed sum of a real gradient within
+   ``allreduce_error_bound`` of the fp32 sum, fewer than half of (a)'s
+   bytes, then 2 bf16 steps; (d) ``sync_schedule="search"`` on two
+   hosts of two cards: the schedule this process chose on the same spec
+   (printed with each bucket's predicted exposed seconds), staged
+   plans, the weights against (a)'s as (b)'s; (e) ``compile(strategy=
+   None)`` with ``co_search=True``: one search on rank 0, every rank
+   the same digest, views and comm plan, 3 steps, the exported
+   ``__meta__`` equal to the lowered plan and its views re-imported.
+   The searches of (a)-(c) price the link the ranks use (on the shared
+   card, SYNC_SHARED_LINK_BW); (e)'s is FFConfig's default,
+   ``h100_sxm(4)``.  Every leg: rows 1-3 12 launches
+   per rank per step, row 4 none, every loss finite, the same losses on
+   every rank, every weight replica bit-equal.  Printed: each leg's
+   step, host and wire bytes per rank per step against (a)'s, slot
+   bytes and peak memory per rank, and the card;
+13. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -434,6 +463,26 @@ BERT_VAL_BATCHES = 2
 BERT_CMP_STEPS = 4  # remat, accumulation and capture comparisons
 BERT_TIMED_STEPS = 10
 BERT_GA_TOL = 5e-3  # bf16 compute, relative loss
+# phase 12, gradient sync: phase 6's model and batches under dp 4, legs
+# (a) the monolithic fp32 sum, (b) ZeRO-1, (c) int8 with error feedback
+# and a short bf16 leg, (d) the searched, bucketed and staged schedule
+# on two hosts of two ranks, (e) the co-search
+SYNC_RANKS = 4
+SYNC_STEPS = 3  # fit steps per leg
+SYNC_INT8_STEPS = 4  # enough for the loss to fall
+SYNC_BF16_STEPS = 2
+# the link the legs' searches price on the shared card: gloo through
+# host copies runs at a few GB/s per rank (phase 8's Megatron step moved
+# 0.974 GB each way per rank in about 1.2 s), not NVLink's 450 GB/s
+SYNC_SHARED_LINK_BW = 2e9
+# weights of a leg against leg (a): their fp32 gradient sums order the 4
+# ranks' shares otherwise (a reduce-scatter, a bucket or a staged plan
+# against gloo's or NCCL's all-reduce), so a sum may differ in its last
+# place; an Adam update is about lr in size whatever the gradient's, so
+# an element whose summed gradient is within that rounding of zero can
+# flip its update: up to 2 lr per step
+SYNC_WEIGHT_TOL = 2 * ADAM_ALPHA * SYNC_STEPS
+SYNC_LOSS_TOL = 1e-4  # relative, the later steps' losses against (a)
 CARD_PEAKS = (
     ("H100 PCIe", 2.0e12, 51e12, 756e12),
     ("H100 NVL", 3.9e12, 60e12, 835e12),
@@ -460,6 +509,10 @@ def card_peaks(name: str):
     fail(f"no published peaks for {name!r} in CARD_PEAKS")
 
 
+# the card's name and power limit, as nvidia-smi prints them
+CARD_LINE = ["not read"]
+
+
 # ---------------------------------------------------------------------------
 def phase_device():
     if not torch.cuda.is_available():
@@ -469,7 +522,8 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    CARD_LINE[0] = smi.stdout.strip().splitlines()[0]
+    print(CARD_LINE[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -4273,6 +4327,369 @@ def bert_legs(seed, name):
     return fit_launches, report
 
 
+# ---------------------------------------------------------------------------
+def sync_spec(shared, two_level=False):
+    """The machine phase 12's searches price: ``h100_sxm`` at
+    SYNC_RANKS; on the shared card its link is the host-copy transport
+    (SYNC_SHARED_LINK_BW); ``two_level``: two hosts of SYNC_RANKS / 2
+    cards (NVLink within a host, the NIC across)."""
+    import dataclasses
+
+    from flexflow_tpu_torch.core.machine import MachineSpec
+
+    spec = MachineSpec.h100_sxm(SYNC_RANKS)
+    if two_level:
+        return dataclasses.replace(spec, devices_per_host=SYNC_RANKS // 2)
+    if shared:
+        spec = dataclasses.replace(spec, ici_bandwidth=SYNC_SHARED_LINK_BW)
+    return spec
+
+
+def sync_legs(shared, export_path):
+    """Phase 12's legs: name -> (FFConfig options, fit steps)."""
+    dp = dict(only_data_parallel=True, machine_spec=sync_spec(shared))
+    return {
+        "a_monolithic": (dp, SYNC_STEPS),
+        "b_zero": (dict(dp, zero_dp_shard=True), SYNC_STEPS),
+        "c_int8_ef": (dict(dp, sync_precision="int8", sync_ef="auto"),
+                      SYNC_INT8_STEPS),
+        "c_bf16": (dict(dp, sync_precision="bf16"), SYNC_BF16_STEPS),
+        "d_schedule": (dict(only_data_parallel=True,
+                            machine_spec=sync_spec(shared, two_level=True),
+                            sync_schedule="search"), SYNC_STEPS),
+        "e_co_search": (dict(co_search=True,
+                             search_timeout_s=0,
+                             enable_pipeline_search=False,
+                             enable_placement_search=False,
+                             export_strategy_file=export_path), SYNC_STEPS),
+    }
+
+
+def sync_model(seed, **cfg):
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.models import build_gpt
+
+    model = build_gpt(FFConfig(batch_size=TRAIN_BATCH,
+                               compute_dtype="bfloat16", seed=seed,
+                               num_devices=SYNC_RANKS, **cfg), **TRAIN)
+    model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    return model
+
+
+def _sync_rank(rank, seed, ids, shared, export_path):
+    """One rank of phase 12: every leg in order, each a fresh model of
+    phase 6's weights through ``fit`` with the launch and collective
+    counts set to 0 just before and read just after; leg (a)'s weights
+    kept on the host to hold the others to."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.comm import (
+        allreduce_error_bound,
+        quantized_allreduce,
+    )
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import mesh
+    from flexflow_tpu_torch.runtime.distributed import transport
+    from flexflow_tpu_torch.search import strategy_io
+    from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = ids[:, :-1], ids[:, 1:]
+    kernels = (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv,
+               fa.flash_forward_partial)
+    out, ref_w = {"transport": transport()}, None
+
+    def drive(model, steps):
+        for k in kernels:
+            k.launches = 0
+        mesh.reset_comm_counts()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        model.fit(x[:steps * TRAIN_BATCH], y[:steps * TRAIN_BATCH],
+                  batch_size=TRAIN_BATCH, shuffle=False, verbose=False)
+        torch.cuda.synchronize()
+        return {"fit_wall_s": time.perf_counter() - t0, "steps": steps,
+                "launches": {k.__name__: k.launches for k in kernels},
+                "collectives": mesh.comm_counts(),
+                "losses": list(model.step_losses),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "slot_bytes": sum(t.numel() * t.element_size()
+                                  for k in ("m", "v")
+                                  for ws in model.opt_state[k].values()
+                                  for t in ws.values()),
+                "map": dict(model.sync_precision_map),
+                "zero_groups": list(model.zero_groups),
+                "schedule": (None if model.compiled.sync_schedule is None
+                             else model.compiled.sync_schedule.to_jsonable()),
+                "ef_residuals": sum(k.endswith("/ef_residual")
+                                    for k in model.state),
+                "blocks": weight_blocks(model)}
+
+    def max_diff(model):
+        return max(float((t.detach().float() - ref_w[op][w].to(
+            t.device)).abs().max()) for op, ws in model.params.items()
+            for w, t in ws.items())
+
+    for leg, (cfg, steps) in sync_legs(shared, export_path).items():
+        model = sync_model(seed, **cfg)
+        if leg == "e_co_search":
+            out["e_search"] = {
+                "digest": stable_graph_digest(model.graph),
+                "views": sorted((model.graph.nodes[g].op.name,
+                                 tuple(v.dim_degrees), v.replica_degree)
+                                for g, v in model.strategy.items()),
+                "meta": model.sync_meta(),
+                "search_seconds": model.search_stats.get("search_seconds")}
+        r = drive(model, steps)
+        if ref_w is None:
+            ref_w = {op: {w: t.detach().float().cpu().clone()
+                          for w, t in ws.items()}
+                     for op, ws in model.params.items()}
+        elif leg in ("b_zero", "d_schedule"):
+            r["max_weight_diff_vs_a"] = max_diff(model)
+        if leg == "c_int8_ef":
+            # one compressed sum of a real gradient against the fp32 sum
+            c = model.compiled
+            dev = c.device
+            bx, by = x[:TRAIN_BATCH], y[:TRAIN_BATCH]
+            g = c.loss_and_grads(
+                model.params, model.state,
+                [torch.from_numpy(np.ascontiguousarray(
+                    bx[c.input_slices(0, bx.shape)])).to(dev)],
+                torch.from_numpy(np.ascontiguousarray(
+                    by[c.label_slices(by.shape)])).to(dev),
+                seed=torch.zeros((), dtype=torch.int64), sync=False)[3]
+            share = g["layer0_ff1"]["kernel"].float()
+            got = quantized_allreduce(share, c.mesh.names, c.mesh, "int8")
+            exact = mesh.all_reduce_sum(share, c.mesh.names, c.mesh)
+            amax = mesh.all_gather(share.abs().max().reshape(1), 0,
+                                   c.mesh.names, c.mesh)
+            r["quantized_check"] = {
+                "weight": "layer0_ff1/kernel",
+                "elements": share.numel(),
+                "max_abs_err": float((got - exact).abs().max()),
+                "bound": allreduce_error_bound(
+                    [a.reshape(1).cpu().numpy() for a in amax], "int8")}
+        if leg == "e_co_search":
+            dist.barrier()  # rank 0 wrote the export at compile
+            r["exported_meta"] = {
+                k: v for k, v in strategy_io.read_meta(export_path).items()
+                if k in ("sync_precision", "sync_schedule", "zero_groups")}
+            imported = strategy_io.import_strategy(export_path, model.graph)
+            r["import_equal"] = all(
+                (tuple(v.dim_degrees), v.replica_degree)
+                == (tuple(model.strategy[g].dim_degrees),
+                    model.strategy[g].replica_degree)
+                for g, v in imported.items())
+        out[leg] = r
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sync_train(seed, name, first_loss_bf16):
+    """Phase 12: gradient sync over SYNC_RANKS ranks spawned as phase 7's
+    (one card each with NCCL on a 4-card machine, else all on card 0
+    through gloo with counted host hops), phase 6's model and batches
+    under dp 4: (a) the monolithic fp32 sum, (b) ZeRO-1, (c) int8 with
+    error feedback and a short bf16 leg, (d) the searched, bucketed,
+    issue-ordered and staged schedule on two hosts of two ranks, (e)
+    ``compile(strategy=None)`` with ``co_search``.  Before the ranks
+    spawn, (d)'s schedule is chosen here on the same spec, with its
+    buckets' predicted exposed seconds."""
+    import tempfile
+
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.compiler.lowering import data_parallel_strategy
+    from flexflow_tpu_torch.models import build_gpt
+    from flexflow_tpu_torch.runtime.distributed import spawn
+    from flexflow_tpu_torch.search.driver import _build_sync_schedule
+    from flexflow_tpu_torch.search.simulator import Simulator
+    from flexflow_tpu_torch.search.sync_schedule import (
+        build_bucketed_schedule,
+        synced_weight_groups,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    shared = torch.cuda.device_count() < SYNC_RANKS
+    tmp = tempfile.TemporaryDirectory()
+    export_path = os.path.join(tmp.name, "sync_strategy.json")
+    legs = sync_legs(shared, export_path)
+    most = max(steps for _, steps in legs.values())
+    rng = np.random.default_rng(seed + 3)  # phase 6's batches
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        TRAIN_BATCHES * TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
+    ids = ids[:most * TRAIN_BATCH]
+
+    # (d)'s schedule, chosen here as every rank will, and its prices
+    cfg_d = FFConfig(batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                     num_devices=SYNC_RANKS, **legs["d_schedule"][0])
+    graph = build_gpt(cfg_d, **TRAIN).graph
+    views = data_parallel_strategy(graph, SYNC_RANKS)
+    sim = Simulator.for_config(cfg_d)
+    sched = _build_sync_schedule(graph, views, sim, cfg_d)
+    check(sched is not None, "the schedule search on two hosts kept the "
+          "monolithic sum: nothing to stage")
+    mono = build_bucketed_schedule(
+        synced_weight_groups(graph, views, sim.cost), {}, math.inf)
+    bd_s, bd_m = {}, {}
+    sim.simulate(graph, views, breakdown=bd_m, sync_schedule=mono)
+    sim.simulate(graph, views, breakdown=bd_s, sync_schedule=sched)
+    predicted = {
+        "buckets": [{"name": b["name"], "ops": len(b["ops"]),
+                     "precision": b["precision"], "plan": b["plan"],
+                     "sync_s": b["sync_s"], "exposed_s": b["exposed_s"]}
+                    for b in bd_s["sync_buckets"]],
+        "sync_exposed_s": bd_s["sync_exposed_s"],
+        "monolithic_sync_exposed_s": bd_m["sync_exposed_s"],
+        "step_s": bd_s["total_s"], "monolithic_step_s": bd_m["total_s"]}
+    del graph, sim
+
+    t0 = time.perf_counter()
+    ranks = spawn(_sync_rank, SYNC_RANKS, (seed, ids, shared, export_path),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    tmp.cleanup()
+    r0 = ranks[0]
+    want_transport = "gloo-host" if shared else "nccl"
+
+    def per_step(r):
+        return sum(c["host_bytes"] for c in r["collectives"].values()) \
+            / r["steps"]
+
+    def wire_per_step(r):
+        return sum(c["bytes"] for c in r["collectives"].values()) \
+            / r["steps"]
+
+    a = r0["a_monolithic"]
+    report = {"card": CARD_LINE[0], "ranks": SYNC_RANKS,
+              "transport": r0["transport"], "phase_wall_s": None,
+              "ranks_wall_s": wall, "legs": {}}
+    for leg in legs:
+        r = r0[leg]
+        report["legs"][leg] = {
+            "steps": r["steps"], "losses": r["losses"],
+            "fit_wall_s": [rr[leg]["fit_wall_s"] for rr in ranks],
+            "step_s": max(rr[leg]["fit_wall_s"] for rr in ranks)
+            / r["steps"],
+            "host_bytes_per_rank_per_step": per_step(r),
+            "host_bytes_vs_a": per_step(r) / max(per_step(a), 1.0),
+            "wire_bytes_per_rank_per_step": wire_per_step(r),
+            "wire_bytes_vs_a": wire_per_step(r) / wire_per_step(a),
+            "slot_bytes_per_rank": r["slot_bytes"],
+            "slot_bytes_vs_a": r["slot_bytes"] / a["slot_bytes"],
+            "peak_memory_gb_per_rank": [rr[leg]["peak_memory_gb"]
+                                        for rr in ranks],
+            "launches_per_rank_per_step": {
+                k: v / r["steps"] for k, v in r["launches"].items()},
+            "max_weight_diff_vs_a": r.get("max_weight_diff_vs_a"),
+            "compressed_groups": len(r["map"]),
+            "precisions": sorted(set(r["map"].values())),
+            "ef_residuals": r["ef_residuals"],
+            "zero_groups": len(r["zero_groups"]),
+            "buckets": (None if r["schedule"] is None
+                        else len(r["schedule"]["buckets"]))}
+    report["d_predicted"] = predicted
+    report["c_quantized_check"] = r0["c_int8_ef"]["quantized_check"]
+    report["e_search"] = {k: r0["e_search"][k]
+                          for k in ("digest", "search_seconds")}
+    report["e_search"]["meta_keys"] = sorted(r0["e_search"]["meta"])
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("gradient sync path: " + json.dumps(report))
+    print(f"gradient sync path, card: {CARD_LINE[0]}")
+
+    rows = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+    layers = TRAIN["num_layers"]
+    blocks = {}
+    for i, r in enumerate(ranks):
+        check(r["transport"] == want_transport,
+              f"rank {i}: transport {r['transport']}, want {want_transport}")
+        for leg in legs:
+            rl = r[leg]
+            check(rl["losses"] == r0[leg]["losses"],
+                  f"rank {i} {leg}: other losses than rank 0's")
+            check(len(rl["losses"]) == rl["steps"],
+                  f"rank {i} {leg}: {len(rl['losses'])} steps ran")
+            check(bool(np.isfinite(rl["losses"]).all()),
+                  f"rank {i} {leg}: a loss is not finite")
+            for k in rows:
+                check(rl["launches"][k] == layers * rl["steps"],
+                      f"rank {i} {leg}: {k} launched {rl['launches'][k]} "
+                      f"times in {rl['steps']} steps, want "
+                      f"{layers * rl['steps']}")
+            check(rl["launches"]["flash_forward_partial"] == 0,
+                  f"rank {i} {leg}: the partial kernel launched")
+            for wname, (key, digest) in rl["blocks"].items():
+                seen = blocks.setdefault((leg, wname, tuple(key)), digest)
+                check(seen == digest, f"rank {i} {leg}: replica of "
+                      f"{wname} block {key} differs in bits")
+            hopped = sum(c["host_hops"] for c in rl["collectives"].values())
+            check((hopped > 0) == shared, f"rank {i} {leg}: {hopped} host "
+                  f"hops with transport {r['transport']}")
+    # (b) ZeRO-1 against (a)
+    b = r0["b_zero"]
+    check(b["losses"][0] == a["losses"][0],
+          "ZeRO-1's first loss differs from the monolithic sum's")
+    for leg in ("b_zero", "d_schedule"):
+        r = r0[leg]
+        check(r["max_weight_diff_vs_a"] <= SYNC_WEIGHT_TOL,
+              f"{leg}: weights {r['max_weight_diff_vs_a']:.3e} from leg "
+              f"(a)'s, limit {SYNC_WEIGHT_TOL}")
+        for la, lb in zip(a["losses"][1:], r["losses"][1:]):
+            check(abs(la - lb) <= SYNC_LOSS_TOL * abs(la),
+                  f"{leg}: loss {lb} against (a)'s {la}")
+    check(b["slot_bytes"] <= 0.3 * a["slot_bytes"],
+          f"ZeRO-1 holds {b['slot_bytes']} slot bytes per rank against "
+          f"(a)'s {a['slot_bytes']}")
+    check(b["zero_groups"] == [] and a["zero_groups"] == [],
+          "zero_dp_shard arms every op without a per-group map")
+    # (c) int8 with error feedback, and bf16
+    c = r0["c_int8_ef"]
+    rel = abs(c["losses"][0] - first_loss_bf16) / abs(first_loss_bf16)
+    check(rel <= 5e-3, f"int8 leg's first loss {c['losses'][0]:.6f} vs "
+          f"phase 6's {first_loss_bf16:.6f}: {rel:.3e} > 5e-3")
+    check(c["losses"][-1] < c["losses"][0], "the int8 leg's loss did not "
+          f"fall: {c['losses']}")
+    check(c["map"] and set(c["map"].values()) == {"int8_ef"},
+          f"int8 leg's map {c['map']}: want int8_ef groups")
+    check(c["ef_residuals"] > 0, "the int8 leg carries no residual")
+    q = c["quantized_check"]
+    check(q["max_abs_err"] <= q["bound"], f"the compressed sum of "
+          f"{q['weight']} is {q['max_abs_err']:.3e} from the fp32 sum, "
+          f"bound {q['bound']:.3e}")
+    check(per_step(c) < 0.5 * per_step(a) if shared
+          else wire_per_step(c) < 0.5 * wire_per_step(a),
+          "the int8 leg moved at least half of (a)'s bytes")
+    check(r0["c_bf16"]["map"] and set(r0["c_bf16"]["map"].values())
+          == {"bf16"}, f"bf16 leg's map {r0['c_bf16']['map']}")
+    # (d) the searched schedule
+    d = r0["d_schedule"]
+    check(d["schedule"] == sched.to_jsonable(),
+          "the ranks lowered another schedule than the one chosen here")
+    check(any(bk.get("plan") for bk in d["schedule"]["buckets"]),
+          "no bucket of the schedule carries a staged plan")
+    # (e) the co-search
+    for i, r in enumerate(ranks):
+        check(r["e_search"] == r0["e_search"],
+              f"rank {i} lowered another graph, strategy or comm plan "
+              f"than rank 0")
+    e = r0["e_co_search"]
+    check(e["exported_meta"] == r0["e_search"]["meta"],
+          "the exported __meta__ differs from the lowered comm plan")
+    check(e["import_equal"], "the exported strategy imports other views")
+    check(bool(r0["e_search"]["meta"]), "the co-search lowered no comm "
+          "plan (no schedule, no ZeRO groups)")
+    return {leg: {k: r0[leg]["launches"][k] / r0[leg]["steps"]
+                  for k in rows} for leg in legs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4291,6 +4708,9 @@ def main(argv=None) -> int:
                          "step taken alone")
     ap.add_argument("--bert-only", action="store_true",
                     help="only run phase 11, BERT-base through fit")
+    ap.add_argument("--sync-only", metavar="RUNS", type=int, default=None,
+                    help="only run phase 12, RUNS times, against phase "
+                         "6's first step taken alone")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -4326,6 +4746,15 @@ def main(argv=None) -> int:
         phase_bert_train(args.seed, name)
         return 0
 
+    if args.sync_only is not None:
+        name = phase_device()
+        phase_build()
+        first = first_step_loss(args.seed)
+        for run in range(1, args.sync_only + 1):
+            print(f"phase 12, run {run} of {args.sync_only}")
+            phase_sync_train(args.seed, name, first)
+        return 0
+
     if args.pipeline_only:
         name = phase_device()
         phase_build()
@@ -4348,6 +4777,7 @@ def main(argv=None) -> int:
         args.seed, name, first_loss, calibration_out(1))
     pipe_launches = phase_pipeline_train(args.seed, name, first_loss)
     bert_launches, _ = phase_bert_train(args.seed, name)
+    sync_launches = phase_sync_train(args.seed, name, first_loss)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -4404,6 +4834,8 @@ def main(argv=None) -> int:
                 wrapper],
             "launches_placed_per_rank": pipe_launches["placed"][wrapper],
             "launches_bert_fit": bert_launches[wrapper],
+            "launches_sync_per_rank_per_step": {
+                leg: ls[wrapper] for leg, ls in sync_launches.items()},
             "launches_calibration": cal_launches.get(wrapper, 0),
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],

@@ -7,15 +7,17 @@ path (``search/dp.py``, ``search/driver.py``):
    ``FFConfig.verify``.
 2. ``sharding``   — strategy/``MachineView`` legality and
    search/lowering coherence (``SHD101``-``SHD110``), the always-on gate
-   in ``optimize_strategy``.
+   in ``optimize_strategy``; the gradient-sync artifacts' legality: the
+   sync schedule (``SHD120``-``SHD123``), its reduction plans
+   (``SHD130``-``SHD133``) and the per-group ZeRO-1 map
+   (``SHD140``-``SHD141``).
 3. ``placement``  — pipeline stage cuts and two-block placements
    (``SHD150``-``SHD155``), the gate on every proposal the search
    returns, every imported ``__meta__.pipeline``/``placement`` block
    and every placed strategy compile lowers.
 
-The reference's equivalence proofs, swap and comm-plan lints guard
-modules the port has not ported yet (ROADMAP Queue A items 5, 7 and
-10).
+The reference's equivalence proofs and swap lints guard modules the
+port has not ported yet (ROADMAP Queue A items 7 and 10).
 """
 
 from flexflow_tpu_torch.analysis.findings import (
@@ -38,7 +40,12 @@ from flexflow_tpu_torch.analysis.placement import (
     lint_placement,
     placement_meta,
 )
-from flexflow_tpu_torch.analysis.sharding import lint_strategy
+from flexflow_tpu_torch.analysis.sharding import (
+    lint_reduction_plan,
+    lint_strategy,
+    lint_sync_schedule,
+    lint_zero_map,
+)
 
 __all__ = [
     "AnalysisError",
@@ -53,6 +60,9 @@ __all__ = [
     "set_verify",
     "verification_enabled",
     "lint_strategy",
+    "lint_sync_schedule",
+    "lint_zero_map",
+    "lint_reduction_plan",
     "lint_pipeline_stages",
     "lint_placement",
     "placement_meta",

@@ -1,5 +1,6 @@
 """Strategy/sharding legality linter — pass 3 of the static-analysis
-stack; the ``lint_strategy`` part of flexflow_tpu/analysis/sharding.py,
+stack; the ``lint_strategy``, ``lint_sync_schedule``, ``lint_zero_map``
+and ``lint_reduction_plan`` part of flexflow_tpu/analysis/sharding.py,
 copied (GSPMD-style, arXiv:2105.04663: sharding consistency is a
 decidable static check; arXiv:2110.10548: placement legality as a
 constraint system).
@@ -30,11 +31,63 @@ runs — or worse, not discover at all:
   invariant split-boundary enumeration relies on —
   ``views.boundary_views`` pins one view to both segments)
 
-The reference's other gates in this file (``lint_sync_schedule``,
-``lint_zero_map``, ``lint_reduction_plan``, ``lint_serving``,
+Gradient-sync SCHEDULE legality (``lint_sync_schedule`` — the
+searched, persisted comm plan of search/sync_schedule.py, gated
+always-on wherever a schedule is produced or imported):
+
+* **SHD120** structural sanity: bucket precision is a known wire
+  precision; every named op exists in the graph and carries weights
+* **SHD121** coverage: every weight group that actually syncs under the
+  strategy is covered EXACTLY once (no duplicates, no holes — an
+  uncovered group silently falls back to the exposed post-backward
+  monolithic path)
+* **SHD122** issue order respects grad readiness: buckets are ordered
+  by non-increasing earliest-member topo position — the backward
+  produces grads in reverse topo order, so a bucket issued before its
+  grads exist is a plan the executed step cannot honor
+* **SHD123** precision coherence: a compressed bucket's ops must be
+  gradient-safe to compress and agree with the sync-precision map
+  (search/sync_precision.py) — the two artifacts are built together
+  and must not contradict
+
+Per-group optimizer-state sharding legality (``lint_zero_map`` — the
+co-searched ZeRO-1 dimension of search/comm_plan.py, gated always-on
+wherever the map is produced or imported):
+
+* **SHD140** membership: every named op exists in the graph, carries
+  weights, and actually SYNCS under the strategy (some propagated
+  weight annot is replicated — optimizer state only shards over
+  replication axes, so a non-synced entry is incoherent)
+* **SHD141** shardability: the op's achieved ZeRO shard factor under
+  the shared placement rule (``comm_plan.zero_update_factor`` — the
+  same evenly-divisible ``place_zero_factors`` rule the lowering's
+  ``_zero_augmented`` and ``CostModel.op_memory`` apply) must exceed
+  1 — a map entry whose optimizer state cannot shard was credited a
+  win execution will never realize
+
+Staged REDUCTION-PLAN legality (``lint_reduction_plan`` — the
+per-bucket hierarchical reduction strategies of
+search/reduction_plan.py, gated always-on with the schedule):
+
+* **SHD130** structural sanity: stages form the canonical RS..AR..AG
+  bracketing, kinds/precisions known, levels within the machine's
+  link hierarchy
+* **SHD131** level coverage: the plan's cross level equals the deepest
+  link level the bucket's replication groups actually span — too
+  shallow leaves the coarse links mispriced, too deep prices stages
+  the wire never runs
+* **SHD132** group/slice coherence: a staged bucket must contain at
+  least one group whose replication provably decomposes across the
+  slice boundary (a plan on a within-slice bucket is incoherent)
+* **SHD133** precision-per-level validity: only the cross-level
+  allreduce stage may compress, and its wire precision must be fp32 or
+  the bucket's own (sync-precision-map-coherent) precision — per-level
+  precision composes with the map, never contradicts it
+
+The reference's other gates in this file (``lint_serving``,
 ``lint_kv``, ``lint_disaggregation``, ``lint_fleet``) guard artifacts
-of modules the port has not ported (ROADMAP Queue A items 5, 8 and 9);
-they come with those modules.
+of modules the port has not ported (ROADMAP Queue A item 9); they come
+with those modules.
 """
 
 from __future__ import annotations
@@ -203,4 +256,296 @@ def lint_strategy(graph, strategy: Dict[int, object],
                             f"{len(annot.degrees)} but the producing edge "
                             f"carries a rank-{p_outs[e.src_idx].ndim} "
                             f"tensor", node=guid, op=name))
+    return findings
+
+
+def _s(code: str, message: str, **kw) -> Finding:
+    return Finding(code=code, pass_name="sync_schedule", message=message,
+                   **kw)
+
+
+def lint_sync_schedule(graph, strategy: Dict[int, object], schedule,
+                       precision_map: Optional[Dict[str, str]] = None,
+                       ) -> List[Finding]:
+    """Legality findings for a gradient-sync schedule against its
+    (graph, strategy) — SHD120-123 ([] = legal).  ``schedule`` is a
+    ``search.sync_schedule.SyncSchedule`` or any duck-typed bucket list
+    (objects with ``.name``/``.ops``/``.precision``)."""
+    # one source of truth for legal wire precisions: the schedule
+    # module is deliberately torch-free, so this stays pure host-side
+    from flexflow_tpu_torch.search.sync_schedule import (
+        BUCKET_PRECISIONS as _BUCKET_PRECISIONS,
+    )
+
+    findings: List[Finding] = []
+    buckets = list(getattr(schedule, "buckets", schedule) or [])
+    if not buckets:
+        return [_s("SHD121", "schedule has no buckets")]
+
+    # which ops actually sync under this strategy (some propagated
+    # weight annot is replicated) — the coverage universe
+    pos: Dict[str, int] = {}
+    synced: Dict[str, bool] = {}
+    weighted: Dict[str, object] = {}
+    for i, node in enumerate(graph.topo_order()):
+        name = getattr(node.op, "name", None)
+        if name is None:
+            continue
+        pos[name] = i
+        if not getattr(node.op, "_weight_specs", ()):
+            continue
+        weighted[name] = node.op
+        mv = strategy.get(node.guid)
+        if mv is None and hasattr(node.op, "fixed_machine_view"):
+            mv = node.op.fixed_machine_view()
+        if mv is None:
+            continue
+        try:
+            osh = node.op.propagate(mv)
+        except Exception:
+            continue  # SHD105 owns that failure
+        synced[name] = any(
+            a is not None and a.replica > 1 for a in osh.weights)
+
+    seen: Dict[str, str] = {}  # op name -> bucket that claimed it
+    prev_min_pos: Optional[int] = None
+    prev_name: Optional[str] = None
+    pmap = precision_map or {}
+    for bucket in buckets:
+        bname = getattr(bucket, "name", "?")
+        prec = getattr(bucket, "precision", "fp32")
+        if prec not in _BUCKET_PRECISIONS:
+            findings.append(_s(
+                "SHD120",
+                f"bucket {bname!r} carries unknown precision {prec!r} "
+                f"(known: {list(_BUCKET_PRECISIONS)})"))
+        min_pos: Optional[int] = None
+        for op_name in getattr(bucket, "ops", ()):
+            if op_name not in pos:
+                findings.append(_s(
+                    "SHD120",
+                    f"bucket {bname!r} names op {op_name!r} the graph "
+                    f"does not have", op=op_name))
+                continue
+            if op_name not in weighted:
+                findings.append(_s(
+                    "SHD120",
+                    f"bucket {bname!r} names op {op_name!r}, which "
+                    f"carries no weights to sync", op=op_name))
+                continue
+            if op_name in seen:
+                findings.append(_s(
+                    "SHD121",
+                    f"op {op_name!r} is covered twice (buckets "
+                    f"{seen[op_name]!r} and {bname!r}) — its gradient "
+                    f"would sync twice", op=op_name))
+            seen[op_name] = bname
+            p = pos[op_name]
+            min_pos = p if min_pos is None else min(min_pos, p)
+            if prec != "fp32":
+                from flexflow_tpu_torch.search.sync_precision import (
+                    grad_safe_to_compress,
+                )
+
+                mapped = pmap.get(op_name, "fp32")
+                if mapped != prec:
+                    findings.append(_s(
+                        "SHD123",
+                        f"bucket {bname!r} compresses {op_name!r} at "
+                        f"{prec} but the sync-precision map says "
+                        f"{mapped!r} — the two artifacts contradict",
+                        op=op_name))
+                elif not grad_safe_to_compress(weighted[op_name]):
+                    findings.append(_s(
+                        "SHD123",
+                        f"bucket {bname!r} compresses {op_name!r}, which "
+                        f"the gradient-safety heuristic excludes",
+                        op=op_name))
+        if min_pos is None:
+            continue
+        if prev_min_pos is not None and min_pos > prev_min_pos:
+            findings.append(_s(
+                "SHD122",
+                f"issue order violates grad readiness: bucket "
+                f"{prev_name!r} (earliest member at topo position "
+                f"{prev_min_pos}) issues BEFORE bucket {bname!r} "
+                f"(earliest member at {min_pos}), but the backward "
+                f"produces {bname!r}'s grads first — the serialized "
+                f"collective chain would stall a ready bucket behind "
+                f"one whose grads do not exist yet"))
+        prev_min_pos, prev_name = min_pos, bname
+    uncovered = sorted(
+        n for n, is_synced in synced.items() if is_synced and n not in seen)
+    if uncovered:
+        findings.append(_s(
+            "SHD121",
+            f"{len(uncovered)} synced weight group(s) uncovered (e.g. "
+            f"{uncovered[:4]}) — they would fall back to the exposed "
+            f"post-backward monolithic sync"))
+    return findings
+
+
+def _z(code: str, message: str, **kw) -> Finding:
+    return Finding(code=code, pass_name="zero_map", message=message, **kw)
+
+
+def lint_zero_map(graph, strategy: Dict[int, object], zero_map,
+                  cost_model) -> List[Finding]:
+    """Legality findings for a per-group optimizer-state sharding map
+    (op names whose ZeRO-1 state/update shards — search/comm_plan.py
+    ``choose_zero_groups``) against its (graph, strategy) — SHD140/141
+    ([] = legal, and an empty map trivially is).  ``cost_model``
+    supplies the device count for the shared placement rule, so a map
+    that lints clean is credited and executed coherently."""
+    from flexflow_tpu_torch.search.comm_plan import zero_update_factor
+
+    names = list(zero_map or ())
+    if not names:
+        return []
+    findings: List[Finding] = []
+    by_name: Dict[str, object] = {}
+    mv_of: Dict[str, object] = {}
+    for node in graph.topo_order():
+        n = getattr(node.op, "name", None)
+        if n is None:
+            continue
+        by_name[n] = node.op
+        mv = strategy.get(node.guid)
+        if mv is None and hasattr(node.op, "fixed_machine_view"):
+            mv = node.op.fixed_machine_view()
+        mv_of[n] = mv
+    seen = set()
+    for name in names:
+        if name in seen:
+            findings.append(_z(
+                "SHD140", f"op {name!r} appears twice in the "
+                f"optimizer-sharding map", op=name))
+            continue
+        seen.add(name)
+        op = by_name.get(name)
+        if op is None:
+            findings.append(_z(
+                "SHD140", f"optimizer-sharding map names op {name!r} "
+                f"the graph does not have", op=name))
+            continue
+        if not getattr(op, "_weight_specs", ()):
+            findings.append(_z(
+                "SHD140", f"op {name!r} carries no weights — nothing "
+                f"to shard optimizer state for", op=name))
+            continue
+        mv = mv_of.get(name)
+        if mv is None:
+            from flexflow_tpu_torch.core.machine import MachineView
+
+            mv = MachineView.trivial(op.output_shapes[0].ndim)
+        synced = False
+        try:
+            osh = op.propagate(mv)
+            synced = any(
+                a is not None and a.replica > 1 for a in osh.weights)
+        except Exception:
+            pass  # SHD105 owns propagation failures
+        if not synced:
+            findings.append(_z(
+                "SHD140", f"op {name!r} has no replicated weight under "
+                f"this strategy — optimizer state only shards over "
+                f"replication axes, so the entry is incoherent",
+                op=name))
+            continue
+        f = zero_update_factor(cost_model, op, mv)
+        if f <= 1.0:
+            findings.append(_z(
+                "SHD141", f"op {name!r} achieves no ZeRO shard factor "
+                f"under the shared placement rule (achieved {f:g}) — "
+                f"the credited update win would never be realized",
+                op=name))
+    return findings
+
+
+def _p(code: str, message: str, **kw) -> Finding:
+    return Finding(code=code, pass_name="reduction_plan", message=message,
+                   **kw)
+
+
+def lint_reduction_plan(graph, strategy: Dict[int, object], schedule,
+                        cost_model) -> List[Finding]:
+    """Legality findings for the staged reduction plans a schedule's
+    buckets carry, against (graph, strategy, machine) — SHD130-133
+    ([] = legal; a plan-free schedule is trivially legal).
+    ``cost_model`` supplies the link hierarchy and the slot→axis
+    replica decomposition — the SAME classifier the pricing used, so a
+    plan that lints clean is priced and executed coherently."""
+    from flexflow_tpu_torch.search.reduction_plan import validate_stages_split
+    from flexflow_tpu_torch.search.sync_schedule import synced_weight_groups
+
+    buckets = list(getattr(schedule, "buckets", schedule) or [])
+    if not any(getattr(b, "plan", None) is not None for b in buckets):
+        return []
+    findings: List[Finding] = []
+    levels = cost_model.levels()
+    num_levels = len(levels)
+    parts_by_op: Dict[str, list] = {}
+    for node, _mv, parts in synced_weight_groups(graph, strategy,
+                                                 cost_model):
+        parts_by_op[node.op.name] = parts
+    for bucket in buckets:
+        plan = getattr(bucket, "plan", None)
+        if plan is None:
+            continue
+        bname = getattr(bucket, "name", "?")
+        structural, prec_errs = validate_stages_split(
+            plan.stages, num_levels)
+        for e in structural:
+            findings.append(_p(
+                "SHD130", f"bucket {bname!r} plan {plan.name!r}: {e}"))
+        for e in prec_errs:
+            findings.append(_p(
+                "SHD133", f"bucket {bname!r} plan {plan.name!r}: {e}"))
+        if structural:
+            continue
+        # group/slice coherence + level coverage
+        deepest = 0
+        spanning = 0
+        for op in getattr(bucket, "ops", ()):
+            for part in parts_by_op.get(op, ()):
+                _nbytes, replica, _spans, _n, key = part
+                if replica <= 1:
+                    continue
+                factors = cost_model.replica_level_split(key, replica)
+                if factors is None:
+                    continue
+                d = max((i for i, f in enumerate(factors) if f > 1),
+                        default=0)
+                deepest = max(deepest, d)
+                if d > 0:
+                    spanning += 1
+        if spanning == 0:
+            findings.append(_p(
+                "SHD132",
+                f"bucket {bname!r} carries staged plan {plan.name!r} but "
+                f"none of its replication groups provably spans a slice "
+                f"boundary — the staged stages have no cross-level wire "
+                f"to ride"))
+        elif plan.cross_level != deepest:
+            findings.append(_p(
+                "SHD131",
+                f"bucket {bname!r} plan {plan.name!r} reaches link level "
+                f"{plan.cross_level} but the bucket's groups span level "
+                f"{deepest} — the plan's level coverage does not match "
+                f"the topology the groups actually cross"))
+        # SHD133: cross precision composes with the bucket precision
+        # (int8_ef buckets stage at the plain int8 wire — wire_base)
+        from flexflow_tpu_torch.search.sync_schedule import wire_base
+
+        bprec = getattr(bucket, "precision", "fp32")
+        for s in plan.stages:
+            if s.kind == "allreduce" and s.precision not in (
+                    "fp32", wire_base(bprec)):
+                findings.append(_p(
+                    "SHD133",
+                    f"bucket {bname!r} plan {plan.name!r} compresses the "
+                    f"cross-level allreduce at {s.precision} but the "
+                    f"bucket's (sync-precision-map-coherent) precision "
+                    f"is {bprec!r} — per-level precision must compose "
+                    f"with the map, not contradict it"))
     return findings

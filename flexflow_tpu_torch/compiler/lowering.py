@@ -37,8 +37,9 @@ tensor is copied into the old one), so the graph holds their
 addresses.  A job of several ranks runs its steps eagerly: the
 collectives' gloo host hops cannot be captured, and the reference also
 runs one step per call when the job has several processes (NCCL
-capture of multi-rank steps: ROADMAP Queue A item 5).  ``eval_step``
-and ``forward_fn`` stay eager: no main path times them.
+capture of multi-rank steps: ROADMAP, work on ported paths, item
+5.3).  ``eval_step`` and ``forward_fn`` stay eager: no main path times
+them.
 
 Weights are seeded by NAME, as the reference's ``weight_fold_key``
 does: each weight draws from its own ``torch.Generator`` seeded from
@@ -83,11 +84,41 @@ onto (pipeline_lowering.py subclasses this class).  ``holds``,
 ``gather_weights`` and ``local_weights`` say which weights a rank
 keeps and carry whole weights in and out.
 
+Gradient sync as the reference runs it (lowering.py:357-401,
+405-593), on the flat lowering over the job's mesh:
+
+* ``sync_precision`` (op name -> bf16/int8/int8_ef, built by
+  search/sync_precision.py): those weight groups sum through the
+  compressed collective (comm/quantized.py) instead of the fp32
+  all-reduce; ``int8_ef`` groups carry an error-feedback residual, model
+  state under ``"<op>/<w>/ef_residual"`` (each rank's own entry error,
+  fp32, shaped as its block of the weight), advanced once per optimizer
+  step and updated in place like any state value.
+* ``sync_schedule`` (search/sync_schedule.py): the buckets sum in the
+  schedule's order through comm/bucketed.py.  With one microbatch, a
+  hook on each weight leaf hands its gradient to ``BucketedSync`` as
+  the backward produces it, so fp32 buckets run under the rest of the
+  backward; with ``grad_accum_steps`` > 1 the summed gradients go in
+  after the last microbatch.  Staged reduction plans run on
+  ``config.machine_spec``'s link levels.
+* ZeRO-1 (``config.zero_dp_shard`` for every weight, or the per-group
+  ``zero_groups``): each member weight's block is split further over
+  the mesh axes its layout does not use, placed by
+  ``parallel.mesh.place_zero_factors`` as the reference's
+  ``_zero_augmented`` places them (``slot_placement``).  The rank keeps
+  the optimizer slots of its shard only (``slot_views``), its gradient
+  is reduce-scattered to the shard (the fp32 path; a compressed or
+  scheduled sum is summed whole, then cut), the optimizer updates the
+  shard, and the updated weight is all-gathered back, so every replica
+  holds the same bits.
+
+The reference sums gradients inside GSPMD's backward and runs its
+compressed sync on the summed gradient; the port's ranks hold shares
+of the gradient, so its compressed collective IS the sum (comm/
+quantized.py says more).
+
 Not lowered, and raising ``NotImplementedError`` with the ROADMAP
-item that lifts it: ZeRO (``zero_dp_shard``, per-group
-``zero_groups``), compressed or scheduled gradient sync
-(``sync_precision``, ``sync_schedule``), and the inference compile
-under a split (model.py).
+item that lifts it: the inference compile under a split (model.py).
 """
 
 from __future__ import annotations
@@ -99,6 +130,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from flexflow_tpu_torch.comm import compat
+from flexflow_tpu_torch.comm.bucketed import BucketedSync
+from flexflow_tpu_torch.comm.quantized import (
+    MIN_COMPRESS_ELEMS,
+    quantized_grad_sync,
+)
 from flexflow_tpu_torch.compiler.graphs import StepGraph
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.core.graph import Graph, Node
@@ -119,8 +156,10 @@ from flexflow_tpu_torch.ops.inout import InputOp
 from flexflow_tpu_torch.optimizers import Optimizer
 from flexflow_tpu_torch.parallel.mesh import (
     Placement,
+    all_gather,
     all_reduce_sum,
     grad_all_reduce,
+    place_zero_factors,
     placement,
     reshard,
     view_slot_axes,
@@ -139,19 +178,6 @@ def weight_generator(seed: int, op_name: str, w_name: str) -> torch.Generator:
 _MEAN_LOSSES = (LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
                 LossType.CATEGORICAL_CROSSENTROPY,
                 LossType.MEAN_SQUARED_ERROR, LossType.IDENTITY)
-
-# compile options of the reference the port refuses, and the ROADMAP
-# Queue A item that lifts each
-_ITEM_ZERO_SYNC = "ROADMAP Queue A item 5"
-
-
-def refuse_unlowered(what: str, item: str) -> None:
-    """Raise for a compile option or strategy block the port does not
-    lower, naming the ROADMAP item that lifts it."""
-    raise NotImplementedError(
-        f"{what} is not lowered by the port yet ({item}); the port syncs "
-        f"fp32 gradients in one all-reduce per set of axes")
-
 
 def step_seeds(seeds, n: int, graph: Graph) -> torch.Tensor:
     """``n`` int64 step seeds as a tensor: ``seeds`` (a tensor, array or
@@ -195,15 +221,11 @@ def data_parallel_strategy(graph: Graph, degree: int
 
 
 def strategy_views(strategy) -> Dict[int, MachineView]:
-    """The views by guid of a strategy, refusing the ``__meta__`` blocks
-    the lowering does not run (``pipeline`` and ``placement`` are
-    ``FFModel.compile``'s, which chooses the lowering by them)."""
+    """The views by guid of a strategy, without its ``__meta__`` block
+    (``FFModel.compile`` adopts that: the lowering, the sync schedule,
+    the ZeRO groups)."""
     if not strategy:
         return {}
-    meta = strategy.get("__meta__") or {}
-    for key in ("sync_schedule", "sync_precision", "zero_groups"):
-        if meta.get(key):
-            refuse_unlowered(f"strategy __meta__.{key}", _ITEM_ZERO_SYNC)
     return {k: v for k, v in strategy.items() if k != "__meta__"}
 
 
@@ -217,7 +239,8 @@ class CompiledModel:
                  metric_types: Sequence = (),
                  optimizer: Optional[Optimizer] = None,
                  strategy: Optional[Dict[int, MachineView]] = None,
-                 mesh=None):
+                 mesh=None, sync_precision: Optional[Dict[str, str]] = None,
+                 sync_schedule=None, zero_groups: Sequence[str] = ()):
         from flexflow_tpu_torch.runtime import distributed
 
         self.graph = graph
@@ -229,14 +252,13 @@ class CompiledModel:
             raise ValueError(
                 f"FFConfig.num_devices={config.num_devices} but the job has "
                 f"{world} rank(s) (runtime.distributed.initialize)")
-        for what, asked in (
-                ("zero_dp_shard", config.zero_dp_shard),
-                ("sync_precision", config.sync_precision != "fp32"),
-                ("sync_schedule", config.sync_schedule != "off")):
-            if asked:
-                refuse_unlowered(f"FFConfig.{what}="
-                                 f"{getattr(config, what)!r}",
-                                 _ITEM_ZERO_SYNC)
+        # the gradient-sync plan (module docstring): the op -> wire
+        # precision map, the bucketed schedule and the ZeRO-1 groups
+        # (``zero_dp_shard`` arms every op); the other lowerings, which
+        # pass their own mesh, sync in fp32 and keep whole slots
+        self.sync_precision: Dict[str, str] = dict(sync_precision or {})
+        self.sync_schedule = sync_schedule
+        self.zero_groups: Tuple[str, ...] = tuple(zero_groups or ())
         views = strategy_views(strategy)
         self.loss_type = LossType.from_any(loss_type)
         self.metric_types = [MetricsType.from_any(m) for m in metric_types]
@@ -269,6 +291,10 @@ class CompiledModel:
         # one process captures its steps; several run them eagerly
         self.capture = world == 1 and mesh is None
         self._layouts()
+        self._zero_pl: Dict[Tuple[str, str], Placement] = {}
+        if mesh is None and (config.zero_dp_shard or self.zero_groups):
+            self._zero_layouts()
+        self._ef_keys: Dict[str, Dict[str, str]] = {}
 
     # ---- layouts ---------------------------------------------------------
     def _layouts(self):
@@ -321,6 +347,123 @@ class CompiledModel:
     def weight_placement(self, op_name: str, w_name: str) -> Placement:
         return self._w_pl[op_name][w_name]
 
+    # ---- ZeRO-1 ----------------------------------------------------------
+    def _zero_layouts(self):
+        """Each member weight's ZeRO-1 placement (the reference's
+        ``_zero_augmented``): its layout with the mesh axes it does not
+        use appended, by ``place_zero_factors``, to the dims of its
+        block they divide (largest first); a weight no axis divides
+        keeps whole slots."""
+        every = self.config.zero_dp_shard
+        members = set(self.zero_groups)
+        for node in self._topo:
+            op = node.op
+            if not every and op.name not in members:
+                continue
+            for ws in op._weight_specs:
+                pl = self._w_pl[op.name][ws.name]
+                used = set(pl.split_axes())
+                free = [(n, size) for n, size in self.mesh.axes
+                        if n not in used and size > 1 and n != "pp"]
+                if not free:
+                    continue
+                dims = [list(a) for a in pl.dims]
+                for d, fi in place_zero_factors(
+                        list(pl.local_sizes(ws.shape, self.mesh)),
+                        [size for _, size in free]):
+                    dims[d].append(free[fi][0])
+                zpl = Placement(tuple(tuple(a) for a in dims))
+                if zpl != pl:
+                    self._zero_pl[(op.name, ws.name)] = zpl
+
+    def slot_placement(self, op_name: str, w_name: str) -> Placement:
+        """How a weight's optimizer slots lie over the mesh."""
+        return (self._zero_pl.get((op_name, w_name))
+                or self._w_pl[op_name][w_name])
+
+    def _zero_extra(self, key):
+        """(dim, the axes ZeRO adds to it) of a member weight."""
+        pl, zpl = self._w_pl[key[0]][key[1]], self._zero_pl[key]
+        return [(d, b[len(a):]) for d, (a, b) in enumerate(zip(pl.dims,
+                                                            zpl.dims))
+                if len(b) > len(a)]
+
+    def _zero_slices(self, key, shape) -> Tuple[slice, ...]:
+        """This rank's shard of a member weight's block of ``shape``."""
+        out = [slice(None)] * len(shape)
+        for d, extra in self._zero_extra(key):
+            n, i = self.mesh.size(extra), self.mesh.index(extra)
+            per = shape[d] // n
+            out[d] = slice(i * per, (i + 1) * per)
+        return tuple(out)
+
+    def _zero_gather(self, x, key):
+        """A member weight's block from the shards (a collective over
+        the ZeRO axes)."""
+        for d, extra in self._zero_extra(key):
+            x = all_gather(x, d, extra, self.mesh)
+        return x
+
+    def _zero_reduce(self, g, key, axes):
+        """The sum of a member weight's gradient over ``axes``, cut to
+        this rank's shard: a reduce-scatter along each dim over the ZeRO
+        axes it sums over (a plain cut over the others), then an
+        all-reduce over the summed axes ZeRO does not use."""
+        done = set()
+        for d, extra in self._zero_extra(key):
+            run: List[str] = []
+            for i, a in enumerate(extra):
+                run.append(a)
+                last = i + 1 == len(extra)
+                if last or (extra[i + 1] in axes) != (a in axes):
+                    g = self._zero_cut(g, d, tuple(run), a in axes)
+                    run = []
+            done.update(a for a in extra if a in axes)
+        rest = tuple(a for a in axes if a not in done)
+        return all_reduce_sum(g, rest, self.mesh) if rest else g
+
+    def _zero_cut(self, g, d, axes, summed):
+        n = self.mesh.size(axes)
+        if not summed:
+            per = g.shape[d] // n
+            return g.narrow(d, self.mesh.index(axes) * per, per)
+        rows = g.movedim(d, 0).contiguous()
+        out = compat.reduce_scatter(rows, axes, self.mesh)
+        return out.reshape((rows.shape[0] // n,) + tuple(rows.shape[1:])
+                           ).movedim(0, d)
+
+    def slot_views(self, params):
+        """``params`` with each ZeRO-1 member weight cut to this rank's
+        shard (views): what ``Optimizer.init_state`` sizes the slots
+        by."""
+        return {op: {w: (t[self._zero_slices((op, w), t.shape)]
+                         if (op, w) in self._zero_pl else t)
+                     for w, t in ws.items()}
+                for op, ws in params.items()}
+
+    def gather_slots(self, tree):
+        """The whole optimizer slots of ``tree`` (op -> weight ->
+        tensor, laid out as ``slot_placement``) on every rank: a
+        collective."""
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for op, ws in tree.items():
+            for w, v in ws.items():
+                if (op, w) in self._zero_pl:
+                    v = self._zero_gather(v, (op, w))
+                out.setdefault(op, {})[w] = reshard(
+                    v, self.weight_placement(op, w),
+                    Placement.replicated(v.dim()), self.mesh)
+        return out
+
+    def slot_slices(self, op: str, w: str, shape):
+        """Picks this rank's slot block from a whole slot value."""
+        blk = self.weight_placement(op, w).local_slices(shape, self.mesh)
+        if (op, w) not in self._zero_pl:
+            return blk
+        local = self.weight_placement(op, w).local_sizes(shape, self.mesh)
+        inner = self._zero_slices((op, w), local)
+        return lambda v: v[blk][inner]
+
     def input_slices(self, i: int, shape: Sequence[int]
                      ) -> Tuple[slice, ...]:
         """This rank's block of frontend input ``i`` of global
@@ -361,6 +504,20 @@ class CompiledModel:
             for name, shape, dtype, fill in specs():
                 state[f"{op.name}/{name}"] = torch.full(
                     shape, fill, dtype=dtype, device=self.device)
+        # error-feedback residuals of the int8_ef groups (reference
+        # lowering.py:373-401): fp32, each rank's block, zero at first
+        self._ef_keys = {}
+        for op, prec in self.sync_precision.items():
+            if prec != "int8_ef" or op not in params:
+                continue
+            for w, t in params[op].items():
+                if (t.numel() < MIN_COMPRESS_ELEMS
+                        or not self._grad_axes[op][w]):
+                    continue
+                key = f"{op}/{w}/ef_residual"
+                self._ef_keys.setdefault(op, {})[w] = key
+                state[key] = torch.zeros(t.shape, dtype=torch.float32,
+                                         device=self.device)
         return params, state
 
     # ---- whole weights ---------------------------------------------------
@@ -543,27 +700,113 @@ class CompiledModel:
         return job_metrics(m, dims[0], tuple(a for axes in dims[1:]
                                              for a in axes), self.mesh)
 
+    def _residuals(self, state):
+        """The error-feedback residuals in ``state``, by op and
+        weight."""
+        if not state or not self._ef_keys:
+            return None
+        return {op: {w: state[k] for w, k in ws.items() if k in state}
+                for op, ws in self._ef_keys.items()}
+
+    def ef_residual_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """Each error-feedback residual's state key and the axes its
+        weight's gradient sums over: the ranks' residuals add up to the
+        error the summed gradient lost, which is what a checkpoint keeps
+        (runtime/checkpoint.py)."""
+        return {k: self._grad_axes[op][w]
+                for op, ws in self._ef_keys.items() for w, k in ws.items()}
+
+    def _bucketed(self, state) -> Optional[BucketedSync]:
+        """A fresh executor of the sync schedule for one step, or None
+        when the step syncs monolithically."""
+        if (self.sync_schedule is None
+                or not getattr(self.sync_schedule, "buckets", None)
+                or self.mesh.world == 1):
+            return None
+        return BucketedSync(self.sync_schedule, self._grad_axes, self.mesh,
+                            machine=self.config.machine_spec,
+                            residuals=self._residuals(state))
+
+    def _synced(self, grads, state=None, bucketed=None, shard=True):
+        """The job's gradients from this rank's shares ``grads`` (a new
+        tree) and the new error-feedback residuals by state key: the
+        schedule's buckets (``bucketed``), else the compressed groups
+        of ``sync_precision`` one by one and every other weight in one
+        fp32 all-reduce per set of axes.  With ``shard``, a ZeRO-1
+        member's gradient comes back as this rank's shard (its fp32 sum
+        reduce-scattered)."""
+        residuals = self._residuals(state)
+        if bucketed is None:
+            bucketed = self._bucketed(state)
+        scattered = set()  # ZeRO members already cut to their shard
+        if bucketed is not None:
+            out = bucketed.finish(grads)
+            new_res = bucketed.new_residuals
+        else:
+            out, new_res, whole = quantized_grad_sync(
+                grads, self.mesh, self._grad_axes, self.sync_precision,
+                residuals=residuals)
+            by_axes: Dict[Tuple[str, ...], List[Tuple[str, str]]] = {}
+            for op, gs in out.items():
+                for w, g in gs.items():
+                    axes = self._grad_axes[op][w]
+                    if not axes or (op, w) in whole:
+                        continue
+                    if shard and (op, w) in self._zero_pl:
+                        gs[w] = self._zero_reduce(g, (op, w), axes)
+                        scattered.add((op, w))
+                        continue
+                    by_axes.setdefault(axes, []).append((op, w))
+            for axes, ms in by_axes.items():
+                flat = all_reduce_sum(
+                    torch.cat([out[op][w].reshape(-1).float()
+                               for op, w in ms]), axes, self.mesh)
+                parts = flat.split([out[op][w].numel() for op, w in ms])
+                for (op, w), part in zip(ms, parts):
+                    g = out[op][w]
+                    out[op][w] = part.view(g.shape).to(g.dtype)
+        if shard:
+            for key in self._zero_pl:
+                op, w = key
+                if key not in scattered and op in out:
+                    g = out[op][w]
+                    out[op][w] = g[self._zero_slices(key, g.shape)]
+        updates = {self._ef_keys[op][w]: r for op, ws in new_res.items()
+                   for w, r in ws.items()
+                   if w in self._ef_keys.get(op, {})}
+        return out, updates
+
     def _sync_grads(self, grads) -> None:
-        """Sum each weight's gradient over its ``_grad_axes``, in place,
-        in one fp32 all-reduce per set of axes."""
-        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        """Sum each weight's gradient over its ``_grad_axes``, in place
+        (the whole gradient, ZeRO members too; the placed lowering's
+        segments call this)."""
+        out, _ = self._synced(grads, shard=False)
         for op, gs in grads.items():
             for w, g in gs.items():
-                axes = self._grad_axes[op][w]
-                if axes:
-                    by_axes.setdefault(axes, []).append(g)
-        for axes, gs in by_axes.items():
-            if any(g.dtype != torch.float32 for g in gs):
-                raise NotImplementedError(
-                    f"gradient sync of non-fp32 weights is not ported yet "
-                    f"({_ITEM_ZERO_SYNC})")
-            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in gs]),
-                                  axes, self.mesh)
-            for g, part in zip(gs, flat.split([g.numel() for g in gs])):
-                g.copy_(part.view_as(g))
+                if out[op][w] is not g:
+                    g.copy_(out[op][w])
+
+    def _update(self, params, grads, opt_state) -> None:
+        """The optimizer step: ZeRO-1 members update this rank's shard
+        (``grads`` holds their shards) and are all-gathered back."""
+        if not self._zero_pl:
+            self.optimizer.apply(params, grads, opt_state)
+            return
+        shards = {op: {w: (t[self._zero_slices((op, w), t.shape)].clone()
+                           if (op, w) in self._zero_pl else t)
+                       for w, t in ws.items()}
+                  for op, ws in params.items()}
+        self.optimizer.apply(shards, grads, opt_state)
+        with torch.no_grad():
+            for key in self._zero_pl:
+                op, w = key
+                if op in params:
+                    params[op][w].copy_(self._zero_gather(shards[op][w],
+                                                          key))
 
     def loss_and_grads(self, params, state, inputs, labels, seed=None,
-                       row_base: int = 0, sync: bool = True):
+                       row_base: int = 0, sync: bool = True,
+                       bucketed: Optional[BucketedSync] = None):
         """One training forward and backward without an update: (loss,
         logits, new state, grads keyed like params).  A weight the
         forward does not reach gets a zero gradient.  Under a strategy
@@ -572,12 +815,18 @@ class CompiledModel:
         rank's block.  The gradients
         are taken with respect to fresh leaves that share the weights'
         storage, so no autograd node outlives the call: a node kept from
-        an earlier call would carry that call's stream into a capture."""
+        an earlier call would carry that call's stream into a capture.
+        ``bucketed`` (a ``BucketedSync``) gets each synced weight's
+        gradient from a hook on its leaf as the backward produces it."""
         leaves = [(op, w, t.detach().requires_grad_(True))
                   for op, ws in params.items() for w, t in ws.items()]
         live: Dict[str, Dict[str, torch.Tensor]] = {}
+        synced = set(bucketed.members()) if bucketed is not None else ()
         for op, w, t in leaves:
             live.setdefault(op, {})[w] = t
+            if (op, w) in synced:
+                t.register_hook(
+                    lambda g, op=op, w=w: bucketed.arrive(op, w, g))
         logits, new_state = self.apply(live, state, inputs, train=True,
                                        seed=seed, row_base=row_base)
         loss, logits = self._loss_from(logits, labels, new_state)
@@ -588,7 +837,7 @@ class CompiledModel:
             grads.setdefault(op, {})[w] = (torch.zeros_like(t) if g is None
                                            else g)
         if sync:
-            self._sync_grads(grads)
+            grads, _ = self._synced(grads, bucketed=bucketed, shard=False)
         return (self._job_loss(loss.detach()), logits.detach(), new_state,
                 grads)
 
@@ -603,12 +852,16 @@ class CompiledModel:
         per = rows // ga
         gsum, losses, local = None, [], None
         cur = state
+        # the schedule's buckets go out during the backward of a single
+        # microbatch; accumulated gradients go in after the last
+        bucketed = self._bucketed(state)
         for j in range(ga):
             sl = slice(j * per, (j + 1) * per)
             lab = labels[sl] if ga > 1 else labels
             loss, logits, cur, grads = self.loss_and_grads(
                 params, cur, [x[sl] if ga > 1 else x for x in inputs], lab,
-                seed=seed, row_base=j * per, sync=False)
+                seed=seed, row_base=j * per, sync=False,
+                bucketed=bucketed if ga == 1 else None)
             m = compute_metrics(self.metric_types, self.loss_type, logits,
                                 lab)
             losses.append(loss)
@@ -623,12 +876,14 @@ class CompiledModel:
             for gs in gsum.values():
                 for g in gs.values():
                     g.div_(ga)
-        self._sync_grads(gsum)
-        self.optimizer.apply(params, gsum, opt_state)
+        synced, ef = self._synced(gsum, state, bucketed)
+        self._update(params, synced, opt_state)
         with torch.no_grad():
             for k, v in cur.items():
                 if v is not state[k]:
                     state[k].copy_(v)
+            for k, v in ef.items():
+                state[k].copy_(v)
         loss = losses[0] if ga == 1 else torch.stack(losses).mean()
         return loss, self._job_metrics(local)
 

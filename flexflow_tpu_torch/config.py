@@ -18,9 +18,21 @@ config.py:18-66) and ``kv_precision`` (the KV page-pool dtype lane:
 
 ``trace_steps`` is the reference's: ``fit`` runs that many optimizer
 steps per compiled call (``CompiledModel.train_steps``).
-``zero_dp_shard``, ``sync_precision`` and ``sync_schedule`` are the
-reference's ZeRO-1 and gradient-sync options; ``compile`` refuses any
-value but their defaults (ROADMAP Queue A item 5).
+The gradient-sync options are the reference's (config.py:269-316,
+364-372, 420-434), with its validation: ``zero_dp_shard`` (ZeRO-1: each
+rank keeps and updates its shard of every optimizer slot, then the
+updated weights are all-gathered), ``sync_precision``
+(fp32|bf16|int8|search: the per-weight-group wire precision,
+comm/quantized.py, chosen by search/sync_precision.py),
+``sync_schedule`` (off|search: the bucketed, issue-ordered sync of
+search/sync_schedule.py, executed by comm/bucketed.py, with staged
+reduction plans on a machine with link levels), ``sync_bucket_bytes``
+(pins the schedule search's coalescing floor), ``sync_ef`` (off|auto:
+error feedback on the int8 groups) and ``co_search`` (the joint
+strategy x comm-plan search of search/comm_plan.py; it turns on
+``sync_schedule="search"``).  They lower in the flat lowering
+(compiler/lowering.py); ZeRO with ``pipeline=`` raises, as in the
+reference.
 
 The strategy search's fields are the reference's, with its defaults
 (config.py:106, 115-160): ``machine_spec`` (default
@@ -125,11 +137,13 @@ class FFConfig:
     remat: bool = False
     grad_accum_steps: int = 1
     trace_steps: int = 1  # optimizer steps per compiled call in fit
-    # the reference's ZeRO-1 and gradient-sync options: compile refuses
-    # any value but the default (not ported)
+    # the reference's ZeRO-1 and gradient-sync options (module docstring)
     zero_dp_shard: bool = False
-    sync_precision: str = "fp32"
-    sync_schedule: str = "off"
+    sync_precision: str = "fp32"  # fp32|bf16|int8|search
+    sync_schedule: str = "off"  # off|search
+    sync_bucket_bytes: int = 0  # 0: sweep the default coalescing floors
+    sync_ef: str = "off"  # off|auto
+    co_search: bool = False
     # the strategy search (reference config.py:103-160, its defaults)
     machine_spec: Optional[MachineSpec] = None
     machine_model_file: Optional[str] = None
@@ -182,6 +196,29 @@ class FFConfig:
         if self.objective not in ("train", "serve"):
             raise ValueError(
                 f"objective must be train|serve, got {self.objective!r}")
+        if self.sync_precision not in ("fp32", "bf16", "int8", "search"):
+            raise ValueError(
+                f"sync_precision must be fp32|bf16|int8|search, got "
+                f"{self.sync_precision!r}")
+        if self.sync_schedule not in ("off", "search"):
+            raise ValueError(
+                f"sync_schedule must be off|search, got "
+                f"{self.sync_schedule!r}")
+        if self.sync_ef not in ("off", "auto"):
+            raise ValueError(
+                f"sync_ef must be off|auto, got {self.sync_ef!r}")
+        if self.objective == "serve" and self.co_search:
+            # the joint currency prices gradient sync, which a decode
+            # step does not run
+            raise ValueError(
+                "objective='serve' does not compose with co_search (the "
+                "joint comm-plan currency prices gradient sync, which a "
+                "decode step does not run)")
+        if self.co_search and self.sync_schedule == "off":
+            # the joint currency IS the scheduled exposed-comm sync:
+            # co-search without the schedule would price plans the
+            # lowering never runs
+            self.sync_schedule = "search"
         if self.machine_spec is None:
             self.machine_spec = (
                 MachineSpec.from_file(self.machine_model_file)

@@ -199,6 +199,10 @@ class FFModel:
         self.strategy = None
         self.pipeline_proposal = None
         self.search_stats: Dict = {}
+        # the gradient-sync plan the flat lowering runs (compile)
+        self.sync_precision_map: Dict[str, str] = {}
+        self.sync_schedule = None
+        self.zero_groups: Tuple[str, ...] = ()
         self._rng_counter = 0  # the step seed: +1 per optimizer step
         self._compile_ctx = None
 
@@ -534,9 +538,12 @@ class FFModel:
             strategy, pipeline = self._choose_strategy(comp_mode, pipeline)
         else:
             pipeline = self._adopt_meta(strategy, pipeline)
-        self.strategy = strategy
+        from flexflow_tpu_torch.compiler.lowering import strategy_views
+
+        self.strategy = strategy_views(strategy)  # its __meta__ adopted
         if comp_mode == "inference":
             _adopt_kv_dtype(self.graph, self.config.kv_precision)
+        self._adopt_sync(strategy, pipeline, comp_mode)
         self._compile_ctx = dict(
             strategy=strategy, pipeline=pipeline, block_of=block_of,
             loss_type=loss_type,
@@ -551,7 +558,7 @@ class FFModel:
                 "(ROADMAP Queue A item 2); the decode path runs on one "
                 "device")
         self.params, self.state = self.compiled.init_params(self.config.seed)
-        self.opt_state = (self.optimizer.init_state(self.params)
+        self.opt_state = (self.optimizer.init_state(self._slot_views())
                           if comp_mode == "training" else None)
 
     def recompile(self):
@@ -575,8 +582,138 @@ class FFModel:
         self.state = _merge_matching(self.state, old[1] or {})
         if training:
             self.opt_state = _merge_matching(
-                self.optimizer.init_state(self.params), old[2] or {})
+                self.optimizer.init_state(self._slot_views()), old[2] or {})
         return self.compiled
+
+    def _slot_views(self):
+        """The parameters as the optimizer slots are sized: a ZeRO-1
+        member weight cut to this rank's shard."""
+        views = getattr(self.compiled, "slot_views", None)
+        return self.params if views is None else views(self.params)
+
+    def _adopt_sync(self, strategy, pipeline, comp_mode: str) -> None:
+        """The gradient-sync plan of a training compile over ranks
+        (reference model.py:999-1142): the op -> wire precision map
+        (``__meta__.sync_precision``, else ``choose_sync_precision``
+        under ``config.sync_precision``), the schedule under
+        ``config.sync_schedule="search"`` (``__meta__.sync_schedule``,
+        re-linted, else ``_build_sync_schedule``) and the per-group
+        ZeRO-1 map (``__meta__.zero_groups``, re-linted; ignored under
+        ``zero_dp_shard``, which arms every op).  A searched strategy
+        brings rank 0's choices in its ``__meta__``, so every rank
+        lowers the same plan."""
+        from flexflow_tpu_torch.analysis import (
+            AnalysisError,
+            emit_findings,
+            errors_only,
+            lint_reduction_plan,
+            lint_sync_schedule,
+            lint_zero_map,
+        )
+        from flexflow_tpu_torch.compiler.lowering import strategy_views
+        from flexflow_tpu_torch.search.machine_model import CostModel
+
+        self.sync_precision_map, self.sync_schedule = {}, None
+        self.zero_groups = ()
+        cfg = self.config
+        views = strategy_views(strategy)
+        meta = (strategy or {}).get("__meta__") or {}
+        if (comp_mode != "training" or not views or pipeline is not None
+                or cfg.num_devices == 1):
+            return
+        sim = None
+
+        def simulator():
+            from flexflow_tpu_torch.search.driver import coherent_calibration
+            from flexflow_tpu_torch.search.simulator import Simulator
+
+            return Simulator.for_config(
+                cfg, calibration=coherent_calibration(cfg))
+
+        lint_cm = CostModel(cfg.machine_spec, num_devices=cfg.search_devices)
+        pmap = meta.get("sync_precision")
+        if pmap is not None:
+            from flexflow_tpu_torch.search.sync_schedule import (
+                BUCKET_PRECISIONS,
+            )
+
+            names = {n.op.name for n in self.graph.topo_order()}
+            if not isinstance(pmap, dict) or any(
+                    k not in names or v not in BUCKET_PRECISIONS
+                    for k, v in pmap.items()):
+                raise AnalysisError(
+                    "strategy __meta__ carries a malformed sync_precision "
+                    "map (expected op name -> fp32|bf16|int8|int8_ef)", [])
+            self.sync_precision_map = {k: v for k, v in pmap.items()
+                                       if v != "fp32"}
+        elif cfg.sync_precision != "fp32":
+            from flexflow_tpu_torch.search.sync_precision import (
+                choose_sync_precision,
+            )
+
+            sim = simulator()
+            self.sync_precision_map = choose_sync_precision(
+                self.graph, views, sim.cost)
+        if cfg.sync_schedule == "search":
+            raw = meta.get("sync_schedule")
+            if raw is not None:
+                from flexflow_tpu_torch.search.sync_schedule import (
+                    SyncSchedule,
+                )
+
+                try:
+                    sched = SyncSchedule.from_jsonable(raw)
+                except ValueError as e:
+                    raise AnalysisError(
+                        f"strategy __meta__ carries a malformed "
+                        f"sync_schedule: {e}", []) from e
+                bad = errors_only(
+                    lint_sync_schedule(self.graph, views, sched,
+                                       self.sync_precision_map)
+                    + lint_reduction_plan(self.graph, views, sched,
+                                          lint_cm))
+                if bad:
+                    emit_findings(bad)
+                    raise AnalysisError(
+                        "imported sync_schedule is illegal for this "
+                        "graph/strategy", bad)
+                self.sync_schedule = sched
+            else:
+                from flexflow_tpu_torch.search.driver import (
+                    _build_sync_schedule,
+                )
+
+                self.sync_schedule = _build_sync_schedule(
+                    self.graph, views, sim or simulator(), cfg)
+        zero = meta.get("zero_groups")
+        if zero is not None and not cfg.zero_dp_shard:
+            if (not isinstance(zero, list)
+                    or any(not isinstance(z, str) for z in zero)):
+                raise AnalysisError(
+                    "strategy __meta__ carries a malformed zero_groups map "
+                    "(expected a list of op names)", [])
+            bad = errors_only(lint_zero_map(self.graph, views, zero,
+                                            lint_cm))
+            if bad:
+                emit_findings(bad)
+                raise AnalysisError(
+                    "imported zero_groups map is illegal for this "
+                    "graph/strategy", bad)
+            self.zero_groups = tuple(zero)
+
+    def sync_meta(self) -> dict:
+        """The gradient-sync plan as ``__meta__`` entries (the
+        reference's ``sync_schedule`` and ``zero_groups``, and the
+        port's ``sync_precision`` map)."""
+        meta = {}
+        if self.sync_precision_map:
+            meta["sync_precision"] = dict(sorted(
+                self.sync_precision_map.items()))
+        if self.sync_schedule is not None:
+            meta["sync_schedule"] = self.sync_schedule.to_jsonable()
+        if self.zero_groups:
+            meta["zero_groups"] = sorted(self.zero_groups)
+        return meta
 
     def _choose_strategy(self, comp_mode: str, pipeline):
         """(views, pipeline) for ``compile(strategy=None)`` (module
@@ -626,7 +763,9 @@ class FFModel:
                                   if k in meta}), None)
         if proposal is not None:
             self.pipeline_proposal = proposal
-        return views, pipeline
+        sync = {k: meta[k] for k in ("sync_precision", "sync_schedule",
+                                     "zero_groups") if k in meta}
+        return (dict(views, __meta__=sync) if sync else views), pipeline
 
     def _search(self, comp_mode: str):
         """The flat search, then the pipeline and placement proposals in
@@ -648,6 +787,27 @@ class FFModel:
                                                 return_graph=True)
         stats = dict(driver.LAST_SEARCH_STATS)
         meta, proposal = {}, None
+        # the search's gradient-sync choices ride the export to every
+        # rank (dropped below if a proposal replaces the views)
+        searched = views
+        sync_meta = {}
+        if driver.LAST_SYNC_SCHEDULE is not None:
+            sync_meta["sync_schedule"] = (
+                driver.LAST_SYNC_SCHEDULE.to_jsonable())
+        if driver.LAST_ZERO_GROUPS:
+            sync_meta["zero_groups"] = sorted(driver.LAST_ZERO_GROUPS)
+        if (cfg.sync_precision != "fp32" and comp_mode == "training"
+                and views):
+            from flexflow_tpu_torch.search.simulator import Simulator
+            from flexflow_tpu_torch.search.sync_precision import (
+                choose_sync_precision,
+            )
+
+            sim = Simulator.for_config(
+                cfg, calibration=driver.coherent_calibration(cfg))
+            pmap = choose_sync_precision(graph, views, sim.cost)
+            if pmap:
+                sync_meta["sync_precision"] = pmap
         if ((cfg.enable_pipeline_search or cfg.enable_placement_search)
                 and not cfg.zero_dp_shard and comp_mode == "training"):
             from flexflow_tpu_torch.search.pipeline_search import (
@@ -701,6 +861,8 @@ class FFModel:
                             "num_microbatches": proposal.num_microbatches,
                             "stages": [[graph.nodes[g].op.name for g in st]
                                        for st in proposal.stage_guids]}
+        if views is searched and comp_mode == "training":
+            meta.update(sync_meta)
         export = strategy_io.strategy_to_dict(graph, views, meta or None)
         return graph, export, stats, proposal
 
@@ -932,8 +1094,21 @@ class FFModel:
                 meta["pipeline"] = {
                     "num_stages": pipeline.num_stages,
                     "num_microbatches": pipeline.num_microbatches}
+            if not placed and pipeline is None:
+                meta.update(self.sync_meta())
             export_strategy(cfg.export_strategy_file, self.graph, views,
                             meta=meta or None)
+        if (placed or pipeline is not None) and self.sync_meta():
+            # the reference's honesty rule: these lowerings run their
+            # own gradient paths, so the plan cannot run there
+            from flexflow_tpu_torch.utils.logging import SEARCH_LOG
+
+            SEARCH_LOG.log(
+                f"the gradient-sync plan ({sorted(self.sync_meta())}) "
+                f"does not run in the placed or pipelined lowering; "
+                f"gradients sync in fp32")
+            self.sync_precision_map, self.sync_schedule = {}, None
+            self.zero_groups = ()
         if placed:
             if bad:
                 emit_findings(bad)
@@ -972,7 +1147,10 @@ class FFModel:
                                f"lowering runs")
         return CompiledModel(self.graph, cfg, loss_type=loss_type,
                              metric_types=metrics, optimizer=optimizer,
-                             strategy=strategy)
+                             strategy=strategy,
+                             sync_precision=self.sync_precision_map,
+                             sync_schedule=self.sync_schedule,
+                             zero_groups=self.zero_groups)
 
     # ---- training loop ---------------------------------------------------
     def fit(self, x=None, y=None, batch_size: Optional[int] = None,

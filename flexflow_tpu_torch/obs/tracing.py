@@ -145,7 +145,8 @@ class Tracer:
                 pass
 
     # -- minting + span edges -------------------------------------------
-    def request_root(self, rid: str, **attrs) -> str:
+    def request_root(self, rid: str, at: Optional[float] = None,
+                     **attrs) -> str:
         """The request's trace id, minting a fresh trace + open root
         ``request`` span on first sight of ``rid`` (idempotent: the
         fleet router mints at route time, the replica's ``submit`` then
@@ -156,7 +157,7 @@ class Tracer:
         self._mint += 1
         tid = f"{rid}#{self._mint}"
         self._rids[rid] = tid
-        self.begin(tid, REQUEST_ROOT, parent=None, rid=rid, **attrs)
+        self.begin(tid, REQUEST_ROOT, parent=None, at=at, rid=rid, **attrs)
         return tid
 
     def episode_root(self, **attrs) -> str:
@@ -172,10 +173,13 @@ class Tracer:
         return self._rids.get(rid)
 
     def begin(self, trace_id: str, name: str,
-              parent: Optional[str] = None, **attrs) -> Span:
+              parent: Optional[str] = None, at: Optional[float] = None,
+              **attrs) -> Span:
         """Open a child span.  ``parent`` names an OPEN span of the
         same trace (the newest one wins when re-opened names repeat);
-        None attaches to the trace's root when one is open."""
+        None attaches to the trace's root when one is open.  ``at`` is
+        the start time (``time.perf_counter()`` seconds; default: now),
+        so one clock read can close a phase and open the next."""
         opens = self._open.setdefault(trace_id, [])
         parent_id = None
         want = parent if parent is not None else None
@@ -185,31 +189,34 @@ class Tracer:
                 break
         self._sid += 1
         span = Span(trace_id, self._sid, parent_id, name,
-                    time.perf_counter(), attrs)
+                    time.perf_counter() if at is None else at, attrs)
         opens.append(span)
         return span
 
-    def end(self, trace_id: str, name: str, **attrs) -> Optional[Span]:
-        """Close the newest open span named ``name`` (None when no such
-        span is open — callers use that to detect which phase a
-        preempted sequence was in)."""
+    def end(self, trace_id: str, name: str, at: Optional[float] = None,
+            **attrs) -> Optional[Span]:
+        """Close the newest open span named ``name`` at ``at`` (default:
+        now; None when no such span is open — callers use that to
+        detect which phase a preempted sequence was in)."""
         opens = self._open.get(trace_id)
         if not opens:
             return None
         for i in range(len(opens) - 1, -1, -1):
             if opens[i].name == name:
                 span = opens.pop(i)
+                if at is not None:
+                    span.end_s = at
                 self._close(span, attrs)
                 return span
         return None
 
     def end_any(self, trace_id: str, names: Iterable[str],
-                **attrs) -> Optional[Span]:
+                at: Optional[float] = None, **attrs) -> Optional[Span]:
         """Close whichever of ``names`` is open (newest first) — the
         preemption edge, where the victim may be mid-prefill or
         mid-decode."""
         for name in names:
-            span = self.end(trace_id, name, **attrs)
+            span = self.end(trace_id, name, at=at, **attrs)
             if span is not None:
                 return span
         return None

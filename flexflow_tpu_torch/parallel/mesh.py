@@ -34,8 +34,11 @@ whose backward sums over axes (Megatron's f operator): the lowering
 puts it on an input that is replicated over axes along which the op's
 work differs, whose gradient is then a partial sum.
 
-Collectives.  ``all_reduce_sum``, ``all_gather`` and ``all_to_all``
-(over a set of axes), ``ppermute`` (a permutation of a group's ranks,
+Collectives.  ``all_reduce_sum`` (or ``all_reduce_sum_async``, which
+returns a ``Pending``), ``all_gather``, ``all_to_all`` and
+``reduce_scatter_sum`` (over a set of axes; the last through the
+transport's own, NCCL's: comm/compat.py emulates it on gloo),
+``ppermute`` (a permutation of a group's ranks,
 the ring's) and ``all_reduce_mean_`` (in place, through one flat
 buffer).  ``ppermute`` is differentiable: the backward sends the
 cotangents along the inverse permutation.  A pair (r, r) is a local
@@ -367,7 +370,50 @@ def all_to_all(x: torch.Tensor, axes: Sequence[str], mesh: Mesh
     return recv.to(x.device) if hop else recv
 
 
-for _fn in (all_reduce_sum, all_gather, all_to_all):
+def reduce_scatter_sum(x: torch.Tensor, axes: Sequence[str], mesh: Mesh
+                       ) -> torch.Tensor:
+    """``x`` [n * k, ...] summed over this rank's slice along ``axes``,
+    of which this rank keeps block j (its coordinate index), through the
+    transport's own reduce-scatter.  Gloo's is not used:
+    ``comm.compat.reduce_scatter`` emulates it there."""
+    group = mesh.group(axes)
+    n = mesh.size(axes)
+    send = x.detach().contiguous()
+    _count(reduce_scatter_sum, send, hop=False)
+    out = torch.empty((send.shape[0] // n,) + tuple(send.shape[1:]),
+                      dtype=send.dtype, device=send.device)
+    dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class Pending:
+    """An all-reduce in flight (``all_reduce_sum_async``): ``wait()``
+    returns the sum on the tensor's device."""
+
+    def __init__(self, work, buf: torch.Tensor, device: torch.device):
+        self._work, self._buf, self._device = work, buf, device
+
+    def wait(self) -> torch.Tensor:
+        self._work.wait()
+        return self._buf.to(self._device)
+
+
+def all_reduce_sum_async(x: torch.Tensor, axes: Sequence[str], mesh: Mesh
+                         ) -> Pending:
+    """``all_reduce_sum`` issued without waiting (``async_op``): the
+    transport runs it while the caller goes on (the backward of the
+    bucketed gradient sync, comm/bucketed.py)."""
+    group = mesh.group(axes)
+    hop = _host_hop(x, group)
+    buf = x.detach().cpu() if hop else x.detach().clone(
+        memory_format=torch.contiguous_format)
+    _count(all_reduce_sum, buf, hop=hop)
+    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
+                           async_op=True)
+    return Pending(work, buf, x.device)
+
+
+for _fn in (all_reduce_sum, all_gather, all_to_all, reduce_scatter_sum):
     _fn.calls = _fn.bytes = _fn.host_hops = _fn.host_bytes = 0
 
 
@@ -625,8 +671,8 @@ def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
 for _fn in (ppermute, all_reduce_mean_, send_recv, broadcast):
     _fn.calls = _fn.bytes = _fn.host_hops = _fn.host_bytes = 0
 
-COLLECTIVES = (all_reduce_sum, all_gather, all_to_all, ppermute,
-               all_reduce_mean_, send_recv, broadcast)
+COLLECTIVES = (all_reduce_sum, all_gather, all_to_all, reduce_scatter_sum,
+               ppermute, all_reduce_mean_, send_recv, broadcast)
 
 
 def comm_counts() -> Dict[str, Dict[str, int]]:

@@ -33,7 +33,14 @@ optimizer slot is gathered to its whole value, a collective) and rank
 0 writes once; ``restore`` reads the whole values on every rank and
 keeps each rank's block of them (its live layout, ``local_slices``), so
 a snapshot written under one strategy resumes under another, or on one
-process.  The restore writes into the live tensors in place, so a
+process.  A ZeRO-1 job's slots are gathered whole from the shards and
+cut back to them (``CompiledModel.gather_slots``, ``slot_slices``), so
+its snapshot resumes with or without ZeRO, in either package.  An
+int8 error-feedback residual (``"<op>/<w>/ef_residual"`` state) is
+saved as the sum of the ranks' residuals, the error the summed
+gradient lost, the reference's residual; a restore hands each rank an
+equal share of it, so the resumed sum carries the same error, though
+not each rank's own.  The restore writes into the live tensors in place, so a
 captured training step stays valid.  The pipelined, placed and staged
 lowerings' snapshots are not ported (ROADMAP Queue A item 10): saving
 or restoring them raises.
@@ -85,15 +92,18 @@ def _whole_trees(model) -> Dict[str, Dict[str, np.ndarray]]:
     """Host copies of the whole params, optimizer state and model state
     by keypath: every weight and slot gathered from the ranks' blocks
     (a collective: every rank calls it)."""
+    from flexflow_tpu_torch.parallel.mesh import all_reduce_sum
+
     c = model.compiled
     trees: Dict[str, Any] = {"params": c.gather_weights(model.params)}
     opt = {}
     for k, v in (model.opt_state or {}).items():
-        opt[k] = (c.gather_weights(v, [(op, w) for op, ws in v.items()
-                                       for w in ws])
-                  if isinstance(v, dict) else v)
+        opt[k] = c.gather_slots(v) if isinstance(v, dict) else v
     trees["opt_state"] = opt
-    trees["state"] = dict(model.state or {})
+    ef = c.ef_residual_axes()
+    trees["state"] = {k: (all_reduce_sum(t, ef[k], c.mesh) if k in ef
+                          else t)
+                      for k, t in (model.state or {}).items()}
     return {name: {k: np.array(t.detach().cpu().numpy(), copy=True)
                    for k, t in _flatten(tree)}
             for name, tree in trees.items()}
@@ -101,30 +111,38 @@ def _whole_trees(model) -> Dict[str, Dict[str, np.ndarray]]:
 
 def _targets(model) -> Dict[str, Dict[str, Tuple[torch.Tensor, tuple]]]:
     """Per tree and keypath: (the live tensor, the whole value's shape,
-    the slices of the whole value that are this rank's, () for all)."""
+    the slices of the whole value that are this rank's, () for all, or
+    a function that picks them)."""
     c = model.compiled
     out: Dict[str, Dict[str, Tuple]] = {}
     whole = {(n.op.name, ws.name): ws.shape for n in c._topo
              for ws in n.op._weight_specs}
 
-    def blocks(tree):
+    def blocks(tree, slots=False):
         got = {}
         for op, ws in tree.items():
             for w, t in ws.items():
                 shape = tuple(whole[(op, w)])
-                got[f"{op}/{w}"] = (t, shape, c.weight_placement(
-                    op, w).local_slices(shape, c.mesh))
+                got[f"{op}/{w}"] = (t, shape, c.slot_slices(op, w, shape)
+                                    if slots else c.weight_placement(
+                                        op, w).local_slices(shape, c.mesh))
         return got
 
     out["params"] = blocks(model.params)
     opt = {}
     for k, v in (model.opt_state or {}).items():
         if isinstance(v, dict):
-            opt.update({f"{k}/{p}": x for p, x in blocks(v).items()})
+            opt.update({f"{k}/{p}": x
+                        for p, x in blocks(v, slots=True).items()})
         else:
             opt[k] = (v, tuple(v.shape), ())
     out["opt_state"] = opt
-    out["state"] = {k: (t, tuple(t.shape), ())
+    # an error-feedback residual is saved summed over its ranks: each
+    # rank resumes from an equal share of it
+    ef = c.ef_residual_axes()
+    out["state"] = {k: (t, tuple(t.shape),
+                        (lambda v, n=c.mesh.size(ef[k]): v / n)
+                        if k in ef else ())
                     for k, t in (model.state or {}).items()}
     return out
 
@@ -153,7 +171,11 @@ def _place(targets, arrays: Dict[str, Dict[str, np.ndarray]],
                 fresh.append(f"{name}/{key}")
                 continue
             used.add(f"{name}/{key}")
-            pairs.append((t, np.asarray(val[sl] if sl else val)))
+            if callable(sl):
+                val = sl(val)
+            elif sl:
+                val = val[sl]
+            pairs.append((t, np.asarray(val)))
     dropped = sorted(f"{n}/{k}" for n, vs in arrays.items() for k in vs
                      if f"{n}/{k}" not in used)
     return pairs, fresh, dropped

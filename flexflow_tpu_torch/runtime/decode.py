@@ -435,13 +435,16 @@ class ContinuousBatchingExecutor:
                 tokens=list(r.prompt),
             )
             self._seq += 1
+            # one clock read starts the request's e2e, its trace and its
+            # queue span, so the phase spans sum to e2e exactly
+            t = time.perf_counter() if (obs or tr) else None
             if obs:
-                entry.enqueue_t = time.perf_counter()
+                entry.enqueue_t = t
             if tr:
                 # trace minted at enqueue (idempotent); the queue span
                 # runs enqueue -> admission
-                tid = TRACER.request_root(r.rid, slo=r.slo)
-                TRACER.begin(tid, "queue", parent="request")
+                tid = TRACER.request_root(r.rid, at=t, slo=r.slo)
+                TRACER.begin(tid, "queue", parent="request", at=t)
             self.queue.append(entry)
 
     def _expire(self, obs: bool = False, tr: bool = False) -> int:
@@ -516,10 +519,12 @@ class ContinuousBatchingExecutor:
             if tid is not None:
                 # the victim was mid-decode or (via-decode path)
                 # mid-prefill; either way its residency window closes
-                # and a fresh queue span opens — the re-queue edge
-                TRACER.end_any(tid, ("decode", "prefill"),
+                # and a fresh queue span opens — the re-queue edge, at
+                # one clock read
+                t = time.perf_counter()
+                TRACER.end_any(tid, ("decode", "prefill"), at=t,
                                preempted_by=entry.req.rid)
-                TRACER.begin(tid, "queue", parent="request",
+                TRACER.begin(tid, "queue", parent="request", at=t,
                              requeue=True)
         return True
 
@@ -633,9 +638,10 @@ class ContinuousBatchingExecutor:
                          preempted=entry.preempted, seq=entry.seq,
                          deadline_frames=entry.deadline_frames,
                          enqueue_frame=entry.enqueue_frame)
+            t = time.perf_counter() if (obs or tr) else None
             if obs:
                 live.enqueue_t = entry.enqueue_t
-                live.admit_t = entry.admit_t or time.perf_counter()
+                live.admit_t = entry.admit_t or t
                 live.prefill_done_t = entry.prefill_done_t
                 live.first_token_t = entry.first_token_t
             tid = TRACER.trace_of(entry.req.rid) if tr else None
@@ -645,11 +651,12 @@ class ContinuousBatchingExecutor:
                 # cached_prefix records how many prompt tokens the
                 # shared cache already held — the span's duration is
                 # the cost of the REMAINING tokens only
-                TRACER.end(tid, "queue")
-                TRACER.begin(tid, "prefill", parent="request",
+                TRACER.end(tid, "queue", at=t)
+                TRACER.begin(tid, "prefill", parent="request", at=t,
                              slot=i, pages=len(pages),
                              cached_prefix=matched)
             self._run_prefill(live, obs, tr)
+            t = time.perf_counter() if (obs or tr) else None
             if self.prefix_sharing and live.cached:
                 # publish this sequence's fully-cached pages (claimed
                 # ones are already in the trie and skip out)
@@ -663,15 +670,15 @@ class ContinuousBatchingExecutor:
                 # when the cache holds every prompt token but the last
                 if (self.prefill_fn is not None or len(live.tokens) <= 1
                         or live.cached >= len(live.tokens) - 1):
-                    live.prefill_done_t = time.perf_counter()
+                    live.prefill_done_t = t
             if tid is not None and (self.prefill_fn is not None
                                     or len(live.tokens) <= 1
                                     or live.cached >= len(live.tokens) - 1):
                 # same edge for the span tree: prefill closes, the
                 # decode residency window opens (the via-decode path
                 # closes prefill in step() instead)
-                if TRACER.end(tid, "prefill") is not None:
-                    TRACER.begin(tid, "decode", parent="request")
+                if TRACER.end(tid, "prefill", at=t) is not None:
+                    TRACER.begin(tid, "decode", parent="request", at=t)
             self.slots[i] = live
             admitted += 1
         self.total_admitted += admitted
@@ -680,6 +687,9 @@ class ContinuousBatchingExecutor:
     def _evict(self, obs: bool = False, tr: bool = False) -> int:
         """Free finished sequences' pages and reopen their slots."""
         evicted = 0
+        # one clock read ends every finished request's e2e and its
+        # decode span
+        now = time.perf_counter() if (obs or tr) else None
         for i, live in enumerate(self.slots):
             if live is None:
                 continue
@@ -692,11 +702,11 @@ class ContinuousBatchingExecutor:
                 self.slots[i] = None
                 evicted += 1
                 if obs:
-                    self._record_request(live)
+                    self._record_request(live, now)
                 if tr:
                     tid = TRACER.trace_of(live.req.rid)
                     if tid is not None:
-                        TRACER.end(tid, "decode", eos=eos,
+                        TRACER.end(tid, "decode", at=now, eos=eos,
                                    tokens=live.generated)
                         TRACER.finish_request(
                             live.req.rid, outcome="finish",
@@ -705,7 +715,7 @@ class ContinuousBatchingExecutor:
         self.total_evicted += evicted
         return evicted
 
-    def _record_request(self, live: _Live) -> None:
+    def _record_request(self, live: _Live, now: float) -> None:
         """Close a finished request's lifecycle span: queue wait
         (enqueue→admit), TTFT (enqueue→first generated token), TPOT
         (steady per-token after the first), e2e — observed into the
@@ -714,7 +724,6 @@ class ContinuousBatchingExecutor:
         at eviction time (the caller's one-check-per-frame gate)."""
         from flexflow_tpu_torch.obs.metrics import METRICS
 
-        now = time.perf_counter()
         enq, adm, first = live.enqueue_t, live.admit_t, live.first_token_t
         pre = live.prefill_done_t
         queue_s = (adm - enq) if (enq is not None and adm is not None) \
@@ -836,8 +845,8 @@ class ContinuousBatchingExecutor:
                     if tr:
                         tid = TRACER.trace_of(live.req.rid)
                         if tid is not None and TRACER.end(
-                                tid, "prefill") is not None:
-                            TRACER.begin(tid, "decode",
+                                tid, "prefill", at=now) is not None:
+                            TRACER.begin(tid, "decode", at=now,
                                          parent="request")
                 continue
             # the model's prediction extends the sequence

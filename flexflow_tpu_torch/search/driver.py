@@ -38,11 +38,13 @@ device (``FFConfig.device``: the card, or the CPU when asked), which is
 the "live backend" the reference reads from ``jax.devices()``.  The
 branches that need a module of a later slice raise
 ``NotImplementedError`` naming its ROADMAP Queue A item instead of
-running: the serve objective and ``kv_precision="search"`` (item 9),
-``sync_schedule="search"``, ``co_search`` and the match-worker pool
-``FLEXFLOW_TPU_MATCH_WORKERS`` (item 5, with the comm plan and sync
-modules they come with).  The default training
-search reaches none of them.
+running: the serve objective and ``kv_precision="search"`` (item 9).
+The default training search reaches neither.  The gradient-sync
+dimensions run as the reference's: ``sync_schedule="search"``
+(``_build_sync_schedule``: ``LAST_SYNC_SCHEDULE``), ``co_search`` (the
+``JointPricer`` of search/comm_plan.py: ``LAST_ZERO_GROUPS``) and the
+match-worker pool ``FLEXFLOW_TPU_MATCH_WORKERS`` (search/
+match_workers.py).
 """
 
 from __future__ import annotations
@@ -116,29 +118,22 @@ def _relaxed_gc():
 
 
 def _worker_batches() -> int:
-    """Match batches dispatched to the opt-in match-worker pool: the
-    port has no pool (``_pooled_matches``), so none."""
-    return 0
+    """Process-lifetime count of match batches dispatched to the
+    opt-in match-worker pool (search/match_workers.py) — 0 when the
+    pool was never armed."""
+    from flexflow_tpu_torch.search import match_workers
+
+    return match_workers.BATCHES.value
 
 
 def _pooled_matches(xfers, graph, config, num_devices):
-    """The reference's opt-in match-worker pool
-    (search/match_workers.py ``find_all_matches``): None runs the
-    serial sweep, which gives the same matches.  Arming the pool
-    (``FLEXFLOW_TPU_MATCH_WORKERS`` >= 2) raises: the pool is not
-    ported yet."""
-    import os
+    """The opt-in match-worker pool (``FLEXFLOW_TPU_MATCH_WORKERS`` >=
+    2, search/match_workers.py ``find_all_matches``): every xfer's
+    matches, or None for the serial sweep, which finds the same."""
+    from flexflow_tpu_torch.search import match_workers
 
-    try:
-        workers = int(os.environ.get("FLEXFLOW_TPU_MATCH_WORKERS", "") or 0)
-    except ValueError:
-        workers = 0
-    if workers >= 2:
-        raise NotImplementedError(
-            "FLEXFLOW_TPU_MATCH_WORKERS: the match-worker pool is not "
-            "ported yet (ROADMAP Queue A item 5); unset it for the "
-            "serial sweep, which finds the same matches")
-    return None
+    return match_workers.find_all_matches(xfers, graph, config,
+                                          num_devices)
 
 
 def _load_xfers(config: FFConfig, num_devices: int) -> list:
@@ -960,6 +955,108 @@ def _merge_split(
 # vs search and records the delta/cache hit rates from here
 LAST_SEARCH_STATS: Dict[str, object] = {}
 
+# the gradient-sync schedule the LAST optimize_strategy chose (and
+# gated) under config.sync_schedule="search" — compile() adopts it for
+# the strategy the search just returned instead of re-running the
+# choice; None when the mode is off or the monolithic baseline won
+LAST_SYNC_SCHEDULE = None
+
+# the per-group optimizer-state sharding map the LAST optimize_strategy
+# chose under config.co_search (search/comm_plan.py choose_zero_groups):
+# op names whose ZeRO-1 reduce-scatter/all-gather placement genuinely
+# shrinks the update term — compile() adopts it the way it adopts
+# LAST_SYNC_SCHEDULE; () when co-search is off or nothing qualifies
+LAST_ZERO_GROUPS: tuple = ()
+
+def _build_sync_schedule(graph, strategy, sim, config, joint=None):
+    """Choose + legality-gate the gradient-sync schedule for a search
+    result (search/sync_schedule.py) — runs on BOTH the fresh and the
+    cache-served paths of ``optimize_strategy``, so every result this
+    function hands out carries a linted schedule (or None).  The gate
+    (SHD12x) is always-on inside ``choose_sync_schedule``; a failure
+    there is a builder bug and raises.
+
+    Under co-search (``joint`` bound) the schedule is SERVED from the
+    JointPricer's comm-plan memo — the plan the winning strategy was
+    actually priced with — instead of re-running the sweep, and the
+    memoized per-group optimizer-sharding choice lands in
+    ``LAST_ZERO_GROUPS``.  Served plans (memo or disk) still pass the
+    full SHD12x/SHD14x legality gates against THIS (graph, strategy):
+    a corrupt persisted plan costs one re-search, never an illegal
+    artifact."""
+    global LAST_SYNC_SCHEDULE, LAST_ZERO_GROUPS
+    LAST_SYNC_SCHEDULE = None
+    LAST_ZERO_GROUPS = ()
+    if getattr(config, "sync_schedule", "off") != "search" or not strategy:
+        return None
+    from flexflow_tpu_torch.search.sync_precision import choose_sync_precision
+    from flexflow_tpu_torch.search.sync_schedule import (
+        choose_sync_schedule,
+        lint_gate,
+    )
+
+    if joint is not None:
+        entry = joint.plan_for(graph, strategy, sim)
+        schedule = None
+        if entry is not None and entry.adopted:
+            schedule = entry.schedule
+            lint_gate(graph, strategy, schedule, entry.pmap,
+                      cost_model=sim.cost)
+        if entry is not None and entry.zero:
+            from flexflow_tpu_torch.analysis import (
+                AnalysisError,
+                emit_findings,
+                errors_only,
+                lint_zero_map,
+            )
+
+            bad = errors_only(lint_zero_map(
+                graph, strategy, entry.zero, sim.cost))
+            if bad:
+                # a served zero map that fails the always-on gate is a
+                # plan bug (or a corrupt persisted row): fail loudly
+                # like every other artifact this tree produces
+                emit_findings(bad)
+                raise AnalysisError(
+                    "co-search produced an illegal per-group "
+                    "optimizer-sharding map", bad)
+            LAST_ZERO_GROUPS = tuple(entry.zero)
+        LAST_SEARCH_STATS["sync_schedule"] = {
+            "buckets": len(schedule.buckets) if schedule is not None else 0,
+            "co_search": True,
+            "zero_groups": len(LAST_ZERO_GROUPS),
+        }
+        if BUS.enabled:
+            BUS.emit(
+                "search.zero_groups", groups=list(LAST_ZERO_GROUPS),
+                credit_s=entry.zero_credit if entry is not None else 0.0,
+            )
+        LAST_SYNC_SCHEDULE = schedule
+        return schedule
+
+    pmap = {}
+    if getattr(config, "sync_precision", "fp32") != "fp32":
+        pmap = choose_sync_precision(graph, strategy, sim.cost)
+    schedule, info = choose_sync_schedule(graph, strategy, sim, pmap, config)
+    LAST_SEARCH_STATS["sync_schedule"] = {
+        "buckets": info.get("buckets", 0),
+        "monolithic_s": info.get("monolithic_s"),
+        "scheduled_s": info.get("scheduled_s"),
+    }
+    if schedule is not None:
+        from flexflow_tpu_torch.utils.logging import SEARCH_LOG
+
+        SEARCH_LOG.log(
+            f"sync schedule: {len(schedule.buckets)} buckets beat the "
+            f"monolithic sync "
+            f"({info['monolithic_s'] * 1e3:.4f} -> "
+            f"{info['scheduled_s'] * 1e3:.4f} ms/iter simulated)"
+        )
+    LAST_SYNC_SCHEDULE = schedule
+    return schedule
+
+
+
 def _lint_findings(graph, strategy, num_devices):
     """Error-level static-analysis findings for a search result: graph
     well-formedness + strategy/sharding legality (flexflow_tpu_torch/analysis).
@@ -1051,16 +1148,12 @@ def refuse_unported(config: FFConfig) -> None:
             (getattr(config, "objective", "train") == "serve",
              "objective='serve' (search/serving.py)", 9),
             (getattr(config, "kv_precision", "off") == "search",
-             "kv_precision='search' (the searched KV lane)", 9),
-            (getattr(config, "sync_schedule", "off") == "search",
-             "sync_schedule='search' (search/sync_schedule.py)", 5),
-            (getattr(config, "co_search", False),
-             "co_search (search/comm_plan.py)", 5)):
+             "kv_precision='search' (the searched KV lane)", 9)):
         if asked:
             raise NotImplementedError(
                 f"optimize_strategy: {what} is not ported yet (ROADMAP "
                 f"Queue A item {item}); the port searches the training "
-                f"objective with the monolithic fp32 gradient sync")
+                f"objective")
 
 
 def _optimize_strategy(
@@ -1179,6 +1272,26 @@ def _optimize_strategy(
     sim = Simulator.for_config(config, calibration=calibration)
     floor_sim = sim  # the sim the champion-vs-DP floor must score with
     helper = SearchHelper(sim, n)
+    joint = None
+    if getattr(config, "co_search", False):
+        # joint strategy x comm-plan co-search (search/comm_plan.py):
+        # bind one comm-plan memo to this search — every candidate the
+        # helper or the unity loop grounds is then priced with its
+        # best sync schedule/precision/zero plan through the
+        # exposed-comm simulation instead of the legacy per-node
+        # overlap credit
+        from flexflow_tpu_torch.search.comm_plan import JointPricer
+
+        joint = JointPricer(config, cost_cache=sim.cost_cache)
+        helper.joint = joint
+
+    def _price(s, g, st):
+        """Candidate grounding in the search's currency: joint
+        exposed-comm under co-search, legacy scalar otherwise."""
+        if joint is not None:
+            return joint.price(s, g, st)
+        return s.simulate(g, st)
+
 
     BUS.emit(
         "search.begin", nodes=graph.num_nodes, devices=n,
@@ -1222,6 +1335,10 @@ def _optimize_strategy(
                 t_cal=t_cal, result_cache_hit=True,
                 match_base=match_base,
             )
+            # cache-served results pass the SAME schedule choice + gate
+            # as fresh ones — the persisted artifact never skips it
+            _build_sync_schedule(best_graph, best_strategy, sim, config,
+                                 joint=joint)
             return best_graph, best_strategy
     with log.enter(f"optimize_strategy: {graph.num_nodes} nodes, {n} devices"):
         if (return_graph and config.search_budget > 0
@@ -1236,7 +1353,7 @@ def _optimize_strategy(
             )
 
             best_strategy = _dps(graph, n)
-            best_cost = sim.simulate(graph, best_strategy)
+            best_cost = _price(sim, graph, best_strategy)
             log.log(
                 f"baseline data-parallel cost: {best_cost * 1e3:.4f} "
                 f"ms/iter (whole-graph DP deferred to the segment "
@@ -1295,8 +1412,8 @@ def _optimize_strategy(
                     sim2 = Simulator.for_config(config, calibration=calibration)
                     floor_sim = sim2  # sim's _node_costs cache predates
                     # the new probes; the floor must not mix tables
-                    best_cost = sim2.simulate(graph, best_strategy)
-                    c2 = sim2.simulate(g2, s2)
+                    best_cost = _price(sim2, graph, best_strategy)
+                    c2 = _price(sim2, g2, s2)
             if c2 < best_cost and s2:
                 log.log(
                     f"substitution improved: {best_cost * 1e3:.4f}"
@@ -1314,7 +1431,7 @@ def _optimize_strategy(
     from flexflow_tpu_torch.compiler.lowering import data_parallel_strategy
 
     dp_strategy = data_parallel_strategy(graph, n)
-    dp_cost = floor_sim.simulate(graph, dp_strategy)
+    dp_cost = _price(floor_sim, graph, dp_strategy)
     margin = max(0.0, config.search_improvement_margin)
     kept_dp = math.isfinite(dp_cost) and best_cost > dp_cost * (1.0 - margin)
     BUS.emit("search.floor", kept_dp=kept_dp, dp_cost_s=dp_cost,
@@ -1368,6 +1485,14 @@ def _optimize_strategy(
         kept_dp=kept_dp, helper=helper, t_start=t_start, t_cal=t_cal,
         result_cache_hit=False, match_base=match_base,
     )
+
+    if best_strategy and math.isfinite(best_cost):
+        _build_sync_schedule(best_graph, best_strategy, floor_sim, config,
+                             joint=joint)
+    else:
+        global LAST_SYNC_SCHEDULE, LAST_ZERO_GROUPS
+        LAST_SYNC_SCHEDULE = None
+        LAST_ZERO_GROUPS = ()
 
     if return_graph:
         return best_graph, best_strategy

@@ -30,8 +30,7 @@ In the port the same model prices the H100 (``MachineSpec.h100_sxm``):
 its roofline reads the card's peak and HBM rate, ``ici_*`` is NVLink
 through NVSwitch, and a calibration table measured on the card with
 CUDA events (search/calibration.py) replaces the forward estimate
-where it has a record.  Compressed gradient sync (``sync_precision``
-other than fp32) raises: ROADMAP Queue A item 5.
+where it has a record.
 """
 
 from __future__ import annotations
@@ -60,12 +59,12 @@ def _merge_levels(acc: Dict[str, float], split: Dict[str, float]) -> None:
         acc[name] = acc.get(name, 0.0) + t
 
 
-# the reference's comm/quantized.py MIN_COMPRESS_ELEMS: weights smaller
-# than this sync in fp32 even inside a compressed group
-MIN_COMPRESS_ELEMS = 1 << 16
-
-
 def _min_compress_elems() -> int:
+    """comm.quantized.MIN_COMPRESS_ELEMS (the floor the execution
+    shares), imported lazily: the comm module pulls in torch, which
+    this pure-python cost model otherwise never needs."""
+    from flexflow_tpu_torch.comm.quantized import MIN_COMPRESS_ELEMS
+
     return MIN_COMPRESS_ELEMS
 
 
@@ -890,11 +889,33 @@ class CostModel:
         mode = self.sync_precision or "fp32"
         if mode == "fp32" or base <= 0.0 or not math.isfinite(base):
             return "fp32", base
-        # compile refuses sync_precision != "fp32" (its lowering and
-        # search/sync_precision.py are ROADMAP Queue A item 5)
-        raise NotImplementedError(
-            f"sync_precision={mode!r}: compressed gradient sync is not "
-            f"ported yet (ROADMAP Queue A item 5); use 'fp32'")
+        from flexflow_tpu_torch.search.sync_precision import grad_safe_to_compress
+
+        if not grad_safe_to_compress(op):
+            return "fp32", base
+        if mode == "search":
+            comp = self.op_cost(op, mv, backward=not self.inference)
+            if not math.isfinite(comp) or base < self.SYNC_DOMINANCE * comp:
+                return "fp32", base
+            candidates = ("bf16", "int8")
+        else:
+            candidates = (mode,)
+        best = ("fp32", base)
+        for p in candidates:
+            c = self.weight_sync_cost(op, mv, precision=p)
+            if c < best[1]:
+                best = (p, c)
+        if best[0] == "int8" and self.sync_ef:
+            # EF upgrade (FFConfig.sync_ef="auto"): same int8 wire plus
+            # the residual passes, returned at its honest (slightly
+            # higher) price — chosen for fidelity the currency cannot
+            # see, never by the argmin above.  Unless the EF passes eat
+            # the whole compression win: fp32 is then both exact AND
+            # cheaper, so the upgrade falls back instead of picking a
+            # strictly dominated wire.
+            c_ef = self.weight_sync_cost(op, mv, precision="int8_ef")
+            best = ("int8_ef", c_ef) if c_ef < base else ("fp32", base)
+        return best
 
     def sync_cost(self, op: Operator, mv: MachineView) -> float:
         """weight_sync_cost at the precision the model's mode selects —

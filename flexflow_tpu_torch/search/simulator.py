@@ -17,10 +17,10 @@ when they should.
 The port prices collectives over the fabric its spec describes: the
 NVSwitch of an H100 host (``network.nvswitch_network``) for a spec
 whose ``platform`` is ``"cuda"``, the reference's torus for its TPU and
-CPU specs.  The reference's pricing of a searched gradient-sync
-schedule (``sync_schedule=``), its Chrome-trace and graphviz exports of
-the predicted timeline come with the modules that use them (ROADMAP
-Queue A items 5 and 11).
+CPU specs.  ``simulate(sync_schedule=)`` prices a searched gradient-sync
+schedule bucket by bucket (exposed-comm semantics).  The reference's
+Chrome-trace and graphviz exports of the predicted timeline come with
+the modules that use them (ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -259,6 +259,7 @@ class Simulator:
         schedule: Optional[list] = None,
         breakdown: Optional[dict] = None,
         comm_schedule: Optional[list] = None,
+        sync_schedule=None,
     ) -> float:
         """Seconds per training iteration under the strategy (or per
         inference when the simulator was built with inference=True —
@@ -272,6 +273,16 @@ class Simulator:
         split (compute/comm critical paths, total xfer/sync seconds,
         peak memory) — the predicted side of the obs DriftReport.
 
+        ``sync_schedule`` — a gradient-sync schedule
+        (search/sync_schedule.py): weight-gradient sync is then priced
+        per BUCKET under exposed-comm semantics — a bucket's collective
+        issues when the backward has produced all its members' grads
+        and only costs what is not hidden under the backward compute
+        still to run at that point (GSPMD async collectives,
+        arXiv:2105.04663) — instead of the legacy per-node issuance.
+        Per-bucket lanes land in ``comm_schedule`` and ``breakdown``
+        gains ``sync_exposed_s`` + ``sync_buckets``.
+
         When a delta baseline is armed (``set_baseline``), calls in the
         default scalar currency are served incrementally: only the
         substituted nodes plus the downstream cone whose ready-times
@@ -281,7 +292,7 @@ class Simulator:
             include_update = not self.inference
         snap = self._baseline
         if (snap is not None and schedule is None and breakdown is None
-                and comm_schedule is None
+                and comm_schedule is None and sync_schedule is None
                 and not self.placement_overlap
                 and include_update == snap.include_update
                 and snap.cal_version == getattr(
@@ -303,7 +314,8 @@ class Simulator:
             self.delta_bails += 1
             _DELTA_BAILS.inc()
         return self._simulate_full(graph, strategy, include_update,
-                                   schedule, breakdown, comm_schedule)
+                                   schedule, breakdown, comm_schedule,
+                                   sync_schedule)
 
     def _simulate_full(
         self,
@@ -313,6 +325,7 @@ class Simulator:
         schedule: Optional[list] = None,
         breakdown: Optional[dict] = None,
         comm_schedule: Optional[list] = None,
+        sync_schedule=None,
     ) -> float:
         self.full_sims += 1
         _FULL_SIMS.inc()
@@ -377,6 +390,10 @@ class Simulator:
         sync_total = 0.0
         compute_total = 0.0
         overlap = self.placement_overlap
+        # a gradient-sync schedule replaces the legacy per-node sync
+        # issuance with per-bucket exposed-comm pricing (below the loop)
+        sched = sync_schedule if include_update else None
+        node_rows: Optional[list] = [] if sched is not None else None
         # fast path: in the default (overlap=False) currency every op
         # occupies ALL device timelines, so device availability is ONE
         # scalar and per-device memory is the plain sum — identical math
@@ -453,7 +470,9 @@ class Simulator:
                 ready[(node.guid, i)] = finish
             if finish > end_time:
                 end_time = finish
-            if include_update and sync > 0:
+            if node_rows is not None:
+                node_rows.append((node, mv, fwd, dur, sync))
+            elif include_update and sync > 0:
                 if scalar:
                     comm_devs = self.view_device_set(mv, use_start=False)
                 s = finish
@@ -469,6 +488,13 @@ class Simulator:
                     comm_schedule.append(
                         (f"{node.op.name}:sync", s, f,
                          tuple(sorted(comm_devs))))
+
+        sync_buckets: Optional[list] = None
+        sync_levels: Optional[dict] = None
+        if sched is not None:
+            end_comm, sync_total, sync_buckets, sync_levels = \
+                self._scheduled_sync(
+                    sched, node_rows, end_time, comm_avail, comm_schedule)
 
         peak = mem_total if scalar else max(mem.values())
         total = max(end_time, end_comm)
@@ -493,23 +519,141 @@ class Simulator:
                 # and leaves comm_schedule empty by design)
                 pooled_comm=False,
             )
-            # per-link-level sync seconds (ICI vs DCN lanes), re-derived
-            # per synced node (track mode only: the split is not on the
-            # search's hot path)
-            sync_levels = {}
-            for node in topo:
-                mv, _osh = shardings[node.guid]
-                if include_update:
-                    for name, t in self.cost.sync_levels(
-                            node.op, mv).items():
-                        sync_levels[name] = sync_levels.get(
-                            name, 0.0) + t
+            if sync_buckets is not None:
+                breakdown["sync_buckets"] = sync_buckets
+            # per-link-level sync seconds (ICI vs DCN lanes) — from the
+            # scheduled buckets when a schedule priced them, otherwise
+            # re-derived per synced node (track mode only: the split is
+            # not on the search's hot path)
+            if sync_levels is None:
+                sync_levels = {}
+                for node in topo:
+                    mv, _osh = shardings[node.guid]
+                    if include_update:
+                        for name, t in self.cost.sync_levels(
+                                node.op, mv).items():
+                            sync_levels[name] = sync_levels.get(
+                                name, 0.0) + t
             if sync_levels:
                 breakdown["sync_levels_s"] = sync_levels
         if oom:
             return math.inf
         return total
 
+    def _scheduled_sync(self, sync_schedule, node_rows, end_time,
+                        comm_avail, comm_schedule):
+        """Exposed-comm pricing of a gradient-sync schedule over the
+        scan just finished.  Backward model: the backward sweeps the
+        graph in REVERSE topo order, so a bucket whose earliest member
+        sits at topo position p has all its grads ready once only the
+        backward shares of nodes 0..p-1 remain — its fused collective
+        issues at ``end_time - bwd_prefix[p]`` and hides under exactly
+        that remaining compute (GSPMD async collectives; the legacy
+        per-node issuance credits overlap in FORWARD order, which the
+        executed post-backward sync never earns).  Buckets serialize on
+        their device groups' comm lanes in schedule order; synced
+        groups the schedule does not cover issue after the full
+        backward (the monolithic behavior execution gives them).
+        Returns (end_comm, sync_total, per-bucket breakdown rows,
+        per-link-level seconds aggregate)."""
+        pos = {node.guid: i for i, (node, *_r) in enumerate(node_rows)}
+        bwd_prefix = [0.0] * (len(node_rows) + 1)
+        for i, (_n, _mv, fwd, dur, _s) in enumerate(node_rows):
+            bwd_prefix[i + 1] = bwd_prefix[i] + max(0.0, dur - fwd)
+        by_name = {node.op.name: (node, mv, sync)
+                   for node, mv, _f, _d, sync in node_rows}
+        end_comm = 0.0
+        sync_total = 0.0
+        rows = []
+        covered = set()
+        level_tot: dict = {}
+        for bucket in getattr(sync_schedule, "buckets", sync_schedule):
+            members = [by_name[nm] for nm in bucket.ops if nm in by_name]
+            if not members:
+                continue
+            covered.update(nm for nm in bucket.ops)
+            parts = []
+            devs = set()
+            min_pos = len(node_rows)
+            for node, mv, _sync in members:
+                got = self.cost.weight_sync_parts(node.op, mv)
+                if got:
+                    parts.extend(got)
+                    devs |= self.view_device_set(mv, use_start=False)
+                    min_pos = min(min_pos, pos[node.guid])
+            levels: dict = {}
+            cost = self.cost.bucket_sync_cost(
+                parts, getattr(bucket, "precision", "fp32"),
+                plan=getattr(bucket, "plan", None), level_acc=levels)
+            if cost <= 0.0 or not devs:
+                continue
+            ready = end_time - bwd_prefix[min_pos]
+            s = ready
+            for d in devs:
+                if comm_avail[d] > s:
+                    s = comm_avail[d]
+            f = s + cost
+            for d in devs:
+                comm_avail[d] = f
+            if f > end_comm:
+                end_comm = f
+            sync_total += cost
+            if comm_schedule is not None:
+                comm_schedule.append(
+                    (f"bucket:{bucket.name}:sync", s, f,
+                     tuple(sorted(devs))))
+            plan = getattr(bucket, "plan", None)
+            rows.append({
+                "name": bucket.name,
+                # stable lane id — IDENTICAL to this bucket's
+                # comm_schedule record name and to the annotation tag
+                # the executed step stamps (obs/annotate.py), so a
+                # device-trace capture matches by tag equality
+                "lane": f"bucket:{bucket.name}:sync",
+                "ops": list(bucket.ops),
+                "precision": getattr(bucket, "precision", "fp32"),
+                "plan": plan.name if plan is not None else None,
+                "ready_s": ready,
+                "start_s": s,
+                "finish_s": f,
+                "sync_s": cost,
+                # per-link-level lanes (ICI vs DCN classes): drift on
+                # the slow cross-slice links visible separately
+                "levels": levels,
+            })
+            for name, t in levels.items():
+                level_tot[name] = level_tot.get(name, 0.0) + t
+        # uncovered synced groups: the executed _sync_grads leaves them
+        # on the post-backward monolithic path — price them there (the
+        # legality lint flags the coverage hole; pricing must not hide
+        # it as free communication)
+        for node, mv, _f, _d, sync in node_rows:
+            if sync <= 0 or node.op.name in covered:
+                continue
+            devs = self.view_device_set(mv, use_start=False)
+            s = end_time
+            for d in devs:
+                if comm_avail[d] > s:
+                    s = comm_avail[d]
+            f = s + sync
+            for d in devs:
+                comm_avail[d] = f
+            if f > end_comm:
+                end_comm = f
+            sync_total += sync
+            for name, t in self.cost.sync_levels(node.op, mv).items():
+                level_tot[name] = level_tot.get(name, 0.0) + t
+            if comm_schedule is not None:
+                comm_schedule.append(
+                    (f"{node.op.name}:sync", s, f, tuple(sorted(devs))))
+        # the exposed share of each bucket's lane: the part of
+        # [start, finish] past the end of compute (what the step pays)
+        for r in rows:
+            r["exposed_s"] = max(0.0, r["finish_s"]
+                                 - max(r["start_s"], end_time))
+        return end_comm, sync_total, rows, level_tot
+
+    # ---- delta simulation (reference: simulator.h SIMULATE_DELTA) ----
     def set_baseline(self, graph: Graph,
                      strategy: Dict[int, MachineView],
                      include_update: Optional[bool] = None) -> Optional[SimSnapshot]:
@@ -1151,6 +1295,7 @@ class Simulator:
         reads predicted costs through this."""
         return self._node_costs(node, mv)
 
+    # ------------------------------------------------------------------
     def strategy_table_rows(
         self,
         graph: Graph,

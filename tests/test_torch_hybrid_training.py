@@ -516,11 +516,15 @@ def test_megatron_forward_reduces_once_after_mha_and_ff2(world):
 
 
 def test_still_refused_raises_with_its_roadmap_item(world):
+    """The inference compile under a split still raises, naming its
+    ROADMAP item.  ZeRO-1, the compressed and scheduled gradient sync
+    and ``__meta__.zero_groups`` compile under Megatron dp 2 x tp 2
+    since they were ported (tests/test_torch_zero.py and
+    test_torch_sync_schedule.py train them)."""
     _, ranks, _ = world
-    want = {"zero_dp_shard": "item 5", "sync_precision": "item 5",
-            "sync_schedule": "item 5", "zero_groups": "item 5",
-            "inference": "item 2"}
     for r in ranks:
-        for key, item in want.items():
-            msg = r["refused"][key]
-            assert msg and f"ROADMAP Queue A {item}" in msg, (key, msg)
+        msg = r["refused"]["inference"]
+        assert msg and "ROADMAP Queue A item 2" in msg, msg
+        for key in ("zero_dp_shard", "sync_precision", "sync_schedule",
+                    "zero_groups"):
+            assert r["refused"][key] is None, (key, r["refused"][key])

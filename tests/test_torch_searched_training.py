@@ -23,8 +23,6 @@ module to find it."""
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import pytest
 
@@ -96,18 +94,26 @@ def _rank(rank, start, default_start, x, y):
         batch_size=BATCH, device="cpu", num_devices=N,
         compute_dtype="float32", machine_spec=MachineSpec.tpu_v5e(N),
         objective="serve", **SEARCH), **GPT))
-    # an error of rank 0's search alone (the match-worker pool armed on
-    # rank 0 only) reaches every rank instead of leaving them waiting
+    # an error of rank 0's search alone (its optimize_strategy made to
+    # raise on rank 0 only) reaches every rank instead of leaving them
+    # waiting
+    from flexflow_tpu_torch.search import driver
+
+    search = driver.optimize_strategy
     if rank == 0:
-        os.environ["FLEXFLOW_TPU_MATCH_WORKERS"] = "2"
+        driver.optimize_strategy = _failing_search
     try:
         out["rank0_error"] = _compile_error(build_gpt(tff.FFConfig(
             batch_size=BATCH, device="cpu", num_devices=N,
             compute_dtype="float32", machine_spec=MachineSpec.tpu_v5e(N),
             **SEARCH), **GPT))
     finally:
-        os.environ.pop("FLEXFLOW_TPU_MATCH_WORKERS", None)
+        driver.optimize_strategy = search
     return out
+
+
+def _failing_search(graph, config, return_graph=False):
+    raise NotImplementedError("rank 0's search failed on purpose")
 
 
 def _compile_error(model):
@@ -223,4 +229,4 @@ def test_rank0_search_error_raises_on_every_rank(world):
     ranks, _ = world
     for r in ranks:
         msg = r["rank0_error"]
-        assert msg is not None and "FLEXFLOW_TPU_MATCH_WORKERS" in msg, msg
+        assert msg is not None and "failed on purpose" in msg, msg
