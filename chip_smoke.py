@@ -9,6 +9,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --pipeline-only [--seed N]
     python3 chip_smoke.py --bert-only [--seed N]
     python3 chip_smoke.py --sync-only RUNS [--seed N]
+    python3 chip_smoke.py --serve-only RUNS [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -24,7 +25,8 @@ keeps each phase 9 run's calibration table.  The fifth builds the
 kernels and runs phase 10 alone, against phase 6's first step taken
 alone.  The sixth builds the kernels and runs phase 11 alone.  The
 seventh builds the kernels and runs phase 12 alone RUNS times, against
-phase 6's first step taken alone.
+phase 6's first step taken alone.  The eighth builds the kernels and
+runs phase 13 alone RUNS times.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -123,7 +125,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    split over 4 ranks (``runtime.distributed.spawn``: one card each with
    NCCL on a 4-card machine, else all on card 0 with the shared-card
    transport, gloo with counted host hops; an exclusive compute mode
-   fails), every MHA on the zigzag ring; ``fit`` 10 steps and check that
+   fails), every MHA on the zigzag ring; ``fit`` 5 steps (SP_STEPS) and
+   check that
    the partial kernel launched 12 x 9 times per step on every rank and
    the flash kernels of phase 6 never, that the loss fell, and that the
    first step's loss equals a one-process run's on the flash route
@@ -134,7 +137,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 8. hybrid-parallel training path, 4 ranks spawned as phase 7's: (a)
    Megatron dp 2 x tp 2 of phase 6's model on phase 6's batches (MHA (2,
    1, 1) r 2 with 6 heads per rank, ff1 (2, 1, 2), ff2 (2, 1, 1) r 2,
-   every other op batch-split), ``fit`` 10 steps, then 4 synchronised
+   every other op batch-split), ``fit`` 5 steps, then 4 synchronised
    steps and a profile of 2 on rank 0; check rows 1-3 launched 12 times
    per rank per step and row 4 never, every loss finite and falling, the
    first step's loss against one process (fp32 at 2 layers within 1e-5,
@@ -161,7 +164,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    data-parallel and phase 8's Megatron strategies, then export the
    strategy; (c) the ranks compile with ``strategy=None`` (rank 0's
    search served by (b)'s cost cache, sent to every rank) and ``fit``
-   10 steps: every rank holds (b)'s graph digest and one set of views,
+   5 steps: every rank holds (b)'s graph digest and one set of views,
    the first step's loss within 5e-3 of phase 6's, losses finite and
    falling, every weight replica bit-equal, and the attention kernels'
    launches as the views imply (rows 1-3 12 per step; a sequence split
@@ -186,7 +189,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``compile(pipeline=PipelineConfig(2, 4))`` (pp 2 x dp 2, GPipe over
    point-to-point sends), and (b) placed, the embeddings and layers 0-5
    on ranks 0-1 and layers 6-11 and the head on ranks 2-3 (two
-   ``start_part`` blocks, each data-parallel): each ``fit`` 10 steps
+   ``start_part`` blocks, each data-parallel): each ``fit`` 5 steps
    with the counts set to 0 just before, then 3 synchronised steps;
    checked: the lowering, the first step's loss within 5e-3 of phase
    6's, losses finite and falling, rows 1-3 launched exactly 24 (a) and
@@ -250,12 +253,50 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    every rank, every weight replica bit-equal.  Printed: each leg's
    step, host and wire bytes per rank per step against (a)'s, slot
    bytes and peak memory per rank, and the card;
-13. print one JSON line listing every ported kernel.
+13. serving over ranks, 4 ranks spawned as phase 7's: phase 4's model
+   (full width, 32 frame slots, bf16 compute, seeded weights) serving
+   the first 32 of phase 4's seeded requests, one per frame slot, cut
+   in depth (``serve_requests``: prompts to 64 tokens, at most 48 new
+   tokens, r5 still filling its sequence; on the shared card every
+   collective is a host round trip that waits for the card's other
+   contexts, so the phase keeps to its time) in four legs, each a
+   fresh compile with the counts set to 0 just before the run; prompts
+   go through phase 5's chunked prefill (chunks of 32): (a) head split
+   4 (the decode ops at replica degree 4, 3 heads per rank; every
+   other op whole), bf16 pools; (b) batch split 4 (8 slots per rank,
+   each rank holding its slots' quarter of the fp32 pools, every
+   rank's block of slots serving live sequences); (c) head split 4 on
+   int8 pools through phase 5's lane (also prefix sharing and SLO
+   classes); (d) ``compile(strategy=None)`` with ``objective="serve"``,
+   ``kv_precision="search"``, ``serve_disaggregation="search"`` and
+   ``serve_fleet="search"`` on ``h100_sxm(4)``: one search on rank 0,
+   the requests served through what it adopts (a fleet over rank
+   blocks, ``runtime/fleet.py``, where it adopts one; disaggregation
+   is priced, not executed).  Each leg is held to one process's
+   captured run of its configuration: every call of each replica's
+   run (chunk passes, page copies, frames) replayed through one
+   process, every frame's logits within SERVE_PATH_TOL of the leg's
+   on the leg's own tokens; the tokens of every request, except where
+   the one-process top-2 logit margin at the first differing token is
+   at most that measured difference (printed: requests and tokens
+   excused); rows 5 and 6 against their plain versions at every
+   per-rank shape the legs run ([32, 3] bf16 and int8, [8, 12] fp32,
+   and (d)'s); 12 launches of the leg's kernel per rank per frame and
+   none of the other; each rank's pool bytes, read after the run, 1/4
+   of one process's (int8 scales replicated over the head split);
+   every rank the same tokens; one request record per request; the
+   routing the same on every rank and one ``fleet.route`` event per
+   request.  Printed: every replica's frame p50/p99, TTFT p50/p99 over
+   every request (a fleet's merged records), tokens/s, host bytes per
+   rank per frame (``comm_counts()``), pool bytes, live slots per rank
+   block;
+14. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
-It needs one card; with four it runs phases 7-10 one rank per card.
+It needs one card; with four it runs phases 7-10, 12 and 13 one rank
+per card.
 """
 
 from __future__ import annotations
@@ -392,7 +433,7 @@ SP = dict(vocab=32000, num_layers=12, hidden=768, num_heads=12,
 SP_BATCH = 2
 SP_RANKS = 4
 SP_HALF_CHUNK = SP["seq_len"] // (2 * SP_RANKS)
-SP_STEPS = 10  # kept short: the whole script stays inside its time limit
+SP_STEPS = 5  # kept short: the whole script stays inside its time limit
 SP_TIMED_STEPS = 5
 SP_PROFILE_STEPS = 2
 SP_PARITY_LAYERS = 2
@@ -410,7 +451,7 @@ SP_LOSS_TOL = {"fp32": 1e-5, "bf16": 5e-3}
 # shape (seq 4096, batch 2, sp 4, 3 heads per rank).  First-step losses
 # against one process with phase 7's tolerances
 HYB_RANKS = 4
-HYB_STEPS = 10
+HYB_STEPS = 5  # as SP_STEPS
 HYB_TIMED_STEPS = 4
 HYB_PROFILE_STEPS = 2
 HYB_PARITY_LAYERS = 2
@@ -425,7 +466,7 @@ HYB_FLASH_SHAPES = (
 # phase 9, the searched path: phase 6's model and batches over 4 ranks,
 # the strategy chosen by compile(strategy=None)
 SEARCH_RANKS = 4
-SEARCH_STEPS = 10  # fit steps under the searched strategy
+SEARCH_STEPS = 5  # fit steps under the searched strategy (as SP_STEPS)
 # then 10 synchronised steps per strategy (searched, data parallel and
 # the uncalibrated default search's pick) in two blocks of
 # SEARCH_TIMED_BLOCK, in the order A B C C B A: each strategy is timed
@@ -450,7 +491,7 @@ PIPE_RANKS = 4
 PIPE_STAGES = 2
 PIPE_MICRO = 4
 PIPE_LAYERS_A = 6
-PIPE_STEPS = 10
+PIPE_STEPS = 5  # as SP_STEPS
 PIPE_TIMED_STEPS = 3
 PIPE_DEFAULT_STEPS = 2
 # phase 11: build_bert at its defaults, the OSDI'22 BERT configuration
@@ -483,6 +524,22 @@ SYNC_SHARED_LINK_BW = 2e9
 # flip its update: up to 2 lr per step
 SYNC_WEIGHT_TOL = 2 * ADAM_ALPHA * SYNC_STEPS
 SYNC_LOSS_TOL = 1e-4  # relative, the later steps' losses against (a)
+# phase 13, serving over ranks: phase 4's model and requests over
+# SERVE_RANKS ranks, four legs (serve_legs)
+SERVE_RANKS = 4
+# the first of phase 4's requests, one per frame slot, so that every
+# rank's block of slots serves live sequences under a batch split; each
+# cut in depth to keep the phase inside the time limit (on the shared
+# card every collective is a host round trip): prompts to their first
+# SERVE_PROMPT_TOKENS tokens, at most SERVE_NEW_TOKENS tokens each, and
+# r5 still fills its sequence (its prompt repeated to the rest)
+SERVE_REQUESTS = FRAME_SLOTS
+SERVE_PROMPT_TOKENS = 64
+SERVE_NEW_TOKENS = 48
+# logits of every frame of a leg against one process's on the same calls:
+# bf16 compute over ranks sums in another order (the first 8 frames
+# measured 5.0e-3 to 6.0e-3 on an H100 over 4 ranks, one card or four)
+SERVE_PATH_TOL = 2e-2
 CARD_PEAKS = (
     ("H100 PCIe", 2.0e12, 51e12, 756e12),
     ("H100 NVL", 3.9e12, 60e12, 835e12),
@@ -2542,8 +2599,8 @@ def _sp_rank(rank, seed, ids):
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
     t0 = time.perf_counter()
-    history = model.fit(x, y, batch_size=SP_BATCH, shuffle=False,
-                        verbose=False)
+    history = model.fit(x[:SP_STEPS * SP_BATCH], y[:SP_STEPS * SP_BATCH],
+                        batch_size=SP_BATCH, shuffle=False, verbose=False)
     torch.cuda.synchronize()
     fit_wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
@@ -2620,7 +2677,8 @@ def phase_sp_train(seed, name):
               f"unless it is Default")
     rng = np.random.default_rng(seed + 9)
     ids = rng.integers(0, TOKEN_RANGE, size=(
-        SP_STEPS * SP_BATCH, SP["seq_len"] + 1)).astype(np.int32)
+        max(SP_STEPS, SP_TIMED_STEPS + SP_PROFILE_STEPS) * SP_BATCH,
+        SP["seq_len"] + 1)).astype(np.int32)
 
     refs = {}
     for tag, dtype, layers in (("fp32", "float32", SP_PARITY_LAYERS),
@@ -2802,7 +2860,9 @@ def _hybrid_rank(rank, seed, ids, ids_u):
              for nd in model.graph.nodes.values()
              if nd.op.op_type.value == "multihead_attention"}
     flops = sum(nd.op.flops() for nd in model.graph.nodes.values())
-    wall, launches, comms, history = drive(model, x, y, TRAIN_BATCH)
+    wall, launches, comms, history = drive(
+        model, x[:HYB_STEPS * TRAIN_BATCH], y[:HYB_STEPS * TRAIN_BATCH],
+        TRAIN_BATCH)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = list(model.step_losses)
     samples_per_s = model.last_throughput
@@ -2889,7 +2949,8 @@ def phase_hybrid_train(seed, name, first_loss_bf16, sp_refs):
     rng = np.random.default_rng(seed + 3)  # phase 6's batches
     ids = rng.integers(0, TOKEN_RANGE, size=(
         TRAIN_BATCHES * TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
-    ids = ids[:HYB_STEPS * TRAIN_BATCH]
+    ids = ids[:max(HYB_STEPS, HYB_TIMED_STEPS + HYB_PROFILE_STEPS)
+              * TRAIN_BATCH]
     rng = np.random.default_rng(seed + 9)  # phase 7's batches
     ids_u = rng.integers(0, TOKEN_RANGE, size=(
         SP_STEPS * SP_BATCH, SP["seq_len"] + 1)).astype(np.int32)
@@ -4690,6 +4751,605 @@ def phase_sync_train(seed, name, first_loss_bf16):
                   for k in rows} for leg in legs}
 
 
+def serve_legs():
+    """Phase 13's legs: name -> (the decode op's (batch, head) degrees,
+    or None for the serve-objective search's pick; FFConfig options;
+    the executor: "chunked" (phase 4's with the chunked prefill of
+    phase 5) or "lane" (phase 5's: also prefix sharing and SLO
+    classes))."""
+    lane = dict(prefill_chunk=LANE_CHUNK, serve_slo_classes=LANE_SLO_CLASSES)
+    return {
+        "a_head": ((1, SERVE_RANKS), dict(kv_precision="bf16"), "chunked"),
+        "b_batch": ((SERVE_RANKS, 1), {}, "chunked"),
+        "c_head_int8_lane": ((1, SERVE_RANKS),
+                             dict(lane, kv_precision="int8"), "lane"),
+        "d_searched": (None, dict(
+            lane, objective="serve", kv_precision="search",
+            serve_disaggregation="search", serve_fleet="search"), "lane"),
+    }
+
+
+def serve_requests(seed):
+    """Phase 13's traffic: the first SERVE_REQUESTS of phase 4's
+    requests, cut in depth (SERVE_PROMPT_TOKENS, SERVE_NEW_TOKENS); r5,
+    the one that fills its sequence, keeps filling it."""
+    import dataclasses
+
+    out = []
+    for req in make_requests(seed, FULL["vocab"])[:SERVE_REQUESTS]:
+        new = min(req.max_new_tokens, SERVE_NEW_TOKENS)
+        if len(req.prompt) + req.max_new_tokens == MAX_SEQ:
+            reps = -(-(MAX_SEQ - new) // len(req.prompt))
+            prompt = (req.prompt * reps)[:MAX_SEQ - new]
+        else:
+            prompt = req.prompt[:SERVE_PROMPT_TOKENS]
+        out.append(dataclasses.replace(req, prompt=prompt,
+                                       max_new_tokens=new))
+    return out
+
+
+def serve_views(model, b, r):
+    """The decode ops at (b, 1, 1) with replica degree r, every other
+    op split b ways on its batch dim."""
+    from flexflow_tpu_torch.core.machine import MachineView
+    from flexflow_tpu_torch.core.optype import OperatorType
+
+    views = {}
+    for node in model.graph.topo_order():
+        op = node.op
+        nd = op.output_shapes[0].ndim
+        if op.op_type == OperatorType.DECODE_ATTENTION:
+            views[node.guid] = MachineView((b, 1, 1), replica_degree=r)
+        else:
+            views[node.guid] = MachineView((b,) + (1,) * (nd - 1))
+    return views
+
+
+def serve_executor(step, cfg, lane):
+    """Phase 4's executor with phase 5's chunked prefill (``lane ==
+    "chunked"``), or phase 5's lane (also prefix sharing and SLO
+    classes)."""
+    from flexflow_tpu_torch.runtime.decode import ContinuousBatchingExecutor
+
+    if lane == "lane":
+        return lane_executor(step, cfg)
+    return ContinuousBatchingExecutor(
+        step, max_seqs=FRAME_SLOTS, page_size=FULL["page_size"],
+        pages_per_seq=FULL["pages_per_seq"], prefill_fn=step.prefill,
+        prefill_chunk=LANE_CHUNK)
+
+
+def local_decode_shapes(step):
+    """(frame rows, heads, pool dtype) the decode kernels of this rank's
+    ``compiled_decode_step`` take."""
+    from flexflow_tpu_torch.ops.decode_attention import DecodeAttentionOp
+
+    out = set()
+    c = step.compiled
+    for node in c.graph.topo_order():
+        op = node.op
+        if not isinstance(op, DecodeAttentionOp):
+            continue
+        rows = c._in_pl[node.guid][0].local_sizes(
+            op.input_shapes[0].sizes, c.mesh)[0]
+        heads = step.state["state"][f"{op.name}/k_cache"].shape[2]
+        out.add((int(rows), int(heads), op.kv_dtype))
+    return sorted(out)
+
+
+def watching(step, live):
+    """``step`` that adds the slots of ``live["ex"]`` (its executor, set
+    once built) live at each frame to ``live["slots"]``."""
+    def watch(ids, table, lens):
+        live["slots"].update(i for i, s in enumerate(live["ex"].slots)
+                             if s is not None)
+        return step(ids, table, lens)
+
+    watch.prefill = step.prefill
+    watch.copy_page = step.copy_page
+    return watch
+
+
+def _serve_rank(rank, seed, obs_dir):
+    """One rank of phase 13: every leg in order, each a fresh model of
+    phase 4's weights serving phase 4's requests, the counts set to 0
+    just before the run and read just after; every call of the run
+    logged (with each frame's logits) on the first rank of each
+    replica and saved under ``obs_dir``, for the parent to replay
+    through one process."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.kernels import ragged_paged_attention as rpa
+    from flexflow_tpu_torch.models import build_gpt_decode
+    from flexflow_tpu_torch.obs.events import BUS
+    from flexflow_tpu_torch.parallel import mesh
+    from flexflow_tpu_torch.runtime.decode import (
+        ContinuousBatchingExecutor,
+        DecodeRequest,
+        compiled_decode_step,
+    )
+    from flexflow_tpu_torch.runtime.distributed import transport
+    from flexflow_tpu_torch.runtime.fleet import fleet_over_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (rpa.ragged_paged_attention, rpa.ragged_paged_attention_quant)
+    reqs = serve_requests(seed)
+
+    def moved():
+        counts = mesh.comm_counts().values()
+        return (sum(c["bytes"] for c in counts),
+                sum(c["host_bytes"] for c in counts))
+
+    def counting(step, acc):
+        """``step`` whose chunk passes add their collectives' bytes to
+        ``acc``, so the frames' own bytes can be told apart."""
+        inner = step.prefill
+
+        def prefill(*args):
+            before = moved()
+            inner(*args)
+            after = moved()
+            acc["passes"] += 1
+            acc["bytes"] += after[0] - before[0]
+            acc["host_bytes"] += after[1] - before[1]
+
+        step.prefill = prefill
+        return step
+    warm = [DecodeRequest(rid="warm", prompt=list(range(1, 40)),
+                          max_new_tokens=4)]
+    out = {"transport": transport()}
+    for leg, (degrees, opts, lane) in serve_legs().items():
+        t0 = time.perf_counter()
+        cfg = FFConfig(batch_size=FRAME_SLOTS, compute_dtype="bfloat16",
+                       seed=seed, num_devices=SERVE_RANKS, **opts)
+        model = build_gpt_decode(cfg, **FULL)
+        model.compile(comp_mode="inference",
+                      strategy=None if degrees is None
+                      else serve_views(model, *degrees))
+        compile_s = time.perf_counter() - t0
+        fleet = model.fleet if (model.fleet is not None
+                                and model.fleet.adopted) else None
+        logs, lives = {}, {}
+        chunks = {"passes": 0, "bytes": 0, "host_bytes": 0}
+        aligned = lane != "lane"  # the lane shares prefixes: a free list
+
+        def executor(step, index, first):
+            """The leg's executor over ``step``, replica ``index``;
+            logged when this rank is the first of its block."""
+            step = counting(step, chunks)
+            if first:
+                logs[index] = []
+                step = recording(step, logs[index], 10 ** 9, [], [])
+            live = lives[index] = {"slots": set()}
+            ex = live["ex"] = serve_executor(watching(step, live), cfg,
+                                             lane)
+            return ex
+
+        if fleet is None:
+            step = compiled_decode_step(
+                model, prefill_chunk=LANE_CHUNK, slot_aligned=aligned)
+            serve_executor(step, cfg, lane).run(warm)
+            runner = executor(step, 0, rank == 0)
+            steps = [step]
+        else:
+            built = {}
+            firsts = {rep.index: rep.start + rep.prefill_devices
+                      for rep in fleet.replicas}
+
+            def make(step, index):
+                built[index] = step
+                return executor(step, index, firsts[index] == rank)
+
+            runner = fleet_over_ranks(
+                model, fleet, make, prefill_chunk=LANE_CHUNK,
+                slot_aligned=aligned, seed=seed)
+            steps = list(built.values())
+            for step in steps:
+                serve_executor(step, cfg, lane).run(warm)
+        for k in kernels:
+            k.launches = 0
+        chunks.update(passes=0, bytes=0, host_bytes=0)
+        mesh.reset_comm_counts()
+        BUS.configure(os.path.join(obs_dir, f"{leg}_rank{rank}.jsonl"))
+        dist.barrier()
+        t0 = time.perf_counter()
+        try:
+            tokens = runner.run(reqs, max_frames=20_000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            BUS.flush()
+        finally:
+            BUS.close()
+        # read after the run: a layout changed mid-serve shows here
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for step in steps
+                         for t in step.state["state"].values())
+        local = ([runner] if fleet is None else
+                 [ex for ex in runner.replicas
+                  if not type(ex).__name__ == "RemoteReplica"])
+        frames = sum(ex.frame for ex in local)
+        summ = runner.summary()
+        per_replica = ([summ] if fleet is None else summ["per_replica"])
+        recs = [x for x in runner.request_records
+                if x.get("phase") == "finish"]
+        q = ContinuousBatchingExecutor._quantile
+        ttft = [x["ttft_s"] for x in recs if x.get("ttft_s") is not None]
+        log_files = {}
+        for index, log in logs.items():
+            path = os.path.join(obs_dir, f"{leg}_replica{index}.pt")
+            torch.save([(kind, args, None if lg is None else lg.cpu())
+                        for kind, args, lg in log], path)
+            log_files[index] = path
+        r = {"compile_s": compile_s, "wall_s": wall, "tokens": tokens,
+             "frames": frames, "chunk_passes": chunks,
+             "launches": {k.__name__: k.launches for k in kernels},
+             "collectives": mesh.comm_counts(),
+             "pool_bytes": pool_bytes,
+             "decode_shapes": sorted({s for step in steps
+                                      for s in local_decode_shapes(step)}),
+             "frame_p50_s": [x.get("measured_p50_s") for x in per_replica],
+             "frame_p99_s": [x.get("measured_p99_s") for x in per_replica],
+             "ttft_p50_s": q(ttft, 0.5), "ttft_p99_s": q(ttft, 0.99),
+             "requests_recorded": len(recs),
+             "slo_classes": summ.get("slo_classes"),
+             "live_slots": {i: sorted(v["slots"])
+                            for i, v in lives.items()},
+             "strategy": sorted({(tuple(v.dim_degrees), v.replica_degree)
+                                 for v in model.strategy.values()}),
+             "kv_meta": model.serve_meta.get("kv"),
+             "fleet": None if fleet is None else fleet.to_meta(),
+             "disaggregation": (None if model.disaggregation is None
+                                else model.disaggregation.to_meta()),
+             "logs": log_files}
+        if fleet is not None:
+            r["assignments"] = dict(runner.assignments)
+        out[leg] = r
+        del model, steps, runner, logs, lives
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def check_decode_shapes(seed, shapes):
+    """Rows 5 and 6 against their plain versions at each (frame rows,
+    heads, pool) a rank of phase 13 runs them at: phase 3's serving
+    operands cut to those rows and heads, within phase 3's limits."""
+    from flexflow_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention,
+        ragged_paged_attention_quant,
+        ragged_paged_attention_quant_reference,
+        ragged_paged_attention_reference,
+    )
+    from flexflow_tpu_torch.ops.decode_attention import _quantize_kv
+
+    lens, q, k32, v32, pt, sl = serving_operands(seed)
+    errs = {}
+    for rows, heads, pool in shapes:
+        qs = q[:rows, :heads].contiguous()
+        ks = k32[:, :, :heads].contiguous()
+        vs = v32[:, :, :heads].contiguous()
+        pts, sls = pt[:rows].contiguous(), sl[:rows].contiguous()
+        if pool == "int8":
+            kq, kscale = _quantize_kv(ks)
+            vq, vscale = _quantize_kv(vs)
+            args = (qs, kq, vq, kscale, vscale, pts, sls)
+            got = ragged_paged_attention_quant(*args)
+            ref = ragged_paged_attention_quant_reference(*args)
+            err = float((got - ref).abs().max()) / max(
+                1.0, float(ref.abs().max()))
+        else:
+            dt = torch.float32 if pool == "fp32" else torch.bfloat16
+            args = (qs, ks.to(dt), vs.to(dt), pts, sls)
+            got = ragged_paged_attention(*args)
+            ref = ragged_paged_attention_reference(*args)
+            err = float((got - ref).abs().max())
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"decode kernel at "
+              f"[{rows}, {heads}] {pool}: non-finite values")
+        check(err <= KERNEL_TOL, f"decode kernel at [{rows}, {heads}] "
+              f"{pool} vs its plain version: {err:.3e} > {KERNEL_TOL}")
+        errs[f"[{rows}, {heads}] {pool}"] = err
+    print("serving over ranks, decode kernels at the per-rank shapes vs "
+          "plain: " + json.dumps(errs))
+    return errs
+
+
+def serve_reference(seed, cfg_opts, dtype, lane):
+    """One process of phase 4's model (this leg's pool dtype and
+    executor) serving phase 4's requests, captured: (tokens, per
+    request the top-2 logit margin of each generated token, the model
+    and its step for replays)."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.models import build_gpt_decode
+    from flexflow_tpu_torch.runtime.decode import (
+        DecodeRequest,
+        compiled_decode_step,
+    )
+
+    opts = {k: v for k, v in cfg_opts.items()
+            if k in ("prefill_chunk", "serve_slo_classes")}
+    cfg = FFConfig(batch_size=FRAME_SLOTS, compute_dtype="bfloat16",
+                   seed=seed, kv_precision=dtype, **opts)
+    model = build_gpt_decode(cfg, **FULL)
+    model.compile(comp_mode="inference")
+    step = compiled_decode_step(model, prefill_chunk=LANE_CHUNK)
+    serve_executor(step, cfg, lane).run([DecodeRequest(
+        rid="warm", prompt=list(range(1, 40)), max_new_tokens=4)])
+    zero_state(model)
+    margins, pending = {}, []
+    box = {}
+
+    def rec_step(ids, table, lens):
+        logits = step(ids, table, lens)
+        top = logits[:, 0].float().topk(2, dim=-1).values
+        # rows whose output this frame extends a request's tokens
+        rows = [(i, live.req.rid) for i, live in enumerate(
+            box["ex"].slots) if live is not None
+            and live.cached + 1 >= len(live.tokens)]
+        pending.append((rows, top[:, 0] - top[:, 1]))
+        return logits
+
+    rec_step.prefill = getattr(step, "prefill", None)
+    rec_step.copy_page = step.copy_page
+    ex = box["ex"] = serve_executor(rec_step, cfg, lane)
+    tokens = ex.run(serve_requests(seed), max_frames=20_000)
+    for rows, margin in pending:
+        m = margin.cpu().numpy()
+        for i, rid in rows:
+            margins.setdefault(rid, []).append(float(m[i]))
+    return tokens, margins, model, step
+
+
+def replay_diff(model, step, log):
+    """A leg's logged run (every chunk pass, page copy and frame, in
+    order) replayed through one process from an empty cache, so each
+    frame's logits are compared on the leg's own tokens: (the largest
+    |logit| difference, frames, frame rows whose argmax differs)."""
+    zero_state(model)
+    diff, frames, flips = 0.0, 0, 0
+    for kind, args, logits in log:
+        if kind == "step":
+            got = step(*args).float().cpu()
+            diff = max(diff, float((got - logits).abs().max()))
+            flips += int((got.argmax(-1) != logits.argmax(-1)).sum())
+            frames += 1
+        elif kind == "prefill":
+            step.prefill(*args)
+        else:
+            step.copy_page(*args)
+    return diff, frames, flips
+
+
+def token_parity(got, ref, margins, diff):
+    """Requests whose tokens equal one process's, and those excused:
+    their first differing token's one-process top-2 margin is at most
+    the legs' measured logit difference.  Returns (checked, excused
+    request ids, excused tokens)."""
+    excused, lost = [], 0
+    for rid, want in ref.items():
+        have = got.get(rid)
+        check(have is not None and len(have) == len(want),
+              f"{rid}: {None if have is None else len(have)} tokens, "
+              f"want {len(want)}")
+        if have == want:
+            continue
+        p = next(i for i, (a, b) in enumerate(zip(have, want)) if a != b)
+        margin = margins[rid][p]
+        check(margin <= diff, f"{rid}: token {p} is {have[p]}, one "
+              f"process gives {want[p]} with a top-2 margin of "
+              f"{margin:.4e} above the measured logit difference "
+              f"{diff:.4e}")
+        excused.append(rid)
+        lost += len(want) - p
+    return len(ref) - len(excused), excused, lost
+
+
+def phase_serve_ranks(seed, name):
+    """Phase 13: phase 4's model and requests served over SERVE_RANKS
+    ranks spawned as phase 7's (one card each with NCCL on a 4-card
+    machine, else all on card 0 through gloo with counted host hops) in
+    four legs: (a) head split 4, bf16 pools; (b) batch split 4, fp32
+    pools; (c) head split 4, int8 pools through phase 5's lane; (d)
+    ``compile(strategy=None)`` under the serve objective with the KV
+    lane, disaggregation and fleet searched, the requests served
+    through what it adopts (a fleet over rank blocks where it adopts
+    one).  Each leg is held to one process's run of its configuration:
+    every frame's logits, replaying each replica's whole run; the
+    tokens, where the one-process top-2 margin exceeds that
+    difference; rows 5/6 against their plain versions at the per-rank
+    shapes; launches per rank per frame; per-rank pool bytes; under
+    the batch split, live sequences in every rank's block of slots."""
+    import tempfile
+
+    from flexflow_tpu_torch.runtime.distributed import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    shared = torch.cuda.device_count() < SERVE_RANKS
+    legs = serve_legs()
+    heads, layers = FULL["num_heads"], FULL["num_layers"]
+    # the known legs' per-rank decode shapes, before the ranks spawn
+    check_decode_shapes(seed, [
+        (FRAME_SLOTS, heads // SERVE_RANKS, "bf16"),
+        (FRAME_SLOTS // SERVE_RANKS, heads, "fp32"),
+        (FRAME_SLOTS, heads // SERVE_RANKS, "int8")])
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    ranks = spawn(_serve_rank, SERVE_RANKS, (seed, tmp.name),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SP_TIMEOUT_S)
+    ranks_wall = time.perf_counter() - t0
+    events = {}
+    for leg in legs:
+        for rk in range(SERVE_RANKS):
+            with open(os.path.join(tmp.name,
+                                   f"{leg}_rank{rk}.jsonl")) as f:
+                events[(leg, rk)] = [json.loads(line) for line in f]
+    r0 = ranks[0]
+    want_transport = "gloo-host" if shared else "nccl"
+    one_pool = {  # one process's pool bytes per dtype (phase 4's shape)
+        dt: FULL["num_layers"] * 2 * FRAME_SLOTS * FULL["pages_per_seq"]
+        * FULL["page_size"] * FULL["hidden"] * size
+        for dt, size in (("fp32", 4), ("bf16", 2), ("int8", 1))}
+    scales = (FULL["num_layers"] * 2 * FRAME_SLOTS * FULL["pages_per_seq"]
+              * FULL["page_size"] * 4)
+    report = {"card": CARD_LINE[0], "ranks": SERVE_RANKS,
+              "transport": r0["transport"], "ranks_wall_s": ranks_wall,
+              "legs": {}}
+    check_decode_shapes(seed, sorted({s for r in ranks for leg in legs
+                                      for s in (r[leg]["decode_shapes"]
+                                                or ())}))
+    refs = {}
+    ms = lambda x: None if x is None else x * 1e3  # noqa: E731
+    for leg, (degrees, opts, lane) in legs.items():
+        rl = r0[leg]
+        kv = rl["kv_meta"]["dtype"] if rl["kv_meta"] else opts.get(
+            "kv_precision", "fp32")
+        key = (kv, lane)
+        if key not in refs:
+            if refs:
+                old = refs.pop(next(iter(refs)))
+                del old
+                gc.collect()
+                torch.cuda.empty_cache()
+            refs[key] = serve_reference(seed, opts, kv, lane)
+        ref_tokens, margins, model, step = refs[key]
+        # every replica's whole run, logged on its block's first rank
+        logged = {i: path for r in ranks for i, path in r[leg]["logs"].items()}
+        n_replicas = 1 if rl["fleet"] is None else len(rl["fleet"]["replicas"])
+        check(sorted(logged) == list(range(n_replicas)),
+              f"{leg}: logs of replicas {sorted(logged)}, want "
+              f"{n_replicas}")
+        diff, replayed, flips = 0.0, 0, 0
+        for path in logged.values():
+            d, n, f = replay_diff(model, step,
+                                  torch.load(path, weights_only=False))
+            diff, replayed, flips = max(diff, d), replayed + n, flips + f
+        want_frames = sum(r[leg]["frames"] for r in ranks
+                          if r[leg]["logs"])
+        check(replayed == want_frames, f"{leg}: {replayed} frames "
+              f"replayed, the logged ranks ran {want_frames}")
+        check(diff <= SERVE_PATH_TOL, f"{leg}: a frame's logits differ "
+              f"from one process's on the same calls by {diff:.3e} > "
+              f"{SERVE_PATH_TOL}")
+        checked, excused, lost = token_parity(rl["tokens"], ref_tokens,
+                                              margins, diff)
+        kernel = ("ragged_paged_attention_quant" if kv == "int8"
+                  else "ragged_paged_attention")
+        other = ("ragged_paged_attention" if kv == "int8"
+                 else "ragged_paged_attention_quant")
+        host = [(sum(c["host_bytes"]
+                     for c in r[leg]["collectives"].values())
+                 - r[leg]["chunk_passes"]["host_bytes"])
+                / max(r[leg]["frames"], 1) for r in ranks]
+        chunk_host = [r[leg]["chunk_passes"]["host_bytes"]
+                      / max(r[leg]["chunk_passes"]["passes"], 1)
+                      for r in ranks]
+        per_frame = [r[leg]["launches"][kernel] / max(r[leg]["frames"], 1)
+                     for r in ranks]
+        gen = sum(len(v) for v in rl["tokens"].values())
+        report["legs"][leg] = {
+            "strategy": rl["strategy"], "kv_dtype": kv,
+            "fleet": rl["fleet"], "disaggregation": rl["disaggregation"],
+            "decode_shapes": rl["decode_shapes"],
+            "frames_per_rank": [r[leg]["frames"] for r in ranks],
+            # one entry per replica (every replica's, gathered)
+            "frame_p50_ms": [ms(x) for x in rl["frame_p50_s"]],
+            "frame_p99_ms": [ms(x) for x in rl["frame_p99_s"]],
+            # over every request of the leg (a fleet's merged records)
+            "ttft_p50_ms": ms(rl["ttft_p50_s"]),
+            "ttft_p99_ms": ms(rl["ttft_p99_s"]),
+            "requests_recorded": rl["requests_recorded"],
+            "slo_classes": rl["slo_classes"],
+            "tokens_generated": gen,
+            "tokens_per_s": gen / max(r[leg]["wall_s"] for r in ranks),
+            "wall_s": max(r[leg]["wall_s"] for r in ranks),
+            "compile_s": max(r[leg]["compile_s"] for r in ranks),
+            "host_bytes_per_frame_per_rank": host,
+            "chunk_passes_per_rank": [r[leg]["chunk_passes"]["passes"]
+                                      for r in ranks],
+            "host_bytes_per_chunk_pass_per_rank": chunk_host,
+            "launches_per_rank_per_frame": per_frame,
+            "pool_bytes_per_rank": [r[leg]["pool_bytes"] for r in ranks],
+            "one_process_pool_bytes": one_pool[kv]
+            + (scales if kv == "int8" else 0),
+            "live_slots_per_replica": {i: len(v) for i, v in
+                                       rl["live_slots"].items()},
+            "frames_replayed": replayed,
+            "logit_diff_every_frame": diff,
+            "frame_rows_argmax_differs": flips,
+            "requests_checked": checked, "requests_excused": excused,
+            "tokens_excused": lost}
+        check(rl["requests_recorded"] == SERVE_REQUESTS,
+              f"{leg}: {rl['requests_recorded']} request records, want "
+              f"{SERVE_REQUESTS}")
+        for i, r in enumerate(ranks):
+            check(r["transport"] == want_transport, f"rank {i}: transport "
+                  f"{r['transport']}, want {want_transport}")
+            check(r[leg]["tokens"] == rl["tokens"],
+                  f"rank {i} {leg}: other tokens than rank 0's")
+            check(r[leg]["launches"][kernel] == layers * r[leg]["frames"],
+                  f"rank {i} {leg}: {kernel} launched "
+                  f"{r[leg]['launches'][kernel]} times in "
+                  f"{r[leg]['frames']} frames, want {layers} per frame")
+            check(r[leg]["launches"][other] == 0,
+                  f"rank {i} {leg}: {other} launched")
+            hopped = sum(c["host_hops"]
+                         for c in r[leg]["collectives"].values())
+            if degrees is not None or rl["fleet"] is None:
+                check((hopped > 0) == shared, f"rank {i} {leg}: {hopped} "
+                      f"host hops with transport {r['transport']}")
+        if degrees is not None:
+            b, hsplit = degrees
+            payload = one_pool[kv] / (b * hsplit)
+            want = payload + (scales / b if kv == "int8" else 0)
+            for i, r in enumerate(ranks):
+                check(r[leg]["pool_bytes"] == want, f"rank {i} {leg}: "
+                      f"pool {r[leg]['pool_bytes']} bytes, want {want}")
+            # each batch coordinate's block of slots served live
+            # sequences (rank i holds block i of a batch split)
+            block = FRAME_SLOTS // b
+            live = rl["live_slots"][0]
+            per_block = [sum(j * block <= x < (j + 1) * block for x in live)
+                         for j in range(b)]
+            lr = report["legs"][leg]
+            lr["live_slots_per_rank_block"] = per_block
+            check(all(per_block), f"{leg}: live slots per rank block "
+                  f"{per_block}: a rank served no live sequence")
+        if rl["fleet"] is not None:
+            routes = [e for (lg, rk), evs in events.items() if lg == leg
+                      and rk == 0 for e in evs
+                      if e.get("kind") == "fleet.route"]
+            check(len(routes) == SERVE_REQUESTS, f"{leg}: {len(routes)} "
+                  f"fleet.route events on rank 0, want {SERVE_REQUESTS}")
+            for i, r in enumerate(ranks):
+                check(r[leg]["assignments"] == rl["assignments"],
+                      f"rank {i} {leg}: another routing than rank 0's")
+    tmp.cleanup()
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("serving over ranks: " + json.dumps(report))
+    print(f"serving over ranks, card: {CARD_LINE[0]}")
+    for leg, lr in report["legs"].items():
+        print(f"serving over ranks, {leg}: {lr['requests_checked']} "
+              f"requests token-equal to one process, "
+              f"{len(lr['requests_excused'])} excused at a near-tie "
+              f"({lr['tokens_excused']} tokens); every frame replayed "
+              f"({lr['frames_replayed']}): logit difference "
+              f"{lr['logit_diff_every_frame']:.3e}, "
+              f"{lr['frame_rows_argmax_differs']} frame rows with "
+              f"another argmax")
+    refs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {leg: {"ragged_paged_attention": r0[leg]["launches"][
+        "ragged_paged_attention"], "ragged_paged_attention_quant":
+        r0[leg]["launches"]["ragged_paged_attention_quant"]}
+        for leg in legs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4711,6 +5371,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sync-only", metavar="RUNS", type=int, default=None,
                     help="only run phase 12, RUNS times, against phase "
                          "6's first step taken alone")
+    ap.add_argument("--serve-only", metavar="RUNS", type=int, default=None,
+                    help="only run phase 13, serving over ranks, RUNS "
+                         "times")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -4755,6 +5418,14 @@ def main(argv=None) -> int:
             phase_sync_train(args.seed, name, first)
         return 0
 
+    if args.serve_only is not None:
+        name = phase_device()
+        phase_build()
+        for run in range(1, args.serve_only + 1):
+            print(f"phase 13, run {run} of {args.serve_only}")
+            phase_serve_ranks(args.seed, name)
+        return 0
+
     if args.pipeline_only:
         name = phase_device()
         phase_build()
@@ -4778,6 +5449,7 @@ def main(argv=None) -> int:
     pipe_launches = phase_pipeline_train(args.seed, name, first_loss)
     bert_launches, _ = phase_bert_train(args.seed, name)
     sync_launches = phase_sync_train(args.seed, name, first_loss)
+    serve_launches = phase_serve_ranks(args.seed, name)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -4787,6 +5459,9 @@ def main(argv=None) -> int:
         "source": "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "flexflow_tpu/kernels/ragged_paged_attention.py:132",
         "launches": rpa_launches,
+        "launches_serving_per_rank": {
+            leg: ls["ragged_paged_attention"]
+            for leg, ls in serve_launches.items()},
         "max_abs_err": max(r["max_abs_err"] for r in rpa.values()),
         "ms": fp32["ms"],
         "plain_ms": fp32["plain_ms"],
@@ -4801,6 +5476,9 @@ def main(argv=None) -> int:
         "source": "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "flexflow_tpu/kernels/ragged_paged_attention.py:233",
         "launches": quant_launches,
+        "launches_serving_per_rank": {
+            leg: ls["ragged_paged_attention_quant"]
+            for leg, ls in serve_launches.items()},
         "max_abs_err": int8["max_abs_err"],
         "ms": int8["ms"],
         "plain_ms": int8["plain_ms"],

@@ -10,7 +10,10 @@ path (``search/dp.py``, ``search/driver.py``):
    in ``optimize_strategy``; the gradient-sync artifacts' legality: the
    sync schedule (``SHD120``-``SHD123``), its reduction plans
    (``SHD130``-``SHD133``) and the per-group ZeRO-1 map
-   (``SHD140``-``SHD141``).
+   (``SHD140``-``SHD141``); the serving artifacts' legality: the serve
+   objective's result (``SHD160``-``SHD163``), its KV lane
+   (``SHD168``-``SHD169``), the disaggregation proposal
+   (``SHD164``-``SHD165``) and the fleet (``SHD166``-``SHD167``).
 3. ``placement``  — pipeline stage cuts and two-block placements
    (``SHD150``-``SHD155``), the gate on every proposal the search
    returns, every imported ``__meta__.pipeline``/``placement`` block
@@ -41,7 +44,11 @@ from flexflow_tpu_torch.analysis.placement import (
     placement_meta,
 )
 from flexflow_tpu_torch.analysis.sharding import (
+    lint_disaggregation,
+    lint_fleet,
+    lint_kv,
     lint_reduction_plan,
+    lint_serving,
     lint_strategy,
     lint_sync_schedule,
     lint_zero_map,
@@ -63,6 +70,10 @@ __all__ = [
     "lint_sync_schedule",
     "lint_zero_map",
     "lint_reduction_plan",
+    "lint_serving",
+    "lint_kv",
+    "lint_disaggregation",
+    "lint_fleet",
     "lint_pipeline_stages",
     "lint_placement",
     "placement_meta",

@@ -117,8 +117,14 @@ compressed sync on the summed gradient; the port's ranks hold shares
 of the gradient, so its compressed collective IS the sum (comm/
 quantized.py says more).
 
-Not lowered, and raising ``NotImplementedError`` with the ROADMAP
-item that lifts it: the inference compile under a split (model.py).
+Model state under a strategy (reference lowering.py:330-350): an op
+with ``state_shardings`` (the decode op's page pools) keeps its block
+of each state value, placed by those annotations like a weight; the
+rest is whole on every rank.  A pool whose pages cannot follow the
+executor's slots (``pages_follow_slots``) keeps its page dim whole, and
+``whole_page_pools`` gathers a split page dim whole for a decode step
+whose executor allots pages from its free list (ops/decode_attention.py
+says why); the placements are the lowering's and do not change.
 """
 
 from __future__ import annotations
@@ -281,11 +287,13 @@ class CompiledModel:
         pool = [(n, s) for n, s in self.mesh.axes if n != "pp"]
         self._shardings: Dict[int, OpSharding] = {}
         self._slot_axes: Dict[int, Dict[int, Tuple[str, ...]]] = {}
+        self._views: Dict[int, MachineView] = {}
         for node in self._topo:
             mv = views.get(node.guid)
             if mv is None:
                 mv = node.op.fixed_machine_view() or MachineView.trivial(
                     node.op.output_shapes[0].ndim)
+            self._views[node.guid] = mv
             self._shardings[node.guid] = node.op.propagate(mv)
             self._slot_axes[node.guid] = view_slot_axes(mv, pool)
         # one process captures its steps; several run them eagerly
@@ -323,6 +331,18 @@ class CompiledModel:
             self._grad_axes[node.op.name] = {
                 w: self._in_order(used - set(pl.split_axes()))
                 for w, pl in ws.items()}
+        self._state_pl: Dict[str, Placement] = {}
+        for node in self._topo:
+            op = node.op
+            shard = getattr(op, "state_shardings", None)
+            if shard is None:
+                continue
+            axes = self._slot_axes[node.guid]
+            for name, annot in shard(self._views[node.guid]).items():
+                pl = placement(annot, axes)
+                if not op.pages_follow_slots():
+                    pl = Placement(((),) + pl.dims[1:])
+                self._state_pl[f"{op.name}/{name}"] = pl
         sink = self._out_pl[self._sink.guid][0]
         # split at most on the label dims: batch and, for [B, S, ...]
         # outputs, the sequence
@@ -502,8 +522,12 @@ class CompiledModel:
             if specs is None:
                 continue
             for name, shape, dtype, fill in specs():
-                state[f"{op.name}/{name}"] = torch.full(
-                    shape, fill, dtype=dtype, device=self.device)
+                key = f"{op.name}/{name}"
+                pl = self._state_pl.get(key)
+                if pl is not None:
+                    shape = pl.local_sizes(shape, self.mesh)
+                state[key] = torch.full(shape, fill, dtype=dtype,
+                                        device=self.device)
         # error-feedback residuals of the int8_ef groups (reference
         # lowering.py:373-401): fp32, each rank's block, zero at first
         self._ef_keys = {}
@@ -519,6 +543,35 @@ class CompiledModel:
                 state[key] = torch.zeros(t.shape, dtype=torch.float32,
                                          device=self.device)
         return params, state
+
+    def page_blocks(self) -> Optional[Tuple[int, int]]:
+        """(pages, slots) per block of a page pool split over the batch
+        axes (each block one batch coordinate's: its slots' pages), or
+        None when no pool's page dim is split."""
+        for node in self._topo:
+            op = node.op
+            if not hasattr(op, "pages_follow_slots"):
+                continue
+            pl = self._state_pl.get(f"{op.name}/k_cache")
+            if pl is not None and pl.dims and pl.dims[0]:
+                n = self.mesh.size(pl.dims[0])
+                return op.attrs["num_pages"] // n, op.max_seqs // n
+        return None
+
+    def whole_page_pools(self, state) -> Dict[str, torch.Tensor]:
+        """``state`` (laid out by ``init_params``) with every page pool
+        whose page dim is split over the batch axes gathered whole on
+        every rank of them (a collective), for a decode step whose
+        executor allots pages from its free list (runtime/decode.py's
+        ``compiled_decode_step(slot_aligned=False)``, which keeps the
+        layout it chose; the placements here stay the lowering's)."""
+        out = dict(state)
+        for key, pl in self._state_pl.items():
+            if not pl.dims or not pl.dims[0] or key not in state:
+                continue
+            out[key] = reshard(state[key], pl,
+                               Placement(((),) + pl.dims[1:]), self.mesh)
+        return out
 
     # ---- whole weights ---------------------------------------------------
     def holds(self, op_name: str) -> bool:

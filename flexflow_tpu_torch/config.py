@@ -13,8 +13,16 @@ The serving knobs are the reference's (config.py:193, 221-237):
 ``prefill_chunk`` (the chunked prefill lane's chunk size),
 ``serve_slo_classes`` (normalised by ``parse_slo_classes``, a copy of
 config.py:18-66) and ``kv_precision`` (the KV page-pool dtype lane:
-"off", or a pinned "fp32"/"bf16"/"int8" that
-``compile(comp_mode="inference")`` adopts onto the decode ops).
+"off", a pinned "fp32"/"bf16"/"int8" that
+``compile(comp_mode="inference")`` adopts onto the decode ops, or
+"search": the serve-objective search prices the three and persists
+the winner as ``__meta__.kv``).  The serve objective's fields are the
+reference's too (config.py:179-247, validated as at :378-421):
+``serve_p99_budget_ms``, ``serve_disaggregation`` and ``serve_fleet``
+(off|search: the two proposals of search/disaggregation.py and
+search/fleet.py), ``serve_prompt_tokens_mean``,
+``serve_decode_tokens_mean``, ``serve_fleet_max_replicas``,
+``serve_fleet_offered_load`` and ``serve_shared_prefix_pages``.
 
 ``trace_steps`` is the reference's: ``fit`` runs that many optimizer
 steps per compiled call (``CompiledModel.train_steps``).
@@ -53,10 +61,6 @@ levers (config.py:258-266, lowering.py:266-279 and :613-693): every
 weighted op that mutates no state recomputes its activations in the
 backward, and each optimizer step runs its batch as that many
 microbatches (the batch must divide by it; checked at the step).
-
-A flag of the reference that the port does not run yet
-(``kv_precision="search"``) raises when set; it is never silently
-ignored.
 """
 
 from __future__ import annotations
@@ -163,6 +167,19 @@ class FFConfig:
     calibration_budget_s: float = 60.0
     cost_cache_file: Optional[str] = None
     objective: str = "train"  # "train" | "serve"
+    # the serve objective's options (reference config.py:179-247, its
+    # defaults): the declared p99 SLO (0: rank only), the disaggregation
+    # and fleet proposals ("off" | "search"), the phase-split arrival
+    # model (0: derived from the frame), the fleet's bounds and offered
+    # load, and the pages per sequence expected from the shared prefix
+    serve_p99_budget_ms: float = 0.0
+    serve_disaggregation: str = "off"
+    serve_prompt_tokens_mean: int = 0
+    serve_decode_tokens_mean: int = 0
+    serve_fleet: str = "off"
+    serve_fleet_max_replicas: int = 4
+    serve_fleet_offered_load: float = 0.85
+    serve_shared_prefix_pages: int = 0
     verify: bool = False
     # strategy files (reference config.py:160-161): compile exports the
     # lowered strategy with its __meta__ (pipeline, placement) and
@@ -178,12 +195,8 @@ class FFConfig:
             raise ValueError(
                 f"compute_dtype must be one of {sorted(_DTYPES)}, got "
                 f"{self.compute_dtype!r}")
-        if self.kv_precision == "search":
-            raise NotImplementedError(
-                "kv_precision='search': the searched KV-precision lane "
-                "comes with the search slice (ROADMAP Queue A item 9); "
-                "pin fp32, bf16 or int8")
-        if self.kv_precision not in ("off", "fp32", "bf16", "int8"):
+        if self.kv_precision not in ("off", "fp32", "bf16", "int8",
+                                     "search"):
             raise ValueError(
                 f"kv_precision must be off|fp32|bf16|int8|search, got "
                 f"{self.kv_precision!r}")
@@ -196,6 +209,26 @@ class FFConfig:
         if self.objective not in ("train", "serve"):
             raise ValueError(
                 f"objective must be train|serve, got {self.objective!r}")
+        if self.serve_disaggregation not in ("off", "search"):
+            raise ValueError(
+                f"serve_disaggregation must be off|search, got "
+                f"{self.serve_disaggregation!r}")
+        if self.serve_fleet not in ("off", "search"):
+            raise ValueError(
+                f"serve_fleet must be off|search, got "
+                f"{self.serve_fleet!r}")
+        if self.serve_fleet_max_replicas < 1:
+            raise ValueError(
+                f"serve_fleet_max_replicas must be >= 1, got "
+                f"{self.serve_fleet_max_replicas}")
+        if not (0.0 < self.serve_fleet_offered_load <= 4.0):
+            raise ValueError(
+                f"serve_fleet_offered_load must be in (0, 4], got "
+                f"{self.serve_fleet_offered_load}")
+        if self.serve_shared_prefix_pages < 0:
+            raise ValueError(
+                f"serve_shared_prefix_pages must be >= 0, got "
+                f"{self.serve_shared_prefix_pages}")
         if self.sync_precision not in ("fp32", "bf16", "int8", "search"):
             raise ValueError(
                 f"sync_precision must be fp32|bf16|int8|search, got "

@@ -11,11 +11,14 @@ lazy graph;
 ``compile`` binds it to the config's device, with a strategy (guid ->
 ``MachineView``) to this rank's shards of every tensor
 (compiler/lowering.py), and initialises ``params`` (this rank's
-blocks), ``state`` and, for training, the optimizer state; an
-inference compile first adopts a pinned ``config.kv_precision`` onto
-the decode-attention ops (``_adopt_kv_dtype``, reference model.py:50-83,
-as the reference's strategy search does for one pinned candidate),
-so the state holds that pool dtype.  ``fit``, ``evaluate`` and
+blocks), ``state`` (the decode ops' page pools placed by their
+``state_shardings``) and, for training, the optimizer state; an
+inference compile adopts the pool dtype onto the decode-attention ops
+(``_adopt_kv_dtype``, reference model.py:50-83): a ``__meta__.kv``
+block's (searched or imported), else a pinned ``config.kv_precision``,
+so the state holds that pool dtype.  An inference compile runs under
+any strategy over the job's ranks (a fleet replica, runtime/fleet.py,
+over a block of them).  ``fit``, ``evaluate`` and
 ``predict`` run over numpy data; under a strategy every rank runs them
 on its blocks, the losses and metrics are the job's, and ``predict``
 returns the whole output on every rank.  ``fit`` also takes the
@@ -56,6 +59,18 @@ adopted stage cut.  ``self.strategy`` holds the chosen
 views and ``self.search_stats`` the search's ``LAST_SEARCH_STATS``
 (its seconds, calibration seconds and counters; rank 0's on every
 rank).
+
+Under ``objective="serve"`` an inference compile's search prices the
+decode graph in the p99 currency (search/serving.py), with the KV lane
+(``kv_precision="search"``), then, as the reference's compile does
+(model.py:942-998), the prefill/decode disaggregation proposal
+(``serve_disaggregation="search"``; priced and persisted, not
+executed) and the fleet (``serve_fleet="search"``), into
+``self.disaggregation`` and ``self.fleet`` (rank 0's proposals on
+every rank).  Their ``__meta__`` blocks (``serving``, ``kv``,
+``disaggregation``, ``fleet``) ride the export, are re-linted
+(SHD160-169) on every rank and at import, and are kept in
+``self.serve_meta``.
 """
 
 from __future__ import annotations
@@ -105,6 +120,9 @@ def _adopt_kv_dtype(graph, dtype) -> None:
     if changed:
         graph._invalidate()
 
+
+# the serve objective's __meta__ blocks (reference model.py:622-720)
+_SERVE_META = ("serving", "kv", "disaggregation", "fleet")
 
 # ops the search builds (the batched-embedding rewrite) that the port
 # prices but does not run yet
@@ -203,6 +221,13 @@ class FFModel:
         self.sync_precision_map: Dict[str, str] = {}
         self.sync_schedule = None
         self.zero_groups: Tuple[str, ...] = ()
+        # the serve objective's proposals (search/disaggregation.py,
+        # search/fleet.py; rank 0's on every rank) and its __meta__
+        # blocks (serving, kv, disaggregation, fleet) as adopted
+        self.disaggregation = None
+        self.fleet = None
+        self.serve_meta: Dict[str, dict] = {}
+        self._kv_adopt: Optional[str] = None
         self._rng_counter = 0  # the step seed: +1 per optimizer step
         self._compile_ctx = None
 
@@ -500,9 +525,10 @@ class FFModel:
         ``params``/``state`` from ``config.seed``.  ``strategy`` (guid ->
         ``MachineView``, optionally with a ``__meta__`` block) is None or
         trivial for one device, or any combination of batch, sequence,
-        out-dim and replica splits over the job's ranks (training only;
-        an inference compile under a split raises, ROADMAP Queue A item
-        2), with two ``start_part`` blocks the placed lowering.
+        out-dim and replica splits over the job's ranks, for training or
+        inference (the decode graph's head and sequence-slot splits:
+        ops/decode_attention.py), with two ``start_part`` blocks the
+        placed lowering.
         ``pipeline`` (a ``PipelineConfig``) runs the repeated blocks
         (``layer<i>_`` names, or ``block_of``) as a GPipe pipeline over
         ``num_stages`` stages of ranks, with the reference's guards.
@@ -510,6 +536,17 @@ class FFModel:
         optimizer (default: SGD at ``config.learning_rate`` with
         ``config.weight_decay``, as the reference's) and initialises
         ``opt_state``."""
+        self._compile(optimizer, loss_type, metrics, comp_mode, strategy,
+                      pipeline, block_of)
+
+    def _compile(self, optimizer=None,
+                 loss_type="sparse_categorical_crossentropy",
+                 metrics=("accuracy",), comp_mode: str = "training",
+                 strategy=None, pipeline=None, block_of=None, mesh=None):
+        """``compile``; ``mesh`` (``runtime.distributed.mesh_over``)
+        lowers a given flat strategy onto a block of the job's ranks
+        instead of all of them, as a fleet replica runs
+        (runtime/fleet.py); its width is ``config.num_devices``."""
         from flexflow_tpu_torch.optimizers import SGDOptimizer
 
         if comp_mode not in ("training", "inference"):
@@ -518,6 +555,12 @@ class FFModel:
         self.config.comp_mode = comp_mode
         self.pipeline_proposal = None  # a stale proposal from an earlier
         # compile must not choose this one's lowering
+        self.disaggregation = self.fleet = None
+        self.serve_meta, self._kv_adopt = {}, None
+        if mesh is not None and (strategy is None or pipeline is not None):
+            raise ValueError(
+                "a block compile lowers a given flat strategy onto a "
+                "block of ranks; pass strategy= and no pipeline")
         if pipeline is not None and (
                 pipeline.num_stages < 1
                 or self.config.num_devices % pipeline.num_stages != 0):
@@ -541,22 +584,18 @@ class FFModel:
         from flexflow_tpu_torch.compiler.lowering import strategy_views
 
         self.strategy = strategy_views(strategy)  # its __meta__ adopted
-        if comp_mode == "inference":
-            _adopt_kv_dtype(self.graph, self.config.kv_precision)
+        if comp_mode == "inference" and self._kv_adopt is None and (
+                self.config.kv_precision != "search"):
+            self._kv_adopt = self.config.kv_precision
         self._adopt_sync(strategy, pipeline, comp_mode)
         self._compile_ctx = dict(
             strategy=strategy, pipeline=pipeline, block_of=block_of,
-            loss_type=loss_type,
+            loss_type=loss_type, mesh=mesh,
             metrics=metrics if comp_mode == "training" else ())
         self.compiled = self._lower(
             strategy, pipeline, block_of, loss_type,
             self._compile_ctx["metrics"],
-            self.optimizer if comp_mode == "training" else None)
-        if comp_mode == "inference" and self.compiled.mesh.world > 1:
-            raise NotImplementedError(
-                "an inference compile over several ranks is not ported yet "
-                "(ROADMAP Queue A item 2); the decode path runs on one "
-                "device")
+            self.optimizer if comp_mode == "training" else None, mesh)
         self.params, self.state = self.compiled.init_params(self.config.seed)
         self.opt_state = (self.optimizer.init_state(self._slot_views())
                           if comp_mode == "training" else None)
@@ -575,7 +614,7 @@ class FFModel:
         self.compiled = self._lower(
             ctx["strategy"], ctx["pipeline"], ctx["block_of"],
             ctx["loss_type"], ctx["metrics"],
-            self.optimizer if training else None)
+            self.optimizer if training else None, ctx["mesh"])
         old = (self.params, self.state, self.opt_state)
         self.params, self.state = self.compiled.init_params(self.config.seed)
         self.params = _merge_matching(self.params, old[0] or {})
@@ -728,11 +767,6 @@ class FFModel:
 
         cfg = self.config
         world = distributed.world_size()
-        if comp_mode == "inference" and world > 1:
-            raise NotImplementedError(
-                "an inference compile over several ranks is not ported yet "
-                "(ROADMAP Queue A item 2); the decode path runs on one "
-                "device")
         if pipeline is not None:
             # dp over the ranks left after the pp axis is carved off
             return data_parallel_strategy(
@@ -758,9 +792,9 @@ class FFModel:
             export, graph, source="the searched strategy")
             if len(export) > 1 else {})
         pipeline = self._adopt_meta(
-            dict(views, __meta__={k: meta[k] for k in ("pipeline",
-                                                        "placement")
-                                  if k in meta}), None)
+            dict(views, __meta__={k: meta[k] for k in (
+                "pipeline", "placement") + _SERVE_META if k in meta}),
+            None)
         if proposal is not None:
             self.pipeline_proposal = proposal
         sync = {k: meta[k] for k in ("sync_precision", "sync_schedule",
@@ -772,9 +806,14 @@ class FFModel:
         the reference's order and under its conditions (model.py:850-935:
         training only, no ZeRO; a pipeline first, then a two-block
         placement, then, when no flat strategy fits, a general staged
-        pipeline).  Returns (graph, the export of the views to lower with
-        the winning proposal in ``__meta__``, the search's stats, the
-        staged proposal or None)."""
+        pipeline); for an inference compile under ``objective="serve"``
+        the serve proposals instead (model.py:942-998): the prefill/
+        decode disaggregation under ``serve_disaggregation="search"``
+        and the fleet under ``serve_fleet="search"``, kept in
+        ``self.disaggregation`` and ``self.fleet``.  Returns (graph, the
+        export of the views to lower with the winning proposal and the
+        serve objective's blocks in ``__meta__``, the search's stats,
+        the staged proposal or None)."""
         import math
 
         from flexflow_tpu_torch.compiler.lowering import (
@@ -783,10 +822,13 @@ class FFModel:
         from flexflow_tpu_torch.search import driver, strategy_io
 
         cfg = self.config
+        base = self.graph  # the narrow-block solves start from it
         graph, views = driver.optimize_strategy(self.graph, cfg,
                                                 return_graph=True)
         stats = dict(driver.LAST_SEARCH_STATS)
         meta, proposal = {}, None
+        if cfg.objective == "serve" and comp_mode == "inference":
+            meta.update(self._serve_proposals(graph, views, base))
         # the search's gradient-sync choices ride the export to every
         # rank (dropped below if a proposal replaces the views)
         searched = views
@@ -866,25 +908,60 @@ class FFModel:
         export = strategy_io.strategy_to_dict(graph, views, meta or None)
         return graph, export, stats, proposal
 
+    def _serve_proposals(self, graph, views, base) -> dict:
+        """The serve objective's ``__meta__`` blocks after its search
+        (reference model.py:942-998, 1262-1299): the driver's gated
+        ``serving`` and ``kv`` provenance, then an adopted
+        disaggregation and fleet proposal (priced with the search's
+        calibration; both kept in ``self.disaggregation`` and
+        ``self.fleet``, honest zeros included)."""
+        from flexflow_tpu_torch.search import driver
+
+        cfg = self.config
+        meta = {}
+        if driver.LAST_SERVING_META:
+            meta["serving"] = dict(driver.LAST_SERVING_META)
+        if driver.LAST_KV_META:
+            meta["kv"] = dict(driver.LAST_KV_META)
+        if not views:
+            return meta
+        calibration = driver.coherent_calibration(cfg)
+        base = base if base is not graph else None
+        if cfg.serve_disaggregation == "search":
+            from flexflow_tpu_torch.search.disaggregation import (
+                propose_disaggregation,
+            )
+
+            prop = self.disaggregation = propose_disaggregation(
+                graph, views, cfg, calibration=calibration, base_graph=base)
+            if prop is not None and prop.adopted:
+                meta["disaggregation"] = prop.to_meta()
+        if cfg.serve_fleet == "search":
+            from flexflow_tpu_torch.search.fleet import propose_fleet
+
+            prop = self.fleet = propose_fleet(
+                graph, views, cfg, calibration=calibration, base_graph=base)
+            if prop is not None and prop.adopted:
+                meta["fleet"] = prop.to_meta()
+        return meta
+
     def _search_on_rank0(self, comp_mode: str):
         """Rank 0 runs ``_search``; every rank gets its (graph, export,
         stats, proposal), the graph checked against the digest rank 0
         sent (``_choose_strategy`` then imports the views and the
         proposal's ``__meta__`` through the export's digest gate and the
         placement lints, so no two ranks can lower differently).  Every
-        rank refuses the unported search options of the config they
-        share before the broadcast, and an error of rank 0's search or
-        proposals is broadcast in place of its result, so every rank
-        raises it and none waits for a result that never comes."""
+        rank gets the serve proposals too (a fleet replica's graph and
+        views ride them), and an error of rank 0's search or proposals
+        is broadcast in place of its result, so every rank raises it and
+        none waits for a result that never comes."""
         import pickle
 
         import torch.distributed as dist
 
         from flexflow_tpu_torch.runtime import distributed
-        from flexflow_tpu_torch.search import driver
         from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
 
-        driver.refuse_unported(self.config)
         payload = [None]
         if distributed.rank() == 0:
             try:
@@ -892,7 +969,8 @@ class FFModel:
                 payload[0] = {"graph": graph,
                               "digest": stable_graph_digest(graph),
                               "export": export, "stats": stats,
-                              "proposal": proposal}
+                              "proposal": proposal,
+                              "serve": (self.disaggregation, self.fleet)}
             except Exception as e:
                 try:
                     pickle.dumps(e)
@@ -911,6 +989,7 @@ class FFModel:
                 f"rank {distributed.rank()}: the searched graph arrived with "
                 f"digest {stable_graph_digest(graph)}, rank 0 sent "
                 f"{got['digest']}")
+        self.disaggregation, self.fleet = got["serve"]
         return graph, got["export"], got["stats"], got["proposal"]
 
     def _import_strategy(self):
@@ -971,6 +1050,7 @@ class FFModel:
         meta = (strategy or {}).get("__meta__") or {}
         views = {k: v for k, v in (strategy or {}).items()
                  if k != "__meta__"}
+        self._adopt_serve_meta(views, meta)
         if meta.get("placement") is not None:
             bad = errors_only(lint_placement(self.graph, views,
                                              self.config))
@@ -1047,15 +1127,86 @@ class FFModel:
             pipeline = PipelineConfig(num_stages=ns, num_microbatches=nm)
         return pipeline
 
+    def _adopt_serve_meta(self, views, meta) -> None:
+        """Re-lint the serve objective's ``__meta__`` blocks against this
+        graph and strategy, searched or imported (reference model.py:
+        622-720; an illegal block raises ``AnalysisError`` with its
+        findings): ``serving`` (SHD160-163, priced by an inference cost
+        model armed with its spec), ``kv`` (SHD168-169; its pool dtype
+        is adopted onto the decode ops when the strategy lowers),
+        ``disaggregation`` (SHD164-165) and ``fleet`` (SHD166-167)."""
+        if not any(meta.get(k) is not None for k in _SERVE_META):
+            return
+        from flexflow_tpu_torch.analysis import (
+            AnalysisError,
+            emit_findings,
+            errors_only,
+            lint_disaggregation,
+            lint_fleet,
+            lint_kv,
+            lint_serving,
+        )
+
+        cfg = self.config
+
+        def gate(bad, what):
+            if bad:
+                emit_findings(bad)
+                raise AnalysisError(f"imported {what} is illegal for this "
+                                    f"graph/strategy", bad)
+
+        spec = None
+        sv = meta.get("serving")
+        if sv is not None:
+            from flexflow_tpu_torch.search.machine_model import CostModel
+            from flexflow_tpu_torch.search.serving import ServingSpec
+
+            try:
+                spec = ServingSpec(
+                    max_seqs=int(sv["max_seqs"]),
+                    page_size=int(sv["page_size"]),
+                    pages_per_seq=int(sv["pages_per_seq"]),
+                    p99_budget_ms=float(sv.get("p99_budget_ms", 0.0)),
+                    quantile=float(sv.get("quantile", 0.99)),
+                    # residency was ranked under the kv block's sharing
+                    shared_prefix_pages=int((meta.get("kv") or {}).get(
+                        "shared_prefix_pages", 0) or 0))
+            except (KeyError, TypeError, ValueError) as e:
+                raise AnalysisError(
+                    f"imported strategy carries a malformed "
+                    f"__meta__.serving block: {e}", []) from e
+            gate(errors_only(lint_serving(
+                self.graph, views, spec,
+                CostModel(cfg.machine_spec, num_devices=cfg.search_devices,
+                          inference=cfg.comp_mode == "inference",
+                          serving=spec))), "serving provenance")
+        if meta.get("kv") is not None:
+            gate(errors_only(lint_kv(self.graph, views, meta["kv"],
+                                     serving=spec)), "__meta__.kv block")
+            self._kv_adopt = meta["kv"].get("dtype")
+        if meta.get("disaggregation") is not None:
+            gate(errors_only(lint_disaggregation(
+                self.graph, meta["disaggregation"], cfg)),
+                "disaggregation proposal")
+        if meta.get("fleet") is not None:
+            gate(errors_only(lint_fleet(self.graph, meta["fleet"], cfg)),
+                 "fleet proposal")
+        self.serve_meta = {k: meta[k] for k in _SERVE_META
+                           if meta.get(k) is not None}
+
     def _lower(self, strategy, pipeline, block_of, loss_type, metrics,
-               optimizer):
+               optimizer, mesh=None):
         """The compiled model of ``strategy``: the placed lowering for a
         two-block ``start_part`` strategy it can run (after the always-on
         placement lint), the pipelined one under ``pipeline``, the staged
         one for an adopted stage cut (its refusals keep the flat
-        lowering, as the reference's do), else the flat one.  Exports
-        the strategy with its proposal first (from rank 0) when
-        ``config.export_strategy_file`` is set."""
+        lowering, as the reference's do), else the flat one (on
+        ``mesh`` when given).  Exports the strategy with its proposal
+        and the serve objective's blocks first (from rank 0) when
+        ``config.export_strategy_file`` is set; then adopts the pool
+        dtype (``kv``, or a pinned ``kv_precision``) onto the decode
+        ops, so the export's digests stay those of the attr-free graph
+        (reference model.py:1358-1362)."""
         from flexflow_tpu_torch.analysis import (
             AnalysisError,
             emit_findings,
@@ -1096,8 +1247,10 @@ class FFModel:
                     "num_microbatches": pipeline.num_microbatches}
             if not placed and pipeline is None:
                 meta.update(self.sync_meta())
+            meta.update(self.serve_meta)
             export_strategy(cfg.export_strategy_file, self.graph, views,
                             meta=meta or None)
+        _adopt_kv_dtype(self.graph, self._kv_adopt)
         if (placed or pipeline is not None) and self.sync_meta():
             # the reference's honesty rule: these lowerings run their
             # own gradient paths, so the plan cannot run there
@@ -1147,7 +1300,7 @@ class FFModel:
                                f"lowering runs")
         return CompiledModel(self.graph, cfg, loss_type=loss_type,
                              metric_types=metrics, optimizer=optimizer,
-                             strategy=strategy,
+                             strategy=strategy, mesh=mesh,
                              sync_precision=self.sync_precision_map,
                              sync_schedule=self.sync_schedule,
                              zero_groups=self.zero_groups)

@@ -32,10 +32,46 @@ functional ``.at[].set`` — the pool is the largest tensor of the model,
 and a copy per layer per frame would double the step's memory traffic.
 ``state_out`` still publishes the (same) tensors under their keys.
 
-``propagate`` and the other sharding hooks are the reference's
-(decode_attention.py:395-420); serving under a split view stays
-refused (the inference compile under a split raises, ROADMAP Queue A
-item 2).
+``propagate``, ``state_shardings`` and the cost hooks are the
+reference's (decode_attention.py:200-216, 395-527).  On a rank's shards
+(``forward_sharded``; the chunk pass's ``forward_chunk`` reads the same
+axes):
+
+* **Head split** (the view's replica slot, decode TP): the rank holds
+  its heads' blocks of wq/wk/wv/wo and of both pools ([P, page_size,
+  H/r, D]) and runs the decode kernel on [B, H/r]; its output
+  projection is a partial sum over the head axes, which the lowering
+  sums in fp32 where a consumer needs it whole (the MHA's rule).  An
+  int8 pool's per-token scale is the amax over ALL heads, as the
+  reference's (one scale row, replicated over the head split): each
+  rank all-gathers its heads' amax over the head axes and takes the
+  max before it quantizes, so every rank writes the reference's scale
+  and payload.
+* **Batch split** (slot 0, sequence slots): the rank holds its slots'
+  rows.  When the pool's pages follow the slots (``num_pages ==
+  max_seqs * pages_per_seq``: the executor's slot-aligned allotment
+  gives slot i pages [i*pps, (i+1)*pps)), the rank holds the
+  contiguous page range [j*P/b, (j+1)*P/b) of its batch coordinate j,
+  1/b of the pool, and translates the page table's global ids into it;
+  every page its rows read or write lies there.  A free-list allotment
+  (prefix sharing, or a pool of another size: decode.py's
+  ``slot_aligned`` is false) can give a sequence pages of another
+  rank's range, so there the pool is WHOLE on every rank of the batch
+  group (a pool of another size from the start; a split one gathered
+  once, by ``CompiledModel.whole_page_pools``, when
+  ``compiled_decode_step(slot_aligned=False)`` builds the step): each
+  rank all-gathers the frame's fresh K/V rows (and their page and
+  slot) over the batch axes and writes every row, so every copy of the
+  pool holds the same bytes, and its rows attend with global page ids.
+  The memory cost is b times the sharded pool per rank (and, for a
+  gathered pool, the model's split one beside it), plus one all-gather
+  of [B, H/r, D] fp32 K and V per layer per frame.
+* The chunk pass (runtime/prefill.py) runs its one sequence's rows on
+  every rank of the batch group.  On a sharded pool only the rank
+  that holds the sequence's pages writes them (the others write the
+  pool's own values back) and computes its attention; the others'
+  rows are zeroed and one all-reduce over the batch axes hands every
+  rank the holder's output.
 """
 
 from __future__ import annotations
@@ -68,17 +104,21 @@ from flexflow_tpu_torch.ops.base import (
     register_op,
 )
 from flexflow_tpu_torch.ops.linear import matmul_acc32
+from flexflow_tpu_torch.parallel.mesh import all_gather, all_reduce_sum
 
 _POOL_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
                 "int8": torch.int8}
 
 
-def _quantize_kv(x):
+def _quantize_kv(x, amax=None):
     """Per-token symmetric int8 quantization of fresh K or V rows:
     x [..., H, D] fp32 -> (int8 payload, fp32 scale over the trailing
     (H, D) axes): amax / 127 with a 1e-30 floor, ``torch.round``
-    (half to even, as ``jnp.round``), clipped to +-127."""
-    amax = x.abs().amax(dim=(-2, -1))
+    (half to even, as ``jnp.round``), clipped to +-127.  ``amax``
+    overrides the rows' own (the max over every head under a head
+    split)."""
+    if amax is None:
+        amax = x.abs().amax(dim=(-2, -1))
     s = amax.clamp_min(1e-30) / 127.0
     q = torch.clamp(torch.round(x / s[..., None, None]), -127, 127)
     return q.to(torch.int8), s.float()
@@ -152,6 +192,28 @@ class DecodeAttentionOp(Operator):
     @property
     def max_seq_len(self) -> int:
         return self.attrs["page_size"] * self.attrs["pages_per_seq"]
+
+    def state_shardings(self, mv: MachineView):
+        """ShardAnnot per state var under ``mv`` (reference
+        decode_attention.py:200-216): the page dim over the batch axes,
+        the head dim over the replica axes; an int8 pool's scales split
+        with the page dim and replicate over the head split."""
+        b = max(mv.dim_degrees[0], 1) if mv.dim_degrees else 1
+        r = max(mv.replica_degree, 1)
+        annot = ShardAnnot((b, 1, r, 1), idx=(0, -1, REPLICA_SLOT, -1))
+        out = {"k_cache": annot, "v_cache": annot}
+        if self.kv_dtype == "int8":
+            s_annot = ShardAnnot((b, 1), replica=r, idx=(0, -1))
+            out["k_scale"] = s_annot
+            out["v_scale"] = s_annot
+        return out
+
+    def pages_follow_slots(self) -> bool:
+        """Whether the executor's slot-aligned allotment can serve this
+        pool (slot i owns pages [i*pps, (i+1)*pps)), so that a batch
+        split's ranks each hold their slots' page range."""
+        return (self.attrs["num_pages"]
+                == self.max_seqs * self.attrs["pages_per_seq"])
 
     def propagate(self, mv: MachineView) -> OpSharding:
         b, s, e_deg = mv.dim_degrees
@@ -312,25 +374,49 @@ class DecodeAttentionOp(Operator):
                       ("v_scale", sshape, torch.float32, 0.0)]
         return specs
 
-    def _scatter(self, ctx, page, slot, k_new, v_new):
-        """Write fresh fp32 k/v rows [..., H, D] at pool (page, slot) in
-        place (quantized under an int8 pool) and publish the state;
-        returns the layer's state tensors by name."""
-        pools = {n: ctx.state_in[f"{self.name}/{n}"]
-                 for n, *_ in self.state_specs()}
+    def _pools(self, ctx):
+        """This rank's state tensors of the layer, by name."""
+        return {n: ctx.state_in[f"{self.name}/{n}"]
+                for n, *_ in self.state_specs()}
+
+    def _page_base(self, ctx, pools, bax):
+        """The first global page id of this rank's pool block, or None
+        when the rank holds the whole page dim."""
+        held = pools["k_cache"].shape[0]
+        if not bax or held == self.attrs["num_pages"]:
+            return None
+        return ctx.mesh.index(bax) * held
+
+    def _scatter(self, ctx, pools, page, slot, k_new, v_new, hax=(),
+                 keep=None):
+        """Write fresh fp32 k/v rows [B, ..., H, D] at pool (page, slot)
+        in place (quantized under an int8 pool, with the amax over the
+        head axes ``hax``) and publish the state.  Rows where the bool
+        [B] ``keep`` is False write the pool's own values back."""
         idx = (page.long(), slot.long())
+
+        def put(pool, val):
+            if keep is not None:
+                k = keep.reshape((-1,) + (1,) * (val.dim() - 1))
+                val = torch.where(k, val, pool[idx])
+            pool.index_put_(idx, val)
+
         if self.kv_dtype == "int8":
-            for kind, new in (("k", k_new), ("v", v_new)):
-                payload, s = _quantize_kv(new)
-                pools[f"{kind}_cache"].index_put_(idx, payload)
-                pools[f"{kind}_scale"].index_put_(idx, s)
-        else:
-            for kind, new in (("k", k_new), ("v", v_new)):
+            # k's and v's amax in one gather over the head axes
+            amax = torch.stack([k_new.abs().amax(dim=(-2, -1)),
+                                v_new.abs().amax(dim=(-2, -1))])
+            if hax:
+                amax = all_gather(amax[None], 0, hax, ctx.mesh).amax(0)
+        for i, (kind, new) in enumerate((("k", k_new), ("v", v_new))):
+            if self.kv_dtype == "int8":
+                payload, s = _quantize_kv(new, amax[i])
+                put(pools[f"{kind}_cache"], payload)
+                put(pools[f"{kind}_scale"], s)
+            else:
                 cache = pools[f"{kind}_cache"]
-                cache.index_put_(idx, new.to(cache.dtype))
+                put(cache, new.to(cache.dtype))
         for n, t in pools.items():
             ctx.state_out[f"{self.name}/{n}"] = t
-        return pools
 
     def _project_kv(self, x, weights, cd):
         """q in the compute dtype, fresh k/v in fp32: x [..., E]."""
@@ -348,6 +434,16 @@ class DecodeAttentionOp(Operator):
                             wo.reshape(-1, wo.shape[-1]))
 
     def forward(self, ctx: LoweringContext, inputs, weights):
+        return self._frame(ctx, inputs, weights, (), ())
+
+    def forward_sharded(self, ctx: LoweringContext, inputs, weights, osh):
+        """The frame on this rank's rows and heads (module docstring)."""
+        return self._frame(ctx, inputs, weights, ctx.axes(0),
+                           ctx.axes(REPLICA_SLOT))
+
+    def _frame(self, ctx, inputs, weights, bax, hax):
+        """One decode frame over the batch axes ``bax`` and the head
+        axes ``hax`` (both empty on one device)."""
         a = self.attrs
         hidden, page_table, seq_lens = inputs
         page_table = page_table.to(torch.int32)
@@ -365,7 +461,19 @@ class DecodeAttentionOp(Operator):
         # clamp keeps the gather in bounds, as the reference's does
         page_idx = torch.clamp(seq_lens // ps, max=a["pages_per_seq"] - 1)
         page = torch.gather(page_table, 1, page_idx[:, None].long())[:, 0]
-        pools = self._scatter(ctx, page, slot, k_new, v_new)
+        pools = self._pools(ctx)
+        base = self._page_base(ctx, pools, bax)
+        if base is not None:
+            # this rank's slots own its page range (slot-aligned)
+            page_table = page_table - base
+            self._scatter(ctx, pools, page - base, slot, k_new, v_new, hax)
+        elif bax:
+            # a whole pool under a batch split: every row on every rank
+            rows = [all_gather(t, 0, bax, ctx.mesh)
+                    for t in (page, slot, k_new, v_new)]
+            self._scatter(ctx, pools, *rows, hax)
+        else:
+            self._scatter(ctx, pools, page, slot, k_new, v_new, hax)
 
         scale = 1.0 / math.sqrt(self.head_dim)
         lens = seq_lens + 1  # the fresh token attends to itself too
@@ -378,7 +486,7 @@ class DecodeAttentionOp(Operator):
         else:
             attend = (ragged_paged_attention if a["use_kernel"]
                       else ragged_paged_attention_reference)
-        out = attend(qf, *kv, page_table, lens, scale)
+        out = attend(qf, *kv, page_table.contiguous(), lens, scale)
         y = self._out_proj(out, weights, cd)
         return [y[:, None, :].to(hidden.dtype)]
 
@@ -389,18 +497,31 @@ class DecodeAttentionOp(Operator):
         into the sequence's own allotment, where the decode loop
         rewrites them before any frame reads them).  Scatters all C
         tokens' K/V into the pool in place and attends each query to
-        every cached position <= its own -> [B, C, E]."""
+        every cached position <= its own -> [B, C, E].  Under a
+        strategy the rows are whole on every rank and the heads are the
+        rank's (module docstring)."""
         a = self.attrs
         hidden, page_table, positions = inputs
         page_table = page_table.to(torch.int32)
         positions = positions.to(torch.int32)
         cd = ctx.compute_dtype
+        bax, hax = ctx.axes(0), ctx.axes(REPLICA_SLOT)
         q, k_new, v_new = self._project_kv(hidden.to(cd), weights, cd)
         ps = a["page_size"]
         slot = positions % ps  # [B, C]
         page_idx = torch.clamp(positions // ps, max=a["pages_per_seq"] - 1)
         page = torch.gather(page_table, 1, page_idx.long())  # [B, C]
-        pools = self._scatter(ctx, page, slot, k_new, v_new)
+        pools = self._pools(ctx)
+        base = self._page_base(ctx, pools, bax)
+        held = None
+        if base is not None:
+            # only the rank holding the sequence's pages writes them
+            n = pools["k_cache"].shape[0]
+            first = page_table[:, 0] - base
+            held = (first >= 0) & (first < n)
+            page = (page - base).clamp(0, n - 1)
+            page_table = (page_table - base).clamp(0, n - 1)
+        self._scatter(ctx, pools, page, slot, k_new, v_new, hax, keep=held)
 
         if self.kv_dtype == "int8":
             k_dense = gather_kv_pages_quant(pools["k_cache"],
@@ -417,4 +538,9 @@ class DecodeAttentionOp(Operator):
         s = torch.where(mask[:, :, None, :], s, NEG_INF)
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bchs,bshd->bchd", p, v_dense)
+        if held is not None:
+            # the holder's rows, exactly, on every rank of the group
+            out = all_reduce_sum(
+                torch.where(held[:, None, None, None], out,
+                            torch.zeros_like(out)), bax, ctx.mesh)
         return [self._out_proj(out, weights, cd).to(hidden.dtype)]

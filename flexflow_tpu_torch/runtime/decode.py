@@ -326,9 +326,14 @@ class ContinuousBatchingExecutor:
                  prefill_fn: Optional[Callable] = None,
                  prefill_chunk: int = 0,
                  slo_classes: Optional[Sequence[SLOClass]] = None,
+                 replica_label: Optional[str] = None,
                  prefix_sharing: bool = False,
                  copy_page_fn: Optional[Callable] = None):
         self.step_fn = step_fn
+        # fleet membership (runtime/fleet.py): when set, the request
+        # histograms are ALSO observed under `name|replica=...,slo=...`
+        # labeled series so the metrics can tell fleet members apart
+        self.replica_label = replica_label
         self.max_seqs = max_seqs
         self.page_size = page_size
         self.pages_per_seq = pages_per_seq
@@ -376,6 +381,12 @@ class ContinuousBatchingExecutor:
         # can otherwise be fully exhausted while slots sit idle (the
         # free-list fallback of picking "some free page" corrupts live
         # cache exactly then).
+        if not self.slot_aligned and getattr(step_fn, "split_pages", False):
+            raise ValueError(
+                "this executor allots pages from its free list (prefix "
+                "sharing, or a pool of another size), which a step over "
+                "pools split over the batch axes cannot serve: build it "
+                "with compiled_decode_step(..., slot_aligned=False)")
         self._scratch_page = None
         if not self.slot_aligned:
             got = self.allocator.alloc(1)
@@ -757,10 +768,11 @@ class ContinuousBatchingExecutor:
         }
         self.request_records.append(rec)
         # the global aggregates, and the request-latency histograms ALSO
-        # per SLO class (the reference's `name|slo=...` series; its fleet
-        # replica label comes with the fleet).  Same obs gate as the
-        # flat series — no new BUS.enabled reads.
-        lab = f"slo={live.req.slo or 'standard'}"
+        # per (replica, SLO class), the reference's labeled series.  Same
+        # obs gate as the flat series — no new BUS.enabled reads.
+        slo = live.req.slo or "standard"
+        lab = (f"slo={slo}" if self.replica_label is None
+               else f"replica={self.replica_label},slo={slo}")
         labeled = ("decode.queue_s", "decode.ttft_s", "decode.tpot_s",
                    "decode.e2e_s")
         for key, v in (("decode.queue_s", queue_s),
@@ -1013,7 +1025,8 @@ class ContinuousBatchingExecutor:
         return report
 
 
-def compiled_decode_step(model, prefill_chunk: int = 0) -> Callable:
+def compiled_decode_step(model, prefill_chunk: int = 0,
+                         slot_aligned: bool = True) -> Callable:
     """A ``step_fn`` over a compiled decode model: one forward per frame,
     the KV-cache state dict threaded across calls (the pools are updated
     in place, see ops/decode_attention.py).  The frame runs as a
@@ -1036,13 +1049,41 @@ def compiled_decode_step(model, prefill_chunk: int = 0) -> Callable:
     the same graph, params and state (runtime/prefill.py), attached as
     ``step.prefill(ids [1, C], positions [1, C], page_table [1, P])``
     for the executor's ``prefill_fn``; each pass is a compiled step
-    too (``step.prefill_graph``; reference decode.py:1078)."""
+    too (``step.prefill_graph``; reference decode.py:1078).
+
+    Over ranks (a model compiled under a strategy over several ranks)
+    every rank runs the same executor on the same requests, so
+    admission, eviction, preemption and the prefix trie agree on every
+    rank without messages: each rank feeds its block of the frame's
+    arrays (``compiled.input_slices``) and gets the frame's whole
+    logits back (``gather_output``), so every rank takes the same
+    argmax.  The frame and the chunk pass then run eagerly: a CUDA
+    graph cannot hold gloo's host hops (capturing multi-rank steps is
+    ROADMAP, work on ported paths, item 5.3).  The pools' layout is
+    chosen here, once: ``slot_aligned`` says whether the executor this
+    step serves allots slot-aligned pages (``ContinuousBatchingExecutor.
+    slot_aligned``: no prefix sharing, a pool of ``max_seqs *
+    pages_per_seq`` pages).  If it does, a pool whose page dim is split
+    over the batch axes stays split (each rank its slots' pages), and a
+    frame or chunk pass whose table leaves its rank's range raises, as
+    does ``copy_page``; if not, the step gathers such pools whole on
+    every rank of the batch axes into its own state (the free-list
+    allotment, ops/decode_attention.py; ``model.state`` keeps the
+    lowering's layout).  ``step.split_pages`` says which, and the
+    executor refuses a split step it would feed free-list pages.
+    ``copy_page`` and the chunk pass write this rank's copy of each
+    pool."""
     from flexflow_tpu_torch.compiler.graphs import StepGraph
 
     compiled = model.compiled
     device = compiled.device
     box = {"state": model.state}
     frame_graph = StepGraph(device)
+    multi = compiled.mesh.world > 1
+    blocks = compiled.page_blocks() if multi else None
+    if blocks is not None and not slot_aligned:
+        box["state"] = compiled.whole_page_pools(model.state)
+        blocks = None
 
     def int32(*arrays):
         return [np.asarray(a, np.int32) for a in arrays]
@@ -1056,14 +1097,46 @@ def compiled_decode_step(model, prefill_chunk: int = 0) -> Callable:
             model.params, box["state"], [ids, page_table, seq_lens])
         return logits
 
+    def shards(arrays):
+        """This rank's blocks of the frame's whole arrays, on the
+        device."""
+        return [torch.from_numpy(np.ascontiguousarray(
+            a[compiled.input_slices(i, a.shape)])).to(device)
+            for i, a in enumerate(arrays)]
+
+    def in_range(table, rows=None) -> None:
+        """Under split pools, raise unless ``table``'s rows (frame rows
+        ``rows``, or one sequence's when None) address only pages of
+        the rank that runs them."""
+        if blocks is None:
+            return
+        pages, slots = blocks
+        owner = table // pages
+        want = owner[:, :1] if rows is None else (rows // slots)[:, None]
+        if not (owner == want).all():
+            raise ValueError(
+                "a page table addresses pages outside its rank's range of "
+                "a pool split over the batch axes: build the step with "
+                "compiled_decode_step(..., slot_aligned=False) for an "
+                "executor that allots pages from its free list")
+
     def step(ids, page_table, seq_lens):
-        return frame_graph(frame, int32(ids, page_table, seq_lens),
-                           bound()).clone()
+        arrays = int32(ids, page_table, seq_lens)
+        if multi:
+            in_range(arrays[1], np.arange(len(arrays[1])))
+            return compiled.gather_output(frame(*shards(arrays)))
+        return frame_graph(frame, arrays, bound()).clone()
 
     step.state = box  # tests inspect the threaded cache
     step.graph = frame_graph
+    step.compiled = compiled
+    step.split_pages = blocks is not None
 
     def copy_page(src: int, dst: int) -> None:
+        if blocks is not None:
+            raise ValueError("copy_page on pools split over the batch "
+                             "axes: build the step with "
+                             "compiled_decode_step(..., slot_aligned=False)")
         for key, val in box["state"].items():
             if key.rsplit("/", 1)[-1] in ("k_cache", "v_cache", "k_scale",
                                           "v_scale"):
@@ -1074,7 +1147,7 @@ def compiled_decode_step(model, prefill_chunk: int = 0) -> Callable:
         from flexflow_tpu_torch.runtime.prefill import build_chunk_forward
 
         pf = build_chunk_forward(model.graph, compiled.compute_dtype,
-                                 device)
+                                 device, compiled)
         chunk_graph = StepGraph(device)
 
         def chunk(ids, positions, page_table):
@@ -1083,7 +1156,12 @@ def compiled_decode_step(model, prefill_chunk: int = 0) -> Callable:
             return ()
 
         def prefill(ids, positions, page_table):
-            chunk_graph(chunk, int32(ids, positions, page_table), bound())
+            arrays = int32(ids, positions, page_table)
+            if multi:
+                in_range(arrays[2])
+                chunk(*(torch.from_numpy(a).to(device) for a in arrays))
+                return
+            chunk_graph(chunk, arrays, bound())
 
         step.prefill = prefill
         step.prefill_graph = chunk_graph

@@ -25,6 +25,16 @@ Positions past the prompt (the fixed-shape chunk's pad tail) are
 clamped into the sequence's own allotment: a pad write lands at a
 FUTURE position that the decode loop rewrites in the frame that first
 reads it, so pad garbage is dead by construction.
+
+Over ranks (``build_chunk_forward(..., compiled=)`` with a compiled
+model on a mesh of several ranks) the chunk pass runs each node on this
+rank's shards as the frame's lowering lays them out, except that the
+chunk's rows are whole on every rank: every layout drops the axes of
+its dim 0 (the decode graph's batch dim), the edges reshard between
+those layouts, and each decode op writes and attends with its own
+heads and its block of the pool (ops/decode_attention.py
+``forward_chunk``: on a pool split over the batch axes only the rank
+holding the sequence's pages writes them).  The pass runs eagerly.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 from flexflow_tpu_torch.core.optype import OperatorType
 from flexflow_tpu_torch.ops.base import LoweringContext
 from flexflow_tpu_torch.ops.inout import InputOp
+from flexflow_tpu_torch.parallel.mesh import Placement, reshard
 
 
 def run_chunked_prefill(prefill_fn: Callable, tokens: Sequence[int],
@@ -103,14 +114,24 @@ def prefill_io_nodes(graph) -> Tuple[int, int, int]:
     return tok[0], pt_guid, sl_guid
 
 
-def build_chunk_forward(graph, compute_dtype, device="cpu") -> Callable:
+def _rowless(pl: Optional[Placement]) -> Optional[Placement]:
+    """``pl`` with its dim 0 whole (the chunk pass's rows)."""
+    if pl is None or not pl.dims:
+        return pl
+    return Placement(((),) + tuple(pl.dims[1:]), pl.partial)
+
+
+def build_chunk_forward(graph, compute_dtype, device="cpu",
+                        compiled=None) -> Callable:
     """A function ``(params, state, ids [B, C], positions [B, C],
     page_table [B, P]) -> new_state`` running the decode graph for a
     C-token chunk: position-wise ops run their ordinary ``forward``,
     the seq_lens -> pos_ids reshape becomes identity (positions arrive
     [B, C]), decode attention takes ``forward_chunk``.  Only the last
     decode op and the nodes upstream of it run; the pools are updated
-    in place."""
+    in place.  ``compiled``, a lowering of ``graph`` over several ranks,
+    runs the pass on this rank's shards (module docstring); the arrays
+    are then whole on every rank."""
     tok_guid, pt_guid, sl_guid = prefill_io_nodes(graph)
     dec_guids = _decode_guids(graph)
     needed = set()
@@ -130,35 +151,70 @@ def build_chunk_forward(graph, compute_dtype, device="cpu") -> Callable:
                     f"pos_ids reshape; {node.op.name!r} reshapes "
                     f"something else (ROADMAP Queue A item 9)")
     dec_set = set(dec_guids)
+    mesh = (compiled.mesh if compiled is not None
+            and compiled.mesh.world > 1 else None)
 
     @torch.no_grad()
     def fwd(params, state, ids, positions, page_table):
         ctx = LoweringContext(compute_dtype=compute_dtype, train=False,
-                              state_in=state, device=device)
+                              state_in=state, device=device, mesh=mesh)
         bound = {tok_guid: ids, pt_guid: page_table, sl_guid: positions}
         values: Dict[Tuple[int, int], torch.Tensor] = {}
+        places: Dict[Tuple[int, int], Placement] = {}
         for node in topo:
             op = node.op
             if isinstance(op, InputOp):
-                values[(node.guid, 0)] = bound[node.guid]
+                x = bound[node.guid]
+                if mesh is not None:
+                    pl = _rowless(compiled._out_pl[node.guid][0])
+                    places[(node.guid, 0)] = pl
+                    x = x[pl.local_slices(x.shape, mesh)]
+                values[(node.guid, 0)] = x
                 continue
             edges = sorted(graph.in_edges[node.guid],
                            key=lambda e: e.dst_idx)
             ins = [values[(e.src, e.src_idx)] for e in edges]
             weights = params.get(op.name, {})
+            if mesh is not None:
+                ins = _on_shards(ctx, compiled, node, edges, ins, places)
             if node.guid in dec_set:
                 outs = op.forward_chunk(ctx, ins, weights)
             elif op.op_type == OperatorType.RESHAPE:
                 outs = [ins[0]]  # positions already [B, C]
             else:
-                outs = op.forward(ctx, ins, weights)
+                outs = None
+                if mesh is not None:
+                    outs = op.forward_sharded(
+                        ctx, ins, weights, compiled._shardings[node.guid])
+                if outs is None:
+                    outs = op.forward(ctx, ins, weights)
             for i, y in enumerate(outs):
                 values[(node.guid, i)] = y
+                if mesh is not None:
+                    places[(node.guid, i)] = ctx.out_placements[i]
         new_state = dict(state)
         new_state.update(ctx.state_out)
         return new_state
 
     return fwd
+
+
+def _on_shards(ctx, compiled, node, edges, ins, places):
+    """``node``'s inputs resharded to its rowless input layouts, and
+    ``ctx`` set up for the node as the lowering's ``_run_node`` sets it
+    (its slot axes, rowless input and output layouts)."""
+    out, in_pls = [], []
+    for e, x in zip(edges, ins):
+        want = _rowless(compiled._in_pl[node.guid][e.dst_idx])
+        src = places[(e.src, e.src_idx)]
+        if want is None:
+            want = src
+        out.append(reshard(x, src, want, compiled.mesh))
+        in_pls.append(want)
+    ctx.slot_axes = compiled._slot_axes[node.guid]
+    ctx.in_placements = in_pls
+    ctx.out_placements = [_rowless(p) for p in compiled._out_pl[node.guid]]
+    return out
 
 
 def prefill_weight_bridge(prefill_graph, decode_graph) -> Dict[str, str]:

@@ -36,10 +36,11 @@ Scaling disciplines (the reference's equivalents cited inline):
 What the port changes: calibration probes run on the config's torch
 device (``FFConfig.device``: the card, or the CPU when asked), which is
 the "live backend" the reference reads from ``jax.devices()``.  The
-branches that need a module of a later slice raise
-``NotImplementedError`` naming its ROADMAP Queue A item instead of
-running: the serve objective and ``kv_precision="search"`` (item 9).
-The default training search reaches neither.  The gradient-sync
+serve objective runs as the reference's (``objective="serve"``: the
+search prices decode graphs in the p99 currency of search/serving.py,
+its result passes the serving gate and ``LAST_SERVING_META`` records
+it; ``_choose_kv_precision`` prices the KV lane into
+``LAST_KV_META``).  The gradient-sync
 dimensions run as the reference's: ``sync_schedule="search"``
 (``_build_sync_schedule``: ``LAST_SYNC_SCHEDULE``), ``co_search`` (the
 ``JointPricer`` of search/comm_plan.py: ``LAST_ZERO_GROUPS``) and the
@@ -968,6 +969,111 @@ LAST_SYNC_SCHEDULE = None
 # LAST_SYNC_SCHEDULE; () when co-search is off or nothing qualifies
 LAST_ZERO_GROUPS: tuple = ()
 
+# the serving provenance of the LAST optimize_strategy run under
+# config.objective="serve" (search/serving.py): the SHD16x-gated
+# objective + SLO budget + frame geometry + predicted p99 + per-device
+# KV residency — compile() persists it as __meta__.serving behind the
+# digest gate (fflint strategy checks it stdlib-only, STR209); None
+# under the default train objective
+LAST_SERVING_META = None
+
+# KV-lane provenance of the last serve-objective search: chosen pool
+# dtype + scale layout + prefix-sharing residency accounting — compile()
+# persists it as __meta__.kv behind the digest gate (fflint strategy
+# checks it stdlib-only, STR213; SHD168/169 re-lint at import); None
+# when the lane is unarmed (kv_precision="off" and no declared sharing)
+LAST_KV_META = None
+
+
+def _kv_candidate_graph(graph, dtype: str):
+    """A pricing CLONE of ``graph`` whose decode ops carry
+    ``kv_dtype=dtype`` — the caller's graph (and the frontend digest
+    the strategy export is keyed to) is never mutated; attr ADOPTION
+    happens in model.py, after the export meta is computed on the
+    export side and after the SHD168/169 re-lint passes on the import
+    side.  fp32 adds no attr (extension-only discipline), so the
+    original graph IS the fp32 candidate."""
+    if dtype == "fp32":
+        return graph
+    from flexflow_tpu_torch.core.graph import Node
+    from flexflow_tpu_torch.core.optype import OperatorType
+
+    g2 = graph.copy()
+    for guid, node in list(g2.nodes.items()):
+        op = node.op
+        if op.op_type != OperatorType.DECODE_ATTENTION:
+            continue
+        a = op.attrs
+        clone = type(op)(
+            op.name, op.input_shapes,
+            embed_dim=a["embed_dim"], num_heads=a["num_heads"],
+            page_size=a["page_size"], pages_per_seq=a["pages_per_seq"],
+            num_pages=a["num_pages"], use_kernel=a["use_kernel"],
+            kv_dtype=dtype, kernel_initializer=op._kernel_init,
+        )
+        g2.nodes[guid] = Node(guid, clone)
+    g2._invalidate()
+    return g2
+
+
+def _choose_kv_precision(graph, strategy, config, serving, calibration):
+    """The KV-lane decision for a finished serve-objective result:
+    price the pool-dtype candidates (fp32/bf16/int8 under
+    ``kv_precision="search"``, the single pinned dtype otherwise)
+    through the SAME p99 currency the search ranked in — each
+    candidate's decode cache stream shrinks with the dtype while the
+    quantize-overhead term (KV_QUANT_PASSES, the EQuARX discipline
+    wire precision already pays) charges the write path — and return
+    the ``__meta__.kv`` provenance block, or None when the lane is
+    unarmed.  Pricing uses fresh simulators with the persistent cost
+    cache detached (lane probes are result provenance, not the
+    search's cost surface)."""
+    lane = getattr(config, "kv_precision", "off")
+    sharing = int(getattr(serving, "shared_prefix_pages", 0) or 0) \
+        if serving is not None else 0
+    if serving is None or not strategy or (lane == "off" and not sharing):
+        return None
+    from flexflow_tpu_torch.search.serving import kv_residency_bytes
+    from flexflow_tpu_torch.search.simulator import Simulator
+
+    if lane == "search":
+        cands = ["fp32", "bf16", "int8"]
+    elif lane == "off":
+        cands = ["fp32"]  # sharing armed alone: pool dtype stays put
+    else:
+        cands = [lane]
+    priced = {}
+    graphs = {}
+    for dt in cands:
+        g = _kv_candidate_graph(graph, dt)
+        graphs[dt] = g
+        sim = Simulator(
+            config.machine_spec, num_devices=config.search_devices,
+            calibration=calibration, inference=True, serving=serving,
+        )
+        priced[dt] = sim.simulate(g, strategy)
+    best = min(cands, key=lambda d: priced[d])
+    meta = {
+        "dtype": best,
+        "searched": lane == "search",
+        "scale_layout": "page_slot" if best == "int8" else "none",
+        "shared_prefix_pages": sharing,
+        "shared_residency_factor": serving.shared_residency_factor(),
+        "predicted_p99_step_ms": {
+            d: round(t * 1e3, 6) for d, t in sorted(priced.items())},
+        "kv_bytes_per_device": kv_residency_bytes(
+            graphs[best], strategy, config.search_devices,
+            serving=serving),
+    }
+    BUS.emit(
+        "search.kv", dtype=best, searched=lane == "search",
+        shared_prefix_pages=sharing,
+        p99_ms={d: round(t * 1e3, 6) for d, t in sorted(priced.items())},
+        kv_bytes_per_device=meta["kv_bytes_per_device"],
+    )
+    return meta
+
+
 def _build_sync_schedule(graph, strategy, sim, config, joint=None):
     """Choose + legality-gate the gradient-sync schedule for a search
     result (search/sync_schedule.py) — runs on BOTH the fresh and the
@@ -1141,27 +1247,12 @@ def optimize_strategy(
     return _optimize_strategy(graph, config, return_graph)
 
 
-def refuse_unported(config: FFConfig) -> None:
-    """Raise for the search options whose modules the port has not
-    ported, naming the ROADMAP Queue A item that brings each."""
-    for asked, what, item in (
-            (getattr(config, "objective", "train") == "serve",
-             "objective='serve' (search/serving.py)", 9),
-            (getattr(config, "kv_precision", "off") == "search",
-             "kv_precision='search' (the searched KV lane)", 9)):
-        if asked:
-            raise NotImplementedError(
-                f"optimize_strategy: {what} is not ported yet (ROADMAP "
-                f"Queue A item {item}); the port searches the training "
-                f"objective")
-
-
 def _optimize_strategy(
     graph: Graph, config: FFConfig, return_graph: bool = False
 ) -> "Strategy | Tuple[Graph, Strategy]":
     from flexflow_tpu_torch.utils.logging import SEARCH_LOG as log
 
-    refuse_unported(config)
+    global LAST_SERVING_META, LAST_KV_META
     t_start = time.monotonic()
     # re-entrant discipline: a search that raises part-way must not
     # leave the PREVIOUS run's stats for a consumer to misread
@@ -1269,7 +1360,37 @@ def _optimize_strategy(
                 log.log(f"{len(calibration)} measured records")
             if config.calibration_file:
                 calibration.save(config.calibration_file)
-    sim = Simulator.for_config(config, calibration=calibration)
+    serving = None
+    if getattr(config, "objective", "train") == "serve":
+        # serving objective (search/serving.py): derive the arrival
+        # model from the graph's own decode ops and arm it at SIM
+        # CONSTRUCTION (before the cost cache computes its signature) —
+        # the whole search then ranks in the p99 decode-latency
+        # currency.  A serve search of a graph with no decode ops
+        # degenerates to train pricing; say so instead of silently
+        # renaming the objective.
+        if config.comp_mode != "inference":
+            # a decode step runs no backward and no gradient sync:
+            # pricing the p99 currency with training costs would mint
+            # an SLO number for a step that never executes — refuse
+            # loudly (the same discipline as the serve+co_search guard)
+            raise ValueError(
+                "objective='serve' requires comp_mode='inference' "
+                "(set FFConfig.comp_mode or pass "
+                "model.compile(comp_mode='inference')): a decode step "
+                "has no backward, so the training currency would price "
+                "an SLO the serving step never runs")
+        from flexflow_tpu_torch.search.serving import serving_spec_for
+
+        serving = serving_spec_for(graph, config)
+        if serving is None:
+            log.log(
+                "objective='serve' on a graph with no decode-attention "
+                "ops: nothing is ragged here — pricing falls back to "
+                "the train (mean step) currency"
+            )
+    sim = Simulator.for_config(config, calibration=calibration,
+                               serving=serving)
     floor_sim = sim  # the sim the champion-vs-DP floor must score with
     helper = SearchHelper(sim, n)
     joint = None
@@ -1323,12 +1444,80 @@ def _optimize_strategy(
                 )
                 cache.drop_search_result(graph, config)
                 served = None
+        if served is not None and serving is not None:
+            # serve objective: served artifacts pass the SAME always-on
+            # SHD16x serving gate as fresh results — an over-budget or
+            # geometry-incoherent entry costs one re-search, never an
+            # illegal serve
+            from flexflow_tpu_torch.analysis import (
+                emit_findings,
+                errors_only,
+                lint_serving,
+            )
+
+            sfind = lint_serving(best_graph, best_strategy, serving,
+                                 floor_sim.cost,
+                                 predicted_p99_s=best_cost)
+            emit_findings(sfind)
+            sbad = errors_only(sfind)
+            if sbad:
+                log.log(
+                    f"cost cache: served search result FAILED the "
+                    f"serving gate ({sbad[0]}); dropping the entry and "
+                    f"searching fresh"
+                )
+                cache.drop_search_result(graph, config)
+                served = None
+        _served_kv_meta = None
+        if served is not None and serving is not None:
+            # KV lane (kv_precision / shared-prefix residency): served
+            # results pass the SAME always-on SHD168/169 gate as fresh
+            # ones before the provenance block is recorded — a served
+            # entry that cannot carry a legal __meta__.kv costs one
+            # re-search, never an illegal artifact
+            _served_kv_meta = _choose_kv_precision(
+                best_graph, best_strategy, config, serving, calibration)
+            if _served_kv_meta is not None:
+                from flexflow_tpu_torch.analysis import (
+                    emit_findings,
+                    errors_only,
+                    lint_kv,
+                )
+
+                kfind = lint_kv(best_graph, best_strategy,
+                                _served_kv_meta, serving=serving)
+                emit_findings(kfind)
+                kbad = errors_only(kfind)
+                if kbad:
+                    log.log(
+                        f"cost cache: served search result FAILED the "
+                        f"KV-lane gate ({kbad[0]}); dropping the entry "
+                        f"and searching fresh"
+                    )
+                    cache.drop_search_result(graph, config)
+                    served = None
         if served is not None:
             log.log(
                 f"cost cache: served searched strategy "
                 f"({best_cost * 1e3:.4f} ms/iter) for {graph.num_nodes}-"
                 f"node graph — skipping the search"
             )
+            LAST_SERVING_META = None
+            LAST_KV_META = _served_kv_meta
+            if serving is not None:
+                from flexflow_tpu_torch.search.serving import kv_residency_bytes
+
+                LAST_SERVING_META = {
+                    "objective": "serve",
+                    "p99_budget_ms": serving.p99_budget_ms,
+                    "max_seqs": serving.max_seqs,
+                    "page_size": serving.page_size,
+                    "pages_per_seq": serving.pages_per_seq,
+                    "quantile": serving.quantile,
+                    "predicted_p99_step_ms": round(best_cost * 1e3, 6),
+                    "kv_bytes_per_device": kv_residency_bytes(
+                        best_graph, best_strategy, n, serving=serving),
+                }
             _emit_search_done(
                 floor_sim, best_graph, graph, best_strategy, best_cost,
                 kept_dp=False, helper=helper, t_start=t_start,
@@ -1409,7 +1598,8 @@ def _optimize_strategy(
                     )
                     if config.calibration_file:
                         calibration.save(config.calibration_file)
-                    sim2 = Simulator.for_config(config, calibration=calibration)
+                    sim2 = Simulator.for_config(config, calibration=calibration,
+                                                serving=serving)
                     floor_sim = sim2  # sim's _node_costs cache predates
                     # the new probes; the floor must not mix tables
                     best_cost = _price(sim2, graph, best_strategy)
@@ -1463,6 +1653,62 @@ def _optimize_strategy(
             f"static analysis: infeasible search result also fails the "
             f"legality lint ({bad[0]}); returning it, NOT persisting"
         )
+
+    # serving gate (objective="serve", always-on like the strategy
+    # lint above): the result must be a LEGAL serving artifact — frame
+    # geometry coherent with the spec, KV residency within HBM, decode
+    # views the executor's fixed frames can shard (SHD160-162; SHD163
+    # warns on a blown SLO) — before it is returned or persisted.
+    LAST_SERVING_META = None
+    LAST_KV_META = None
+    if serving is not None and best_strategy and math.isfinite(best_cost):
+        from flexflow_tpu_torch.analysis import (
+            AnalysisError,
+            emit_findings,
+            errors_only,
+            lint_kv,
+            lint_serving,
+        )
+        from flexflow_tpu_torch.search.serving import kv_residency_bytes
+
+        sfind = lint_serving(best_graph, best_strategy, serving,
+                             floor_sim.cost, predicted_p99_s=best_cost)
+        emit_findings(sfind)
+        sbad = errors_only(sfind)
+        if sbad:
+            raise AnalysisError(
+                "serve-objective search produced an illegal serving "
+                "artifact", sbad)
+        kv = kv_residency_bytes(best_graph, best_strategy, n,
+                                serving=serving)
+        LAST_SERVING_META = {
+            "objective": "serve",
+            "p99_budget_ms": serving.p99_budget_ms,
+            "max_seqs": serving.max_seqs,
+            "page_size": serving.page_size,
+            "pages_per_seq": serving.pages_per_seq,
+            "quantile": serving.quantile,
+            "predicted_p99_step_ms": round(best_cost * 1e3, 6),
+            "kv_bytes_per_device": kv,
+        }
+        BUS.emit("search.serve", p99_s=best_cost,
+                 budget_ms=serving.p99_budget_ms,
+                 kv_bytes_per_device=kv, kept_dp=kept_dp)
+        # KV lane (kv_precision / shared-prefix residency): choose the
+        # pool dtype in the same p99 currency and gate the provenance
+        # block on SHD168/169 — always-on, like the serving gate above
+        LAST_KV_META = _choose_kv_precision(
+            best_graph, best_strategy, config, serving, calibration)
+        if LAST_KV_META is not None:
+            kfind = lint_kv(best_graph, best_strategy, LAST_KV_META,
+                            serving=serving)
+            emit_findings(kfind)
+            kbad = errors_only(kfind)
+            if kbad:
+                LAST_KV_META = None
+                raise AnalysisError(
+                    "KV-precision lane produced an illegal __meta__.kv "
+                    "artifact", kbad)
 
     # persist: cost rows accumulated this search + the finished result
     # (only complete searches — a deadline-truncated result is not the

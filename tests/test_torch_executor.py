@@ -329,8 +329,9 @@ def test_measured_request_p99_per_class(tmp_path):
 # ---------------------------------------------------------------------------
 def test_kv_precision_through_compile():
     """int8 through compile gives int8 pools with [P, page_size] fp32
-    scales; "search" raises until the search is ported; fp32 adoption is
-    an exact no-op (test_kv.py:234)."""
+    scales; "search" is accepted (the serve-objective search prices the
+    dtypes: tests/test_torch_serve_search.py); fp32 adoption is an exact
+    no-op (test_kv.py:234)."""
     m = _sharing_model(pages_per_seq=4, kv_precision="int8")
     ops = [n.op for n in m.graph.topo_order()
            if isinstance(n.op, DecodeAttentionOp)]
@@ -341,8 +342,8 @@ def test_kv_precision_through_compile():
     for name in ("k_scale", "v_scale"):
         t = m.state[f"layer0_mha/{name}"]
         assert t.dtype == torch.float32 and t.shape == (p, 4)
-    with pytest.raises(NotImplementedError, match="search"):
-        FFConfig(device="cpu", kv_precision="search")
+    assert FFConfig(device="cpu", kv_precision="search").kv_precision == (
+        "search")
     with pytest.raises(ValueError):
         FFConfig(device="cpu", kv_precision="fp8")
 

@@ -40,8 +40,9 @@ test_torch_sp_training.py's fp32 tolerances); every replica of a weight
 bit-equal after the last step (fp32 sync); ``evaluate`` and ``predict``
 under dp x tp equal one process (case 8); Megatron's forward performs
 exactly one all-reduce after MHA and one after ff2 per layer and no
-all-gather; what is still refused raises with its ROADMAP item (case
-9).  Weight errors are in units of ALPHA (1e-3) for every case, SGD's
+all-gather; the options that were once refused under dp x tp (the
+inference compile, ZeRO-1, the compressed and scheduled sync) compile
+(case 9).  Weight errors are in units of ALPHA (1e-3) for every case, SGD's
 too.  Measured (the test prints them): losses 3.2e-7 relative at most,
 weights 3.0e-3 alphas per step at most and 5.9e-6 on average (both
 worlds, all cases, against either reference).
@@ -516,15 +517,16 @@ def test_megatron_forward_reduces_once_after_mha_and_ff2(world):
 
 
 def test_still_refused_raises_with_its_roadmap_item(world):
-    """The inference compile under a split still raises, naming its
-    ROADMAP item.  ZeRO-1, the compressed and scheduled gradient sync
-    and ``__meta__.zero_groups`` compile under Megatron dp 2 x tp 2
-    since they were ported (tests/test_torch_zero.py and
-    test_torch_sync_schedule.py train them)."""
+    """Nothing here is refused any more: the inference compile under a
+    split lowers since serving over ranks was ported
+    (tests/test_torch_serving_split.py serves under splits), and ZeRO-1,
+    the compressed and scheduled gradient sync and
+    ``__meta__.zero_groups`` compile under Megatron dp 2 x tp 2 since
+    they were ported (tests/test_torch_zero.py and
+    test_torch_sync_schedule.py train them).  The name is kept from the
+    refusals this check replaced."""
     _, ranks, _ = world
     for r in ranks:
-        msg = r["refused"]["inference"]
-        assert msg and "ROADMAP Queue A item 2" in msg, msg
-        for key in ("zero_dp_shard", "sync_precision", "sync_schedule",
-                    "zero_groups"):
+        for key in ("inference", "zero_dp_shard", "sync_precision",
+                    "sync_schedule", "zero_groups"):
             assert r["refused"][key] is None, (key, r["refused"][key])
