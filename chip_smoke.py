@@ -10,6 +10,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --bert-only [--seed N]
     python3 chip_smoke.py --sync-only RUNS [--seed N]
     python3 chip_smoke.py --serve-only RUNS [--seed N]
+    python3 chip_smoke.py --zoo-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -26,7 +27,8 @@ kernels and runs phase 10 alone, against phase 6's first step taken
 alone.  The sixth builds the kernels and runs phase 11 alone.  The
 seventh builds the kernels and runs phase 12 alone RUNS times, against
 phase 6's first step taken alone.  The eighth builds the kernels and
-runs phase 13 alone RUNS times.
+runs phase 13 alone RUNS times.  The ninth runs phase 14 alone (no CUDA
+kernel of the port lies on its path, so nothing is built).
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -290,13 +292,42 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    every request (a fleet's merged records), tokens/s, host bytes per
    rank per frame (``comm_counts()``), pool bytes, live slots per rank
    block;
-14. print one JSON line listing every ported kernel.
+14. the model zoo, one card, cuDNN deterministic and without its
+   autotuner for the phase (put back after), every builder at
+   bench_zoo.py's shapes (bench_zoo.py:36-68) with seeded weights, SGD
+   at FFConfig's rate, random data: (a) ResNet-50 at its defaults
+   (224x224, layers (3, 4, 6, 3), 1000 classes, 25.6 M parameters),
+   batch 64, bf16, through ``fit`` 20 steps (5 epochs of 4 batches)
+   captured and again eagerly from the same start: losses and weights
+   bit-equal, the losses finite and the last epoch's mean below the
+   first's, the first step's loss within ZOO_BF16_TOL of the same
+   weights' fp32 forward (TF32 off); printed: captured and eager step
+   p50/p90 (20 synchronised steps each), images/s, MFU (3 x the ops'
+   forward FLOPs against the card's dense bf16 peak), device busy and
+   idle share and the top five kernels over 3 profiled steps, peak
+   memory above the allocation before the model was built; (b) every
+   other builder 3 ``fit`` steps (AlexNet-CIFAR10 64, ResNeXt-50 16,
+   Inception-v3 at 299 64, DLRM with 4 tables of 1 M rows 64, XDL,
+   CANDLE-Uno, the MLP and the MoE 64, each at its defaults), losses
+   finite, step p50 of 3 synchronised steps and samples/s; (c) DLRM
+   through ``compile(strategy=None)``, 3 ``fit`` steps: at (b)'s tables
+   the search's pick is printed (it keeps the plain lookups there), and
+   with tables of ZOO_SMALL_ROWS rows the graph holds the search's
+   batched embedding (stack, batched lookup, unstack), whose first loss
+   is within ZOO_SEARCHED_TOL of the unrewritten graph's on the same
+   weights; (d) ``__graft_entry__.py``'s ep-MoE leg at
+   moe.cc's defaults over 4 ranks spawned as phase 7's (the expert dim
+   of the dispatch and the expert MLP split 4 ways), fp32, 3 steps: the
+   first loss within 1e-5 of one process's, each rank one expert's
+   slots, every replica bit-equal.  Rows 1-6 launch no time in the
+   phase.  Printed as ``zoo path: {...}``;
+15. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
-It needs one card; with four it runs phases 7-10, 12 and 13 one rank
-per card.
+It needs one card; with four it runs phases 7-10, 12, 13 and 14's
+ep-MoE leg one rank per card.
 """
 
 from __future__ import annotations
@@ -540,6 +571,48 @@ SERVE_NEW_TOKENS = 48
 # bf16 compute over ranks sums in another order (the first 8 frames
 # measured 5.0e-3 to 6.0e-3 on an H100 over 4 ranks, one card or four)
 SERVE_PATH_TOL = 2e-2
+# phase 14: the model zoo at bench_zoo.py's shapes (bench_zoo.py:36-68)
+ZOO_RESNET_BATCH = 64
+ZOO_RESNET_STEPS = 20  # through fit, captured; and again eagerly
+ZOO_DATA_BATCHES = 4  # the batches fit cycles over (5 epochs of 4)
+ZOO_PROFILE_STEPS = 3
+ZOO_LR = 0.01  # SGD, FFConfig.learning_rate's default
+ZOO_FIT_STEPS = 3
+ZOO_TIMED = 3
+ZOO_ID_RANGE = 1000  # ids below every table's rows
+ZOO_OTHERS = {  # key -> (builder, batch)
+    "alexnet_cifar10": ("build_alexnet_cifar10", 64),
+    "resnext50": ("build_resnext50", 16),
+    "inception_v3": ("build_inception_v3", 64),
+    "dlrm": ("build_dlrm", 64),
+    "xdl": ("build_xdl", 64),
+    "candle_uno": ("build_candle_uno", 64),
+    "mlp": ("build_mlp_unify", 64),
+    "moe": ("build_moe", 64),
+}
+# builders' widths other than their defaults: DLRM's 4 tables of 1 M
+# rows (bench_zoo.py's cut of the reference's 8)
+ZOO_WIDTHS = {"build_dlrm": dict(embedding_sizes=(1000000,) * 4)}
+# the first bf16 step's loss against the same weights' fp32 forward
+# (TF32 off): bf16 products through 53 convs and their batch norms
+ZOO_BF16_TOL = 2e-2
+# the searched DLRM's first loss against the unrewritten graph's on the
+# same weights: the same bf16 products, the gathers exact
+ZOO_SEARCHED_TOL = 1e-5
+ZOO_SMALL_ROWS = 1000  # tables the search batches on h100_sxm(1)
+# device time of a ResNet-50 step by kind of kernel (name fragments)
+ZOO_KERNEL_GROUPS = {
+    "conv (cuDNN, cuBLAS)": ("cudnn", "conv", "xmma", "sm90_", "sm80_",
+                             "gemm", "cutlass", "implicit"),
+    "pool": ("pool",),
+    "reduction (batch norm, loss)": ("reduce_kernel", "Reduce", "norm"),
+    "elementwise and casts": ("elementwise", "copy", "fill", "Memset",
+                              "Memcpy"),
+    "index and scatter": ("index", "scatter", "gather"),
+}
+ZOO_EP_RANKS = 4
+ZOO_EP_BATCH = 64
+ZOO_EP_TOL = 1e-5  # fp32, TF32 off: the CPU tests' bound
 CARD_PEAKS = (
     ("H100 PCIe", 2.0e12, 51e12, 756e12),
     ("H100 NVL", 3.9e12, 60e12, 835e12),
@@ -1351,12 +1424,14 @@ def profile_frames(ex, reqs, warm=PROFILE_WARM_FRAMES,
     return profile_window(ex.step, frames, "frame")
 
 
-def profile_window(step, n, unit):
+def profile_window(step, n, unit, groups=None):
     """``torch.profiler`` over ``n`` calls of ``step``.  Reports the host
     wall time of the window, the device busy time (the union of kernel
     and copy intervals) and its share, device kernels per ``unit``, and
     the largest device-time items, and the decode-attention kernels'
-    (``rpa_*``) device time and share of busy.  The device-side spans of
+    (``rpa_*``) device time and share of busy; with ``groups`` (group ->
+    name fragments, first match wins, the rest "other"), each group's
+    device ms per ``unit``.  The device-side spans of
     the executor's phase annotations (``ff.phase/...``, when armed) cover
     kernels rather than being kernels: they are reported apart, as the
     device time each phase spans per ``unit``.  An empty device trace is
@@ -1399,6 +1474,11 @@ def profile_window(step, n, unit):
             e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     decode = sum(t for name, t in by_name.items() if "rpa_" in name)
+    grouped = {}
+    for name, t in by_name.items():
+        g = next((g for g, frags in (groups or {}).items()
+                  if any(f in name for f in frags)), "other")
+        grouped[g] = grouped.get(g, 0.0) + t / n / 1e3
     return {
         f"{unit}s": n,
         f"{unit}_wall_ms": wall_us / n / 1e3,
@@ -1410,6 +1490,7 @@ def profile_window(step, n, unit):
         f"phase_span_device_ms_per_{unit}": phases,
         f"decode_attention_ms_per_{unit}": decode / n / 1e3,
         "decode_attention_share_of_busy": decode / busy,
+        **({f"device_ms_per_{unit}_by_group": grouped} if groups else {}),
     }
 
 
@@ -5350,6 +5431,447 @@ def phase_serve_ranks(seed, name):
         for leg in legs}
 
 
+# ---------------------------------------------------------------------------
+def zoo_data(model, n, seed):
+    """``n`` samples for each frontend input of ``model`` (float inputs
+    normal, ids below ZOO_ID_RANGE) and labels for its loss: class ids
+    below the sink's width, or uniform [0, 1) targets of its shape."""
+    rng = np.random.default_rng(seed)
+    from flexflow_tpu_torch.core.ptensor import DataType
+
+    xs = []
+    for t in model._input_tensors:
+        shape = (n,) + tuple(t.sizes[1:])
+        if DataType.from_any(t.dtype).value.startswith("int"):
+            xs.append(rng.integers(0, ZOO_ID_RANGE, size=shape).astype(
+                np.int32))
+        else:
+            xs.append(rng.normal(size=shape).astype(np.float32))
+    out = model.graph.sinks()[-1].op.output_shapes[0].sizes
+    if out[-1] == 1:
+        y = rng.uniform(0, 1, size=(n,) + tuple(out[1:])).astype(np.float32)
+    else:
+        y = rng.integers(0, out[-1], size=(n,)).astype(np.int32)
+    return xs, y
+
+
+def zoo_model(build, batch, seed, dtype="bfloat16", widths=None, **cfg):
+    """``build`` from ``flexflow_tpu_torch.models`` at its defaults (or
+    ZOO_WIDTHS', or ``widths``), compiled with SGD for its loss: CCE
+    with accuracy for a classifier, MSE for a one-wide output."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer
+    from flexflow_tpu_torch import models
+
+    kw = dict(ZOO_WIDTHS.get(build, {}) if widths is None else widths)
+    opts = dict(only_data_parallel=True)
+    opts.update(cfg)
+    strategy = opts.pop("strategy", {})
+    model = getattr(models, build)(FFConfig(
+        batch_size=batch, compute_dtype=dtype, seed=seed, **opts), **kw)
+    wide = model.graph.sinks()[-1].op.output_shapes[0].sizes[-1]
+    loss = (dict(loss_type="mean_squared_error",
+                 metrics=["mean_squared_error"]) if wide == 1 else
+            dict(loss_type="sparse_categorical_crossentropy",
+                 metrics=["accuracy"]))
+    model.compile(optimizer=SGDOptimizer(lr=ZOO_LR), strategy=strategy,
+                  **loss)
+    return model
+
+
+def zoo_tensors(model):
+    """The weights, the optimizer slots and the model state (batch-norm
+    statistics): what a training step updates in place."""
+    return train_tensors(model) + [t for t in model.state.values()
+                                   if isinstance(t, torch.Tensor)]
+
+
+def timed_steps(model, batches, n):
+    """Host seconds of ``n`` synchronised ``train_step`` calls over
+    ``batches`` in turn (captured unless inside ``eager()``), each with
+    its own step seed (AlexNet's dropout draws masks from it)."""
+    times = []
+    for i in range(n):
+        ins, lab = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.params, model.opt_state, model.state, _, _ = (
+            model.compiled.train_step(model.params, model.opt_state,
+                                      model.state, ins, lab,
+                                      seed=10_000 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def device_batches(model, xs, y, batch):
+    dev = model.compiled.device
+    return [([torch.from_numpy(x[i:i + batch]).to(dev) for x in xs],
+             torch.from_numpy(y[i:i + batch]).to(dev))
+            for i in range(0, len(y), batch)]
+
+
+def zoo_resnet50(seed, name):
+    """Phase 14 (a): ResNet-50 at its defaults through ``fit``, captured
+    and eagerly, against the same weights' fp32 forward."""
+    from flexflow_tpu_torch.compiler.graphs import eager
+    from flexflow_tpu_torch.losses import compute_loss
+
+    b = ZOO_RESNET_BATCH
+    free_models()
+    # the fp32 forward of the same weights (seeded by name) on batch 0,
+    # training-mode batch norm, no gradient; TF32 is off (phase 1)
+    ref = zoo_model("build_resnet", b, seed, dtype="float32")
+    xs, y = zoo_data(ref, ZOO_DATA_BATCHES * b, seed + 14)
+    (ins, lab), = device_batches(ref, [xs[0][:b]], y[:b], b)
+    with torch.no_grad():
+        logits, _ = ref.compiled.apply(ref.params, ref.state, ins,
+                                       train=True)
+        fp32_loss = float(compute_loss(ref.compiled.loss_type, logits, lab))
+    del ref, logits, ins, lab
+    free_models()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = zoo_model("build_resnet", b, seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(w.numel() for ws in model.params.values()
+                   for w in ws.values())
+    flops = sum(n.op.flops() for n in model.graph.nodes.values())
+    check(all(w.is_cuda for ws in model.params.values()
+              for w in ws.values()), "ResNet-50's weights are not on the "
+          "card")
+    start = [t.clone() for t in zoo_tensors(model)]
+    epochs = ZOO_RESNET_STEPS // ZOO_DATA_BATCHES
+    runs = {}
+    for tag, ctx in (("captured", None), ("eager", eager())):
+        with torch.no_grad():
+            for t, s in zip(zoo_tensors(model), start):
+                t.copy_(s)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with ctx or contextlib.nullcontext():
+            model.fit(xs, y, batch_size=b, epochs=epochs, shuffle=False,
+                      verbose=False)
+        torch.cuda.synchronize()
+        runs[tag] = dict(
+            losses=list(model.step_losses),
+            tensors=[t.clone() for t in train_tensors(model)],
+            fit_wall_s=time.perf_counter() - t0,
+            images_per_s_fit=model.last_throughput,
+            peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    cap, eag = runs["captured"], runs["eager"]
+    losses = cap["losses"]
+    check(len(losses) == ZOO_RESNET_STEPS, f"fit ran {len(losses)} steps")
+    check(bool(np.isfinite(losses).all()), f"ResNet-50 losses {losses}")
+    first = np.mean(losses[:ZOO_DATA_BATCHES])
+    last = np.mean(losses[-ZOO_DATA_BATCHES:])
+    check(last < first, f"ResNet-50's loss did not fall over {epochs} "
+          f"epochs: {first:.4f} -> {last:.4f}")
+    bf16_err = abs(losses[0] - fp32_loss) / abs(fp32_loss)
+    check(bf16_err <= ZOO_BF16_TOL, f"the first bf16 step's loss "
+          f"{losses[0]:.6f} is {bf16_err:.3e} from the fp32 forward's "
+          f"{fp32_loss:.6f} (> {ZOO_BF16_TOL})")
+    equal = losses == eag["losses"] and same_bits(cap["tensors"],
+                                                  eag["tensors"])
+    diff = max(float((a.float() - c.float()).abs().max())
+               for a, c in zip(cap["tensors"], eag["tensors"]))
+    check(equal, f"captured ResNet-50 steps differ from eager under "
+          f"deterministic cuDNN: losses {losses} vs {eag['losses']}, "
+          f"largest weight difference {diff:.3e}")
+    del start
+    batches = device_batches(model, xs, y, b)
+    times = {}
+    for tag, ctx in (("captured", None), ("eager", eager())):
+        with ctx or contextlib.nullcontext():
+            timed_steps(model, batches, 2)  # warm
+            times[tag] = timed_steps(model, batches, ZOO_RESNET_STEPS)
+    graph = model.compiled.step_graph
+    prof = profile_window(
+        lambda: timed_steps(model, batches, 1), ZOO_PROFILE_STEPS, "step",
+        groups=ZOO_KERNEL_GROUPS)
+    p50 = float(np.median(times["captured"]))
+    bf16_peak = card_peaks(name)[2]
+    report = {
+        "config": dict(model="build_resnet", image=224,
+                       layers=[3, 4, 6, 3], classes=1000, batch=b,
+                       compute="bfloat16", optimizer=f"sgd {ZOO_LR}"),
+        "parameters": n_params, "forward_flops": flops,
+        "build_compile_s": build_s,
+        "fit_steps": len(losses),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_first_epoch_mean": float(first),
+        "loss_last_epoch_mean": float(last),
+        "fp32_forward_loss": fp32_loss, "bf16_vs_fp32_rel": bf16_err,
+        "captured_equals_eager": True,
+        "captured_replays": replays(graph),
+        "cudnn": {"deterministic": torch.backends.cudnn.deterministic,
+                  "benchmark": torch.backends.cudnn.benchmark,
+                  "allow_tf32": torch.backends.cudnn.allow_tf32},
+        "step_p50_ms": {k: float(np.median(v)) * 1e3
+                        for k, v in times.items()},
+        "step_p90_ms": {k: float(np.quantile(v, 0.9)) * 1e3
+                        for k, v in times.items()},
+        "images_per_s": b / p50,
+        "images_per_s_fit": {k: r["images_per_s_fit"]
+                             for k, r in runs.items()},
+        "mfu_vs_dense_bf16_peak": 3.0 * flops / p50 / bf16_peak,
+        "peak_memory_gb_fit": {k: r["peak_gb"] for k, r in runs.items()},
+        "fit_wall_s": {k: r["fit_wall_s"] for k, r in runs.items()},
+        "profile": {k: v for k, v in prof.items()
+                    if not k.startswith(("decode_attention",
+                                         "phase_span"))},
+    }
+    if "top_device_ms_per_step" in prof:
+        report["top5_device_ms_per_step"] = dict(list(
+            prof["top_device_ms_per_step"].items())[:5])
+    del model, graph, batches
+    free_models()
+    return report
+
+
+def zoo_others(seed):
+    """Phase 14 (b): every other builder at bench_zoo.py's shapes,
+    ZOO_FIT_STEPS ``fit`` steps, then ZOO_TIMED synchronised captured
+    steps."""
+    out = {}
+    for key, (build, batch) in ZOO_OTHERS.items():
+        free_models()
+        t0 = time.perf_counter()
+        model = zoo_model(build, batch, seed)
+        build_s = time.perf_counter() - t0
+        xs, y = zoo_data(model, ZOO_FIT_STEPS * batch, seed + 15)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model.fit(xs, y, batch_size=batch, epochs=1, shuffle=False,
+                  verbose=False)
+        losses = list(model.step_losses)
+        check(len(losses) == ZOO_FIT_STEPS and bool(
+            np.isfinite(losses).all()), f"{key}: fit losses {losses}")
+        times = timed_steps(model, device_batches(model, xs, y, batch),
+                            ZOO_TIMED)
+        p50 = float(np.median(times))
+        out[key] = {
+            "build": build, "batch": batch,
+            "parameters": sum(w.numel() for ws in model.params.values()
+                              for w in ws.values()),
+            "build_compile_s": build_s, "losses": losses,
+            "step_p50_ms": p50 * 1e3, "samples_per_s": batch / p50,
+            "samples_per_s_fit": model.last_throughput,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() - base)
+            / 1e9}
+        del model
+    free_models()
+    return out
+
+
+def zoo_searched_dlrm(seed):
+    """Phase 14 (c): DLRM through ``compile(strategy=None)`` on one card.
+    At bench_zoo's 4 tables of 1 M rows the search keeps the plain
+    lookups (the CPU search on ``h100_sxm(1)`` picks the same); with
+    tables of ZOO_SMALL_ROWS rows it applies the batched embedding,
+    which trains, its first loss within ZOO_SEARCHED_TOL of the
+    unrewritten graph's on the same weights (the K tables stacked)."""
+    b = ZOO_OTHERS["dlrm"][1]
+    free_models()
+    report = {}
+    t0 = time.perf_counter()
+    bench = zoo_model("build_dlrm", b, seed, only_data_parallel=False,
+                      strategy=None)
+    compile_s = time.perf_counter() - t0
+    xs, y = zoo_data(bench, ZOO_FIT_STEPS * b, seed + 16)
+    bench.fit(xs, y, batch_size=b, epochs=1, shuffle=False, verbose=False)
+    check(bool(np.isfinite(bench.step_losses).all()),
+          f"the searched bench DLRM's losses {bench.step_losses}")
+    report["bench_tables"] = {
+        "op_types": sorted({n.op.op_type.value
+                            for n in bench.graph.topo_order()}),
+        "compile_with_search_s": compile_s,
+        "search_s": bench.search_stats.get("search_seconds"),
+        "losses": list(bench.step_losses)}
+    del bench
+    free_models()
+    small = dict(embedding_sizes=(ZOO_SMALL_ROWS,) * 4)
+    plain = zoo_model("build_dlrm", b, seed, widths=small)
+    t0 = time.perf_counter()
+    searched = zoo_model("build_dlrm", b, seed, widths=small,
+                         only_data_parallel=False, strategy=None)
+    compile_s = time.perf_counter() - t0
+    kinds = sorted({n.op.op_type.value for n in searched.graph.topo_order()})
+    check({"stack", "batched_embedding", "unstack"} <= set(kinds)
+          and "embedding" not in kinds,
+          f"the searched DLRM holds no batched-embedding rewrite: {kinds}")
+    be = next(n.op.name for n in searched.graph.topo_order()
+              if n.op.op_type.value == "batched_embedding")
+    tables = sorted(k for k in plain.params if k.startswith("embed_"))
+    with torch.no_grad():
+        for op, ws in plain.params.items():
+            if op in searched.params:
+                for w, v in ws.items():
+                    searched.params[op][w].copy_(v)
+        searched.params[be]["table"].copy_(torch.stack(
+            [plain.params[k]["table"] for k in tables]))
+    xs, y = zoo_data(plain, ZOO_FIT_STEPS * b, seed + 16)
+    batches = device_batches(plain, xs, y, b)
+    first = []
+    for m in (plain, searched):
+        ins, lab = batches[0]
+        m.params, m.opt_state, m.state, loss, _ = m.compiled.train_step(
+            m.params, m.opt_state, m.state, ins, lab)
+        first.append(float(loss))
+    rel = abs(first[1] - first[0]) / abs(first[0])
+    check(rel <= ZOO_SEARCHED_TOL, f"the searched DLRM's first loss "
+          f"{first[1]} is {rel:.3e} from the unrewritten graph's "
+          f"{first[0]}")
+    del plain
+    searched.fit(xs, y, batch_size=b, epochs=1, shuffle=False,
+                 verbose=False)
+    losses = list(searched.step_losses)
+    check(bool(np.isfinite(losses).all()), f"searched DLRM losses {losses}")
+    times = timed_steps(searched, batches, ZOO_TIMED)
+    p50 = float(np.median(times))
+    report["small_tables"] = {
+        "rows": ZOO_SMALL_ROWS, "op_types": kinds,
+        "batched_embedding": be, "tables": len(tables),
+        "compile_with_search_s": compile_s,
+        "search_s": searched.search_stats.get("search_seconds"),
+        "first_loss_unrewritten": first[0],
+        "first_loss_searched": first[1], "first_loss_rel": rel,
+        "losses": losses, "step_p50_ms": p50 * 1e3,
+        "samples_per_s": b / p50}
+    del searched, batches
+    free_models()
+    return report
+
+
+def _zoo_ep_rank(rank, seed, xs, y):
+    """One rank of phase 14 (d): ``build_moe`` at moe.cc's defaults in
+    fp32 with the expert dim of ``dispatch``, ``expert_fc1`` and
+    ``expert_fc2`` split ZOO_EP_RANKS ways, ZOO_FIT_STEPS SGD steps."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer
+    from flexflow_tpu_torch.core.machine import MachineView
+    from flexflow_tpu_torch.models import build_moe
+    from flexflow_tpu_torch.parallel import mesh
+    from flexflow_tpu_torch.runtime.distributed import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = ZOO_EP_RANKS
+    model = build_moe(FFConfig(batch_size=ZOO_EP_BATCH,
+                               compute_dtype="float32", seed=seed,
+                               num_devices=n),
+                      **ZOO_WIDTHS.get("build_moe", {}))
+    views = {nd.guid: MachineView.trivial(nd.op.output_shapes[0].ndim)
+             for nd in model.graph.topo_order()}
+    for op in ("dispatch", "expert_fc1", "expert_fc2"):
+        nd = model.node_by_name(op)
+        degs = [1] * nd.op.output_shapes[0].ndim
+        degs[0] = n
+        views[nd.guid] = MachineView(tuple(degs))
+    model.compile(optimizer=SGDOptimizer(lr=ZOO_LR), strategy=views,
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    c = model.compiled
+    dispatch = model.node_by_name("dispatch")
+    mesh.reset_comm_counts()
+    losses = []
+    for i in range(ZOO_FIT_STEPS):
+        sl = slice(i * ZOO_EP_BATCH, (i + 1) * ZOO_EP_BATCH)
+        x, lab = xs[sl], y[sl]
+        ins = [torch.from_numpy(x[c.input_slices(0, x.shape)]).to(c.device)]
+        lab = torch.from_numpy(lab[c.label_slices(lab.shape)]).to(c.device)
+        model.params, model.opt_state, model.state, loss, _ = c.train_step(
+            model.params, model.opt_state, model.state, ins, lab)
+        losses.append(float(loss))
+    return {"transport": transport(), "losses": losses,
+            "local_experts": c._out_pl[dispatch.guid][0].local_sizes(
+                dispatch.op.output_shapes[0].sizes, c.mesh)[0],
+            "weights": {op: {w: t.detach().cpu().numpy()
+                             for w, t in ws.items()}
+                        for op, ws in model.params.items()},
+            "collectives": mesh.comm_counts()}
+
+
+def zoo_ep_moe(seed):
+    """Phase 14 (d): the ep-MoE leg over ZOO_EP_RANKS ranks (spawned as
+    phase 7's), against one process's first-step loss (fp32, TF32 off)
+    within ZOO_EP_TOL; every replicated weight bit-equal on every
+    rank."""
+    from flexflow_tpu_torch.runtime.distributed import spawn
+
+    free_models()
+    one = zoo_model("build_moe", ZOO_EP_BATCH, seed, dtype="float32")
+    xs, y = zoo_data(one, ZOO_FIT_STEPS * ZOO_EP_BATCH, seed + 17)
+    ins, lab = device_batches(one, xs, y, ZOO_EP_BATCH)[0]
+    *_, loss, _ = one.compiled.train_step(one.params, one.opt_state,
+                                          one.state, ins, lab)
+    one_loss = float(loss)
+    del one
+    free_models()
+    t0 = time.perf_counter()
+    ranks = spawn(_zoo_ep_rank, ZOO_EP_RANKS, (seed, xs[0], y),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    err = abs(r0["losses"][0] - one_loss) / abs(one_loss)
+    check(err <= ZOO_EP_TOL, f"the ep-MoE's first loss {r0['losses'][0]} "
+          f"is {err:.3e} from one process's {one_loss}")
+    for r in ranks:
+        check(r["losses"] == r0["losses"], "the ranks' losses differ")
+        check(r["local_experts"] == 1,
+              f"a rank holds {r['local_experts']} experts' slots")
+        for op, ws in r0["weights"].items():
+            for w, v in ws.items():
+                check(r["weights"][op][w].tobytes() == v.tobytes(),
+                      f"ep-MoE replica {op}/{w} differs between ranks")
+    check(bool(np.isfinite(r0["losses"]).all()), "ep-MoE losses")
+    return {"ranks": ZOO_EP_RANKS, "transport": r0["transport"],
+            "losses": r0["losses"], "one_process_first_loss": one_loss,
+            "first_loss_rel": err, "ranks_wall_s": wall,
+            "collectives_rank0": r0["collectives"]}
+
+
+def phase_zoo(seed, name):
+    """Phase 14 (module docstring): the model zoo, one card (the ep-MoE
+    leg over ranks on it).  cuDNN runs deterministic, without its
+    autotuner, for the phase (the captured-against-eager comparison),
+    and its settings are put back after."""
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+
+    t_phase = time.perf_counter()
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for k in COUNTED:
+        k.launches = 0
+    try:
+        report = {"card": CARD_LINE[0]}
+        t0 = time.perf_counter()
+        report["a_resnet50"] = zoo_resnet50(seed, name)
+        report["a_resnet50"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["b_builders"] = zoo_others(seed)
+        report["b_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["c_searched_dlrm"] = zoo_searched_dlrm(seed)
+        report["c_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["d_ep_moe"] = zoo_ep_moe(seed)
+        report["d_wall_s"] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    launched = {k.__name__: k.launches for k in COUNTED}
+    check(not any(launched.values()), f"the zoo launched rows 1-6: "
+          f"{launched} (no TPU kernel lies on its path)")
+    report["kernel_rows_launched"] = launched
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("zoo path: " + json.dumps(report))
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5374,6 +5896,8 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-only", metavar="RUNS", type=int, default=None,
                     help="only run phase 13, serving over ranks, RUNS "
                          "times")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="only run phase 14, the model zoo")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -5407,6 +5931,10 @@ def main(argv=None) -> int:
         name = phase_device()
         phase_build()
         phase_bert_train(args.seed, name)
+        return 0
+
+    if args.zoo_only:  # no CUDA kernel of the port lies on its path
+        phase_zoo(args.seed, phase_device())
         return 0
 
     if args.sync_only is not None:
@@ -5450,6 +5978,7 @@ def main(argv=None) -> int:
     bert_launches, _ = phase_bert_train(args.seed, name)
     sync_launches = phase_sync_train(args.seed, name, first_loss)
     serve_launches = phase_serve_ranks(args.seed, name)
+    phase_zoo(args.seed, name)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",

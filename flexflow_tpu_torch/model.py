@@ -1,13 +1,15 @@
 """FFModel — the model-building API, ported from flexflow_tpu/model.py.
 
-The builder methods the decode and transformer graphs call
-(``create_tensor``, ``create_constant``, ``embedding``, ``reshape``,
-``layer_norm``, ``dense``, ``multihead_attention``, ``batch_matmul``,
-``dropout``, ``softmax``, ``mean``, ``top_k``, ``gather``, the
-reference's elementwise verbs (``relu`` ... ``scalar_true_divide``,
-``add`` ... ``min``), ``decode_attention``, and the parallel ops
-``repartition``, ``combine``, ``replicate``, ``reduction``) build a
-lazy graph;
+The reference's builder methods (``create_tensor``,
+``create_constant``, ``dense``, ``conv2d``, ``pool2d``, ``batch_norm``,
+``layer_norm``, ``embedding``, ``multihead_attention``,
+``decode_attention``, ``batch_matmul``, ``dropout``, ``softmax``,
+``concat``, ``split``, ``flat``, ``reshape``, ``transpose``,
+``reverse``, ``cast``, ``mean``, ``top_k``, ``gather``, the MoE ops
+``group_by``, ``aggregate``, ``aggregate_spec`` and ``cache``, the
+elementwise verbs (``relu`` ... ``scalar_true_divide``, ``add`` ...
+``min``) and the parallel ops ``repartition``, ``combine``,
+``replicate``, ``reduction``) build a lazy graph;
 ``compile`` binds it to the config's device, with a strategy (guid ->
 ``MachineView``) to this rank's shards of every tensor
 (compiler/lowering.py), and initialises ``params`` (this rank's
@@ -124,28 +126,16 @@ def _adopt_kv_dtype(graph, dtype) -> None:
 # the serve objective's __meta__ blocks (reference model.py:622-720)
 _SERVE_META = ("serving", "kv", "disaggregation", "fleet")
 
-# ops the search builds (the batched-embedding rewrite) that the port
-# prices but does not run yet
-_UNLOWERED_OPS = (OperatorType.STACK, OperatorType.UNSTACK,
-                  OperatorType.BATCHED_EMBEDDING)
-
 
 def _check_searched_graph(graph) -> None:
     """The searched graph must name each op once (weights are keyed by
-    op name) and hold only ops the port runs."""
+    op name)."""
     names = [nd.op.name for nd in graph.nodes.values()]
     if len(set(names)) != len(names):
         dup = sorted({n for n in names if names.count(n) > 1})
         raise RuntimeError(
             f"the searched graph names ops {dup[:4]} more than once; their "
             f"weights would be shared")
-    found = sorted({nd.op.op_type.value for nd in graph.nodes.values()
-                    if nd.op.op_type in _UNLOWERED_OPS})
-    if found:
-        raise NotImplementedError(
-            f"the strategy search chose a rewrite with {found}, ops the "
-            f"port does not run yet (ROADMAP Queue A item 6); pass a "
-            f"strategy or set only_data_parallel=True")
 
 
 def _merge_matching(new, old):
@@ -290,6 +280,36 @@ class FFModel:
                         bias_initializer=bias_initializer)
         return self._add_op(op, [input])[0]
 
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int = 1, stride_w: int = 1,
+               padding_h: int = 0, padding_w: int = 0, activation=None,
+               groups: int = 1, use_bias=True, kernel_initializer=None,
+               bias_initializer=None, name=None) -> Tensor:
+        """NHWC conv (ops/conv.py), kernel [kh, kw, cin / groups,
+        out_channels]."""
+        op = O.Conv2DOp(self._fresh_name("conv2d", name),
+                        [self._shape_of(input)], out_channels=out_channels,
+                        kernel_h=kernel_h, kernel_w=kernel_w,
+                        stride_h=stride_h, stride_w=stride_w,
+                        padding_h=padding_h, padding_w=padding_w,
+                        groups=groups, activation=activation,
+                        use_bias=use_bias,
+                        kernel_initializer=kernel_initializer,
+                        bias_initializer=bias_initializer)
+        return self._add_op(op, [input])[0]
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int = 1, stride_w: int = 1, padding_h: int = 0,
+               padding_w: int = 0, pool_type: str = "max", activation=None,
+               name=None) -> Tensor:
+        op = O.Pool2DOp(self._fresh_name("pool2d", name),
+                        [self._shape_of(input)], kernel_h=kernel_h,
+                        kernel_w=kernel_w, stride_h=stride_h,
+                        stride_w=stride_w, padding_h=padding_h,
+                        padding_w=padding_w, pool_type=pool_type,
+                        activation=activation)
+        return self._add_op(op, [input])[0]
+
     def layer_norm(self, input: Tensor, axes=(-1,), elementwise_affine=True,
                    eps=1e-5, name=None) -> Tensor:
         op = O.LayerNormOp(self._fresh_name("layernorm", name),
@@ -361,6 +381,37 @@ class FFModel:
                         [self._shape_of(t) for t in tensors], axis=axis)
         return self._add_op(op, list(tensors))[0]
 
+    def split(self, input: Tensor, sizes, axis: int,
+              name=None) -> List[Tensor]:
+        """``sizes``: the parts' sizes along ``axis``, or their count
+        (equal parts)."""
+        if isinstance(sizes, int):
+            total = input.sizes[axis]
+            if total % sizes:
+                raise ValueError(f"{total} does not split into {sizes} "
+                                 f"equal parts")
+            sizes = [total // sizes] * sizes
+        op = O.SplitOp(self._fresh_name("split", name),
+                       [self._shape_of(input)], sizes=tuple(sizes),
+                       axis=axis)
+        return self._add_op(op, [input])
+
+    def transpose(self, input: Tensor, perm: Sequence[int],
+                  name=None) -> Tensor:
+        op = O.TransposeOp(self._fresh_name("transpose", name),
+                           [self._shape_of(input)], perm=tuple(perm))
+        return self._add_op(op, [input])[0]
+
+    def reverse(self, input: Tensor, axis: int, name=None) -> Tensor:
+        op = O.ReverseOp(self._fresh_name("reverse", name),
+                         [self._shape_of(input)], axis=axis)
+        return self._add_op(op, [input])[0]
+
+    def cast(self, input: Tensor, dtype, name=None) -> Tensor:
+        op = O.CastOp(self._fresh_name("cast", name),
+                      [self._shape_of(input)], dtype=dtype)
+        return self._add_op(op, [input])[0]
+
     def batch_matmul(self, A: Tensor, B: Tensor, a_seq_length_dim: int = -1,
                      b_seq_length_dim: int = -1, name=None) -> Tensor:
         op = O.BatchMatmulOp(self._fresh_name("bmm", name),
@@ -399,6 +450,38 @@ class FFModel:
                         [self._shape_of(input), self._shape_of(indices)],
                         axis=axis)
         return self._add_op(op, [input, indices])[0]
+
+    # mixture of experts (ops/moe.py)
+    def group_by(self, data: Tensor, assign: Tensor, n_experts: int,
+                 alpha: float = 1.0, name=None) -> List[Tensor]:
+        """(grouped [E, cap, D], expert_idx, pos, valid)."""
+        op = O.GroupByOp(self._fresh_name("group_by", name),
+                         [self._shape_of(data), self._shape_of(assign)],
+                         n_experts=n_experts, alpha=alpha)
+        return self._add_op(op, [data, assign])
+
+    def aggregate(self, gates: Tensor, expert_idx: Tensor, pos: Tensor,
+                  valid: Tensor, expert_out: Tensor, lambda_bal: float = 0.0,
+                  name=None) -> Tensor:
+        ins = [gates, expert_idx, pos, valid, expert_out]
+        op = O.AggregateOp(self._fresh_name("aggregate", name),
+                           [self._shape_of(t) for t in ins],
+                           lambda_bal=lambda_bal)
+        return self._add_op(op, ins)[0]
+
+    def aggregate_spec(self, gates, expert_idx, pos, valid, expert_out,
+                       lambda_bal: float = 0.0, name=None) -> Tensor:
+        ins = [gates, expert_idx, pos, valid, expert_out]
+        op = O.AggregateSpecOp(self._fresh_name("aggregate_spec", name),
+                               [self._shape_of(t) for t in ins],
+                               lambda_bal=lambda_bal)
+        return self._add_op(op, ins)[0]
+
+    def cache(self, input: Tensor, use_cached: bool = False,
+              name=None) -> Tensor:
+        op = O.CacheOp(self._fresh_name("cache", name),
+                       [self._shape_of(input)], use_cached=use_cached)
+        return self._add_op(op, [input])[0]
 
     # elementwise (the reference's names, model.py:377-451)
     def _unary(self, t: OperatorType, input: Tensor, name=None, scalar=0.0,
@@ -1543,6 +1626,21 @@ class FFModel:
 
         return tensor_to_numpy(self.compiled.gather_weights(
             self.params, [(op_name, weight_name)])[op_name][weight_name])
+
+    def set_state_var(self, key: str, value: np.ndarray) -> None:
+        """Overwrite one model-state entry in place (e.g. a batch-norm
+        running statistic, key ``"<op>/running_mean"``, or a cache op's
+        ``"<op>/cached"``); its tensor keeps its address, so a captured
+        step reads the new value."""
+        from flexflow_tpu_torch.interop import tensor_from_numpy
+
+        old = self.state[key]
+        value = np.asarray(value)
+        if tuple(old.shape) != value.shape:
+            raise ValueError(f"{key}: shape {value.shape} is not the "
+                             f"state's {tuple(old.shape)}")
+        with torch.no_grad():
+            old.copy_(tensor_from_numpy(value, old.device))
 
     def set_weight(self, op_name: str, weight_name: str,
                    value: np.ndarray) -> None:

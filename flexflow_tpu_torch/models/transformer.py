@@ -1,6 +1,6 @@
 """Transformer encoder, BERT and GPT — the port of ``encoder_layer``,
-``build_transformer``, ``build_bert`` and ``build_gpt`` in
-flexflow_tpu/models/transformer.py.  Op names equal the reference's, so
+``build_transformer``, ``build_bert``, ``build_gpt`` and
+``build_gpt_xl`` in flexflow_tpu/models/transformer.py.  Op names equal the reference's, so
 a ``params[op][weight]`` dict carries across the two packages.
 ``build_bert`` at its defaults is the OSDI'22 BERT benchmark model
 (BERT-base widths: vocab 30522, 12 layers, hidden 768, 12 heads, ff
@@ -96,3 +96,18 @@ def build_gpt(config: FFConfig, vocab: int = 32000, num_layers: int = 12,
     t = model.layer_norm(t, name="final_ln")
     model.dense(t, vocab, use_bias=False, name="lm_head")
     return model
+
+
+# the production-scale config (about 1015 graph nodes at 144 layers x
+# about 7 nodes per layer), reference transformer.py:111-124: the
+# thousand-node stacked LLM graph the segment-reuse search solves
+GPT_XL_KW = dict(vocab=32000, num_layers=144, hidden=512, num_heads=8,
+                 ff_dim=2048, seq_len=256)
+
+
+def build_gpt_xl(config: FFConfig, **overrides):
+    """``build_gpt`` at production depth (``GPT_XL_KW``, >= 1000
+    nodes), one canonical xl config for the scale search."""
+    kw = dict(GPT_XL_KW)
+    kw.update(overrides)
+    return build_gpt(config, **kw)

@@ -8,6 +8,7 @@ from flexflow_tpu_torch.ops.base import (
     WeightSpec,
     register_op,
 )
+from flexflow_tpu_torch.ops.conv import Conv2DOp, Pool2DOp
 from flexflow_tpu_torch.ops.attention import (
     BatchMatmulOp,
     MultiHeadAttentionOp,
@@ -20,6 +21,12 @@ from flexflow_tpu_torch.ops.elementwise import (
 from flexflow_tpu_torch.ops.embedding import BatchedEmbeddingOp, EmbeddingOp
 from flexflow_tpu_torch.ops.inout import ConstantOp, InputOp
 from flexflow_tpu_torch.ops.linear import LinearOp
+from flexflow_tpu_torch.ops.moe import (
+    AggregateOp,
+    AggregateSpecOp,
+    CacheOp,
+    GroupByOp,
+)
 from flexflow_tpu_torch.ops.norm import (
     BatchNormOp,
     DropoutOp,
@@ -28,10 +35,14 @@ from flexflow_tpu_torch.ops.norm import (
 )
 from flexflow_tpu_torch.ops.reductions import GatherOp, MeanOp, TopKOp
 from flexflow_tpu_torch.ops.shape_ops import (
+    CastOp,
     ConcatOp,
     FlatOp,
     ReshapeOp,
+    ReverseOp,
+    SplitOp,
     StackOp,
+    TransposeOp,
     UnstackOp,
 )
 
@@ -61,6 +72,16 @@ __all__ = [
     "BatchNormOp",
     "StackOp",
     "UnstackOp",
+    "CastOp",
+    "ReverseOp",
+    "SplitOp",
+    "TransposeOp",
+    "Conv2DOp",
+    "Pool2DOp",
+    "AggregateOp",
+    "AggregateSpecOp",
+    "CacheOp",
+    "GroupByOp",
     "WeightSpec",
     "register_op",
 ]

@@ -9,7 +9,8 @@ the op's ``propagate`` asks for first).  ``propagate(mv)`` is the
 reference's degree propagation, copied: given the op's ``MachineView``
 it derives a ``ShardAnnot`` for each input, weight and output.
 ``forward_sharded`` is the hook for an op whose shards need more than
-its ``forward`` on them (the vocab-split embedding).  The cost hooks are
+its ``forward`` on them (the vocab-split embedding, a spatially split
+conv or pool, the MoE dispatch under an expert split).  The cost hooks are
 the reference's: ``flops`` (the forward-FLOP estimate; the training
 path's MFU counts 3x its sum), ``bytes_accessed`` (the roofline's HBM
 bytes), ``fixed_machine_view``/``splittable_output_dims``/

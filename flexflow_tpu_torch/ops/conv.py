@@ -1,0 +1,360 @@
+"""Conv2D and Pool2D — the port of flexflow_tpu/ops/conv.py, with the
+reference's NHWC semantics (reference: src/ops/conv_2d.cc, pool_2d.cc).
+
+Activations stay NHWC tensors.  A conv runs as ``F.conv2d`` on the
+input viewed as NCHW (``permute(0, 3, 1, 2)``): an NHWC-contiguous
+tensor seen that way is ``channels_last``, so cuDNN takes its NHWC
+kernels and no activation is copied; the result is viewed back as NHWC.
+The kernel weight keeps the reference's HWIO shape ``[kh, kw, cin /
+groups, cout]`` (``propagate``'s annotations and the npz checkpoints
+rely on it) and is converted per call, cast to the compute dtype and
+laid out as OIHW in ``channels_last`` memory (OHWI) in one copy.
+Rounding is the reference's (conv.py:137-152): the product rounded to
+the compute dtype, then the fp32 bias, then the activation, then the
+input's dtype.
+
+Pooling: max pads with -inf; average sums in fp32 and always divides
+by ``kh * kw`` (``count_include_pad``).  Output sizes floor
+(``_out_size``).  torch's pools refuse a padding above half the kernel,
+which the reference allows: that input is padded explicitly (-inf or 0)
+and pooled without padding.
+
+Under a strategy (``propagate`` is the reference's): a batch or
+out-channel split runs ``forward`` on the shards; an in-channel split
+``r`` leaves partial sums, so the bias goes in on one rank of the
+replica axes and an activation waits for the op's own sum, as in
+ops/linear.py.  The reference lets GSPMD exchange halos for a split
+spatial dim (OptCNN's attribute parallelism); here ``forward_sharded``
+gathers the input's split spatial dims whole over their axes, computes,
+and keeps this rank's output rows and columns, with the input's
+gradient summed over those axes before its block is kept (every rank's
+output block reads the whole input).  A halo exchange in place of the
+gather is ROADMAP "Work on ported paths".  A grouped conv under an
+in-channel split gathers the channels and the kernel whole (a group's
+channels do not follow the split): one rank of the replica axes
+computes the product and the others add zeros.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from flexflow_tpu_torch.core.machine import MachineView
+from flexflow_tpu_torch.core.optype import OperatorType
+from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
+from flexflow_tpu_torch.initializers import (
+    DEFAULT_BIAS_INIT,
+    DEFAULT_WEIGHT_INIT,
+    Initializer,
+)
+from flexflow_tpu_torch.ops.base import (
+    REPLICA_SLOT,
+    LoweringContext,
+    Operator,
+    OpSharding,
+    ShardAnnot,
+    WeightSpec,
+    register_op,
+)
+
+_ACT = {  # the reference's table (conv.py:35-41)
+    None: lambda x: x,
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+def _check_activation(op_name: str, activation) -> None:
+    if activation not in _ACT:
+        raise NotImplementedError(
+            f"{op_name} activation {activation!r} not supported; "
+            f"one of {sorted(k for k in _ACT if k)}"
+        )
+
+
+def _out_size(size: int, kernel: int, stride: int, pad: int) -> int:
+    return (size + 2 * pad - kernel) // stride + 1
+
+
+def _spatial_axes(pl) -> Tuple[str, ...]:
+    """The mesh axes a layout splits dims 1-2 (H, W) over."""
+    return tuple(pl.dims[1]) + tuple(pl.dims[2])
+
+
+def _gather_spatial(ctx, x: torch.Tensor) -> torch.Tensor:
+    """The input with its split H and W gathered whole; its gradient is
+    summed over those axes first (each rank's output block took a share
+    of every input row), then cut to this rank's block."""
+    from flexflow_tpu_torch.parallel.mesh import (
+        Placement,
+        grad_all_reduce,
+        reshard,
+    )
+
+    src = ctx.in_placements[0]
+    dst = Placement((src.dims[0], (), (), src.dims[3]), src.partial)
+    return grad_all_reduce(reshard(x, src, dst, ctx.mesh),
+                           _spatial_axes(src), ctx.mesh)
+
+
+def _keep_spatial(ctx, y: torch.Tensor) -> torch.Tensor:
+    """This rank's output rows and columns of a whole-H/W result."""
+    pl = ctx.out_placements[0]
+    for d in (1, 2):
+        axes = pl.dims[d]
+        if axes:
+            per = y.shape[d] // ctx.mesh.size(axes)
+            y = y.narrow(d, ctx.mesh.index(axes) * per, per)
+    return y
+
+
+@register_op
+class Conv2DOp(Operator):
+    """Input [N, H, W, Cin] -> output [N, Ho, Wo, Cout].
+
+    attrs: out_channels, kernel_h/w, stride_h/w, padding_h/w, groups,
+    activation, use_bias (reference ctor: conv_2d.cc FFModel::conv2d).
+    """
+
+    op_type = OperatorType.CONV2D
+
+    def __init__(
+        self,
+        name,
+        input_shapes,
+        out_channels: int,
+        kernel_h: int,
+        kernel_w: int,
+        stride_h: int = 1,
+        stride_w: int = 1,
+        padding_h: int = 0,
+        padding_w: int = 0,
+        groups: int = 1,
+        activation: str | None = None,
+        use_bias: bool = True,
+        kernel_initializer: Initializer | None = None,
+        bias_initializer: Initializer | None = None,
+    ):
+        _check_activation(type(self).__name__, activation)
+        self._kernel_init = kernel_initializer or DEFAULT_WEIGHT_INIT
+        self._bias_init = bias_initializer or DEFAULT_BIAS_INIT
+        super().__init__(
+            name,
+            input_shapes,
+            out_channels=out_channels,
+            kernel_h=kernel_h,
+            kernel_w=kernel_w,
+            stride_h=stride_h,
+            stride_w=stride_w,
+            padding_h=padding_h,
+            padding_w=padding_w,
+            groups=groups,
+            activation=activation,
+            use_bias=use_bias,
+        )
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        n, h, w, c = self.input_shapes[0].sizes
+        a = self.attrs
+        assert c % a["groups"] == 0 and a["out_channels"] % a["groups"] == 0
+        ho = _out_size(h, a["kernel_h"], a["stride_h"], a["padding_h"])
+        wo = _out_size(w, a["kernel_w"], a["stride_w"], a["padding_w"])
+        return (
+            ParallelTensorShape.make(
+                (n, ho, wo, a["out_channels"]), self.input_shapes[0].dtype
+            ),
+        )
+
+    def weight_specs(self) -> Sequence[WeightSpec]:
+        a = self.attrs
+        cin = self.input_shapes[0].sizes[-1]
+        specs = [
+            WeightSpec(
+                "kernel",
+                (a["kernel_h"], a["kernel_w"], cin // a["groups"],
+                 a["out_channels"]),
+                DataType.FLOAT32,
+                self._kernel_init,
+            )
+        ]
+        if a["use_bias"]:
+            specs.append(WeightSpec("bias", (a["out_channels"],),
+                                    DataType.FLOAT32, self._bias_init))
+        return specs
+
+    def _conv(self, ctx, x, kernel) -> torch.Tensor:
+        """The product, NHWC in, NHWC out, rounded to the compute dtype
+        and returned in fp32."""
+        a = self.attrs
+        cd = ctx.compute_dtype
+        # HWIO -> OIHW in channels_last memory (OHWI), cast, one copy
+        k = kernel.permute(3, 2, 0, 1).to(dtype=cd,
+                                          memory_format=torch.channels_last)
+        y = F.conv2d(x.to(cd).permute(0, 3, 1, 2), k,
+                     stride=(a["stride_h"], a["stride_w"]),
+                     padding=(a["padding_h"], a["padding_w"]),
+                     groups=x.shape[-1] // kernel.shape[2])
+        return y.permute(0, 2, 3, 1).float()
+
+    def _finish(self, ctx, y, weights, dtype) -> torch.Tensor:
+        """Bias (counted once over partial addends), the op's own sum
+        before an activation, the activation, the input's dtype."""
+        a = self.attrs
+        if a["use_bias"] and ctx.partial_leader():
+            y = y + weights["bias"].float()
+        if a["activation"] is not None:
+            y = ctx.reduce_partial(y)
+        return _ACT[a["activation"]](y).to(dtype)
+
+    def forward(self, ctx: LoweringContext, inputs, weights):
+        x = inputs[0]
+        y = self._conv(ctx, x, weights["kernel"])
+        return [self._finish(ctx, y, weights, x.dtype)]
+
+    def forward_sharded(self, ctx, inputs, weights, osh):
+        from flexflow_tpu_torch.parallel.mesh import (
+            Placement,
+            grad_all_reduce,
+            reshard,
+        )
+
+        x, kernel = inputs[0], weights["kernel"]
+        in_pl = ctx.in_placements[0]
+        r_axes = in_pl.dims[3] if self.attrs["groups"] > 1 else ()
+        if not _spatial_axes(in_pl) and not r_axes:
+            return None
+        if _spatial_axes(in_pl):
+            x = _gather_spatial(ctx, x)
+        if r_axes:
+            # a group's channels do not follow an in-channel split: the
+            # input's channels and the kernel's in dim are gathered whole,
+            # the leader of the replica axes computes the product and the
+            # other addends are zeros of it (the gradients sum back)
+            n_axes, co_axes = in_pl.dims[0], ctx.out_placements[0].dims[3]
+            x = grad_all_reduce(
+                reshard(x, Placement((n_axes, (), (), r_axes)),
+                        Placement((n_axes, (), (), ())), ctx.mesh),
+                r_axes, ctx.mesh)
+            kernel = grad_all_reduce(
+                reshard(kernel, Placement(((), (), r_axes, co_axes)),
+                        Placement(((), (), (), co_axes)), ctx.mesh),
+                r_axes, ctx.mesh)
+        y = _keep_spatial(ctx, self._conv(ctx, x, kernel))
+        if r_axes and not ctx.partial_leader():
+            y = y * 0.0
+        return [self._finish(ctx, y, weights, inputs[0].dtype)]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        n, h, w, co = mv.dim_degrees
+        r = mv.replica_degree  # in-channel split -> partial sums
+        x_annot = ShardAnnot((n, h, w, r), replica=co,
+                             idx=(0, 1, 2, REPLICA_SLOT))
+        out = ShardAnnot(mv.dim_degrees, replica=r, partial=r > 1)
+        wk = ShardAnnot((1, 1, r, co), replica=n * h * w,
+                        idx=(-1, -1, REPLICA_SLOT, 3))
+        ws = [wk]
+        if self.attrs["use_bias"]:
+            ws.append(ShardAnnot((co,), replica=n * h * w * r, idx=(3,)))
+        return OpSharding(inputs=(x_annot,), weights=tuple(ws),
+                          outputs=(out,))
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return (0, 1, 2, 3)  # sample, both spatial (OptCNN), out-channel
+
+    def max_replica_degree(self) -> int:
+        return self.input_shapes[0].sizes[-1] // self.attrs["groups"]
+
+    def flops(self) -> float:
+        a = self.attrs
+        out = self.output_shapes[0]
+        cin = self.input_shapes[0].sizes[-1]
+        return (2.0 * out.num_elements * a["kernel_h"] * a["kernel_w"] * cin
+                / a["groups"])
+
+
+@register_op
+class Pool2DOp(Operator):
+    """attrs: kernel_h/w, stride_h/w, padding_h/w, pool_type (max|avg),
+    activation. Reference: src/ops/pool_2d.cc."""
+
+    op_type = OperatorType.POOL2D
+
+    def __init__(
+        self,
+        name,
+        input_shapes,
+        kernel_h: int,
+        kernel_w: int,
+        stride_h: int = 1,
+        stride_w: int = 1,
+        padding_h: int = 0,
+        padding_w: int = 0,
+        pool_type: str = "max",
+        activation: str | None = None,
+    ):
+        if pool_type not in ("max", "avg"):
+            raise NotImplementedError(f"pool_type {pool_type!r}")
+        _check_activation(type(self).__name__, activation)
+        super().__init__(
+            name,
+            input_shapes,
+            kernel_h=kernel_h,
+            kernel_w=kernel_w,
+            stride_h=stride_h,
+            stride_w=stride_w,
+            padding_h=padding_h,
+            padding_w=padding_w,
+            pool_type=pool_type,
+            activation=activation,
+        )
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        n, h, w, c = self.input_shapes[0].sizes
+        a = self.attrs
+        ho = _out_size(h, a["kernel_h"], a["stride_h"], a["padding_h"])
+        wo = _out_size(w, a["kernel_w"], a["stride_w"], a["padding_w"])
+        return (ParallelTensorShape.make((n, ho, wo, c),
+                                         self.input_shapes[0].dtype),)
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.attrs
+        kernel = (a["kernel_h"], a["kernel_w"])
+        stride = (a["stride_h"], a["stride_w"])
+        pad = (a["padding_h"], a["padding_w"])
+        is_max = a["pool_type"] == "max"
+        v = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        if not is_max:
+            v = v.float()
+        if pad[0] > kernel[0] // 2 or pad[1] > kernel[1] // 2:
+            # beyond torch's half-kernel limit: pad here, pool unpadded
+            v = F.pad(v, (pad[1], pad[1], pad[0], pad[0]),
+                      value=float("-inf") if is_max else 0.0)
+            pad = (0, 0)
+        if is_max:
+            y = F.max_pool2d(v, kernel, stride, pad)
+        else:
+            # count_include_pad: the reference divides by kh * kw
+            y = F.avg_pool2d(v, kernel, stride, pad,
+                             count_include_pad=True).to(x.dtype)
+        return _ACT[a["activation"]](y.permute(0, 2, 3, 1))
+
+    def forward(self, ctx, inputs, weights):
+        return [self._pool(inputs[0])]
+
+    def forward_sharded(self, ctx, inputs, weights, osh):
+        if not _spatial_axes(ctx.in_placements[0]):
+            return None
+        return [_keep_spatial(ctx, self._pool(_gather_spatial(ctx,
+                                                              inputs[0])))]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        a = ShardAnnot(mv.dim_degrees, mv.replica_degree)
+        return OpSharding(inputs=(a,), weights=(), outputs=(a,))
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return (0, 1, 2, 3)

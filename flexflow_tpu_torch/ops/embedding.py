@@ -11,9 +11,11 @@ reference's (embedding.py:156-184).  Under a batch or channel split
 block of table rows, zeros for the rest, sums them over the aggregated
 dim, and one all-reduce over the vocab axes sums the blocks (avg
 divides after it), instead of a gather of the table.
-``BatchedEmbeddingOp``
-is the search's descriptor of the reference's batched lookup: shapes,
-propagation and costs, no forward yet (item 6)."""
+``BatchedEmbeddingOp`` is the reference's batched lookup of K stacked
+tables (embedding.py:196-307), which its search builds from K
+same-signature embeddings: one gather over [K, V, D] for every table at
+once; a branch split (dim 0) keeps whole tables on a rank, and a vocab
+split runs the same explicit lowering as ``EmbeddingOp``'s."""
 
 from __future__ import annotations
 
@@ -35,8 +37,52 @@ from flexflow_tpu_torch.ops.base import (
 )
 
 
+class _TableLookup:
+    """``forward`` and the vocab split's ``forward_sharded`` of a table
+    lookup, for a table whose vocab dim is ``_rows`` (the embedding's 0,
+    the batched embedding's 1, after its table dim) and ids with as many
+    leading dims, then the looked-up dims, the last of which ``aggr``
+    sums or averages when there is one."""
+
+    _rows = 0
+
+    def _lookup(self, table, ids):
+        return table[ids]
+
+    def _aggregate(self, y: torch.Tensor, ids: torch.Tensor,
+                   mean: bool = True) -> torch.Tensor:
+        """``aggr`` over the ids' last dim: sum, or (``mean``) avg."""
+        aggr = self.attrs["aggr"]
+        if aggr == "none" or ids.dim() <= self._rows + 1:
+            return y
+        if aggr == "avg" and mean:
+            return y.mean(dim=-2)
+        return y.sum(dim=-2)
+
+    def forward(self, ctx, inputs, weights):
+        ids = inputs[0].long()
+        return [self._aggregate(self._lookup(weights["table"], ids), ids)]
+
+    def forward_sharded(self, ctx, inputs, weights, osh):
+        vocab_axes = ctx.axes(REPLICA_SLOT)
+        if not vocab_axes:
+            return None
+        table = weights["table"]
+        vshard = table.shape[self._rows]  # this rank's block of rows
+        ids = inputs[0].long()
+        local = ids - ctx.mesh.index(vocab_axes) * vshard
+        valid = (local >= 0) & (local < vshard)
+        y = self._lookup(table, torch.where(valid, local, 0))
+        y = torch.where(valid[..., None], y, torch.zeros((), dtype=y.dtype,
+                                                         device=y.device))
+        y = ctx.reduce_partial(self._aggregate(y, ids, mean=False))
+        if self.attrs["aggr"] == "avg" and ids.dim() > self._rows + 1:
+            y = y / ids.shape[-1]
+        return [y]
+
+
 @register_op
-class EmbeddingOp(Operator):
+class EmbeddingOp(_TableLookup, Operator):
     """ids [...] (int) -> [..., D].  attrs: num_entries, out_dim, aggr."""
 
     op_type = OperatorType.EMBEDDING
@@ -61,42 +107,11 @@ class EmbeddingOp(Operator):
                      else (x.sizes[0], a["out_dim"]))
         return (ParallelTensorShape.make(sizes, a["param_dtype"]),)
 
-    def _aggregate(self, y: torch.Tensor, ids: torch.Tensor,
-                   mean: bool = True) -> torch.Tensor:
-        """``aggr`` over the ids' last dim: sum, or (``mean``) avg."""
-        aggr = self.attrs["aggr"]
-        if aggr == "none" or ids.dim() <= 1:
-            return y
-        if aggr == "avg" and mean:
-            return y.mean(dim=-2)
-        return y.sum(dim=-2)
-
     def weight_specs(self):
         a = self.attrs
         return (WeightSpec("table", (a["num_entries"], a["out_dim"]),
                            DataType.from_any(a["param_dtype"]),
                            self._kernel_init),)
-
-    def forward(self, ctx, inputs, weights):
-        ids = inputs[0].long()
-        return [self._aggregate(weights["table"][ids], ids)]
-
-    def forward_sharded(self, ctx, inputs, weights, osh):
-        vocab_axes = ctx.axes(REPLICA_SLOT)
-        if not vocab_axes:
-            return None
-        table = weights["table"]
-        vshard = table.shape[0]  # this rank's block of rows
-        local = inputs[0].long() - ctx.mesh.index(vocab_axes) * vshard
-        valid = (local >= 0) & (local < vshard)
-        y = table[torch.where(valid, local, 0)]
-        y = torch.where(valid[..., None], y, torch.zeros((), dtype=y.dtype,
-                                                         device=y.device))
-        ids = inputs[0]
-        y = ctx.reduce_partial(self._aggregate(y, ids, mean=False))
-        if self.attrs["aggr"] == "avg" and ids.dim() > 1:
-            y = y / ids.shape[-1]
-        return [y]
 
     def propagate(self, mv: MachineView) -> OpSharding:
         degs = mv.dim_degrees
@@ -141,16 +156,14 @@ class EmbeddingOp(Operator):
 
 
 @register_op
-class BatchedEmbeddingOp(Operator):
+class BatchedEmbeddingOp(_TableLookup, Operator):
     """K stacked lookups: ids [K, B(, S)] (int), table [K, V, D] ->
     [K, B, D] (aggr sum/avg) or [K, B, S, D] (none) — the reference's
     ``BatchedEmbeddingOp`` (embedding.py:196-307), which its strategy
     search builds from K same-signature embeddings
-    (search/substitution.py ``BatchEmbeddingsXfer``).  The port keeps its
-    shapes, degree propagation and cost hooks, so its search prices the
-    rewrite exactly as the reference's; running it is not ported yet
-    (ROADMAP Queue A item 6): ``forward`` raises, and ``compile`` refuses
-    a searched graph that holds it (model.py)."""
+    (search/substitution.py ``BatchEmbeddingsXfer``).  Table k looks up
+    ids k; with ids [K, B, S] the S rows are summed or averaged as
+    ``EmbeddingOp``'s are."""
 
     op_type = OperatorType.BATCHED_EMBEDDING
 
@@ -197,10 +210,13 @@ class BatchedEmbeddingOp(Operator):
             ),
         )
 
-    def forward(self, ctx, inputs, weights):
-        raise NotImplementedError(
-            f"{self.name}: the batched embedding is not ported yet (ROADMAP "
-            f"Queue A item 6)")
+    _rows = 1
+
+    def _lookup(self, table, ids):
+        """table[k][ids[k]] for every k: [K, B(, S), D]."""
+        k = torch.arange(ids.shape[0], device=ids.device).view(
+            (-1,) + (1,) * (ids.dim() - 1))
+        return table[k, ids]
 
     def propagate(self, mv: MachineView) -> OpSharding:
         degs = mv.dim_degrees  # over output [K, B, D] (or [K, B, S, D])

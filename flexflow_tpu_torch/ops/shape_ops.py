@@ -1,11 +1,14 @@
-"""Shape operators — the port of ``ReshapeOp``, ``FlatOp`` and
-``ConcatOp`` in flexflow_tpu/ops/shape_ops.py, with the reference's
-``propagate``: a reshape's split survives only on a leading dim of
-unchanged extent, a flat's only on the batch dim, a concat's on every
-dim but the concat axis.  On a rank's shard each reshapes or
-concatenates the shard.  ``StackOp`` and ``UnstackOp`` are the search's descriptors of
-the reference's branch-stacking pair (shapes, propagation, costs; no
-forward yet: ROADMAP Queue A item 6)."""
+"""Shape operators — the port of flexflow_tpu/ops/shape_ops.py:
+``ReshapeOp``, ``TransposeOp``, ``FlatOp``, ``ReverseOp``, ``ConcatOp``,
+``SplitOp``, ``CastOp`` and the branch-stacking pair ``StackOp`` /
+``UnstackOp``, with the reference's ``propagate``: a reshape's split
+survives only on a leading dim of unchanged extent, a flat's only on
+the batch dim, a transpose's moves with its dims, a reverse's, a
+concat's and a split's on every dim but their axis.  On a rank's shard
+each computes on the shard.  A stack's inputs are unconstrained (each
+arrives in its producer's layout), so under a strategy its
+``forward_sharded`` lays every input out as one branch of the output
+and keeps this rank's block of branches."""
 
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 
 from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.optype import OperatorType
-from flexflow_tpu_torch.core.ptensor import ParallelTensorShape
+from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
 from flexflow_tpu_torch.ops.base import (
     Operator,
     OpSharding,
@@ -70,6 +73,41 @@ class ReshapeOp(Operator):
 
 
 @register_op
+class TransposeOp(Operator):
+    op_type = OperatorType.TRANSPOSE
+
+    def __init__(self, name, input_shapes, perm: Tuple[int, ...]):
+        super().__init__(name, input_shapes,
+                         perm=tuple(int(p) for p in perm))
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        x = self.input_shapes[0]
+        perm = self.attrs["perm"]
+        return (ParallelTensorShape.make(tuple(x.sizes[p] for p in perm),
+                                         x.dtype),)
+
+    def forward(self, ctx, inputs, weights):
+        return [inputs[0].permute(self.attrs["perm"])]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        perm = self.attrs["perm"]
+        in_degs = [1] * len(perm)
+        in_idx = [-1] * len(perm)
+        for out_i, in_i in enumerate(perm):
+            in_degs[in_i] = mv.dim_degrees[out_i]
+            in_idx[in_i] = out_i
+        return OpSharding(
+            inputs=(ShardAnnot(tuple(in_degs), mv.replica_degree,
+                               idx=tuple(in_idx)),),
+            weights=(),
+            outputs=(ShardAnnot(mv.dim_degrees, mv.replica_degree),),
+        )
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))
+
+
+@register_op
 class FlatOp(Operator):
     """[B, ...] -> [B, prod(...)] (reference: src/ops/flat.cc)."""
 
@@ -97,6 +135,31 @@ class FlatOp(Operator):
 
     def splittable_output_dims(self) -> Tuple[int, ...]:
         return (0,)
+
+
+@register_op
+class ReverseOp(Operator):
+    op_type = OperatorType.REVERSE
+
+    def __init__(self, name, input_shapes, axis: int):
+        super().__init__(name, input_shapes, axis=int(axis))
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        return (self.input_shapes[0],)
+
+    def forward(self, ctx, inputs, weights):
+        return [torch.flip(inputs[0], (self.attrs["axis"],))]
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        degs = list(mv.dim_degrees)
+        # reversing a sharded dim would permute the shards
+        degs[self.attrs["axis"]] = 1
+        a = ShardAnnot(tuple(degs), mv.replica_degree)
+        return OpSharding(inputs=(a,), weights=(), outputs=(a,))
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        ax = self.attrs["axis"] % self.output_shapes[0].ndim
+        return tuple(i for i in range(self.output_shapes[0].ndim) if i != ax)
 
 
 @register_op
@@ -131,11 +194,74 @@ class ConcatOp(Operator):
 
 
 @register_op
+class SplitOp(Operator):
+    op_type = OperatorType.SPLIT
+
+    def __init__(self, name, input_shapes, sizes: Tuple[int, ...],
+                 axis: int):
+        super().__init__(name, input_shapes,
+                         sizes=tuple(int(s) for s in sizes), axis=int(axis))
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        x = self.input_shapes[0]
+        ax = self.attrs["axis"]
+        assert sum(self.attrs["sizes"]) == x.sizes[ax]
+        outs = []
+        for sz in self.attrs["sizes"]:
+            sizes = list(x.sizes)
+            sizes[ax] = sz
+            outs.append(ParallelTensorShape.make(tuple(sizes), x.dtype))
+        return tuple(outs)
+
+    def forward(self, ctx, inputs, weights):
+        return list(torch.split(inputs[0], list(self.attrs["sizes"]),
+                                dim=self.attrs["axis"]))
+
+    def propagate(self, mv: MachineView) -> OpSharding:
+        ax = self.attrs["axis"]
+        assert mv.dim_degrees[ax] == 1, "cannot partition the split axis"
+        a = ShardAnnot(mv.dim_degrees, mv.replica_degree)
+        return OpSharding(
+            inputs=(a,),
+            weights=(),
+            outputs=(a,) * len(self.output_shapes),
+        )
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        ax = self.attrs["axis"] % self.output_shapes[0].ndim
+        return tuple(i for i in range(self.output_shapes[0].ndim) if i != ax)
+
+
+@register_op
+class CastOp(Operator):
+    op_type = OperatorType.CAST
+
+    def __init__(self, name, input_shapes, dtype):
+        super().__init__(name, input_shapes,
+                         dtype=DataType.from_any(dtype).value)
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        x = self.input_shapes[0]
+        return (ParallelTensorShape.make(x.sizes,
+                                         DataType(self.attrs["dtype"])),)
+
+    def forward(self, ctx, inputs, weights):
+        return [inputs[0].to(DataType(self.attrs["dtype"]).to_torch())]
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))
+
+
+@register_op
 class StackOp(Operator):
     """K same-shaped inputs -> [K, ...]: the reference's ``StackOp``
     (shape_ops.py:253-295), the feed of the batched embedding its
-    search builds.  Shapes, propagation and costs only; ``forward``
-    raises (ROADMAP Queue A item 6)."""
+    search builds.  Its inputs are unconstrained, so on a mesh
+    ``forward_sharded`` lays each input out as the output's branch
+    layout asks (every rank reshards every input, so each collective
+    has all its ranks), keeps this rank's block of branches, and sums
+    each input's gradient over the branch axes: only the ranks that
+    hold a branch see its gradient."""
 
     op_type = OperatorType.STACK
 
@@ -154,9 +280,26 @@ class StackOp(Operator):
         )
 
     def forward(self, ctx, inputs, weights):
-        raise NotImplementedError(
-            f"{self.name}: stack is not ported yet (ROADMAP Queue A item "
-            f"6)")
+        return [torch.stack(inputs, dim=0)]
+
+    def forward_sharded(self, ctx, inputs, weights, osh):
+        from flexflow_tpu_torch.parallel.mesh import (
+            Placement,
+            grad_all_reduce,
+            reshard,
+        )
+
+        out = ctx.out_placements[0]
+        inner = Placement(out.dims[1:])
+        axes = out.dims[0]
+        ys = [grad_all_reduce(reshard(x, pl, inner, ctx.mesh), axes,
+                              ctx.mesh)
+              for x, pl in zip(inputs, ctx.in_placements)]
+        y = torch.stack(ys, dim=0)
+        if axes:
+            per = y.shape[0] // ctx.mesh.size(axes)
+            y = y.narrow(0, ctx.mesh.index(axes) * per, per)
+        return [y]
 
     def propagate(self, mv: MachineView) -> OpSharding:
         # inputs unconstrained: GSPMD moves each branch's tensor to
@@ -179,8 +322,7 @@ class StackOp(Operator):
 class UnstackOp(Operator):
     """[K, ...] -> K outputs [...] (inverse of StackOp): the reference's
     ``UnstackOp`` (shape_ops.py:298-332).  The view ranges over the
-    OUTPUT dims; the branch dim is gathered.  Shapes, propagation and
-    costs only; ``forward`` raises (ROADMAP Queue A item 6)."""
+    OUTPUT dims; the branch dim is gathered."""
 
     op_type = OperatorType.UNSTACK
 
@@ -195,9 +337,7 @@ class UnstackOp(Operator):
         )
 
     def forward(self, ctx, inputs, weights):
-        raise NotImplementedError(
-            f"{self.name}: unstack is not ported yet (ROADMAP Queue A item "
-            f"6)")
+        return list(torch.unbind(inputs[0], dim=0))
 
     def propagate(self, mv: MachineView) -> OpSharding:
         out = ShardAnnot(mv.dim_degrees, mv.replica_degree)

@@ -34,6 +34,5 @@ class RecompileState:
 
 def cache_score(model, cache_op_name: str) -> float:
     """A cache op's per-step score, ``state["<op>/score"]`` (reference
-    cache.cc's score function; the cache op itself is not ported yet,
-    ROADMAP Queue A item 6)."""
+    cache.cc's score function; ops/moe.py ``CacheOp`` writes it)."""
     return float(model.state[f"{cache_op_name}/score"].float().mean())

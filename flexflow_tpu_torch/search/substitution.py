@@ -1,9 +1,8 @@
 """Graph substitutions — Unity's outer loop rewrites; a copy of
 flexflow_tpu/search/substitution.py.  The batched-embedding rewrite
-builds the port's descriptors of the reference's stack, batched lookup
-and unstack ops, which the search prices as the reference's does;
-``compile`` refuses a searched graph that holds them until they run
-(ROADMAP Queue A item 6).
+builds the port's stack, batched lookup and unstack ops
+(ops/shape_ops.py, ops/embedding.py), which the search prices as the
+reference's does and a searched graph then runs.
 
 Re-implements the GraphXfer machinery (reference:
 src/runtime/substitution.cc:491-760 find_matches/run;

@@ -17,10 +17,9 @@ Supported destination ops: the four parallel ops (constructed from
 PM_* parameters) and compute ops that clone a same-typed source op's
 attributes (the reference's matchOpX convention, substitution.h:156).
 Rules outside this subset are skipped and counted — the loader reports
-``skipped`` so callers can see coverage honestly.  A rule whose
-destination builds an op the port has not ported (concat, split)
-raises ``NotImplementedError`` naming ROADMAP Queue A item 6 when it
-applies, instead of being skipped silently.
+``skipped`` so callers can see coverage honestly.  Concat and split
+destinations (the batched-communication rules) build the port's
+``ConcatOp`` and ``SplitOp``.
 """
 
 from __future__ import annotations
@@ -520,17 +519,56 @@ class PatternRule:
                 return type(donor)(
                     _un(donor.name), list(in_shapes), **attrs
                 )
-            except NotImplementedError:
-                raise  # an op form the port has not ported: say so
             except Exception:
                 return None
         if dpat.type not in _DONORLESS_TYPES or not in_shapes:
             return None
-        if dpat.type in (OperatorType.CONCAT, OperatorType.SPLIT):
-            raise NotImplementedError(
-                f"substitution rule builds a {dpat.type.value} op, which "
-                f"the port has not ported yet (ROADMAP Queue A item 6)")
         try:
+            if dpat.type is OperatorType.CONCAT:
+                nd = dpat.params.get("PM_NUMDIM", in_shapes[0].ndim)
+                ax = _logical_dim(dpat.params.get("PM_AXIS", 0), nd)
+                from flexflow_tpu_torch.ops.shape_ops import ConcatOp
+
+                return ConcatOp(_un("concat"), list(in_shapes), axis=ax)
+            if dpat.type is OperatorType.SPLIT:
+                # batched-communication rules (taso_rule_419 family):
+                # split sizes come from the upstream dst Concat this
+                # Split undoes — trace through intervening parallel ops
+                n_out = dpat.params.get("PM_NUM_OUTPUTS")
+                if not n_out:
+                    return None
+                ax = _logical_dim(dpat.params.get("PM_AXIS", 0),
+                                  in_shapes[0].ndim)
+                from flexflow_tpu_torch.ops.shape_ops import (
+                    ConcatOp,
+                    SplitOp,
+                )
+
+                sizes = None
+                if work_graph is not None and in_refs:
+                    node = work_graph.nodes.get(in_refs[0][0])
+                    for _ in range(8):
+                        if node is None:
+                            break
+                        if isinstance(node.op, ConcatOp):
+                            if node.op.attrs.get("axis") == ax and len(
+                                    node.op.input_shapes) == n_out:
+                                sizes = [s.sizes[ax]
+                                         for s in node.op.input_shapes]
+                            break
+                        if node.op.op_type not in _PARALLEL_TYPES:
+                            break
+                        e = next((e for e in work_graph.in_edges[node.guid]
+                                  if e.dst_idx == 0), None)
+                        node = work_graph.nodes.get(e.src) if e else None
+                if sizes is None:
+                    if in_shapes[0].sizes[ax] % n_out != 0:
+                        return None
+                    sizes = [in_shapes[0].sizes[ax] // n_out] * n_out
+                if sum(sizes) != in_shapes[0].sizes[ax]:
+                    return None
+                return SplitOp(_un("split"), [in_shapes[0]],
+                               sizes=tuple(sizes), axis=ax)
             from flexflow_tpu_torch.ops.elementwise import (
                 ElementBinaryOp,
                 ElementUnaryOp,
@@ -548,8 +586,6 @@ class PatternRule:
                     _un(dpat.type.value), [in_shapes[0]],
                     unary_type=dpat.type,
                 )
-        except NotImplementedError:
-            raise
         except Exception:
             return None
         return None

@@ -216,11 +216,15 @@ def _fleet_rank(rank):
     prop = _proposal(m.graph, [_views(m.graph, 1, 2), _views(m.graph, 2, 1)])
     fl = fleet_over_ranks(m, prop, _executor, prefill_chunk=4, seed=1)
     out = fl.run(_requests(decode))
+    from test_torch_zoo import zoo_rank_legs
+
     return {"tokens": out, "assignments": dict(fl.assignments),
             "remote": [isinstance(r, RemoteReplica) for r in fl.replicas],
             "records": len(fl.request_records),
             "per_replica": [s.get("completed") for s in
-                            fl.summary()["per_replica"]]}
+                            fl.summary()["per_replica"]],
+            # the zoo's split legs share this world (tests/test_torch_zoo)
+            "zoo": zoo_rank_legs()}
 
 
 def _one_process_fleet():
