@@ -11,6 +11,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --sync-only RUNS [--seed N]
     python3 chip_smoke.py --serve-only RUNS [--seed N]
     python3 chip_smoke.py --zoo-only [--seed N]
+    python3 chip_smoke.py --always-on-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -127,7 +128,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    split over 4 ranks (``runtime.distributed.spawn``: one card each with
    NCCL on a 4-card machine, else all on card 0 with the shared-card
    transport, gloo with counted host hops; an exclusive compute mode
-   fails), every MHA on the zigzag ring; ``fit`` 5 steps (SP_STEPS) and
+   fails), every MHA on the zigzag ring; ``fit`` 3 steps (SP_STEPS) and
    check that
    the partial kernel launched 12 x 9 times per step on every rank and
    the flash kernels of phase 6 never, that the loss fell, and that the
@@ -174,10 +175,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    same model under data parallelism and under ``compile(strategy=None)``
    with FFConfig's defaults (the uncalibrated search; its graph digest
    checked against (b)'s roofline search and its first-step loss within
-   5e-3 of phase 6's), 10 synchronised steps of each of the three in
-   blocks of 5 in the order A B C C B A: each strategy's step p50, its
-   two blocks' p50s and their spread, beside its predicted step (on the
-   shared card labelled as the shared-card transport); with NCCL the
+   5e-3 of phase 6's), 6 synchronised steps of each of the three in
+   blocks of SEARCH_TIMED_BLOCK (3) in the order A B C C B A: each
+   strategy's step p50, its two blocks' p50s and their spread, beside
+   its predicted step (on the shared card labelled as the shared-card
+   transport); with NCCL the
    link probes (a 4-byte all-reduce's device time per ring hop, 5
    replays; one 128 KB reshard's host time beyond its bytes, median and
    p10-p90 of 200); (d) each rank imports (b)'s exported strategy file
@@ -321,13 +323,42 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    first loss within 1e-5 of one process's, each rank one expert's
    slots, every replica bit-equal.  Rows 1-6 launch no time in the
    phase.  Printed as ``zoo path: {...}``;
-15. print one JSON line listing every ported kernel.
+15. the always-on loop (``runtime.controller.TrainingController``):
+   (a) phase 6's GPT (GPT-2-small widths, seq 1024, batch 8, bf16, SGD)
+   on one card through ``TrainingController.run`` for AO_STEPS steps,
+   captured, under the seeded plan AO_FAULTS: calibration drift at step
+   6 (re-search and hot swap), a collective failure at step 10 past the
+   retry budget (the monolithic fp32 fallback, a second swap) and a
+   torn newest snapshot at step 16 with saves every AO_CKPT_EVERY steps
+   (the restore drill rewinds to the newest complete one and replays);
+   then the same run without the torn snapshot: the faulted run's loss
+   history, replayed steps included, bit-equal to it; rows 1-3 launch
+   12 times per executed step, replays counted (the re-search's
+   probes, which the controller's ``research_detail`` counts, apart),
+   rows 4-6 none; printed: swap and restore seconds (the controller's
+   ``stats``), the allocated memory before and after each swap and at
+   the run's end (no swap grows it, nor may a later program past the
+   first swap's, by AO_MEMORY_SLACK_GB), the counters; (b) the same widths at AO_LOSS_LAYERS layers over AO_RANKS
+   ranks spawned as phase 7's under data parallelism, a device loss of
+   2 ranks at step AO_LOSS_AT: the survivors re-search, re-home and take
+   the rest of AO_LOSS_STEPS steps, the lost ranks return at the fault
+   and exit 0; the survivors' first loss after the shrink within
+   AO_SHRINK_TOL of a fresh 2-rank model restored from the snapshot
+   saved just before the fault (the same batch and seed); rows 1-3's
+   launches per rank, 2 per executed step; (c) the rewrite proofs
+   (``analysis.proofgen.verify_registry_generated`` and the hand zoo's
+   ``verify_registry``) with the card as the evaluation device, fp32,
+   TF32 off: no EQV3xx finding, the same findings and stats as the CPU
+   run of the same seed, and the seeded unsound rewrite's EQV301 on
+   both with max abs diffs within AO_PROOF_TOL.  Printed as
+   ``always-on path: {...}``;
+16. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
-It needs one card; with four it runs phases 7-10, 12, 13 and 14's
-ep-MoE leg one rank per card.
+It needs one card; with four it runs phases 7-10, 12, 13, 14's
+ep-MoE leg and 15's device-loss leg one rank per card.
 """
 
 from __future__ import annotations
@@ -343,6 +374,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -464,8 +496,8 @@ SP = dict(vocab=32000, num_layers=12, hidden=768, num_heads=12,
 SP_BATCH = 2
 SP_RANKS = 4
 SP_HALF_CHUNK = SP["seq_len"] // (2 * SP_RANKS)
-SP_STEPS = 5  # kept short: the whole script stays inside its time limit
-SP_TIMED_STEPS = 5
+SP_STEPS = 3  # kept short: the whole script stays inside its time limit
+SP_TIMED_STEPS = 3
 SP_PROFILE_STEPS = 2
 SP_PARITY_LAYERS = 2
 SP_TIMEOUT_S = 600
@@ -482,7 +514,7 @@ SP_LOSS_TOL = {"fp32": 1e-5, "bf16": 5e-3}
 # shape (seq 4096, batch 2, sp 4, 3 heads per rank).  First-step losses
 # against one process with phase 7's tolerances
 HYB_RANKS = 4
-HYB_STEPS = 5  # as SP_STEPS
+HYB_STEPS = 5  # kept short, as SP_STEPS
 HYB_TIMED_STEPS = 4
 HYB_PROFILE_STEPS = 2
 HYB_PARITY_LAYERS = 2
@@ -497,12 +529,12 @@ HYB_FLASH_SHAPES = (
 # phase 9, the searched path: phase 6's model and batches over 4 ranks,
 # the strategy chosen by compile(strategy=None)
 SEARCH_RANKS = 4
-SEARCH_STEPS = 5  # fit steps under the searched strategy (as SP_STEPS)
-# then 10 synchronised steps per strategy (searched, data parallel and
+SEARCH_STEPS = 5  # fit steps under the searched strategy
+# then 6 synchronised steps per strategy (searched, data parallel and
 # the uncalibrated default search's pick) in two blocks of
 # SEARCH_TIMED_BLOCK, in the order A B C C B A: each strategy is timed
 # early and late, and its two blocks give the spread of one strategy
-SEARCH_TIMED_BLOCK = 5  # kept short, as SP_STEPS
+SEARCH_TIMED_BLOCK = 3  # kept short, as SP_STEPS
 CAL_BUDGET_S = 60.0  # FFConfig.calibration_budget_s's default
 CAL_REPROBES = 2  # records measured again for their spread
 LINK_PROBE_RUNS = 200  # calls timed by each link probe (NCCL only)
@@ -522,7 +554,7 @@ PIPE_RANKS = 4
 PIPE_STAGES = 2
 PIPE_MICRO = 4
 PIPE_LAYERS_A = 6
-PIPE_STEPS = 5  # as SP_STEPS
+PIPE_STEPS = 5  # kept short, as SP_STEPS
 PIPE_TIMED_STEPS = 3
 PIPE_DEFAULT_STEPS = 2
 # phase 11: build_bert at its defaults, the OSDI'22 BERT configuration
@@ -613,6 +645,24 @@ ZOO_KERNEL_GROUPS = {
 ZOO_EP_RANKS = 4
 ZOO_EP_BATCH = 64
 ZOO_EP_TOL = 1e-5  # fp32, TF32 off: the CPU tests' bound
+# phase 15: the always-on loop
+AO_STEPS = 24
+AO_BATCHES = 8  # the distinct batches the controller cycles over
+AO_FAULTS = ("calibration_drift@6,collective_failure@10:99,"
+             "corrupt_checkpoint@16")
+AO_CLEAN = "calibration_drift@6,collective_failure@10:99"
+AO_CKPT_EVERY = 4
+AO_RANKS = 4
+AO_LOSS_LAYERS = 2
+AO_LOSS_STEPS = 8
+AO_LOSS_AT = 4
+AO_SHRINK_TOL = 5e-3  # bf16 compute, relative
+AO_PROOF_TOL = 1e-3  # the messages carry 4 significant digits
+# below one stream's cuBLAS workspaces (2 x 32 MiB = 0.067 GB), so a
+# program that leaves its capture stream's workspaces behind shows
+AO_MEMORY_SLACK_GB = 0.03
+# the restore drill's warning, the one phase 15 (a) expects
+AO_TORN_WARNING = r"checkpoint step\(s\) .* are truncated"
 CARD_PEAKS = (
     ("H100 PCIe", 2.0e12, 51e12, 756e12),
     ("H100 NVL", 3.9e12, 60e12, 835e12),
@@ -5872,6 +5922,355 @@ def phase_zoo(seed, name):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the always-on loop
+def ao_table(path):
+    """A calibration table of probe records, coherent with any machine
+    (no backend): the signature the controller watches."""
+    from flexflow_tpu_torch.search.calibration import CalibrationTable
+
+    t = CalibrationTable()
+    t._t[("('probe', 16, 32)", (1, 1), 1)] = 1e-4
+    t._t[("('probe', 16, 32)", (2, 1), 1)] = 6e-5
+    t.backend = None
+    t.save(path)
+
+
+def ao_model(seed, layers, num_devices, mesh=None, **cfg):
+    """Phase 6's GPT at ``layers`` layers, bf16, SGD at FFConfig's rate
+    (no optimizer slots: the snapshots stay the weights'), data
+    parallel; ``mesh``: lowered on that block of the job's ranks."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer
+    from flexflow_tpu_torch.compiler.lowering import data_parallel_strategy
+    from flexflow_tpu_torch.models import build_gpt
+
+    model = build_gpt(FFConfig(batch_size=TRAIN_BATCH, seed=seed,
+                               num_devices=num_devices,
+                               only_data_parallel=True, cost_cache_file="",
+                               **cfg),
+                      **dict(TRAIN, num_layers=layers))
+    model._compile(optimizer=SGDOptimizer(lr=ZOO_LR),
+                   loss_type="sparse_categorical_crossentropy",
+                   metrics=["accuracy"],
+                   strategy=(data_parallel_strategy(model.graph, num_devices)
+                             if mesh is not None else None), mesh=mesh)
+    return model
+
+
+def ao_ids(seed, n):
+    rng = np.random.default_rng(seed + 18)
+    return rng.integers(0, TOKEN_RANGE, size=(
+        n * TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
+
+
+def ao_run(seed, spec, workdir, tag):
+    """Phase 15 (a)'s run of fault plan ``spec``: the controller's
+    output, the launches, and what the wrappers recorded."""
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+    from flexflow_tpu_torch.runtime import FaultPlan, TrainingController
+
+    free_models()
+    cal = os.path.join(workdir, f"calibration_{tag}.json")
+    ao_table(cal)
+    model = ao_model(seed, TRAIN["num_layers"], 1, calibration_file=cal)
+    ctl = TrainingController(
+        model, faults=FaultPlan.parse(spec, seed=seed),
+        checkpoint_dir=os.path.join(workdir, f"ckpt_{tag}"),
+        checkpoint_every=AO_CKPT_EVERY, max_retries=1,
+        drift_window=4 * AO_STEPS)  # only the injected drift re-searches
+    swaps = []
+    swap = model.swap_strategy
+
+    def swapping(*a, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = swap(*a, **kw)
+        torch.cuda.synchronize()
+        swaps.append({
+            "allocated_before_gb": before / 1e9,
+            "allocated_after_gb": torch.cuda.memory_allocated() / 1e9,
+            "max_allocated_during_gb":
+                torch.cuda.max_memory_allocated() / 1e9})
+        return out
+
+    model.swap_strategy = swapping
+    ids = ao_ids(seed, AO_BATCHES)
+    for k in COUNTED:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=AO_TORN_WARNING)
+        out = ctl.run(ids[:, :-1], ids[:, 1:], steps=AO_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in COUNTED}
+    mem = {"swaps": swaps,
+           "allocated_end_gb": torch.cuda.memory_allocated() / 1e9}
+    del model, ctl
+    free_models()
+    return out, launched, mem, wall
+
+
+def always_on_one_card(seed, workdir):
+    """Phase 15 (a)."""
+    faulted, launched, mem, wall = ao_run(seed, AO_FAULTS, workdir,
+                                          "faulted")
+    clean, _, _, clean_wall = ao_run(seed, AO_CLEAN, workdir,
+                                     "uninterrupted")
+    st = faulted["stats"]
+    steps = [h["step"] for h in faulted["history"]]
+    check(steps == list(range(AO_STEPS)), f"faulted run's steps {steps}")
+    triggers = [d["trigger"] for d in st["research_detail"]]
+    counters = {k: st[k] for k in ("steps", "swaps", "recoveries",
+                                   "retries", "fallbacks", "restores")}
+    want = {"steps": AO_STEPS + 4, "swaps": 2, "recoveries": 1,
+            "retries": 2, "fallbacks": 1, "restores": 1}
+    check(counters == want and triggers == ["calibration_drift"],
+          f"phase 15 (a): counters {counters} (want {want}), re-search "
+          f"triggers {triggers}")
+    got = [h["loss"] for h in faulted["history"]]
+    ref = [h["loss"] for h in clean["history"]]
+    check(got == ref, f"phase 15 (a): the drilled history {got} is not "
+          f"bit-equal to the uninterrupted run's {ref}")
+    check(bool(np.isfinite(got).all()), f"phase 15 (a): losses {got}")
+    executed = counters["steps"]
+    probes = {k: sum(d["launches"][k] for d in st["research_detail"])
+              for k in launched}
+    in_steps = {k: v - probes[k] for k, v in launched.items()}
+    for wrapper in ("flash_forward", "flash_backward_dq",
+                    "flash_backward_dkv"):
+        check(in_steps[wrapper] == TRAIN["num_layers"] * executed,
+              f"phase 15 (a): {wrapper} launched {in_steps[wrapper]} "
+              f"times in {executed} executed steps (want "
+              f"{TRAIN['num_layers']} per step; all {launched}, in the "
+              f"re-search's probes {probes})")
+    others = {k: v for k, v in launched.items()
+              if k not in ("flash_forward", "flash_backward_dq",
+                           "flash_backward_dkv")}
+    check(not any(others.values()), f"phase 15 (a): rows 4-6 {others}")
+    # the baseline is read at the first swap, after the re-search, so it
+    # holds what the probes leave behind once (the profiler's L2-flush
+    # buffer, the default stream's cuBLAS workspace); a swap must not
+    # grow memory, nor may a later program once it has captured its
+    # step (the end of the run is after the last program's capture)
+    sw = mem["swaps"]
+    for i, m in enumerate(sw):
+        check(m["allocated_after_gb"] <= m["allocated_before_gb"]
+              + AO_MEMORY_SLACK_GB,
+              f"phase 15 (a): swap {i} grew allocated memory {m}")
+    later = [m["allocated_before_gb"] for m in sw[1:]] + [
+        mem["allocated_end_gb"]]
+    check(max(later) <= sw[0]["allocated_before_gb"] + AO_MEMORY_SLACK_GB,
+          f"phase 15 (a): allocated memory {later} GB at the later swaps "
+          f"and the run's end grows past the first swap's "
+          f"{sw[0]['allocated_before_gb']} GB")
+    return {
+        "steps": AO_STEPS, "executed_steps": executed, "counters": counters,
+        "research_triggers": triggers, "losses": got,
+        "swap_seconds": st["swap_seconds"],
+        "research_seconds": st["research_seconds"],
+        "restore_seconds": st["restore_seconds"], "swaps_memory": sw,
+        "allocated_end_gb": mem["allocated_end_gb"],
+        "launches": in_steps,
+        "launches_research_probes": probes,
+        "research_detail": st["research_detail"],
+        "run_wall_s": wall, "uninterrupted_run_wall_s": clean_wall,
+        "uninterrupted_swap_seconds": clean["stats"]["swap_seconds"]}
+
+
+def _always_on_rank(rank, seed, ids, ckpt_dir):
+    """One rank of phase 15 (b): data parallel over AO_RANKS ranks, the
+    device loss at AO_LOSS_AT; the survivors then hold their first
+    post-shrink loss to a fresh 2-rank model restored from the snapshot
+    saved before the fault."""
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+    from flexflow_tpu_torch.runtime import FaultPlan, TrainingController
+    from flexflow_tpu_torch.runtime import distributed
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    model = ao_model(seed, AO_LOSS_LAYERS, AO_RANKS)
+    for k in COUNTED:
+        k.launches = 0
+    ctl = TrainingController(
+        model, faults=FaultPlan.parse(f"device_loss@{AO_LOSS_AT}:2",
+                                      seed=seed),
+        checkpoint_dir=ckpt_dir, checkpoint_every=AO_LOSS_AT)
+    x, y = ids[:, :-1], ids[:, 1:]
+    t0 = time.perf_counter()
+    out = ctl.run(x, y, steps=AO_LOSS_STEPS)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "transport": distributed.transport(),
+           "losses": [h["loss"] for h in out["history"]],
+           "counters": {k: out["stats"][k] for k in ("steps", "swaps",
+                                                     "recoveries")},
+           "swap_seconds": out["stats"]["swap_seconds"],
+           "lost": model.compiled is None,
+           "launches": {k.__name__: k.launches for k in COUNTED},
+           "run_wall_s": time.perf_counter() - t0}
+    if res["lost"]:
+        return res
+    fresh = ao_model(seed, AO_LOSS_LAYERS, 2,
+                     mesh=distributed.mesh_over(start=0, width=2))
+    CheckpointManager(ckpt_dir).restore(fresh, step=AO_LOSS_AT - 1)
+    c = fresh.compiled
+    b = AO_LOSS_AT % (len(y) // TRAIN_BATCH)
+    sl = slice(b * TRAIN_BATCH, (b + 1) * TRAIN_BATCH)
+    ins = [torch.from_numpy(np.ascontiguousarray(
+        x[sl][c.input_slices(0, x[sl].shape)])).to(c.device)]
+    lab = torch.from_numpy(np.ascontiguousarray(
+        y[sl][c.label_slices(y[sl].shape)])).to(c.device)
+    fresh._rng_counter += 1
+    *_, loss, _ = c.train_step(fresh.params, fresh.opt_state, fresh.state,
+                               ins, lab, seed=fresh._rng_counter)
+    res["fresh_first_loss"] = float(loss)
+    return res
+
+
+def always_on_ranks(seed, workdir):
+    """Phase 15 (b)."""
+    from flexflow_tpu_torch.runtime.distributed import spawn
+
+    free_models()
+    ids = ao_ids(seed + 1, AO_BATCHES)
+    t0 = time.perf_counter()
+    ranks = spawn(_always_on_rank, AO_RANKS,
+                  (seed, ids, os.path.join(workdir, "ckpt_ranks")),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    per_layer = AO_LOSS_LAYERS
+    for r in ranks:
+        lost = r["rank"] >= 2
+        executed = r["counters"]["steps"]
+        check(r["lost"] == lost and executed == (
+            AO_LOSS_AT if lost else AO_LOSS_STEPS)
+            and r["counters"]["recoveries"] == 1
+            and r["counters"]["swaps"] == 1,
+              f"phase 15 (b): rank {r['rank']}: lost {r['lost']}, "
+              f"counters {r['counters']}")
+        for wrapper in ("flash_forward", "flash_backward_dq",
+                        "flash_backward_dkv"):
+            check(r["launches"][wrapper] == per_layer * executed,
+                  f"phase 15 (b): rank {r['rank']}: {wrapper} launched "
+                  f"{r['launches'][wrapper]} times in {executed} steps")
+        check(bool(np.isfinite(r["losses"]).all()),
+              f"phase 15 (b): rank {r['rank']}: losses {r['losses']}")
+    shrink = []
+    for r in ranks[:2]:
+        got, ref = r["losses"][AO_LOSS_AT], r["fresh_first_loss"]
+        rel = abs(got - ref) / abs(ref)
+        check(rel <= AO_SHRINK_TOL, f"phase 15 (b): rank {r['rank']}'s "
+              f"first loss after the shrink {got} is {rel:.3e} from the "
+              f"fresh 2-rank run's {ref}")
+        shrink.append({"rank": r["rank"], "controller": got, "fresh": ref,
+                       "rel": rel})
+    return {"ranks": AO_RANKS, "layers": AO_LOSS_LAYERS,
+            "transport": ranks[0]["transport"],
+            "first_loss_after_shrink": shrink,
+            "losses": {r["rank"]: r["losses"] for r in ranks},
+            "swap_seconds": {r["rank"]: r["swap_seconds"] for r in ranks},
+            "launches_per_rank": {r["rank"]: {
+                k: v for k, v in r["launches"].items() if v}
+                for r in ranks},
+            "lost_ranks_returned": [r["rank"] for r in ranks if r["lost"]],
+            "wall_s": wall}
+
+
+def always_on_proofs(seed):
+    """Phase 15 (c): the rewrite proofs evaluated on the card."""
+    import flexflow_tpu_torch as tff
+    from flexflow_tpu_torch.analysis.equivalence import (
+        verify_registry,
+        verify_rewrite,
+    )
+    from flexflow_tpu_torch.analysis.proofgen import verify_registry_generated
+    from flexflow_tpu_torch.core.optype import OperatorType
+    from flexflow_tpu_torch.search.substitution import GraphXfer, _bypass_node
+
+    def drop_relu():
+        def matcher(graph, node):
+            return (node.op.op_type is OperatorType.RELU
+                    and graph.in_edges[node.guid]
+                    and graph.out_edges[node.guid])
+
+        def apply_fn(graph, node):
+            g = graph.copy()
+            return g if _bypass_node(g, node.guid) is not None else None
+
+        return GraphXfer(name="drop_relu_unsound", matcher=matcher,
+                         apply_fn=apply_fn)
+
+    def keyed(findings):
+        return sorted((f.code, f.node, f.op, f.severity) for f in findings)
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        gen, stats = verify_registry_generated(8, seed=seed, device=dev)
+        zoo = verify_registry(8, seed=seed, device=dev)
+        m = tff.FFModel(tff.FFConfig(batch_size=8, num_devices=8,
+                                     only_data_parallel=True, device="cpu"))
+        t = m.dense(m.create_tensor([8, 16], name="eq_x"), 16, name="eq_fc")
+        m.dense(m.relu(t, name="eq_act"), 4, name="eq_head")
+        xf = drop_relu()
+        unsound = verify_rewrite(m.graph, xf, xf.find_matches(m.graph)[0],
+                                 seed=seed, device=dev)
+        diffs = [float(d.group(1)) for d in (
+            re.search(r"max abs diff ([-+0-9.e]+)\)", f.message)
+            for f in unsound) if d]
+        out[dev] = {"findings": keyed(gen + zoo), "stats": stats,
+                    "unsound": keyed(unsound), "unsound_diffs": diffs,
+                    "seconds": time.perf_counter() - t0}
+    cpu, card = out["cpu"], out["cuda"]
+    check(not any(c.startswith("EQV3") for c, *_ in card["findings"]),
+          f"phase 15 (c): the card's proofs found {card['findings']}")
+    check(card["findings"] == cpu["findings"]
+          and card["stats"] == cpu["stats"],
+          f"phase 15 (c): the card's findings {card['findings']} and stats "
+          f"{card['stats']} differ from the CPU's {cpu['findings']} "
+          f"{cpu['stats']}")
+    check(card["unsound"] == cpu["unsound"] and card["unsound"]
+          and all(c == "EQV301" for c, *_ in card["unsound"]),
+          f"phase 15 (c): the unsound rewrite gave {card['unsound']} on "
+          f"the card, {cpu['unsound']} on the CPU")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["unsound_diffs"],
+                                                  cpu["unsound_diffs"]))
+    check(rel <= AO_PROOF_TOL, f"phase 15 (c): the unsound rewrite's "
+          f"diffs {card['unsound_diffs']} on the card, "
+          f"{cpu['unsound_diffs']} on the CPU")
+    return {"stats": card["stats"], "findings": card["findings"],
+            "unsound_eqv301": card["unsound"],
+            "unsound_diffs": {"cuda": card["unsound_diffs"],
+                              "cpu": cpu["unsound_diffs"]},
+            "seconds": {"cpu": cpu["seconds"], "cuda": card["seconds"]}}
+
+
+def phase_always_on(seed, name):
+    """Phase 15: the always-on loop, on one card and over AO_RANKS ranks,
+    and the rewrite proofs on the card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as workdir:
+        report = {"card": CARD_LINE[0]}
+        report["a_one_card"] = always_on_one_card(seed, workdir)
+        report["b_device_loss"] = always_on_ranks(seed, workdir)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            report["c_proofs"] = always_on_proofs(seed)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("always-on path: " + json.dumps(report))
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5898,6 +6297,8 @@ def main(argv=None) -> int:
                          "times")
     ap.add_argument("--zoo-only", action="store_true",
                     help="only run phase 14, the model zoo")
+    ap.add_argument("--always-on-only", action="store_true",
+                    help="only run phase 15, the always-on loop")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -5935,6 +6336,12 @@ def main(argv=None) -> int:
 
     if args.zoo_only:  # no CUDA kernel of the port lies on its path
         phase_zoo(args.seed, phase_device())
+        return 0
+
+    if args.always_on_only:
+        name = phase_device()
+        phase_build()
+        phase_always_on(args.seed, name)
         return 0
 
     if args.sync_only is not None:
@@ -5979,6 +6386,7 @@ def main(argv=None) -> int:
     sync_launches = phase_sync_train(args.seed, name, first_loss)
     serve_launches = phase_serve_ranks(args.seed, name)
     phase_zoo(args.seed, name)
+    always_on = phase_always_on(args.seed, name)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -6044,6 +6452,11 @@ def main(argv=None) -> int:
             "launches_sync_per_rank_per_step": {
                 leg: ls[wrapper] for leg, ls in sync_launches.items()},
             "launches_calibration": cal_launches.get(wrapper, 0),
+            "launches_always_on": always_on["a_one_card"]["launches"][
+                wrapper],
+            "launches_always_on_per_rank": {
+                rank: ls[wrapper] for rank, ls in always_on[
+                    "b_device_loss"]["launches_per_rank"].items()},
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],
             "plain_ms": bf16["plain_ms"],

@@ -18,9 +18,14 @@ path (``search/dp.py``, ``search/driver.py``):
    (``SHD150``-``SHD155``), the gate on every proposal the search
    returns, every imported ``__meta__.pipeline``/``placement`` block
    and every placed strategy compile lowers.
+4. ``swap``       — hot-swap legality (``SHD170``-``SHD172`` and the flat
+   strategy lint): the gate of ``FFModel.swap_strategy`` and the
+   always-on training controller (runtime/controller.py).
 
-The reference's equivalence proofs and swap lints guard modules the
-port has not ported yet (ROADMAP Queue A items 7 and 10).
+``equivalence`` and ``proofgen`` (the registry's executable rewrite
+proofs, ``EQV3xx``) are not imported here, as in the reference: they
+run every op's forward, so callers import them by path
+(``from flexflow_tpu_torch.analysis.equivalence import ...``).
 """
 
 from flexflow_tpu_torch.analysis.findings import (
@@ -53,6 +58,7 @@ from flexflow_tpu_torch.analysis.sharding import (
     lint_sync_schedule,
     lint_zero_map,
 )
+from flexflow_tpu_torch.analysis.swap import lint_swap
 
 __all__ = [
     "AnalysisError",
@@ -77,4 +83,5 @@ __all__ = [
     "lint_pipeline_stages",
     "lint_placement",
     "placement_meta",
+    "lint_swap",
 ]

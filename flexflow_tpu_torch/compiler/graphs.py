@@ -88,6 +88,20 @@ class _Entry:
         self.replays = 0
 
 
+_SIDE_STREAMS: Dict[torch.device, object] = {}
+
+
+def _side_stream(device: torch.device):
+    """The one stream every capture on ``device`` runs on: cuBLAS keeps
+    a workspace for each stream it has run on, so a stream per program
+    (a new one at each ``FFModel.swap_strategy``) would grow the card's
+    memory by a workspace at each."""
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 class StepGraph:
     """A step function's static buffers and captured graphs, one per
     input-shape key, on ``device``."""
@@ -95,7 +109,6 @@ class StepGraph:
     def __init__(self, device):
         self.device = torch.device(device)
         self._entries: Dict[tuple, _Entry] = {}
-        self._stream = None
 
     def __call__(self, fn, arrays: Sequence, bound: Sequence = ()):
         """``fn(*static inputs)`` for ``arrays`` (tensors or numpy
@@ -118,6 +131,12 @@ class StepGraph:
             wrapper.launches += n
         entry.replays += 1
         return pytree.tree_unflatten(entry.outputs, entry.spec)
+
+    def release(self) -> None:
+        """Drop every captured graph and static buffer (a swapped-out
+        program's, ``FFModel.swap_strategy``), so the next program's
+        captures do not stack on them."""
+        self._entries.clear()
 
     def report(self):
         """Per captured key: input shapes, launches per replay by
@@ -156,9 +175,7 @@ class StepGraph:
         return pytree.tree_unflatten(entry.outputs, entry.spec)
 
     def _capture(self, entry, fn, ptrs):
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        side = self._stream
+        side = _side_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             # the call's own execution, eager, on the capture's stream

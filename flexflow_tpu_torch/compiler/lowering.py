@@ -246,7 +246,8 @@ class CompiledModel:
                  optimizer: Optional[Optimizer] = None,
                  strategy: Optional[Dict[int, MachineView]] = None,
                  mesh=None, sync_precision: Optional[Dict[str, str]] = None,
-                 sync_schedule=None, zero_groups: Sequence[str] = ()):
+                 sync_schedule=None, zero_groups: Sequence[str] = (),
+                 block: bool = False):
         from flexflow_tpu_torch.runtime import distributed
 
         self.graph = graph
@@ -300,7 +301,10 @@ class CompiledModel:
         self.capture = world == 1 and mesh is None
         self._layouts()
         self._zero_pl: Dict[Tuple[str, str], Placement] = {}
-        if mesh is None and (config.zero_dp_shard or self.zero_groups):
+        # ``block``: the flat lowering of a job shrunk onto a block of
+        # its ranks (``FFModel.swap_strategy``), which keeps ZeRO-1
+        if (mesh is None or block) and (config.zero_dp_shard
+                                        or self.zero_groups):
             self._zero_layouts()
         self._ef_keys: Dict[str, Dict[str, str]] = {}
 

@@ -50,7 +50,8 @@ The strategy search's fields are the reference's, with its defaults
 ``search_improvement_margin``, ``base_optimize_threshold``,
 ``substitution_json``, ``calibration_file``, ``calibrate``,
 ``calibration_budget_s``, ``cost_cache_file``, ``objective``, ``verify``,
-the two proposal flags ``enable_pipeline_search`` and
+``profiling`` and ``drift_threshold`` (the drift loop's predicted
+side, below), the two proposal flags ``enable_pipeline_search`` and
 ``enable_placement_search`` with ``placement_search_max_nodes``, and
 the strategy files ``export_strategy_file`` and
 ``import_strategy_file``.  ``compile(strategy=None)`` reads them
@@ -181,6 +182,14 @@ class FFConfig:
     serve_fleet_offered_load: float = 0.85
     serve_shared_prefix_pages: int = 0
     verify: bool = False
+    # the predicted side of the drift loop (reference config.py:256,
+    # 336): with ``profiling`` (or the obs bus, or a calibration file)
+    # compile records the simulator's breakdown of the lowered strategy
+    # as ``model.predicted_breakdown``; the controller's drift watch
+    # judges measured step and serving times against it and calls a
+    # ratio past ``1 + drift_threshold`` (or under its inverse) drifted
+    profiling: bool = False
+    drift_threshold: float = 0.5
     # strategy files (reference config.py:160-161): compile exports the
     # lowered strategy with its __meta__ (pipeline, placement) and
     # imports one through the digest gate instead of searching

@@ -80,14 +80,22 @@ _KERNEL_SOURCE = "flash_attention"
 
 # ---------------------------------------------------------------------------
 # plain versions
-def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
-    """[sq, sk] bool: query i sees key j iff j <= i + sk - sq."""
-    return torch.ones((sq, sk), dtype=torch.bool, device=device).tril(sk - sq)
+def _causal_mask(sq: int, sk: int, device, q0: int = 0,
+                 sq_total: int | None = None) -> torch.Tensor:
+    """[sq, sk] bool: query i sees key j iff j <= i + sk - sq; for the
+    rows [q0, q0 + sq) of a ``sq_total``-row query, global row q0 + i
+    sees key j iff j <= q0 + i + sk - sq_total."""
+    tot = sq if sq_total is None else sq_total
+    return torch.ones((sq, sk), dtype=torch.bool,
+                      device=device).tril(q0 + sk - tot)
 
 
-def _dead_rows(sq: int, sk: int, device) -> torch.Tensor:
-    """[sq] bool: rows with no live key under the causal mask (sq > sk)."""
-    return torch.arange(sq, device=device) < sq - sk
+def _dead_rows(sq: int, sk: int, device, q0: int = 0,
+               sq_total: int | None = None) -> torch.Tensor:
+    """[sq] bool: rows with no live key under the causal mask (sq > sk),
+    rows [q0, q0 + sq) of a ``sq_total``-row query."""
+    tot = sq if sq_total is None else sq_total
+    return torch.arange(q0, q0 + sq, device=device) < tot - sk
 
 
 def _masked_logits(q, k, causal, scale):
@@ -429,15 +437,18 @@ def flash_attention_partial(q, k, v, causal: bool = False,
 
 # ---------------------------------------------------------------------------
 # the reference's XLA attention path, below the flash threshold
-def attn_logits_probs(q, k, causal: bool, scale: float) -> torch.Tensor:
+def attn_logits_probs(q, k, causal: bool, scale: float, q0: int = 0,
+                      sq_total: int | None = None) -> torch.Tensor:
     """fp32 softmax probabilities [B, H, Sq, Sk]: logits from the inputs'
     dtype with fp32 accumulation, scaled, causal entries at NEG_INF
-    (a row with no live key comes out uniform), softmax over keys."""
+    (a row with no live key comes out uniform), softmax over keys.  q
+    may be the rows [q0, q0 + Sq) of a ``sq_total``-row query (the
+    causal diagonal stays global)."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         sq, sk = logits.shape[-2:]
-        logits = logits.masked_fill(~_causal_mask(sq, sk, logits.device),
-                                    NEG_INF)
+        logits = logits.masked_fill(
+            ~_causal_mask(sq, sk, logits.device, q0, sq_total), NEG_INF)
     return torch.softmax(logits, dim=-1)
 
 
@@ -448,11 +459,13 @@ class AttnCore(torch.autograd.Function):
     gradients of rows with no live key (``_softmax_qk_grads``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        probs = attn_logits_probs(q, k, causal, scale).to(q.dtype)
+    def forward(ctx, q, k, v, causal: bool, scale: float, q0: int = 0,
+                sq_total=None):
+        probs = attn_logits_probs(q, k, causal, scale, q0,
+                                  sq_total).to(q.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
         ctx.save_for_backward(q, k, v, probs)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.rows = causal, scale, (q0, sq_total)
         return out.to(q.dtype)
 
     @staticmethod
@@ -464,17 +477,21 @@ class AttnCore(torch.autograd.Function):
         gs = pf * (gp - (pf * gp).sum(dim=-1, keepdim=True)) * ctx.scale
         if ctx.causal:
             gs = gs.masked_fill(
-                _dead_rows(q.shape[1], k.shape[1], gs.device)[:, None],
-                0.0)
+                _dead_rows(q.shape[1], k.shape[1], gs.device,
+                           *ctx.rows)[:, None], 0.0)
         gs = gs.to(q.dtype).float()
         gq = torch.einsum("bhqk,bkhd->bqhd", gs, k.float())
         gk = torch.einsum("bhqk,bqhd->bkhd", gs, q.float())
-        return gq.to(q.dtype), gk.to(k.dtype), gv.to(v.dtype), None, None
+        return (gq.to(q.dtype), gk.to(k.dtype), gv.to(v.dtype), None, None,
+                None, None)
 
 
-def attn_core(q, k, v, causal: bool, scale: float):
-    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D] in q's dtype."""
-    return AttnCore.apply(q, k, v, bool(causal), float(scale))
+def attn_core(q, k, v, causal: bool, scale: float, q0: int = 0,
+              sq_total: int | None = None):
+    """q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D] in q's dtype;
+    q may be rows [q0, q0 + Sq) of a ``sq_total``-row query."""
+    return AttnCore.apply(q, k, v, bool(causal), float(scale), int(q0),
+                          sq_total)
 
 
 def _bmm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -510,13 +527,15 @@ class AttnCoreDropout(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal: bool, scale: float,
-                keep: float):
+                keep: float, q0: int = 0, sq_total=None):
         b, sq, h, _ = q.shape
-        probs = attn_logits_probs(q, k, causal, scale).to(q.dtype)
+        probs = attn_logits_probs(q, k, causal, scale, q0,
+                                  sq_total).to(q.dtype)
         dropped = torch.where(mask, probs.float() / keep, 0.0).to(q.dtype)
         out = _bmm32(dropped.view(b * h, sq, -1), _heads_first(v))
         ctx.save_for_backward(q, k, v, probs, mask)
         ctx.causal, ctx.scale, ctx.keep = causal, scale, keep
+        ctx.rows = (q0, sq_total)
         return _heads_back(out, b, h).to(q.dtype)
 
     @staticmethod
@@ -533,22 +552,25 @@ class AttnCoreDropout(torch.autograd.Function):
         gp = torch.where(mask, g_dropped / ctx.keep, 0.0)
         gs = pf * (gp - (pf * gp).sum(dim=-1, keepdim=True)) * ctx.scale
         if ctx.causal:
-            gs = gs.masked_fill(_dead_rows(sq, sk, gs.device)[:, None], 0.0)
+            gs = gs.masked_fill(
+                _dead_rows(sq, sk, gs.device, *ctx.rows)[:, None], 0.0)
         gs = gs.to(q.dtype).view(b * h, sq, sk)
         gq = _bmm32(gs, _heads_first(k))
         gk = _bmm32(gs.transpose(1, 2), _heads_first(q))
         return (_heads_back(gq, b, h).to(q.dtype),
                 _heads_back(gk, b, h).to(k.dtype),
-                _heads_back(gv, b, h).to(v.dtype), None, None, None, None)
+                _heads_back(gv, b, h).to(v.dtype), None, None, None, None,
+                None, None)
 
 
 def attn_core_dropout(q, k, v, mask, causal: bool, scale: float,
-                      keep: float):
+                      keep: float, q0: int = 0, sq_total: int | None = None):
     """q [B, Sq, H, D], k/v [B, Sk, H, D], mask bool [B, H, Sq, Sk] ->
     [B, Sq, H, D] in q's dtype: softmax(q k^T * scale) with the kept
-    probabilities divided by ``keep`` and the rest zeroed, times v."""
+    probabilities divided by ``keep`` and the rest zeroed, times v; q
+    may be rows [q0, q0 + Sq) of a ``sq_total``-row query."""
     return AttnCoreDropout.apply(q, k, v, mask, bool(causal), float(scale),
-                                 float(keep))
+                                 float(keep), int(q0), sq_total)
 
 
 def _pick_block(size: int, want: int):

@@ -189,6 +189,22 @@ def _check_validation(validation_data, batch_size: int) -> None:
               f"(< batch_size {batch_size}) is dropped each epoch")
 
 
+def _block_mesh(num_devices: int):
+    """The mesh a swap to ``num_devices`` lowers on: None for the whole
+    job, the ranks ``[0, num_devices)`` below it.  Every rank of the job
+    builds it (``mesh_over`` creates process groups on every rank)."""
+    from flexflow_tpu_torch.runtime import distributed
+
+    world = distributed.world_size()
+    if num_devices > world:
+        raise ValueError(
+            f"FFConfig.num_devices={num_devices} but the job has {world} "
+            f"rank(s): a swap cannot grow past the job's ranks")
+    if num_devices == world:
+        return None
+    return distributed.mesh_over(start=0, width=num_devices)
+
+
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
@@ -220,6 +236,11 @@ class FFModel:
         self._kv_adopt: Optional[str] = None
         self._rng_counter = 0  # the step seed: +1 per optimizer step
         self._compile_ctx = None
+        # the drift loop's predicted side (compile, swap_strategy) and
+        # its measured reports (runtime/controller.py reads them)
+        self.predicted_breakdown = None
+        self.drift_report = None
+        self.lane_drift_report = None
 
     def _fresh_name(self, base: str, name: Optional[str]) -> str:
         if name:
@@ -682,6 +703,40 @@ class FFModel:
         self.params, self.state = self.compiled.init_params(self.config.seed)
         self.opt_state = (self.optimizer.init_state(self._slot_views())
                           if comp_mode == "training" else None)
+        self.drift_report = self.lane_drift_report = None
+        self.predicted_breakdown = None
+        if pipeline is None and self.pipeline_proposal is None:
+            self._predict(self.graph, self.strategy)
+
+    def _predict(self, graph, views, sim=None) -> None:
+        """The simulator's breakdown of ``views`` on ``graph`` as
+        ``predicted_breakdown`` (with ``calibrated`` and ``machine``),
+        when something reads it: ``config.profiling``, the obs bus or a
+        calibration file (reference model.py:1145-1213).  Telemetry
+        never fails a compile or a swap: an error leaves it None."""
+        from flexflow_tpu_torch.obs.events import BUS
+
+        cfg = self.config
+        if not views or not (cfg.profiling or BUS.enabled
+                             or cfg.calibration_file):
+            return
+        try:
+            if sim is None:
+                from flexflow_tpu_torch.search.driver import (
+                    coherent_calibration,
+                )
+                from flexflow_tpu_torch.search.simulator import Simulator
+
+                sim = Simulator.for_config(
+                    cfg, calibration=coherent_calibration(cfg))
+            bd: Dict = {}
+            sim.simulate(graph, views, breakdown=bd,
+                         sync_schedule=self.sync_schedule)
+            bd["calibrated"] = sim.cost.calibration is not None
+            bd["machine"] = cfg.machine_spec.name
+            self.predicted_breakdown = bd
+        except Exception:
+            self.predicted_breakdown = None
 
     def recompile(self):
         """Re-lower the (possibly altered) graph as it was lowered
@@ -706,6 +761,181 @@ class FFModel:
             self.opt_state = _merge_matching(
                 self.optimizer.init_state(self._slot_views()), old[2] or {})
         return self.compiled
+
+    def swap_strategy(self, strategy, graph: Optional[Graph] = None,
+                      config: Optional[FFConfig] = None) -> dict:
+        """HOT-swap the parallelization strategy between training steps
+        (reference model.py:1600-1787; runtime/controller.py drives it):
+        the whole live training state (params, optimizer slots, op
+        state) is snapshotted in memory (``snapshot_in_memory``, whole
+        values gathered from the ranks), the model re-lowers under the
+        new (graph, strategy) and every value lands on its new block
+        (``restore_in_memory``), a value identity at fp32.  ``config=``
+        also swaps the FFConfig: a ``num_devices`` below the job's
+        lowers on the ranks ``[0, num_devices)``
+        (``runtime.distributed.mesh_over``; the elastic shrink).  Every
+        rank of the current mesh calls it; a rank the shrink leaves out
+        takes part in the snapshot, then drops its program
+        (``compiled`` None) and returns.
+
+        Gated by ``lint_swap`` (SHD170-172 and the flat SHD1xx lint).
+        The gradient-sync plan is rebuilt for the new pair; when it
+        fails its own gate the swap falls back to the monolithic fp32
+        sync.  Pipelined, placed, staged and user-mesh models are
+        refused, in the reference's words.  Any failure past the gate
+        rolls the model back whole.  The old program's captured CUDA
+        graphs and static buffers are released once the new one stands.
+        Returns ``{"fallback", "fresh", "dropped", "swap_seconds"}``."""
+        if self.compiled is None:
+            raise RuntimeError("compile() before swap_strategy")
+        from flexflow_tpu_torch.analysis import (
+            AnalysisError,
+            emit_findings,
+            errors_only,
+            lint_swap,
+        )
+        from flexflow_tpu_torch.compiler.lowering import strategy_views
+        from flexflow_tpu_torch.compiler.pipeline_lowering import (
+            PipelinedCompiledModel,
+        )
+        from flexflow_tpu_torch.compiler.placement_lowering import (
+            SegmentedModel,
+        )
+        from flexflow_tpu_torch.runtime.checkpoint import snapshot_in_memory
+
+        t0 = time.perf_counter()
+        ctx = self._compile_ctx
+        if (ctx.get("pipeline") is not None or ctx.get("mesh") is not None
+                or isinstance(self.compiled, (PipelinedCompiledModel,
+                                              SegmentedModel))):
+            raise NotImplementedError(
+                "swap_strategy supports the flat SPMD lowering only — "
+                "placed/pipelined/staged/user-mesh models manage their "
+                "own placement and cannot re-shard live state this way")
+        new_config = config if config is not None else self.config
+        new_graph = graph if graph is not None else self.graph
+        views = strategy_views(strategy)
+        bad = errors_only(lint_swap(self.graph, new_graph, views,
+                                    new_config.num_devices))
+        if bad:
+            emit_findings(bad)
+            raise AnalysisError(
+                "hot-swap target is illegal for the live training state",
+                bad)
+        mesh = _block_mesh(new_config.num_devices)
+        snap = snapshot_in_memory(self)
+        rollback = dict(
+            config=self.config, graph=self.graph, strategy=self.strategy,
+            compiled=self.compiled, params=self.params,
+            opt_state=self.opt_state, state=self.state,
+            sync_precision_map=self.sync_precision_map,
+            sync_schedule=self.sync_schedule, zero_groups=self.zero_groups,
+            predicted_breakdown=self.predicted_breakdown,
+            _swap_mesh=getattr(self, "_swap_mesh", None))
+        try:
+            report = self._swap_strategy_inner(snap, new_config, new_graph,
+                                               views, mesh, ctx, t0)
+        except Exception:
+            # a failed swap leaves the OLD program with the OLD state,
+            # never config/graph describing a program that does not exist
+            for k, v in rollback.items():
+                setattr(self, k, v)
+            raise
+        rollback["compiled"].step_graph.release()
+        return report
+
+    def _swap_strategy_inner(self, snap, new_config, new_graph, views, mesh,
+                             ctx, t0) -> dict:
+        from flexflow_tpu_torch.analysis import AnalysisError, errors_only
+        from flexflow_tpu_torch.compiler import lowering
+        from flexflow_tpu_torch.runtime.checkpoint import restore_in_memory
+        from flexflow_tpu_torch.search.driver import coherent_calibration
+        from flexflow_tpu_torch.search.simulator import Simulator
+        from flexflow_tpu_torch.utils.logging import SEARCH_LOG
+
+        self.config, self.graph, self.strategy = new_config, new_graph, views
+        self._swap_mesh = mesh
+        if mesh is not None and not (
+                mesh.start <= mesh.rank < mesh.start + mesh.world):
+            # the shrink leaves this rank out: its part ended with the
+            # snapshot
+            self.compiled = self.params = self.opt_state = self.state = None
+            return {"fresh": [], "dropped": [], "fallback": False,
+                    "swap_seconds": time.perf_counter() - t0}
+        # one calibration load and at most one Simulator per swap
+        cal = coherent_calibration(self.config)
+        sim_box: list = []
+
+        def sim():
+            if not sim_box:
+                sim_box.append(Simulator.for_config(self.config,
+                                                    calibration=cal))
+            return sim_box[0]
+
+        # rebuild the gradient-sync plan for the new pair; a searched
+        # plan that fails its gate post-swap falls back to the
+        # monolithic fp32 sync, never fails the run
+        fallback = False
+        pmap: Dict[str, str] = {}
+        schedule = None
+        zero: tuple = ()
+        cfg = self.config
+        plan = cfg.comp_mode == "training" and cfg.num_devices > 1
+        try:
+            if plan and cfg.sync_precision != "fp32":
+                from flexflow_tpu_torch.search.sync_precision import (
+                    choose_sync_precision,
+                )
+
+                pmap = choose_sync_precision(new_graph, views, sim().cost)
+            if plan and cfg.sync_schedule == "search":
+                from flexflow_tpu_torch.search.driver import (
+                    _build_sync_schedule,
+                )
+
+                schedule = _build_sync_schedule(new_graph, views, sim(), cfg)
+            if plan and self.zero_groups and not cfg.zero_dp_shard:
+                # the per-group ZeRO map rides along only while it still
+                # lints for the new pair
+                from flexflow_tpu_torch.analysis import lint_zero_map
+                from flexflow_tpu_torch.search.machine_model import CostModel
+
+                zcm = CostModel(cfg.machine_spec,
+                                num_devices=cfg.search_devices)
+                if not errors_only(lint_zero_map(
+                        new_graph, views, sorted(self.zero_groups), zcm)):
+                    zero = tuple(self.zero_groups)
+        except AnalysisError as e:
+            fallback, pmap, schedule, zero = True, {}, None, ()
+            SEARCH_LOG.log(
+                f"hot swap: searched comm plan failed its legality gate "
+                f"post-swap ({e}); falling back to the monolithic fp32 "
+                f"sync path")
+        self.sync_precision_map = pmap
+        self.sync_schedule = schedule
+        self.zero_groups = zero
+        training = cfg.comp_mode == "training"
+        self.compiled = lowering.CompiledModel(
+            new_graph, cfg, loss_type=ctx["loss_type"],
+            metric_types=ctx["metrics"],
+            optimizer=self.optimizer if training else None,
+            strategy=views, mesh=mesh, block=mesh is not None,
+            sync_precision=pmap, sync_schedule=schedule, zero_groups=zero)
+        self.params, self.state = self.compiled.init_params(cfg.seed)
+        self.opt_state = (self.optimizer.init_state(self._slot_views())
+                          if training else None)
+        report = restore_in_memory(self, snap)
+        if report["dropped"]:
+            SEARCH_LOG.log(
+                f"hot swap: {len(report['dropped'])} state entr(ies) have "
+                f"no home under the new comm plan and were dropped (e.g. "
+                f"{report['dropped'][:3]})")
+        ctx.update(strategy=views)
+        self.predicted_breakdown = None
+        self._predict(new_graph, views, sim())
+        report["fallback"] = fallback
+        report["swap_seconds"] = time.perf_counter() - t0
+        return report
 
     def _slot_views(self):
         """The parameters as the optimizer slots are sized: a ZeRO-1

@@ -31,9 +31,18 @@ over the process group of those axes, as the reference's
 ``parallel/ulysses.py`` where ``_use_ulysses`` picks it (the
 reference's rule), else the zigzag or contiguous ring of
 ``parallel/ring_attention.py``.  ``uses_flash`` decides the route from
-the op's global shapes, so a strategy never changes it.  The
-reference's all-gather fallback for cross-attention or dropout under a
-split sequence raises here (ROADMAP Queue A item 2).
+the op's global shapes, so a strategy never changes it.  Cross-attention
+or attention dropout under a split sequence takes the reference's
+all-gather path (ops/attention.py:205-228), with its ``RuntimeWarning``:
+each rank holds a contiguous block of the query rows (the zigzag order
+lives inside the ring only), self-attention's K/V blocks are gathered
+over the sequence axes in coordinate order, which is the natural order
+(``all_gather_summed``: the backward sums the ranks' K/V gradients),
+cross-attention's K/V are whole already (its view keeps them so), and
+the rank attends its rows with their global causal offsets
+(``attn_core``/``attn_core_dropout`` with ``q0``); the dropout mask is
+this rank's rows of the whole mask, drawn at each element's global
+index, so it is the unsplit run's.
 
 Attention dropout in training takes the reference's route
 (ops/attention.py:200-270): never the flash kernels, always
@@ -228,12 +237,13 @@ class MultiHeadAttentionOp(Operator):
         scale = 1.0 / math.sqrt(self.head_dim)
         seq_axes = ctx.axes(1)
         dropout_active = a["dropout"] > 0.0 and ctx.train
-        if ctx.mesh is not None and seq_axes:
-            if dropout_active:
-                raise NotImplementedError(
-                    f"{self.name}: attention dropout under a split sequence "
-                    f"needs K/V gathered, which is not ported yet (ROADMAP "
-                    f"Queue A item 2)")
+        self_attn = (self.input_shapes[0].sizes[1]
+                     == self.input_shapes[1].sizes[1])
+        if ctx.mesh is not None and seq_axes and (dropout_active
+                                                  or not self_attn):
+            out = self._gathered(ctx, seq_axes, qh, kh, vh, scale,
+                                 dropout_active, self_attn)
+        elif ctx.mesh is not None and seq_axes:
             out = self._sequence_parallel(ctx, seq_axes, qh, kh, vh, scale)
         elif dropout_active:
             keep = 1.0 - a["dropout"]
@@ -260,24 +270,49 @@ class MultiHeadAttentionOp(Operator):
         return (q.sizes[0], self.attrs["num_heads"], q.sizes[1], k.sizes[1])
 
     def _mask_starts(self, ctx, local_heads: int) -> Tuple[int, ...]:
-        """Where this rank's [b, h', Sq, Sk] block of the mask starts:
-        its batch rows (the query's layout) and its heads (the replica
-        slot's axes, as wq's head dim)."""
-        b0 = ctx.block_starts(self.input_shapes[0].sizes,
-                              ctx.in_placements[0] if ctx.in_placements
-                              else None)[0]
+        """Where this rank's [b, h', Sq', Sk] block of the mask starts:
+        its batch and query rows (the query's layout) and its heads (the
+        replica slot's axes, as wq's head dim)."""
+        b0, q0 = ctx.block_starts(self.input_shapes[0].sizes,
+                                  ctx.in_placements[0] if ctx.in_placements
+                                  else None)[:2]
         h0 = 0
         if ctx.mesh is not None:
             h0 = ctx.mesh.index(ctx.axes(REPLICA_SLOT)) * local_heads
-        return (b0, h0, 0, 0)
+        return (b0, h0, q0, 0)
+
+    def _gathered(self, ctx, seq_axes, qh, kh, vh, scale, dropout_active,
+                  self_attn):
+        """The reference's all-gather path under a split sequence (module
+        docstring): this rank's query rows over the whole K/V."""
+        import warnings
+
+        from flexflow_tpu_torch.parallel.mesh import all_gather_summed
+
+        reason = ("cross-attention (Sk != Sq)" if not self_attn
+                  else "attention dropout active")
+        warnings.warn(
+            f"{self.name}: sequence-parallel strategy degrades to the "
+            f"all-gather attention path ({reason}); K/V will be "
+            f"gathered across the seq axis", RuntimeWarning, stacklevel=3)
+        a = self.attrs
+        sq_total = self.input_shapes[0].sizes[1]
+        q0 = ctx.mesh.index(seq_axes) * qh.shape[1]
+        if self_attn:
+            kh = all_gather_summed(kh, 1, seq_axes, ctx.mesh)
+            vh = all_gather_summed(vh, 1, seq_axes, ctx.mesh)
+        if not dropout_active:
+            return attn_core(qh, kh, vh, a["causal"], scale, q0, sq_total)
+        keep = 1.0 - a["dropout"]
+        starts = self._mask_starts(ctx, qh.shape[2])
+        mask = ctx.dropout_mask(self.name, keep, self.mask_shape(), starts,
+                                (qh.shape[0], qh.shape[2], qh.shape[1],
+                                 kh.shape[1]))
+        return attn_core_dropout(qh, kh, vh, mask, a["causal"], scale,
+                                 keep, q0, sq_total)
 
     def _sequence_parallel(self, ctx, seq_axes, qh, kh, vh, scale):
-        """Attention over the sequence split across ``seq_axes``."""
-        if self.input_shapes[0].sizes[1] != self.input_shapes[1].sizes[1]:
-            raise NotImplementedError(
-                f"{self.name}: cross-attention under a split sequence needs "
-                f"K/V gathered, which is not ported yet (ROADMAP Queue A "
-                f"item 2)")
+        """Self-attention over the sequence split across ``seq_axes``."""
         n = ctx.mesh.size(seq_axes)
         group = ctx.mesh.group(seq_axes)
         if self._use_ulysses(n):

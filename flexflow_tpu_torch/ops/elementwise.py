@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -103,7 +104,9 @@ class ElementBinaryOp(Operator):
 
     def infer(self) -> Sequence[ParallelTensorShape]:
         a, b = self.input_shapes
-        out = torch.broadcast_shapes(a.sizes, b.sizes)
+        # numpy's rule, as torch's; torch.broadcast_shapes would import
+        # sympy on its first call (seconds in every new process)
+        out = np.broadcast_shapes(a.sizes, b.sizes)
         return (ParallelTensorShape.make(tuple(out), a.dtype),)
 
     def forward(self, ctx, inputs, weights):

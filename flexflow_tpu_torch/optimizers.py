@@ -10,8 +10,11 @@ counterpart of the reference's buffer donation, ``donate_argnums`` in
 its train step), so a step holds no second copy of the weights or the
 moments.  It returns the same (params, state) objects.  The updates run
 as ``torch._foreach_*`` ops over all weights, a handful of launches per
-step instead of a handful per weight.  Parameters must be float32, as
-every weight spec of the ported ops is.
+step instead of a handful per weight.  A parameter of another dtype
+(``LinearOp(param_dtype="bfloat16")``) is updated as the reference
+updates it (optimizers.py:61-66): read in fp32, updated in fp32 and
+cast back to its own dtype (round to nearest even) in place; the
+optimizer slots stay fp32.
 
 The step count is a 0-d int32 tensor on the parameters' device, as the
 reference's ``opt_state["step"]`` is (optimizers.py:108), advanced in
@@ -42,13 +45,17 @@ def _zeros_like(params: Params) -> Params:
                  for w, t in ws.items()} for op, ws in params.items()}
 
 
-def _check_fp32(ps: List[torch.Tensor]) -> None:
-    bad = {t.dtype for t in ps if t.dtype != torch.float32}
-    if bad:
-        raise NotImplementedError(
-            f"the port's optimizers update float32 parameters in place "
-            f"(other dtypes: ROADMAP Queue A item 3), got "
-            f"{sorted(map(str, bad))}")
+def _fp32_view(ps: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The parameters as the update reads them: fp32 ones as they are
+    (updated in place), others as fp32 copies that ``_cast_back``
+    writes home."""
+    return [p if p.dtype == torch.float32 else p.float() for p in ps]
+
+
+def _cast_back(ps: List[torch.Tensor], p32: List[torch.Tensor]) -> None:
+    for p, q in zip(ps, p32):
+        if q is not p:
+            p.copy_(q)
 
 
 def _step_counter(params: Params) -> torch.Tensor:
@@ -83,8 +90,8 @@ class SGDOptimizer(Optimizer):
 
     @torch.no_grad()
     def apply(self, params, grads, state):
-        ps = _flat(params, params)
-        _check_fp32(ps)
+        raw = _flat(params, params)
+        ps = _fp32_view(raw)
         gs = [g.float() for g in _flat(grads, params)]
         if self.weight_decay:
             gs = torch._foreach_add(gs, ps, alpha=self.weight_decay)
@@ -95,6 +102,7 @@ class SGDOptimizer(Optimizer):
             gs = (torch._foreach_add(gs, vs, alpha=self.momentum)
                   if self.nesterov else vs)
         torch._foreach_add_(ps, gs, alpha=-self.lr)
+        _cast_back(raw, ps)
         state["step"].add_(1)
         return params, state
 
@@ -121,8 +129,8 @@ class AdamOptimizer(Optimizer):
         t = state["step"].float() + 1.0
         alpha_t = (self.alpha * torch.sqrt(1.0 - self.beta2 ** t)
                    / (1.0 - self.beta1 ** t))
-        ps = _flat(params, params)
-        _check_fp32(ps)
+        raw = _flat(params, params)
+        ps = _fp32_view(raw)
         gs = [g.float() for g in _flat(grads, params)]
         ms, vs = _flat(state["m"], params), _flat(state["v"], params)
         if self.weight_decay and not self.adamw:
@@ -141,5 +149,6 @@ class AdamOptimizer(Optimizer):
         torch._foreach_sub_(ps, upd)
         if decay is not None:
             torch._foreach_sub_(ps, decay)
+        _cast_back(raw, ps)
         state["step"].add_(1)
         return params, state

@@ -444,6 +444,30 @@ class _AllGather(torch.autograd.Function):
         return _block(g, ctx.dim, ctx.axes, ctx.mesh), None, None, None
 
 
+class _AllGatherSummed(torch.autograd.Function):
+    """Gather along ``dim`` for a computation each rank does on part of
+    the whole (its query rows over gathered K/V); the backward sums the
+    ranks' partial gradients of the whole and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        return all_gather(x, dim, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_sum(g.contiguous(), ctx.axes, ctx.mesh)
+        return _block(g, ctx.dim, ctx.axes, ctx.mesh), None, None, None
+
+
+def all_gather_summed(x: torch.Tensor, dim: int, axes: Sequence[str],
+                      mesh: Mesh) -> torch.Tensor:
+    """``all_gather`` whose gradient is the sum over ``axes`` of the
+    whole's gradients, cut to this rank's block (the K/V that a split
+    sequence's attention gathers, reference ops/attention.py:205-228)."""
+    return _AllGatherSummed.apply(x, dim, tuple(axes), mesh)
+
+
 class _Slice(torch.autograd.Function):
     """This rank's block along ``dim``; the backward gathers the blocks'
     gradients into the (replicated) gradient of the whole."""

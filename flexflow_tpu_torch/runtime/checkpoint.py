@@ -41,9 +41,21 @@ saved as the sum of the ranks' residuals, the error the summed
 gradient lost, the reference's residual; a restore hands each rank an
 equal share of it, so the resumed sum carries the same error, though
 not each rank's own.  The restore writes into the live tensors in place, so a
-captured training step stays valid.  The pipelined, placed and staged
-lowerings' snapshots are not ported (ROADMAP Queue A item 10): saving
-or restoring them raises.
+captured training step stays valid.
+
+The pipelined, placed and staged lowerings save and restore as the
+reference's manager saves their pytrees (it saves whatever the
+lowering holds): the placed and staged ones keep the flat lowering's
+name-keyed trees (reference placement_lowering.py:364-377,
+staged_pipeline_lowering.py:247-263), so their snapshots are the flat
+layout's; the pipelined one keeps each block weight, and its slots,
+stacked under the first block's op name with a leading [L] axis
+(reference pipeline_lowering.py:306-331; the port holds block b's
+weights under block b's names, ``interop.blocks_to_stacked``), so its
+snapshot is stacked the same way.  A rank holds its stage's or
+segment's weights: the save gathers every weight and slot from the
+ranks that hold it (``gather_weights``) and the op state from every
+rank; a restore keeps what this rank holds.
 """
 
 from __future__ import annotations
@@ -72,48 +84,132 @@ def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix or "_root", tree)]
 
 
-def _refuse_unported(model) -> None:
-    from flexflow_tpu_torch.compiler.lowering import CompiledModel
+def _kind(model) -> str:
+    """"flat", "pipelined" or "segmented" (placed or staged)."""
     from flexflow_tpu_torch.compiler.pipeline_lowering import (
         PipelinedCompiledModel,
     )
+    from flexflow_tpu_torch.compiler.placement_lowering import SegmentedModel
 
     c = model.compiled
     if c is None:
         raise RuntimeError("compile() before a checkpoint save or restore")
-    if not isinstance(c, CompiledModel) or isinstance(
-            c, PipelinedCompiledModel):
-        raise NotImplementedError(
-            f"checkpoints of a {type(c).__name__} are not ported yet "
-            f"(ROADMAP Queue A item 10); the flat lowering's are")
+    if isinstance(c, PipelinedCompiledModel):
+        return "pipelined"
+    if isinstance(c, SegmentedModel):
+        return "segmented"
+    return "flat"
+
+
+def _block_names(c) -> List[List[str]]:
+    return [[n.op.name for n in blk] for blk in c._blocks]
+
+
+def _stacked(c, tree: Dict[str, Dict[str, np.ndarray]]):
+    """Whole weights by op -> the reference's pipelined layout."""
+    names = _block_names(c)
+    in_block = {op for blk in names for op in blk}
+    out = {op: ws for op, ws in tree.items() if op not in in_block}
+    for i, op0 in enumerate(names[0]):
+        if op0 in tree:
+            out[op0] = {w: np.stack([tree[blk[i]][w] for blk in names])
+                        for w in tree[op0]}
+    return out
+
+
+def _unstacked(c, arrays: Dict[str, Dict[str, np.ndarray]]):
+    """A pipelined snapshot's trees by keypath with each stacked entry
+    ``<op0>/<w>`` (or ``<slot>/<op0>/<w>``) split into its blocks'
+    ``<op_b>/<w>``."""
+    names = _block_names(c)
+    first = {op0: i for i, op0 in enumerate(names[0])}
+    out = {}
+    for tree, leaves in arrays.items():
+        got = {}
+        for key, val in leaves.items():
+            parts = key.split("/")
+            at = len(parts) - 2  # the op name's place in the keypath
+            i = first.get(parts[at]) if tree != "state" and at >= 0 else None
+            if i is None:
+                got[key] = val
+                continue
+            for b, blk in enumerate(names):
+                got["/".join(parts[:at] + [blk[i], parts[-1]])] = val[b]
+        out[tree] = got
+    return out
+
+
+def _job_state(model) -> Dict[str, torch.Tensor]:
+    """The whole job's op state on every rank: each segment holds its
+    own ops' (a collective)."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.runtime import distributed
+
+    mine = {k: t.detach().cpu() for k, t in (model.state or {}).items()}
+    if distributed.world_size() == 1:
+        return mine
+    parts = [None] * distributed.world_size()
+    dist.all_gather_object(parts, mine)
+    out: Dict[str, torch.Tensor] = {}
+    for part in parts:
+        for k, t in part.items():
+            out.setdefault(k, t)
+    return out
 
 
 def _whole_trees(model) -> Dict[str, Dict[str, np.ndarray]]:
     """Host copies of the whole params, optimizer state and model state
-    by keypath: every weight and slot gathered from the ranks' blocks
-    (a collective: every rank calls it)."""
+    by keypath, in the reference's layout for the lowering: every
+    weight and slot gathered from the ranks that hold it (a collective:
+    every rank calls it)."""
     from flexflow_tpu_torch.parallel.mesh import all_reduce_sum
 
     c = model.compiled
+    kind = _kind(model)
     trees: Dict[str, Any] = {"params": c.gather_weights(model.params)}
     opt = {}
     for k, v in (model.opt_state or {}).items():
-        opt[k] = c.gather_slots(v) if isinstance(v, dict) else v
+        if not isinstance(v, dict):
+            opt[k] = v
+        elif kind == "flat":
+            opt[k] = c.gather_slots(v)
+        else:  # whole slots, laid out as their weights
+            opt[k] = c.gather_weights(v)
     trees["opt_state"] = opt
-    ef = c.ef_residual_axes()
-    trees["state"] = {k: (all_reduce_sum(t, ef[k], c.mesh) if k in ef
-                          else t)
-                      for k, t in (model.state or {}).items()}
-    return {name: {k: np.array(t.detach().cpu().numpy(), copy=True)
-                   for k, t in _flatten(tree)}
-            for name, tree in trees.items()}
+    if kind == "segmented":
+        trees["state"] = _job_state(model)
+    else:
+        ef = c.ef_residual_axes()
+        trees["state"] = {k: (all_reduce_sum(t, ef[k], c.mesh) if k in ef
+                              else t)
+                          for k, t in (model.state or {}).items()}
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return np.array(tree.detach().cpu().numpy(), copy=True)
+
+    trees = host(trees)
+    if kind == "pipelined":
+        trees["params"] = _stacked(c, trees["params"])
+        trees["opt_state"] = {k: (_stacked(c, v) if isinstance(v, dict)
+                                  else v)
+                              for k, v in trees["opt_state"].items()}
+    return {name: dict(_flatten(tree)) for name, tree in trees.items()}
 
 
 def _targets(model) -> Dict[str, Dict[str, Tuple[torch.Tensor, tuple]]]:
     """Per tree and keypath: (the live tensor, the whole value's shape,
     the slices of the whole value that are this rank's, () for all, or
-    a function that picks them)."""
+    a function that picks them).  A placed or staged model's keypaths
+    are its own segment's (the segment's flat lowering places them); a
+    pipelined model's are per block op (``_unstacked`` the snapshot)."""
     c = model.compiled
+    if _kind(model) == "segmented":
+        c = c.segments[c.mine].comp if c.mine is not None else None
+        if c is None:
+            return {name: {} for name in _TREES}
     out: Dict[str, Dict[str, Tuple]] = {}
     whole = {(n.op.name, ws.name): ws.shape for n in c._topo
              for ws in n.op._weight_specs}
@@ -145,6 +241,12 @@ def _targets(model) -> Dict[str, Dict[str, Tuple[torch.Tensor, tuple]]]:
                         if k in ef else ())
                     for k, t in (model.state or {}).items()}
     return out
+
+
+def _saved_layout(model, arrays):
+    """A snapshot's trees keyed as ``_targets`` keys the model."""
+    return _unstacked(model.compiled, arrays) if _kind(
+        model) == "pipelined" else arrays
 
 
 def _place(targets, arrays: Dict[str, Dict[str, np.ndarray]],
@@ -191,7 +293,6 @@ def snapshot_in_memory(model) -> Dict[str, Any]:
     """Host copy of a compiled model's whole training state (a
     collective over ranks): ``{"trees": {tree: {keypath: array}},
     "rng_counter": n}``."""
-    _refuse_unported(model)
     return {"trees": _whole_trees(model),
             "rng_counter": int(getattr(model, "_rng_counter", 0))}
 
@@ -202,10 +303,22 @@ def restore_in_memory(model, snap: Dict[str, Any]) -> Dict[str, list]:
     matches in name and whole shape, the rest keep their values.
     Returns ``{"fresh": [...], "dropped": [...]}`` keypaths (live
     tensors no saved value reached, saved values with no home)."""
-    _refuse_unported(model)
-    pairs, fresh, dropped = _place(_targets(model), snap["trees"],
+    pairs, fresh, dropped = _place(_targets(model),
+                                   _saved_layout(model, snap["trees"]),
                                    strict=False)
     _copy_in(pairs)
+    # the model state GROWS during training (a cache op's entries land
+    # after its first step): carry such entries across too, except the
+    # error-feedback residuals, which belong to the comm plan, and any
+    # key the template holds (a shape mismatch: the fresh init wins)
+    saved = snap["trees"].get("state", {})
+    carried = [k for k in dropped if k.startswith("state/")
+               and k[6:] not in model.state
+               and not k.endswith("/ef_residual")]
+    for k in carried:
+        model.state[k[6:]] = torch.from_numpy(
+            np.array(saved[k[6:]], copy=True)).to(model.compiled.device)
+    dropped = [k for k in dropped if k not in carried]
     model._rng_counter = int(snap.get("rng_counter", 0))
     return {"fresh": fresh, "dropped": dropped}
 
@@ -295,7 +408,6 @@ class CheckpointManager:
     def save(self, step: int, model) -> str:
         """Snapshot a compiled model's full training state (every rank
         calls it; rank 0 writes)."""
-        _refuse_unported(model)
         trees = _whole_trees(model)  # host copies: safe for the thread
         path = self._step_dir(step)
         if self._writer():
@@ -312,17 +424,19 @@ class CheckpointManager:
                     self._write_snapshot, path, arrays, manifest)
             else:
                 self._write_snapshot(path, arrays, manifest)
-        self._barrier()
+        self._barrier(model)
         return path
 
     @staticmethod
-    def _barrier() -> None:
-        from flexflow_tpu_torch.runtime import distributed
-
-        if distributed.world_size() > 1:
+    def _barrier(model) -> None:
+        """Every rank of the model's mesh waits for the write (the
+        mesh's ranks only: a job shrunk by ``swap_strategy`` runs on a
+        block of its ranks)."""
+        mesh = model.compiled.mesh
+        if mesh.job_world > 1 and mesh.world > 1:
             import torch.distributed as dist
 
-            dist.barrier()
+            dist.barrier(group=mesh.group(mesh.names))
 
     def _write_snapshot(self, path: str, arrays, manifest) -> None:
         """Atomic publish: the snapshot lands whole in ``step_N.tmp``
@@ -382,7 +496,7 @@ class CheckpointManager:
     def restore(self, model, step: Optional[int] = None) -> int:
         """Load a snapshot into a compiled model (each rank its blocks);
         returns its step."""
-        _refuse_unported(model)
+        kind = _kind(model)
         self.wait()  # an in-flight async save must land first
         if step is None:
             if self.latest_step() is None:
@@ -409,15 +523,18 @@ class CheckpointManager:
         for key, val in arrays.items():
             name, sub = key.split("/", 1)
             by_tree.setdefault(name, {})[sub] = val
+        by_tree = _saved_layout(model, by_tree)
         targets = _targets(model)
         for name in _TREES:
-            want = set(manifest["trees"].get(name, []))
+            want = set(by_tree.get(name, {}))
             have = set(targets[name])
-            if want != have:
+            # a stage or segment holds its part of the job's keys
+            unexpected = (want - have) if kind == "flat" else set()
+            if have - want or unexpected:
                 raise ValueError(
                     f"checkpoint structure mismatch in {name!r}: "
                     f"missing={sorted(have - want)[:5]} "
-                    f"unexpected={sorted(want - have)[:5]}")
+                    f"unexpected={sorted(unexpected)[:5]}")
         pairs, _, _ = _place(targets, by_tree, strict=True)
         _copy_in(pairs)
         model._rng_counter = int(manifest.get("rng_counter", 0))

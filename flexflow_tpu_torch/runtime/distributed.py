@@ -191,8 +191,9 @@ def shutdown() -> None:
     _JOB.clear()
 
 
-def _rank_main(process_id, fn, num_processes, init_method, device, args,
+def _rank_main(process_id, fn, num_processes, init_method, device, inbox,
                results):
+    args = inbox.get()
     if device == "cpu":
         torch.set_num_threads(1)
     initialize(init_method, num_processes, process_id, device)
@@ -214,13 +215,24 @@ def spawn(fn: Callable, num_processes: int, args: Sequence = (), *,
     (``torch.multiprocessing.ProcessRaisedException`` with its
     traceback); so does a job still running after ``timeout`` seconds
     (``TimeoutError``).  CPU ranks run one intra-op thread each."""
+    import threading
+
     import torch.multiprocessing as mp
 
-    results = mp.get_context("spawn").SimpleQueue()
+    ctx = mp.get_context("spawn")
+    inbox, results = ctx.SimpleQueue(), ctx.SimpleQueue()
+    # ``args`` go through a queue once every rank has started: inside the
+    # process objects, a pickle larger than a pipe's buffer would hold
+    # each start until that rank had imported its modules, one rank
+    # after another
     job = mp.start_processes(
-        _rank_main, args=(fn, num_processes, init_method, device,
-                          tuple(args), results),
+        _rank_main, args=(fn, num_processes, init_method, device, inbox,
+                          results),
         nprocs=num_processes, join=False, start_method="spawn")
+    payload = tuple(args)
+    threading.Thread(target=lambda: [inbox.put(payload)
+                                     for _ in range(num_processes)],
+                     daemon=True).start()
     got = {}
     deadline = time.monotonic() + timeout
     try:

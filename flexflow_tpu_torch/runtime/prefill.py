@@ -149,7 +149,7 @@ def build_chunk_forward(graph, compute_dtype, device="cpu",
                 raise NotImplementedError(
                     f"chunked prefill only supports the seq_lens "
                     f"pos_ids reshape; {node.op.name!r} reshapes "
-                    f"something else (ROADMAP Queue A item 9)")
+                    f"something else")
     dec_set = set(dec_guids)
     mesh = (compiled.mesh if compiled is not None
             and compiled.mesh.world > 1 else None)

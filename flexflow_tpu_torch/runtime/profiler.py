@@ -16,8 +16,8 @@ the host's dispatch; the median of ``repeats`` calls is returned.  On the CPU th
 the host clock.
 
 The reference's profiling helpers around it (``StepProfiler``,
-``device_trace``) belong to the runtime slice (ROADMAP Queue A item
-10).
+``device_trace``) feed ``obs/trace_ingest.py``'s lane reports, so they
+come with it (ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations

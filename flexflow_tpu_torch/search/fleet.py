@@ -43,8 +43,8 @@ formula at k = 1, so adoption compares like with like; the winner must
 beat it by the search margin.  ``load_scale`` re-parameterizes the
 offered load — the controller's elastic re-search feeds the measured
 p99 drift ratio back through it, which is how a drift episode can
-re-size N (the reference's runtime/controller.py observe_fleet; the
-port's controller is ROADMAP Queue A item 10).
+re-size N (runtime/controller.py's ``observe_fleet`` and
+``research_fleet``).
 
 Adopted fleets are always-on lint-gated (SHD166 N-block frame/overlap,
 SHD167 routing coverage + pool-geometry coherence, flat SHD101-110 per

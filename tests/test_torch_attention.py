@@ -5,7 +5,10 @@ inputs and copied weights; forward outputs and the gradients of the
 input and every weight are compared.  At seq 512 both take the flash
 route (the JAX op runs the Pallas kernels in interpret mode, the port
 the plain versions the CUDA kernels' wrappers compute for CPU tensors);
-at seq 32 both take the compact-residual XLA path (``attn_core``).
+at seq 32 both take the compact-residual XLA path (``attn_core``), as
+do the cross-attention cases (query and key sequences of 48 and 32, both
+ways, causal and not), held against the JAX op's ``use_flash=False``
+route.
 fp32 compute at 1e-5 on the output and 1e-4 on the gradients (summation
 order differs); bf16 compute at 2e-3 on the output and 1e-2 on the
 gradients (bf16 projections round at the same places on both sides and
@@ -65,53 +68,85 @@ def _rel_err(got: torch.Tensor, ref, scale=None) -> float:
     return float(np.abs(got - ref).max()) / max(1e-6, scale)
 
 
+# cross-attention (Sq != Sk): the query and the key/value sequences are
+# separate inputs; the JAX op takes its use_flash=False route (rows with
+# no live key follow the XLA path: ROADMAP Queue C)
+CROSS_CASES = [
+    pytest.param((48, 32), True, False, id="cross48x32-causal"),
+    pytest.param((48, 32), False, True, id="cross48x32-bias"),
+    pytest.param((32, 48), True, False, id="cross32x48-causal"),
+    pytest.param((32, 48), False, False, id="cross32x48")]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("seq,causal,bias", [
     (512, True, False), (512, False, False), (32, True, False),
-    (32, False, True)])
+    (32, False, True)] + CROSS_CASES)
 def test_mha_forward_and_grads_match_jax(seq, causal, bias, dtype):
     b, e, h = 1, 32, 2
+    cross = isinstance(seq, tuple)
+    sq, sk = seq if cross else (seq, seq)
     kw = dict(embed_dim=e, num_heads=h, causal=causal, use_bias=bias)
-    jop = JMHA("mha", [JShape.make((b, seq, e), "float32")] * 3, **kw)
+    jshapes = [JShape.make((b, s, e), "float32") for s in (sq, sk, sk)]
+    jop = JMHA("mha", jshapes, use_flash=not cross, **kw)
     op = MultiHeadAttentionOp(
-        "mha", [ParallelTensorShape.make((b, seq, e), "float32")] * 3, **kw)
+        "mha", [ParallelTensorShape.make((b, s, e), "float32")
+                for s in (sq, sk, sk)], **kw)
     assert [(w.name, w.shape) for w in op._weight_specs] == [
         (w.name, w.shape) for w in jop._weight_specs]
-    assert op.uses_flash() == (seq == 512)
-    rng = np.random.default_rng(seq + causal)
-    x = rng.normal(size=(b, seq, e)).astype(np.float32)
-    dy = rng.normal(size=(b, seq, e)).astype(np.float32)
+    assert op.uses_flash() == (sq == sk == 512)
+    rng = np.random.default_rng(sq + sk + causal if cross else seq + causal)
+    x = rng.normal(size=(b, sq, e)).astype(np.float32)
+    mem = rng.normal(size=(b, sk, e)).astype(np.float32) if cross else x
+    dy = rng.normal(size=(b, sq, e)).astype(np.float32)
     ws = {w.name: (0.2 * rng.normal(size=w.shape)).astype(np.float32)
           for w in op._weight_specs}
 
     jctx = JContext(compute_dtype=jnp.dtype(dtype), train=True)
-    jy, vjp = jax.vjp(lambda x, w: jop.forward(jctx, [x, x, x], w)[0],
-                      jnp.asarray(x),
+    jy, vjp = jax.vjp(lambda x, m, w: jop.forward(jctx, [x, m, m], w)[0],
+                      jnp.asarray(x), jnp.asarray(mem),
                       {k: jnp.asarray(v) for k, v in ws.items()})
-    jgx, jgw = vjp(jnp.asarray(dy))
+    jgx, jgm, jgw = vjp(jnp.asarray(dy))
 
     ctx = LoweringContext(compute_dtype=getattr(torch, dtype), train=True)
     tx = torch.from_numpy(x).requires_grad_(True)
+    tm = torch.from_numpy(mem).requires_grad_(True) if cross else tx
     tw = {k: torch.from_numpy(v).requires_grad_(True) for k, v in ws.items()}
-    y = op.forward(ctx, [tx, tx, tx], tw)[0]
+    y = op.forward(ctx, [tx, tm, tm], tw)[0]
     y.backward(torch.from_numpy(dy))
     out_tol, grad_tol = TOLS[dtype]
     assert y.dtype == torch.float32
     assert _rel_err(y, jy) <= out_tol
-    g_scale = max(float(np.abs(_f32(g)).max())
-                  for g in [jgx, *jgw.values()])
-    assert _rel_err(tx.grad, jgx, g_scale) <= grad_tol
+    grads = [jgx, *jgw.values()] + ([jgm] if cross else [])
+    g_scale = max(float(np.abs(_f32(g)).max()) for g in grads)
+    if cross:
+        assert _rel_err(tm.grad, jgm, g_scale) <= grad_tol
+        assert _rel_err(tx.grad, jgx, g_scale) <= grad_tol
+    else:  # x feeds q, k and v: its gradient is their sum, as in JAX
+        assert _rel_err(tx.grad, _f32(jgx) + _f32(jgm), g_scale) <= grad_tol
     for k, t in tw.items():
         assert _rel_err(t.grad, jgw[k], g_scale) <= grad_tol, k
 
 
-def test_attention_dropout_in_training_raises():
-    """Attention dropout in training now runs on one device (the
-    dropout route, ``attn_core_dropout`` under the op's own mask); what
-    still raises is dropout under a split sequence (ROADMAP Queue A
-    item 2).  Outside training dropout is inactive, as in the
-    reference."""
+class _OneBlock:
+    """A mesh stand-in whose sequence axes hold one block: this rank's
+    rows start at 0."""
+
+    def index(self, axes, at=None):
+        return 0
+
+
+def test_attention_dropout_in_training_raises(monkeypatch):
+    """Attention dropout in training runs on one device (the dropout
+    route, ``attn_core_dropout`` under the op's own mask), and under a
+    split sequence it takes the reference's all-gather path with the
+    reference's RuntimeWarning: over one block of rows (the gather an
+    identity) it is the one-device route, mask included.  Outside
+    training dropout is inactive, as in the reference.  The name is
+    kept from the refusal the split leg replaced (the multi-rank runs:
+    tests/test_torch_sp_training.py)."""
     from flexflow_tpu_torch.kernels.flash_attention import attn_core
+    from flexflow_tpu_torch.parallel import mesh as pmesh
 
     shape = ParallelTensorShape.make((1, 8, 16), "float32")
     op = MultiHeadAttentionOp("mha", [shape] * 3, embed_dim=16, num_heads=1,
@@ -121,15 +156,19 @@ def test_attention_dropout_in_training_raises():
     ws = {w.name: torch.randn(w.shape, generator=gen) * 0.3
           for w in op._weight_specs}
     split = LoweringContext(compute_dtype=torch.float32, train=True,
-                            mesh=object())
+                            mesh=_OneBlock())
     split.slot_axes = {1: ("x0",)}
-    with pytest.raises(NotImplementedError, match="dropout"):
-        op.forward(split, [x, x, x], ws)
+    monkeypatch.setattr(pmesh, "all_gather_summed",
+                        lambda t, dim, axes, mesh: t)
+    with pytest.warns(RuntimeWarning, match="all-gather attention path "
+                      r"\(attention dropout active\)"):
+        gathered = op.forward(split, [x, x, x], ws)[0]
     train = op.forward(LoweringContext(compute_dtype=torch.float32,
                                        train=True), [x, x, x], ws)[0]
     y = op.forward(LoweringContext(compute_dtype=torch.float32), [x, x, x],
                    ws)[0]
     assert y.shape == train.shape == (1, 8, 16)
+    assert torch.equal(gathered, train)
     assert not torch.allclose(train, y)  # the masks applied in training
     qh = torch.einsum("bse,ehd->bshd", x, ws["wq"])
     kh = torch.einsum("bse,ehd->bshd", x, ws["wk"])

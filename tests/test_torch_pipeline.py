@@ -26,6 +26,7 @@ module to find it."""
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -51,7 +52,12 @@ from flexflow_tpu_torch.parallel.pipeline import (
     split_microbatches,
 )
 from flexflow_tpu_torch.runtime.distributed import spawn
-from test_torch_worlds import shared_world
+from test_torch_worlds import (
+    assert_npz_equal,
+    checkpoint_round_trip,
+    npz_arrays,
+    shared_world,
+)
 
 N = 4
 ALPHA = 1e-3
@@ -118,6 +124,8 @@ def _gpt(n, pipeline):
 
 
 def _rank(rank, start, x, y, gpt_ids, export_path, port_export):
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
     out = {"sched": {c: _sched_rank(*c) for c in SCHED}}
     m = _transformer(N, PP, export_file=port_export)
     out["kind"] = type(m.compiled).__name__
@@ -125,7 +133,11 @@ def _rank(rank, start, x, y, gpt_ids, export_path, port_export):
     m.params = params_from_numpy(stacked_to_blocks(start, m.graph), "cpu",
                                  m.compiled)
     m.opt_state = m.optimizer.init_state(m.params)
+    tmp = os.path.dirname(export_path)
+    CheckpointManager(os.path.join(tmp, "port_ckpt")).save(0, m)
     m.fit(x, y, shuffle=False, verbose=False)
+    out["ckpt_round_trip"] = checkpoint_round_trip(
+        m, _transformer(N, PP), os.path.join(tmp, "port_ckpt_trained"))
     out["losses"] = list(m.step_losses)
     out["params"] = params_to_numpy(m.params, m.compiled)
     out["own"] = {op: {w: v.detach().numpy().copy() for w, v in ws.items()}
@@ -247,6 +259,12 @@ def _make_world(tmp_path_factory):
     port_export = str(tmp / "port_pp_strategy.json")
     jm, start = _jax_compile(export)
     ref = {"start": start}
+    # the reference's snapshot of the pipelined model at its start
+    # weights, before its steps run (they donate the buffers)
+    from flexflow_tpu.runtime.checkpoint import CheckpointManager as RefMgr
+
+    RefMgr(str(tmp / "ref_ckpt"), use_orbax=False).save(0, jm)
+    ref["npz"] = npz_arrays(str(tmp / "ref_ckpt"), 0)
     # the JAX steps overlap the ranks' (which take one thread each)
     worker = threading.Thread(target=_jax_runs, args=(jm, x, y, ref))
     worker.start()
@@ -257,6 +275,7 @@ def _make_world(tmp_path_factory):
     finally:
         worker.join()
     assert "params" in ref, "the JAX run failed"
+    ref["port_npz"] = npz_arrays(str(tmp / "port_ckpt"), 0)
     ref["imported"] = _jax_import(port_export)
     one = _transformer(1, None)
     one.params = params_from_numpy(stacked_to_blocks(start, one.graph))
@@ -276,6 +295,20 @@ def _make_world(tmp_path_factory):
 def world(tmp_path_factory):
     return shared_world(tmp_path_factory, "pipeline_world",
                         lambda: _make_world(tmp_path_factory))
+
+
+def test_pipelined_checkpoint_is_the_references_and_round_trips(world):
+    """The pipelined lowering's snapshot (every rank saves, rank 0
+    writes) holds the reference's keys and arrays for the same weights:
+    each block weight and its Adam slots stacked under the first block's
+    op name; after training, a restore into a fresh pipelined compile
+    gives every weight and slot back bit for bit."""
+    ranks, ref, _ = world
+    assert_npz_equal(ref["port_npz"], ref["npz"])
+    assert any(k.startswith("opt_state/m/layer0_") for k in ref["npz"])
+    for r in ranks:
+        differ, compared = r["ckpt_round_trip"]
+        assert differ == [] and compared > 0, differ
 
 
 def _assert_weights_close(got, ref, steps):

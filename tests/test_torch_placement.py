@@ -25,6 +25,7 @@ imports no JAX: the spawned ranks import this module to find it."""
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 
 import numpy as np
@@ -36,7 +37,12 @@ from flexflow_tpu_torch.compiler.placement_lowering import placement_blocks
 from flexflow_tpu_torch.core.machine import MachineSpec
 from flexflow_tpu_torch.interop import params_from_numpy
 from flexflow_tpu_torch.runtime.distributed import spawn
-from test_torch_worlds import shared_world
+from test_torch_worlds import (
+    assert_npz_equal,
+    checkpoint_round_trip,
+    npz_arrays,
+    shared_world,
+)
 
 N = 8
 B, S, V, D = 16, 4, 64, 8
@@ -189,7 +195,17 @@ def _rank(rank, data, ref, export_path):
     again.params = params_from_numpy(ref["dlrm_start"], "cpu",
                                      again.compiled)
     again.opt_state = again.optimizer.init_state(again.params)
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    tmp = os.path.dirname(export_path)
+    CheckpointManager(os.path.join(tmp, "port_ckpt")).save(0, again)
     out["dlrm_from_jax"] = _steps(again, xs, yd, 3)
+    fresh = _dlrm(tff, _cfg(batch_size=32))
+    fresh.compile(optimizer=tff.SGDOptimizer(lr=0.01), metrics=[],
+                  strategy=_dlrm_strategy(tff, fresh), **CCE)
+    out["ckpt_kind"] = type(fresh.compiled).__name__
+    out["ckpt_round_trip"] = checkpoint_round_trip(
+        again, fresh, os.path.join(tmp, "port_ckpt_trained"))
 
     xs, yt = data["tables"]
     t = _two_tables(tff, MachineSpec, device="cpu")
@@ -264,6 +280,13 @@ def _make_world(tmp_path_factory):
     export = str(tmp / "placed_strategy.json")
     dl, tb, start = _jax_compile(export)
     ref = dict(start)
+    # the reference's snapshot of the placed DLRM at its start weights,
+    # before its steps run
+    from flexflow_tpu.runtime.checkpoint import CheckpointManager as RefMgr
+
+    RefMgr(str(tmp / "ref_ckpt"), use_orbax=False).save(0, dl)
+    ref["npz"] = npz_arrays(str(tmp / "ref_ckpt"), 0)
+    ref["dl_kind"] = type(dl.compiled).__name__
     ref["tables_views"] = _views(tb.graph, tb.strategy)
     ref["tables_kind"] = type(tb.compiled).__name__
 
@@ -280,6 +303,7 @@ def _make_world(tmp_path_factory):
     finally:
         worker.join()
     assert "tables" in ref, "a JAX run failed"
+    ref["port_npz"] = npz_arrays(str(tmp / "port_ckpt"), 0)
     return ranks, ref
 
 
@@ -287,6 +311,21 @@ def _make_world(tmp_path_factory):
 def world(tmp_path_factory):
     return shared_world(tmp_path_factory, "placement_world",
                         lambda: _make_world(tmp_path_factory))
+
+
+def test_placed_checkpoint_is_the_references_and_round_trips(world):
+    """The placed lowering's snapshot of the DLRM cut holds the
+    reference's placed model's keys and arrays for the same weights
+    (name-keyed, as the flat layout), and after 3 steps a restore into
+    a fresh placed compile gives every weight and slot back bit for
+    bit on every rank."""
+    ranks, ref = world
+    assert ref["dl_kind"] == "PlacedCompiledModel"
+    assert_npz_equal(ref["port_npz"], ref["npz"])
+    for r in ranks:
+        assert r["ckpt_kind"] == "PlacedCompiledModel"
+        differ, compared = r["ckpt_round_trip"]
+        assert differ == [] and compared > 0, differ
 
 
 def test_vertical_placement_executes_and_places(world):

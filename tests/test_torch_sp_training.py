@@ -25,6 +25,17 @@ refuses: a pipeline whose stages do not divide the ranks and a
 ``num_devices`` that differs from the job's size; an inference compile
 under the SP strategy lowers.  The worker functions import no JAX: the
 spawned ranks import this module to find them.
+
+The same worlds run the reference's all-gather path under a split
+sequence: the tiny GPT with attention dropout 0.1 (2 Adam steps through
+``fit``) and a causal cross-attention graph (query seq 64, key seq 32,
+MSE, 2 steps) under the SP strategy, against the JAX package compiled
+under the same strategy on n devices.  The GPT's masks are the
+reference's (drawn in this process, each rank handed its query rows
+through ``LoweringContext.mask_source``); the port's own draw under the
+split equals one process's draw (the mask of each element at its global
+index), so the port's split run equals its one-process run.  Losses
+within 1e-5 relative (fp32).
 """
 
 from __future__ import annotations
@@ -33,9 +44,11 @@ import numpy as np
 import pytest
 import torch
 
+import flexflow_tpu_torch as tff
 from flexflow_tpu_torch import AdamOptimizer, FFConfig
 from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
+from flexflow_tpu_torch.ops.base import LoweringContext
 from flexflow_tpu_torch.models import build_gpt, build_transformer
 from flexflow_tpu_torch.parallel import mesh as pmesh
 from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
@@ -92,9 +105,84 @@ def _ulysses_model(mode, n):
     return m
 
 
-def _train_rank(rank, params, ids, n):
+# ---- attention's all-gather path under a split sequence -----------------
+KEEP = 0.9
+SPLIT_STEPS = 2
+CROSS = dict(sq=64, sk=32, e=32, heads=2)
+MSE = dict(loss_type="mean_squared_error", metrics=[])
+
+
+def _cross_model(pkg, cfg):
+    m = pkg.FFModel(cfg)
+    x = m.create_tensor([BATCH, CROSS["sq"], CROSS["e"]], name="cq")
+    mem = m.create_tensor([BATCH, CROSS["sk"], CROSS["e"]], name="cmem")
+    t = m.multihead_attention(x, mem, mem, embed_dim=CROSS["e"],
+                              num_heads=CROSS["heads"], causal=True,
+                              name="xattn")
+    m.dense(t, CROSS["e"], name="xhead")
+    return m
+
+
+def _cross_data():
+    rng = np.random.default_rng(5)
+    shapes = ((CROSS["sq"], CROSS["e"]), (CROSS["sk"], CROSS["e"]),
+              (CROSS["sq"], CROSS["e"]))
+    return [rng.normal(size=(SPLIT_STEPS * BATCH,) + s).astype(np.float32)
+            for s in shapes]
+
+
+def _row_masks(masks):
+    """A mask source handing each rank its query rows of the whole
+    masks ``masks[(step, op)]`` [B, H, S, S]."""
+    def source(ctx, op_name, shape, keep):
+        whole = masks[(int(ctx.seed), op_name)]
+        q0 = ctx.mesh.index(ctx.axes(1)) * shape[2] if ctx.mesh else 0
+        return torch.from_numpy(np.ascontiguousarray(
+            whole[:, :, q0:q0 + shape[2]]))
+    return source
+
+
+def _split_attention_legs(n, legs):
+    """The all-gather path's legs on this rank: the dropout GPT with the
+    reference's masks and with its own, the cross-attention graph; each
+    the losses of SPLIT_STEPS steps through fit, and the warnings."""
+    import warnings
+
+    out = {}
+    ids = legs["ids"]
+    cfg = FFConfig(batch_size=BATCH, device="cpu", compute_dtype="float32",
+                   num_devices=n)
+    for key, source in (("dropout_ref_masks", _row_masks(legs["masks"])),
+                        ("dropout_own_masks", None)):
+        LoweringContext.mask_source = source
+        try:
+            m = build_gpt(cfg, dropout=1.0 - KEEP, **TINY)
+            m.compile(optimizer=AdamOptimizer(alpha=ALPHA),
+                      strategy=sp_strategy(m, n), **COMPILE)
+            m.params = params_from_numpy(legs["gpt_start"], "cpu",
+                                         m.compiled)
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                m.fit(ids[:, :-1], ids[:, 1:], shuffle=False, verbose=False)
+        finally:
+            LoweringContext.mask_source = None
+        out[key] = list(m.step_losses)
+        out[key + "_warned"] = sorted({str(w.message) for w in seen
+                                       if w.category is RuntimeWarning})
+    m = _cross_model(tff, cfg)
+    m.compile(optimizer=AdamOptimizer(alpha=ALPHA),
+              strategy=sp_strategy(m, n), **MSE)
+    m.params = params_from_numpy(legs["cross_start"], "cpu", m.compiled)
+    xq, xm, y = _cross_data()
+    m.fit([xq, xm], y, shuffle=False, verbose=False)
+    out["cross"] = list(m.step_losses)
+    return out
+
+
+def _train_rank(rank, params, ids, n, legs):
     """One rank: 3 Adam steps through fit under the SP strategy, then
-    Ulysses, evaluate and predict, and what the port refuses."""
+    Ulysses, evaluate and predict, what the port refuses, and the
+    all-gather path's legs."""
     cfg = FFConfig(batch_size=BATCH, device="cpu", compute_dtype="float32",
                    num_devices=n)
     m = build_gpt(cfg, **TINY)
@@ -143,6 +231,7 @@ def _train_rank(rank, params, ids, n):
             y = tm.compiled.forward_fn()(tm.params, tm.state, [
                 torch.from_numpy(x[tm.compiled.input_slices(0, x.shape)])])
         out[mode] = (y.numpy(), pmesh.comm_counts()["all_to_all"]["calls"])
+    out["split_attention"] = _split_attention_legs(n, legs)
     return out
 
 
@@ -180,13 +269,111 @@ def one_process(jax_start):
             fresh.predict(ids[:, :-1]))
 
 
+def _split_ids():
+    rng = np.random.default_rng(3)
+    return rng.integers(0, TINY["vocab"], size=(
+        SPLIT_STEPS * BATCH, TINY["seq_len"] + 1)).astype(np.int32)
+
+
+def _jax_split_legs(n):
+    """The JAX package under the split strategy on n devices: the
+    dropout GPT's and the cross-attention graph's start weights, their
+    SPLIT_STEPS losses (step keys 1, 2, as the port's fit seeds), and
+    the reference's attention masks of each step."""
+    import jax
+    import jax.numpy as jnp
+
+    import flexflow_tpu as ff
+    from flexflow_tpu.core.machine import MachineView as JaxView
+    from flexflow_tpu.models import build_gpt as jax_build_gpt
+    from test_torch_dropout import reference_mask
+
+    def views(jm):
+        return {node.guid: JaxView(dim_degrees=(1, n) + (1,) * (
+            node.op.output_shapes[0].ndim - 2))
+            if node.op.output_shapes[0].ndim >= 2 else JaxView.trivial(
+                node.op.output_shapes[0].ndim)
+            for node in jm.graph.topo_order()}
+
+    def run(jm, compile_kw, batches):
+        jm.compile(optimizer=ff.AdamOptimizer(alpha=ALPHA),
+                   strategy=views(jm), **compile_kw)
+        start = {op: {w: np.array(v) for w, v in ws.items()}
+                 for op, ws in jm.params.items()}
+        params, opt, state, losses = jm.params, jm.opt_state, jm.state, []
+        for step, (ins, y) in enumerate(batches, start=1):
+            params, opt, state, loss, _ = jm.compiled.train_step(
+                params, opt, state, jax.random.key(step),
+                [jnp.asarray(a) for a in ins], jnp.asarray(y))
+            losses.append(float(loss))
+        return start, losses
+
+    cfg = ff.FFConfig(batch_size=BATCH, num_devices=n, compute_dtype="float32",
+                      only_data_parallel=False, cost_cache_file="")
+    ids = _split_ids()
+    rows = [ids[i * BATCH:(i + 1) * BATCH] for i in range(SPLIT_STEPS)]
+    gpt_start, gpt_losses = run(
+        jax_build_gpt(cfg, dropout=1.0 - KEEP, **TINY), COMPILE,
+        [([r[:, :-1]], r[:, 1:]) for r in rows])
+    shape = (BATCH, TINY["num_heads"], TINY["seq_len"], TINY["seq_len"])
+    masks = {(step, f"layer{i}_mha"): reference_mask(
+        step, f"layer{i}_mha", shape, KEEP).numpy()
+        for step in range(1, SPLIT_STEPS + 1)
+        for i in range(TINY["num_layers"])}
+    xq, xm, y = _cross_data()
+    cross_start, cross_losses = run(
+        _cross_model(ff, cfg), MSE,
+        [([xq[sl], xm[sl]], y[sl]) for sl in (
+            slice(i * BATCH, (i + 1) * BATCH) for i in range(SPLIT_STEPS))])
+    return ({"ids": ids, "masks": masks, "gpt_start": gpt_start,
+             "cross_start": cross_start},
+            {"dropout": gpt_losses, "cross": cross_losses})
+
+
+SPLIT_REFS = {}  # n -> the world's (legs, JAX losses)
+
+
 @pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
 def world(request, jax_start, tmp_path_factory):
     n = request.param
+    legs, refs = _jax_split_legs(n)
     rdzv = tmp_path_factory.mktemp(f"sp{n}") / "rendezvous"
-    return n, spawn(_train_rank, n, (jax_start, _ids(), n),
-                    init_method=f"file://{rdzv}", device="cpu",
-                    timeout=600)
+    ranks = spawn(_train_rank, n, (jax_start, _ids(), n, legs),
+                  init_method=f"file://{rdzv}", device="cpu", timeout=600)
+    SPLIT_REFS[n] = (legs, refs)
+    return n, ranks
+
+
+def _one_process_split(legs):
+    """The port's dropout GPT in one process with its own masks."""
+    m = build_gpt(FFConfig(batch_size=BATCH, device="cpu",
+                           compute_dtype="float32"), dropout=1.0 - KEEP,
+                  **TINY)
+    m.compile(optimizer=AdamOptimizer(alpha=ALPHA), **COMPILE)
+    m.params = params_from_numpy(legs["gpt_start"])
+    ids = legs["ids"]
+    m.fit(ids[:, :-1], ids[:, 1:], shuffle=False, verbose=False)
+    return list(m.step_losses)
+
+
+def test_split_attention_dropout_and_cross_attention_match_jax(world):
+    """Attention dropout and cross-attention under a split sequence take
+    the reference's all-gather path (with its RuntimeWarning) and train
+    as the JAX package does under the same strategy; the port's own
+    masks under the split are one process's."""
+    n, ranks = world
+    legs, refs = SPLIT_REFS[n]
+    own = _one_process_split(legs)
+    for r in ranks:
+        got = r["split_attention"]
+        np.testing.assert_allclose(got["dropout_ref_masks"],
+                                   refs["dropout"], rtol=TOLS[0])
+        np.testing.assert_allclose(got["cross"], refs["cross"],
+                                   rtol=TOLS[0])
+        np.testing.assert_allclose(got["dropout_own_masks"], own,
+                                   rtol=TOLS[0])
+        assert any("attention dropout active" in w and "all-gather" in w
+                   for w in got["dropout_ref_masks_warned"]), got
 
 
 def _jax_sp_leg(n, start):

@@ -19,6 +19,7 @@ spawned ranks import this module to find it."""
 
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -33,7 +34,12 @@ from flexflow_tpu_torch.core.machine import MachineSpec
 from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
 from flexflow_tpu_torch.losses import LossType
 from flexflow_tpu_torch.runtime.distributed import spawn
-from test_torch_worlds import shared_world
+from test_torch_worlds import (
+    assert_npz_equal,
+    checkpoint_round_trip,
+    npz_arrays,
+    shared_world,
+)
 
 N = 8
 DEEP = (1019, 1013, 1009, 997, 991, 983, 977, 1021)
@@ -113,7 +119,13 @@ def _rank(rank, data, ref):
     out["staged"] = _steps(sm, [x], y, 3)
     out["staged_params"] = params_to_numpy(sm.params, sm.compiled)
     out["held"] = sorted(sm.params)
-    out["from_jax"] = _steps(_staged_hetero(ref["hetero_start"]), [x], y, 3)
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    sj = _staged_hetero(ref["hetero_start"])
+    CheckpointManager(os.path.join(ref["tmp"], "port_ckpt")).save(0, sj)
+    out["from_jax"] = _steps(sj, [x], y, 3)
+    out["ckpt_round_trip"] = checkpoint_round_trip(
+        sj, _staged_hetero(), os.path.join(ref["tmp"], "port_ckpt_trained"))
 
     x, y = data["deep"]
     m = _deep(tff, MachineSpec, device="cpu")
@@ -154,6 +166,14 @@ def _jax_hetero(x, y, out):
                  metrics=["accuracy"])
     out["hetero_start"] = {op: {w: np.array(v) for w, v in ws.items()}
                            for op, ws in flat.params.items()}
+    # the reference's snapshot at the start weights (its staged lowering
+    # merges its stages' trees by name into the flat layout,
+    # staged_pipeline_lowering.py:247-263)
+    from flexflow_tpu.runtime.checkpoint import CheckpointManager as RefMgr
+
+    RefMgr(os.path.join(out["tmp"], "ref_ckpt"), use_orbax=False).save(
+        0, flat)
+    out["npz"] = npz_arrays(os.path.join(out["tmp"], "ref_ckpt"), 0)
     p, o, s = flat.params, flat.opt_state, flat.state
     xd = jax.device_put(x, flat.compiled.input_sharding(0))
     yd = jax.device_put(y, flat.compiled.batch_sharding())
@@ -191,18 +211,20 @@ def _data():
 def _make_world(tmp_path_factory):
     """(each rank's results, the JAX package's runs)."""
     data = _data()
-    ref = {}
+    tmp = tmp_path_factory.mktemp("staged")
+    ref = {"tmp": str(tmp)}
     _jax_hetero(*data["hetero"], ref)
     worker = threading.Thread(target=_jax_searches, args=(ref,))
     worker.start()
     try:
-        ranks = spawn(_rank, N, (data, ref),
-                      init_method=f"file://"
-                      f"{tmp_path_factory.mktemp('staged') / 'rendezvous'}",
+        ranks = spawn(_rank, N, (data, {k: ref[k] for k in
+                                        ("hetero_start", "tmp")}),
+                      init_method=f"file://{tmp / 'rendezvous'}",
                       device="cpu", timeout=600)
     finally:
         worker.join()
     assert "bn_kind" in ref, "a JAX run failed"
+    ref["port_npz"] = npz_arrays(str(tmp / "port_ckpt"), 0)
     return ranks, ref
 
 
@@ -210,6 +232,19 @@ def _make_world(tmp_path_factory):
 def world(tmp_path_factory):
     return shared_world(tmp_path_factory, "staged_world",
                         lambda: _make_world(tmp_path_factory))
+
+
+def test_staged_checkpoint_is_the_references_and_round_trips(world):
+    """The staged lowering's snapshot holds the reference's keys and
+    arrays for the same weights (its stages' trees merged by name: the
+    flat layout, which the reference's flat model here writes), and
+    after 3 steps a restore into a fresh staged lowering gives every
+    weight and slot back bit for bit on every rank."""
+    ranks, ref = world
+    assert_npz_equal(ref["port_npz"], ref["npz"])
+    for r in ranks:
+        differ, compared = r["ckpt_round_trip"]
+        assert differ == [] and compared > 0, differ
 
 
 def test_staged_pipeline_matches_flat_numerics(world):

@@ -419,3 +419,112 @@ def test_matmul_acc32_equals_the_reference_dot(dtype):
         ref_g = np.asarray(ref_g, np.float32)
         err = np.abs(t.grad.float().numpy() - ref_g).max()
         assert err <= 1e-2 * np.abs(ref_g).max()
+
+
+# ---------------------------------------------------------------------------
+# bf16 parameters: the update runs in fp32 and is cast back, the slots
+# stay fp32 (reference optimizers.py:61-66)
+BF16_OPTIMIZERS = [
+    ("sgd_nesterov", ff.SGDOptimizer(lr=0.1, momentum=0.9, nesterov=True,
+                                     weight_decay=0.01),
+     SGDOptimizer(lr=0.1, momentum=0.9, nesterov=True, weight_decay=0.01)),
+    ("adam", ff.AdamOptimizer(alpha=0.01, weight_decay=0.01),
+     AdamOptimizer(alpha=0.01, weight_decay=0.01)),
+    ("adamw", ff.AdamOptimizer(alpha=0.01, weight_decay=0.01, adamw=True),
+     AdamOptimizer(alpha=0.01, weight_decay=0.01, adamw=True)),
+]
+
+
+def _bf16_linear_model(pkg, ops, cfg):
+    m = pkg.FFModel(cfg)
+    x = m.create_tensor([8, 16], name="x")
+    h = m._add_op(ops.LinearOp("fc1", [m._shape_of(x)], out_dim=8,
+                               activation="relu", param_dtype="bfloat16"),
+                  [x])[0]
+    m._add_op(ops.LinearOp("fc2", [m._shape_of(h)], out_dim=4,
+                           param_dtype="bfloat16"), [h])
+    return m
+
+
+def _f32_tree(tree):
+    return {op: {w: np.asarray(v, np.float32) for w, v in ws.items()}
+            for op, ws in tree.items()}
+
+
+@pytest.mark.parametrize("name,jax_opt,port_opt", BF16_OPTIMIZERS)
+def test_bf16_linear_params_train_like_the_reference(name, jax_opt,
+                                                     port_opt):
+    """``LinearOp(param_dtype="bfloat16")`` through 3 optimizer steps in
+    both packages from the same weights: losses within 1e-5, the bf16
+    weights within bf16 rounding (8e-3 relative, 1e-3 absolute), the
+    fp32 slots within 1e-4 of their largest entry.  The same three
+    updates on the same bf16 gradients straight through ``apply``: the
+    weights bit-equal, the slots within 1e-6."""
+    import flexflow_tpu.ops as jops
+    import flexflow_tpu_torch as tff
+    import flexflow_tpu_torch.ops as pops
+
+    jm = _bf16_linear_model(ff, jops, ff.FFConfig(
+        batch_size=8, num_devices=1, compute_dtype="float32",
+        cost_cache_file=""))
+    jm.compile(optimizer=jax_opt, strategy=_trivial(jm),
+               loss_type="sparse_categorical_crossentropy", metrics=[])
+    pm = _bf16_linear_model(tff, pops, FFConfig(
+        batch_size=8, device="cpu", compute_dtype="float32"))
+    pm.compile(optimizer=port_opt,
+               loss_type="sparse_categorical_crossentropy", metrics=[])
+    assert pm.params["fc1"]["kernel"].dtype == torch.bfloat16
+    p0 = _np_params(jm)  # before the JAX steps donate them
+    pm.params = params_from_numpy(p0)
+    pm.opt_state = port_opt.init_state(pm.params)
+    rng = np.random.default_rng(7)
+    params, opt, state = jm.params, jm.opt_state, jm.state
+    for step in range(3):
+        x = rng.normal(size=(8, 16)).astype(np.float32)
+        y = rng.integers(0, 4, size=(8,)).astype(np.int32)
+        params, opt, state, jl, _ = jm.compiled.train_step(
+            params, opt, state, jax.random.key(step), [jnp.asarray(x)],
+            jnp.asarray(y))
+        pm.params, pm.opt_state, pm.state, pl, _ = pm.compiled.train_step(
+            pm.params, pm.opt_state, pm.state, [torch.from_numpy(x)],
+            torch.from_numpy(y))
+        assert abs(float(pl) - float(jl)) <= 1e-5 * abs(float(jl))
+    got = params_to_numpy(pm.params)
+    for op, ws in params.items():
+        for w, v in ws.items():
+            assert got[op][w].dtype == np.asarray(v).dtype  # still bf16
+            np.testing.assert_allclose(
+                np.asarray(got[op][w], np.float32), np.asarray(v, np.float32),
+                rtol=8e-3, atol=1e-3, err_msg=f"{op}/{w}")
+    for slot in [k for k in opt if k != "step"]:
+        ref, mine = _f32_tree(opt[slot]), params_to_numpy(pm.opt_state[slot])
+        for op, ws in ref.items():
+            for w, v in ws.items():
+                assert mine[op][w].dtype == np.float32
+                scale = max(float(np.abs(v).max()), 1e-12)
+                assert float(np.abs(mine[op][w] - v).max()) <= 1e-4 * scale
+
+    # the update alone, on the same bf16 gradients
+    import ml_dtypes
+
+    grads = [{op: {w: rng.normal(size=v.shape).astype(ml_dtypes.bfloat16)
+                   for w, v in ws.items()} for op, ws in p0.items()}
+             for _ in range(3)]
+    jp = jax.tree.map(jnp.asarray, p0)
+    js = jax_opt.init_state(jp)
+    pp = params_from_numpy(p0)
+    ps = port_opt.init_state(pp)
+    for g in grads:
+        jp, js = jax_opt.apply(jp, jax.tree.map(jnp.asarray, g), js)
+        port_opt.apply(pp, params_from_numpy(g), ps)
+    got = params_to_numpy(pp)
+    for op, ws in jp.items():
+        for w, v in ws.items():
+            np.testing.assert_array_equal(got[op][w].view(np.int16),
+                                          np.asarray(v).view(np.int16))
+    for slot in [k for k in js if k != "step"]:
+        mine = params_to_numpy(ps[slot])
+        for op, ws in _f32_tree(js[slot]).items():
+            for w, v in ws.items():
+                np.testing.assert_allclose(mine[op][w], v, rtol=1e-6,
+                                           atol=1e-7)
