@@ -12,6 +12,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --serve-only RUNS [--seed N]
     python3 chip_smoke.py --zoo-only [--seed N]
     python3 chip_smoke.py --always-on-only [--seed N]
+    python3 chip_smoke.py --obs-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -29,7 +30,8 @@ alone.  The sixth builds the kernels and runs phase 11 alone.  The
 seventh builds the kernels and runs phase 12 alone RUNS times, against
 phase 6's first step taken alone.  The eighth builds the kernels and
 runs phase 13 alone RUNS times.  The ninth runs phase 14 alone (no CUDA
-kernel of the port lies on its path, so nothing is built).
+kernel of the port lies on its path, so nothing is built).  The tenth
+builds the kernels and runs phase 15 alone, the eleventh phase 16.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -352,13 +354,41 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    run of the same seed, and the seeded unsound rewrite's EQV301 on
    both with max abs diffs within AO_PROOF_TOL.  Printed as
    ``always-on path: {...}``;
-16. print one JSON line listing every ported kernel.
+16. the measured side of the loop (obs/, runtime/profiler.py): (a)
+   phase 6's GPT (GPT-2-small widths, seq 1024, batch 8, bf16, Adam)
+   through ``fit`` with ``profiling``, ``device_trace_dir``,
+   ``obs_log_file``, ``obs_trace_file`` and both dot exports, 2 steps
+   before the capture, 1 under the profiler that opens no window (its
+   warm-up) and 4 captured (``torch.profiler``, CPU and CUDA activity,
+   the step a replay of its CUDA graph): the capture holds 4
+   ``ff.phase/step`` windows on the device, each with rows 1-3's kernels
+   12 times (the counters' 12 per step), rows 4-6 none; the
+   ``StepProfiler`` summary, the bus log (every event valid under the
+   port's schemas, which equal the reference's and tools/ffobs.py's:
+   the CPU tests run ffobs on a port log), the predicted timeline and
+   the graphviz files; printed per step window: the device-busy share
+   (the union of device operations over the window) and the ten device
+   operations that took the most time; then a warm-up frame and
+   OBS_FRAMES frames of phase 4's executor (its captured frame) under
+   ``device_trace``: 8
+   ``ff.phase/decode_frame`` windows, row 5 12 times in each; (b)
+   ``MetricsServer`` on a free loopback port, ``/metrics`` scraped once
+   with ``urllib`` and its families parsed (``fit``'s among them); (c)
+   phase 12's leg (d) (the searched, bucketed, issue-ordered and staged
+   schedule at dp 4, ranks spawned as phase 7's) with ``profiling`` and
+   ``device_trace_dir``, 1 + 1 + 3 steps, the capture after the first,
+   its windows after the profiler's warm-up step: on
+   every rank the ``lane_drift_report`` matches every predicted lane,
+   3 samples each, every measured sync time above 0, its ``source``
+   printed, and the controller's drift watch takes it from the model.
+   Printed as ``observability path: {...}``;
+17. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
 It needs one card; with four it runs phases 7-10, 12, 13, 14's
-ep-MoE leg and 15's device-loss leg one rank per card.
+ep-MoE leg, 15's device-loss leg and 16 (c) one rank per card.
 """
 
 from __future__ import annotations
@@ -646,6 +676,11 @@ ZOO_EP_RANKS = 4
 ZOO_EP_BATCH = 64
 ZOO_EP_TOL = 1e-5  # fp32, TF32 off: the CPU tests' bound
 # phase 15: the always-on loop
+OBS_WARM_STEPS = 2  # phase 16 (a): steps before the capture
+OBS_PROFILER_WARM = 1  # the step under the profiler that opens no window
+OBS_CAPTURED_STEPS = 4
+OBS_FRAMES = 8
+OBS_SYNC_STEPS = 3  # phase 16 (c): captured steps after the first
 AO_STEPS = 24
 AO_BATCHES = 8  # the distinct batches the controller cycles over
 AO_FAULTS = ("calibration_drift@6,collective_failure@10:99,"
@@ -6271,7 +6306,440 @@ def phase_always_on(seed, name):
     return report
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: the measured side of the loop
+def trace_doc_events(path):
+    """The ``X`` rows of a Chrome-trace file."""
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"]
+                if isinstance(e, dict) and e.get("ph") == "X"]
+
+
+DEVICE_OP_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_windows(path, phase):
+    """Each device-side window of ``phase`` (the ``gpu_user_annotation``
+    copy of the range) in a ``torch.profiler`` capture: its length, the
+    union of the device operations inside it over its length (the busy
+    share), the ten operations that took the most device time in it,
+    and every operation's count by name."""
+    rows = trace_doc_events(path)
+    ops = sorted(((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                   e["name"]) for e in rows
+                  if e.get("cat") in DEVICE_OP_CATS),
+                 key=lambda o: o[0])
+    out = []
+    for w in sorted((e for e in rows if e["name"] == phase
+                     and e.get("cat") == "gpu_user_annotation"),
+                    key=lambda e: e["ts"]):
+        s, e = float(w["ts"]), float(w["ts"]) + float(w["dur"])
+        inside = [o for o in ops if s <= o[0] < e]
+        busy, cur = 0.0, None
+        for a, b, _ in inside:
+            b = min(b, e)
+            if cur is None or a > cur[1]:
+                if cur is not None:
+                    busy += cur[1] - cur[0]
+                cur = [a, b]
+            else:
+                cur[1] = max(cur[1], b)
+        if cur is not None:
+            busy += cur[1] - cur[0]
+        by_name, counts = {}, {}
+        for a, b, name in inside:
+            by_name[name] = by_name.get(name, 0.0) + (b - a)
+            counts[name] = counts.get(name, 0) + 1
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        out.append({"window_ms": (e - s) / 1e3,
+                    "device_busy_share": busy / max(e - s, 1e-9),
+                    "device_ops": len(inside),
+                    "top_device_ms": [[n[:160], t / 1e3] for n, t in top],
+                    "counts": counts})
+    return out
+
+
+@contextlib.contextmanager
+def timed_capture():
+    """Time ``DeviceTrace``'s start and stop (the profiler's start and
+    its trace's export) and the model's ingest while the block runs:
+    yields a dict of lists of seconds."""
+    from flexflow_tpu_torch import model as model_mod
+    from flexflow_tpu_torch.runtime.profiler import DeviceTrace
+
+    spent = {"start_s": [], "stop_s": [], "ingest_s": []}
+    saved = (DeviceTrace.start, DeviceTrace.stop,
+             model_mod.FFModel._ingest_device_trace)
+
+    def timing(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key].append(time.perf_counter() - t0)
+        return run
+
+    DeviceTrace.start = timing(saved[0], "start_s")
+    DeviceTrace.stop = timing(saved[1], "stop_s")
+    model_mod.FFModel._ingest_device_trace = timing(saved[2], "ingest_s")
+    try:
+        yield spent
+    finally:
+        (DeviceTrace.start, DeviceTrace.stop,
+         model_mod.FFModel._ingest_device_trace) = saved
+
+
+def kernel_count(window, fragment):
+    return sum(c for n, c in window["counts"].items() if fragment in n)
+
+
+FLASH_SYMBOLS = {"flash_forward": "flash_fwd_tc_kernel",
+                 "flash_backward_dq": "flash_bwd_dq_tc_kernel",
+                 "flash_backward_dkv": "flash_bwd_dkv_tc_kernel"}
+
+
+def obs_fit(seed, workdir):
+    """Phase 16 (a), training: phase 6's model through ``fit`` with
+    ``profiling``, ``device_trace_dir``, the bus, the predicted timeline
+    and both dot exports; OBS_WARM_STEPS steps before the capture (a
+    ``fit`` of one step without ``device_trace_dir``, then the captured
+    ``fit``'s first call), the profiler's warm-up step, then
+    OBS_CAPTURED_STEPS captured."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+    from flexflow_tpu_torch.models import build_gpt
+    from flexflow_tpu_torch.obs.annotate import STEP_PHASE
+    from flexflow_tpu_torch.obs.events import BUS, validate_event
+    from flexflow_tpu_torch.obs.trace_ingest import find_trace_file, ingest
+
+    free_models()
+    files = {k: os.path.join(workdir, name) for k, name in (
+        ("obs_log_file", "bus.jsonl"), ("obs_trace_file", "predicted.json"),
+        ("export_strategy_computation_graph_file", "graph.dot"),
+        ("export_strategy_task_graph_file", "taskgraph.dot"))}
+    cap_dir = os.path.join(workdir, "fit_trace")
+    model = build_gpt(FFConfig(batch_size=TRAIN_BATCH,
+                               compute_dtype="bfloat16", seed=seed,
+                               profiling=True, **files), **TRAIN)
+    model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    rng = np.random.default_rng(seed + 3)  # phase 6's batches
+    steps = OBS_WARM_STEPS + OBS_PROFILER_WARM + OBS_CAPTURED_STEPS
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        steps * TRAIN_BATCH, TRAIN["seq_len"] + 1)).astype(np.int32)
+    x, y = ids[:, :-1], ids[:, 1:]
+    model.fit(x[:TRAIN_BATCH], y[:TRAIN_BATCH], batch_size=TRAIN_BATCH,
+              shuffle=False, verbose=False)  # the step's capture
+    model.config.device_trace_dir = cap_dir
+    for k in COUNTED:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with timed_capture() as capture_cost:
+        model.fit(x[TRAIN_BATCH:], y[TRAIN_BATCH:], batch_size=TRAIN_BATCH,
+                  shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in COUNTED}
+    BUS.close()
+    trace_file = find_trace_file(cap_dir, "rank0")
+    check(trace_file is not None, "phase 16 (a): fit wrote no capture")
+    t0 = time.perf_counter()
+    got = ingest(trace_file, emit=False)
+    windows = device_windows(trace_file, STEP_PHASE)
+    read_s = time.perf_counter() - t0
+    layers = TRAIN["num_layers"]
+    fit_steps = steps - 1
+    check(len(got.step_spans) == OBS_CAPTURED_STEPS
+          and len(windows) == OBS_CAPTURED_STEPS
+          and got.source == "device_trace",
+          f"phase 16 (a): {len(got.step_spans)} step windows "
+          f"({len(windows)} on the device, source {got.source}), want "
+          f"{OBS_CAPTURED_STEPS} from the device copies")
+    for wrapper, symbol in FLASH_SYMBOLS.items():
+        check(launched[wrapper] == layers * fit_steps,
+              f"phase 16 (a): {wrapper} counted {launched[wrapper]} "
+              f"launches in {fit_steps} steps, want {layers} per step")
+        seen = [kernel_count(w, symbol) for w in windows]
+        check(seen == [layers] * OBS_CAPTURED_STEPS,
+              f"phase 16 (a): {symbol} in the step windows {seen}, want "
+              f"{layers} in each (the counters' {layers} per step)")
+    others = {k: v for k, v in launched.items() if k not in FLASH_SYMBOLS}
+    check(not any(others.values()), f"phase 16 (a): rows 4-6 {others}")
+    prof = model.profile_summary
+    check(prof is not None and prof["steps"] == fit_steps - 1
+          and not prof["includes_compile"],
+          f"phase 16 (a): StepProfiler summary {prof}")
+    with open(files["obs_log_file"]) as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    bad = [e for e in events if validate_event(e)]
+    kinds = sorted({e.get("kind") for e in events})
+    check(not bad and "profile.summary" in kinds and "drift.report" in kinds,
+          f"phase 16 (a): bus log kinds {kinds}, {len(bad)} invalid")
+    with open(files["obs_trace_file"]) as f:
+        predicted = json.load(f)
+    check(predicted["otherData"]["simulated_step_s"] > 0
+          and any(e.get("ph") == "X" for e in predicted["traceEvents"]),
+          "phase 16 (a): the predicted timeline is empty")
+    for k in ("export_strategy_computation_graph_file",
+              "export_strategy_task_graph_file"):
+        with open(files[k]) as f:
+            check(f.read().startswith("digraph"),
+                  f"phase 16 (a): {k} is not graphviz")
+    report = {
+        "captured_steps": len(windows), "source": got.source,
+        "trace_events": got.events,
+        "trace_mb": os.path.getsize(trace_file) / 1e6,
+        "ingest_and_read_s": read_s, "fit_wall_s": fit_wall,
+        "capture_cost": capture_cost,
+        "launches": launched, "profile": prof,
+        "drift_ratio": model.drift_report.ratio
+        if model.drift_report is not None else None,
+        "predicted_step_s": predicted["otherData"]["simulated_step_s"],
+        "bus_events": len(events), "bus_kinds": kinds,
+        "windows": [{k: w[k] for k in ("window_ms", "device_busy_share",
+                                       "device_ops", "top_device_ms")}
+                    for w in windows]}
+    del model
+    free_models()
+    return report
+
+
+def obs_serve(seed, workdir):
+    """Phase 16 (a), serving: OBS_FRAMES frames of phase 4's executor
+    (its captured frame, replayed) under ``device_trace``, after one
+    frame under it with the annotations disarmed (the profiler's
+    warm-up, as ``fit``'s)."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+    from flexflow_tpu_torch.models import build_gpt_decode
+    from flexflow_tpu_torch.obs import annotate
+    from flexflow_tpu_torch.obs.annotate import DECODE_PHASE
+    from flexflow_tpu_torch.obs.trace_ingest import ingest
+    from flexflow_tpu_torch.runtime.decode import (
+        ContinuousBatchingExecutor,
+        DecodeRequest,
+        compiled_decode_step,
+    )
+    from flexflow_tpu_torch.runtime.profiler import device_trace
+
+    free_models()
+    model = build_gpt_decode(FFConfig(batch_size=FRAME_SLOTS,
+                                      compute_dtype="bfloat16", seed=seed),
+                             **FULL)
+    model.compile(comp_mode="inference")
+    step = compiled_decode_step(model)
+
+    def executor():
+        return ContinuousBatchingExecutor(
+            step, max_seqs=FRAME_SLOTS, page_size=FULL["page_size"],
+            pages_per_seq=FULL["pages_per_seq"])
+
+    executor().run([DecodeRequest(rid="warm", prompt=[1, 2, 3],
+                                  max_new_tokens=4)])  # the capture
+    zero_state(model)
+    ex = executor()
+    ex.submit(make_requests(seed, FULL["vocab"]))
+    ragged_paged_attention.launches = 0
+    replays0 = replays(step.graph)
+    with device_trace(os.path.join(workdir, "serve_trace"),
+                      model.compiled.device) as trace:
+        annotate.disarm()  # the profiler's warm-up frame, no window
+        ex.step()
+        torch.cuda.synchronize()
+        annotate.arm()
+        for _ in range(OBS_FRAMES):
+            ex.step()
+    launches = ragged_paged_attention.launches - FULL["num_layers"]
+    frames = replays(step.graph) - replays0 - OBS_PROFILER_WARM
+    got = ingest(trace.trace_file, emit=False)
+    windows = device_windows(trace.trace_file, DECODE_PHASE)
+    layers = FULL["num_layers"]
+    seen = [kernel_count(w, "rpa_split_kernel") for w in windows]
+    check(len(got.phases.get(DECODE_PHASE, ())) == OBS_FRAMES
+          and got.source == "device_trace" and frames == OBS_FRAMES,
+          f"phase 16 (a): {len(got.phases.get(DECODE_PHASE, ()))} decode "
+          f"frame spans ({got.source}), {frames} replays, want "
+          f"{OBS_FRAMES} on the device")
+    check(seen == [layers] * OBS_FRAMES and launches == layers * frames,
+          f"phase 16 (a): rpa_split_kernel in the frame windows {seen}, "
+          f"{launches} counted, want {layers} per frame")
+    report = {"frames": frames, "source": got.source,
+              "launches": launches,
+              "windows": [{k: w[k] for k in ("window_ms",
+                                             "device_busy_share",
+                                             "device_ops")}
+                          for w in windows],
+              "top_device_ms_first_frame": (windows[0]["top_device_ms"]
+                                            if windows else None)}
+    del model, step, ex
+    free_models()
+    return report
+
+
+def obs_scrape():
+    """Phase 16 (b): the metrics registry's text over loopback."""
+    import urllib.request
+
+    from flexflow_tpu_torch.obs.exposition import MetricsServer
+
+    server = MetricsServer(0)  # a free loopback port
+    try:
+        url = f"http://{server.host}:{server.port}/metrics"
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(url, timeout=30) as r:
+            status, body = r.status, r.read().decode()
+        scrape_s = time.perf_counter() - t0
+    finally:
+        server.close()
+    families = {}
+    for line in body.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, fam, kind = line.split(" ", 3)
+            families[fam] = kind
+    check(status == 200 and families.get("flexflow_tpu_fit_steps")
+          == "counter" and families.get("flexflow_tpu_fit_step_s")
+          == "summary",
+          f"phase 16 (b): /metrics gave {status} with families "
+          f"{sorted(families)}")
+    return {"port": server.port, "families": len(families),
+            "bytes": len(body), "scrape_s": scrape_s,
+            "fit_families": sorted(f for f in families if "_fit_" in f)}
+
+
+def _obs_sync_rank(rank, seed, ids, shared, trace_dir):
+    """One rank of phase 16 (c): phase 12's leg (d) with profiling and
+    ``device_trace_dir``, 2 + OBS_SYNC_STEPS steps (the capture starts
+    after the first, its windows after the profiler's warm-up step)."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+    from flexflow_tpu_torch.obs.annotate import LANES
+    from flexflow_tpu_torch.runtime.controller import TrainingController
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _ = sync_legs(shared, None)["d_schedule"]
+    model = sync_model(seed, profiling=True, device_trace_dir=trace_dir,
+                       **cfg)
+    x, y = ids[:, :-1], ids[:, 1:]
+    for k in COUNTED:
+        k.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    with timed_capture() as capture_cost:
+        model.fit(x, y, batch_size=TRAIN_BATCH, shuffle=False,
+                  verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report = model.lane_drift_report
+    windows = None
+    if rank == 0:  # where a shared-card dp 4 step's device time goes
+        from flexflow_tpu_torch.obs.annotate import STEP_PHASE
+        from flexflow_tpu_torch.obs.trace_ingest import find_trace_file
+
+        windows = [{k: w[k] for k in ("window_ms", "device_busy_share",
+                                      "device_ops", "top_device_ms")}
+                   for w in device_windows(
+                       find_trace_file(trace_dir, "rank0"), STEP_PHASE)]
+    ctl = TrainingController(model)
+    ctl._watch_drift(0)  # the drift watch reads the model's report
+    return {"report": None if report is None else report.to_dict(),
+            "controller_read": report is not None
+            and ctl._lane_seen is report,
+            "recorder": {k: [(b - a) for a, b in v]
+                         for k, v in LANES.spans().items()},
+            "launches": {k.__name__: k.launches for k in COUNTED},
+            "losses": list(model.step_losses), "fit_wall_s": wall,
+            "schedule": model.compiled.sync_schedule.to_jsonable(),
+            "profile": model.profile_summary, "capture_cost": capture_cost,
+            "windows": windows}
+
+
+def obs_sync(seed, workdir):
+    """Phase 16 (c): the searched, bucketed, issue-ordered schedule at
+    dp 4 (phase 12's leg (d)) captured for OBS_SYNC_STEPS steps."""
+    from flexflow_tpu_torch.runtime.distributed import spawn
+
+    free_models()
+    shared = torch.cuda.device_count() < SYNC_RANKS
+    rng = np.random.default_rng(seed + 3)  # phase 6's batches
+    ids = rng.integers(0, TOKEN_RANGE, size=(
+        (OBS_SYNC_STEPS + 1 + OBS_PROFILER_WARM) * TRAIN_BATCH,
+        TRAIN["seq_len"] + 1)).astype(np.int32)
+    trace_dir = os.path.join(workdir, "sync_trace")
+    t0 = time.perf_counter()
+    ranks = spawn(_obs_sync_rank, SYNC_RANKS,
+                  (seed, ids, shared, trace_dir),
+                  init_method=f"tcp://localhost:{free_port()}",
+                  device="cuda", timeout=SP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    layers = TRAIN["num_layers"]
+    out = {"ranks_wall_s": wall, "per_rank": []}
+    for i, r in enumerate(ranks):
+        rep = r["report"]
+        check(rep is not None and rep["matched_all"]
+              and rep["steps"] == OBS_SYNC_STEPS,
+              f"phase 16 (c) rank {i}: lane report {rep}")
+        check(all(row["measured_sync_s"] is not None
+                  and row["measured_sync_s"] > 0
+                  and row["samples"] == OBS_SYNC_STEPS
+                  for row in rep["lanes"]),
+              f"phase 16 (c) rank {i}: lanes {rep['lanes']}")
+        check(r["controller_read"], f"phase 16 (c) rank {i}: the "
+              f"controller did not take the model's lane report")
+        check(r["schedule"] == ranks[0]["schedule"]
+              and r["losses"] == ranks[0]["losses"]
+              and bool(np.isfinite(r["losses"]).all()),
+              f"phase 16 (c) rank {i}: schedule or losses differ")
+        for wrapper in FLASH_SYMBOLS:
+            check(r["launches"][wrapper]
+                  == layers * (OBS_SYNC_STEPS + 1 + OBS_PROFILER_WARM),
+                  f"phase 16 (c) rank {i}: {wrapper} launched "
+                  f"{r['launches'][wrapper]} times")
+        print(f"phase 16 (c) rank {i}: lane source {rep['source']}, "
+              f"{rep['matched']}/{len(rep['lanes'])} lanes matched")
+        out["per_rank"].append({
+            "source": rep["source"], "matched": rep["matched"],
+            "measured_step_s": rep["measured_step_s"],
+            "predicted_total_s": rep["predicted_total_s"],
+            "lanes": [{k: row[k] for k in (
+                "lane", "samples", "predicted_issue_s", "predicted_sync_s",
+                "measured_issue_s", "measured_sync_s", "sync_frac_ratio")}
+                for row in rep["lanes"]],
+            "stale_lanes": rep["stale_lanes"],
+            "recorder_sync_s": r["recorder"], "fit_wall_s": r["fit_wall_s"],
+            "profile": r["profile"], "capture_cost": r["capture_cost"],
+            "launches": {k: r["launches"][k] for k in FLASH_SYMBOLS}})
+    out["rank0_step_windows"] = ranks[0]["windows"]
+    return out
+
+
+def phase_observability(seed, name):
+    """Phase 16: the measured side of the loop."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    report = {"card": CARD_LINE[0]}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as workdir:
+        t0 = time.perf_counter()
+        report["a_fit"] = obs_fit(seed, workdir)
+        report["a_serve"] = obs_serve(seed, workdir)
+        report["a_s"] = time.perf_counter() - t0
+        report["b_scrape"] = obs_scrape()
+        t0 = time.perf_counter()
+        report["c_sync"] = obs_sync(seed, workdir)
+        report["c_s"] = time.perf_counter() - t0
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("observability path: " + json.dumps(report))
+    return report
+
 def main(argv=None) -> int:
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--decode-times", metavar="ROOT", default=None,
@@ -6299,6 +6767,9 @@ def main(argv=None) -> int:
                     help="only run phase 14, the model zoo")
     ap.add_argument("--always-on-only", action="store_true",
                     help="only run phase 15, the always-on loop")
+    ap.add_argument("--obs-only", action="store_true",
+                    help="only run phase 16, the measured side of the "
+                         "loop")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -6344,6 +6815,12 @@ def main(argv=None) -> int:
         phase_always_on(args.seed, name)
         return 0
 
+    if args.obs_only:
+        name = phase_device()
+        phase_build()
+        phase_observability(args.seed, name)
+        return 0
+
     if args.sync_only is not None:
         name = phase_device()
         phase_build()
@@ -6387,6 +6864,7 @@ def main(argv=None) -> int:
     serve_launches = phase_serve_ranks(args.seed, name)
     phase_zoo(args.seed, name)
     always_on = phase_always_on(args.seed, name)
+    obs = phase_observability(args.seed, name)
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -6396,6 +6874,7 @@ def main(argv=None) -> int:
         "source": "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "flexflow_tpu/kernels/ragged_paged_attention.py:132",
         "launches": rpa_launches,
+        "launches_observability_frames": obs["a_serve"]["launches"],
         "launches_serving_per_rank": {
             leg: ls["ragged_paged_attention"]
             for leg, ls in serve_launches.items()},
@@ -6457,6 +6936,9 @@ def main(argv=None) -> int:
             "launches_always_on_per_rank": {
                 rank: ls[wrapper] for rank, ls in always_on[
                     "b_device_loss"]["launches_per_rank"].items()},
+            "launches_observability_fit": obs["a_fit"]["launches"][wrapper],
+            "launches_observability_sync_per_rank": [
+                r["launches"][wrapper] for r in obs["c_sync"]["per_rank"]],
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],
             "plain_ms": bf16["plain_ms"],
@@ -6493,6 +6975,8 @@ def main(argv=None) -> int:
         "fp32": partial["fp32"],
         "fp32_causal": partial["fp32_causal"],
     })
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -69,6 +69,8 @@ _LAZY = {
                           "CheckpointManager"),
     "RecompileState": ("flexflow_tpu_torch.runtime.recompile",
                        "RecompileState"),
+    "StepProfiler": ("flexflow_tpu_torch.runtime.profiler", "StepProfiler"),
+    "device_trace": ("flexflow_tpu_torch.runtime.profiler", "device_trace"),
     "measure_operator_cost": ("flexflow_tpu_torch.runtime.profiler",
                               "measure_operator_cost"),
     "RecursiveLogger": ("flexflow_tpu_torch.utils.logging",

@@ -29,6 +29,15 @@ flexflow_tpu/comm/bucketed.py.
   before the optimizer update.
 * Synced weights no bucket names take the monolithic fp32 sum after
   the buckets, as the simulator prices an uncovered group.
+* **Lane stamps** (``lane_stamps``, set by the lowering when
+  ``FFConfig.device_trace_dir`` is): each bucket with members is
+  stamped ``issue`` when it is issued and ``done`` once its sum is on
+  this rank's device — at the end of ``_issue`` for a bucket whose
+  phases ran there, after its wait in ``finish`` for an asynchronous
+  one — under its stable lane id ``bucket:<name>:sync`` (the
+  simulator's lane name), so a live ``device_trace`` capture records
+  when each lane ran (obs/annotate.py ``lane_stamp``; matched to the
+  predicted lanes by obs/trace_ingest.py).  Off, nothing is stamped.
 
 Where the port departs from the reference: the reference's fp32
 buckets carry GSPMD-reduced gradients and only anchor the order; the
@@ -76,11 +85,14 @@ class BucketedSync:
     summed along ``grad_axes`` (op -> weight -> axes; weights with no
     axes need no sum).  ``machine`` (a MachineSpec) arms the staged
     plans; ``residuals`` (op -> weight -> tensor) the error feedback of
-    ``int8_ef`` buckets."""
+    ``int8_ef`` buckets; ``lane_stamps`` the lanes' issue and done
+    stamps (module docstring)."""
 
     def __init__(self, schedule, grad_axes, mesh, machine=None,
-                 residuals=None, chunk: int = DEFAULT_CHUNK):
+                 residuals=None, chunk: int = DEFAULT_CHUNK,
+                 lane_stamps: bool = False):
         self.mesh, self.machine, self.chunk = mesh, machine, chunk
+        self.lane_stamps = lane_stamps
         self.residuals = residuals or {}
         self.buckets = list(getattr(schedule, "buckets", schedule))
         self._axes = grad_axes
@@ -96,7 +108,9 @@ class BucketedSync:
         self._waiting = [set(ms) for ms in self._members]
         self._got: Dict[Tuple[str, str], torch.Tensor] = {}
         self._next = 0
-        self._out: List[Tuple[List[Tuple[str, str]], object]] = []
+        # (bucket, members, sum or Pending) per fused group, in issue
+        # order
+        self._out: List[Tuple[int, List[Tuple[str, str]], object]] = []
         self.new_residuals: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def members(self) -> List[Tuple[str, str]]:
@@ -115,7 +129,15 @@ class BucketedSync:
             self._issue(self._next)
             self._next += 1
 
+    def _stamp(self, k: int, marker: str) -> None:
+        if self.lane_stamps and self._members[k]:
+            from flexflow_tpu_torch.obs.annotate import lane_stamp
+
+            lane_stamp(f"bucket:{self.buckets[k].name}:sync", marker,
+                       self._got[self._members[k][0]].device)
+
     def _issue(self, k: int) -> None:
+        self._stamp(k, "issue")
         b = self.buckets[k]
         prec = getattr(b, "precision", "fp32")
         plan = getattr(b, "plan", None)
@@ -131,6 +153,7 @@ class BucketedSync:
                 groups.setdefault((axes, "wire", ef), []).append((op, w))
             else:
                 groups.setdefault((axes, "fp32", False), []).append((op, w))
+        start = len(self._out)
         for (axes, kind, ef), ms in groups.items():
             staged = None
             if plan is not None and self.machine is not None:
@@ -157,7 +180,10 @@ class BucketedSync:
                 red = quantized_allreduce(
                     flat, axes, self.mesh,
                     "int8" if prec == "int8_ef" else prec, self.chunk)
-            self._out.append((ms, red))
+            self._out.append((k, ms, red))
+        if not any(isinstance(red, Pending)
+                   for _, _, red in self._out[start:]):
+            self._stamp(k, "done")
 
     def _split_into(self, tree, ms, flat) -> None:
         off = 0
@@ -177,10 +203,15 @@ class BucketedSync:
             if (op, w) not in self._got:
                 self.arrive(op, w, grads[op][w])
         merged = {op: dict(ws) for op, ws in grads.items()}
-        for ms, red in self._out:
+        waited = False
+        for i, (k, ms, red) in enumerate(self._out):
             if isinstance(red, Pending):
-                red = red.wait()
+                red, waited = red.wait(), True
             self._split_into(merged, ms, red)
+            if waited and (i + 1 == len(self._out)
+                           or self._out[i + 1][0] != k):
+                self._stamp(k, "done")  # the bucket's last wait is over
+                waited = False
         rest: Dict[Tuple[str, ...], List[Tuple[str, str]]] = {}
         for op, ws in self._axes.items():
             for w, axes in ws.items():

@@ -100,7 +100,9 @@ Gradient sync as the reference runs it (lowering.py:357-401,
   the backward produces it, so fp32 buckets run under the rest of the
   backward; with ``grad_accum_steps`` > 1 the summed gradients go in
   after the last microbatch.  Staged reduction plans run on
-  ``config.machine_spec``'s link levels.
+  ``config.machine_spec``'s link levels.  With
+  ``config.device_trace_dir`` set, each bucket stamps its lane's issue
+  and done points for the capture (obs/annotate.py).
 * ZeRO-1 (``config.zero_dp_shard`` for every weight, or the per-group
   ``zero_groups``): each member weight's block is split further over
   the mesh axes its layout does not use, placed by
@@ -157,6 +159,7 @@ from flexflow_tpu_torch.metrics import (
     compute_metrics,
     job_metrics,
 )
+from flexflow_tpu_torch.obs.annotate import lane_stamps_armed
 from flexflow_tpu_torch.ops.base import LoweringContext, OpSharding
 from flexflow_tpu_torch.ops.inout import InputOp
 from flexflow_tpu_torch.optimizers import Optimizer
@@ -782,7 +785,8 @@ class CompiledModel:
             return None
         return BucketedSync(self.sync_schedule, self._grad_axes, self.mesh,
                             machine=self.config.machine_spec,
-                            residuals=self._residuals(state))
+                            residuals=self._residuals(state),
+                            lane_stamps=lane_stamps_armed(self.config))
 
     def _synced(self, grads, state=None, bucketed=None, shard=True):
         """The job's gradients from this rank's shares ``grads`` (a new

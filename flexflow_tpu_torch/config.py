@@ -53,9 +53,17 @@ The strategy search's fields are the reference's, with its defaults
 ``profiling`` and ``drift_threshold`` (the drift loop's predicted
 side, below), the two proposal flags ``enable_pipeline_search`` and
 ``enable_placement_search`` with ``placement_search_max_nodes``, and
-the strategy files ``export_strategy_file`` and
-``import_strategy_file``.  ``compile(strategy=None)`` reads them
+the strategy files ``export_strategy_file``, ``import_strategy_file``
+and ``import_strategy_partial``.  ``compile(strategy=None)`` reads them
 (model.py).
+
+The observability fields are the reference's (config.py:166-167,
+319-335): ``obs_log_file`` (the event bus's JSONL sink, armed at
+compile), ``obs_trace_file`` (the predicted timeline, written at
+compile), ``export_strategy_computation_graph_file`` and
+``export_strategy_task_graph_file`` (graphviz, at compile) and
+``device_trace_dir`` (``fit``'s ``torch.profiler`` capture of its
+post-compile steps, ingested into ``model.lane_drift_report``).
 
 ``remat`` and ``grad_accum_steps`` are the reference's two memory
 levers (config.py:258-266, lowering.py:266-279 and :613-693): every
@@ -195,6 +203,23 @@ class FFConfig:
     # imports one through the digest gate instead of searching
     export_strategy_file: Optional[str] = None
     import_strategy_file: Optional[str] = None
+    # a best-effort import (reference config.py:162): the provenance
+    # checks become warnings and the views whose op names match apply
+    import_strategy_partial: bool = False
+    # graphviz exports at compile (reference config.py:166-167): the
+    # strategy's computation graph and the simulated task graph
+    export_strategy_computation_graph_file: Optional[str] = None
+    export_strategy_task_graph_file: Optional[str] = None
+    # observability (reference config.py:319-335): the JSONL event
+    # sink compile arms; the PREDICTED task timeline compile writes as
+    # Chrome-trace JSON; the directory fit captures its post-compile
+    # steps into with torch.profiler (runtime.profiler.device_trace),
+    # with the sync buckets' lanes stamped, then ingests into
+    # model.lane_drift_report.  None (the default): no sink, no file,
+    # no capture and no stamp.
+    obs_log_file: Optional[str] = None
+    obs_trace_file: Optional[str] = None
+    device_trace_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.num_devices < 1:

@@ -241,6 +241,7 @@ class FFModel:
         self.predicted_breakdown = None
         self.drift_report = None
         self.lane_drift_report = None
+        self.profile_summary = None  # fit's StepProfiler summary
 
     def _fresh_name(self, base: str, name: Optional[str]) -> str:
         if name:
@@ -657,6 +658,12 @@ class FFModel:
             raise ValueError(f"comp_mode must be 'training' or 'inference', "
                              f"got {comp_mode!r}")
         self.config.comp_mode = comp_mode
+        if self.config.obs_log_file:
+            # the search, compile and fit paths below all emit through
+            # the bus once it is armed (reference model.py:487-493)
+            from flexflow_tpu_torch.obs.events import BUS
+
+            BUS.configure(self.config.obs_log_file)
         self.pipeline_proposal = None  # a stale proposal from an earlier
         # compile must not choose this one's lowering
         self.disaggregation = self.fleet = None
@@ -707,17 +714,43 @@ class FFModel:
         self.predicted_breakdown = None
         if pipeline is None and self.pipeline_proposal is None:
             self._predict(self.graph, self.strategy)
+        self._export_graphs()
+
+    def _export_graphs(self) -> None:
+        """``config.export_strategy_computation_graph_file`` (the graph
+        under its views) and ``export_strategy_task_graph_file`` (the
+        simulated task graph) as graphviz, from rank 0 (reference
+        model.py:1345-1356)."""
+        from flexflow_tpu_torch.runtime.distributed import rank
+
+        cfg = self.config
+        if rank() != 0:
+            return
+        if cfg.export_strategy_computation_graph_file:
+            self.graph.write_dot(cfg.export_strategy_computation_graph_file,
+                                 self.strategy)
+        if cfg.export_strategy_task_graph_file:
+            from flexflow_tpu_torch.search.simulator import Simulator
+
+            # for_config: the search's devices and modes, as it costed
+            Simulator.for_config(cfg).export_task_graph_dot(
+                self.graph, self.strategy,
+                cfg.export_strategy_task_graph_file)
 
     def _predict(self, graph, views, sim=None) -> None:
         """The simulator's breakdown of ``views`` on ``graph`` as
         ``predicted_breakdown`` (with ``calibrated`` and ``machine``),
-        when something reads it: ``config.profiling``, the obs bus or a
-        calibration file (reference model.py:1145-1213).  Telemetry
-        never fails a compile or a swap: an error leaves it None."""
+        when something reads it: ``config.profiling``, the obs bus, the
+        predicted timeline's file ``config.obs_trace_file`` (written
+        here from the same simulation, rank 0) or a calibration file
+        (reference model.py:1145-1213).  Telemetry never fails a compile
+        or a swap: an error leaves it None."""
         from flexflow_tpu_torch.obs.events import BUS
+        from flexflow_tpu_torch.runtime.distributed import rank
 
         cfg = self.config
         if not views or not (cfg.profiling or BUS.enabled
+                             or cfg.obs_trace_file
                              or cfg.calibration_file):
             return
         try:
@@ -730,11 +763,17 @@ class FFModel:
                 sim = Simulator.for_config(
                     cfg, calibration=coherent_calibration(cfg))
             bd: Dict = {}
-            sim.simulate(graph, views, breakdown=bd,
-                         sync_schedule=self.sync_schedule)
+            sched: list = []
+            comm: list = []
+            sim.simulate(graph, views, breakdown=bd, schedule=sched,
+                         comm_schedule=comm, sync_schedule=self.sync_schedule)
             bd["calibrated"] = sim.cost.calibration is not None
             bd["machine"] = cfg.machine_spec.name
             self.predicted_breakdown = bd
+            if cfg.obs_trace_file and rank() == 0:
+                sim.export_chrome_trace(graph, views, cfg.obs_trace_file,
+                                        schedule=sched, comm_schedule=comm,
+                                        total_s=bd.get("total_s"))
         except Exception:
             self.predicted_breakdown = None
 
@@ -1307,9 +1346,10 @@ class FFModel:
 
     def _import_strategy(self):
         """``config.import_strategy_file`` through the digest gate and
-        the flat lint (reference model.py:562-592; the port has no
-        partial import), its ``__meta__`` kept under the ``"__meta__"``
-        key for ``_adopt_meta``."""
+        the flat lint (reference model.py:562-592; with
+        ``config.import_strategy_partial`` the gate's findings are
+        warnings and the matching views apply), its ``__meta__`` kept
+        under the ``"__meta__"`` key for ``_adopt_meta``."""
         from flexflow_tpu_torch.analysis import (
             AnalysisError,
             emit_findings,
@@ -1323,7 +1363,9 @@ class FFModel:
 
         path = self.config.import_strategy_file
         try:
-            strategy = import_strategy(path, self.graph)
+            strategy = import_strategy(
+                path, self.graph,
+                allow_partial=self.config.import_strategy_partial)
         except AnalysisError as e:
             err = AnalysisError(
                 f"{e}\n(hint: a strategy exported after a REWRITING "
@@ -1653,6 +1695,21 @@ class FFModel:
         restores the newest complete snapshot and continues at its next
         epoch, the shuffle stream fast-forwarded to it.
 
+        With ``config.profiling`` a ``StepProfiler`` times every step
+        (its ``dispatch`` and ``wait`` phases, the device fenced each
+        step) and its summary lands on ``profile_summary``, the metrics
+        registry and the bus, with a ``DriftReport`` against the
+        compile's prediction (reference ``_report_profile``).  With
+        ``config.device_trace_dir`` the steps after the first call run
+        under ``runtime.profiler.device_trace`` (one ``ff.phase/step``
+        range per optimizer step, the sync buckets' lanes stamped; one
+        call per step, as under profiling; on the card the first step
+        under the profiler opens no range, so no window takes its
+        start), and the capture is ingested into ``lane_drift_report``
+        against the predicted lanes.
+        Telemetry never fails a fit, and with neither set the steps
+        launch what they did before.
+
         Returns the history, one dict per epoch with the metrics'
         report, the epoch's last loss and the ``val_*`` keys.  Sets
         ``last_throughput`` (samples/s after the first call, which is
@@ -1704,9 +1761,19 @@ class FFModel:
                              f"< batch_size {batch_size}")
         for cb in callbacks:
             cb.on_train_begin()
+        profiler = None
+        if self.config.profiling:
+            from flexflow_tpu_torch.runtime.profiler import StepProfiler
+
+            profiler = StepProfiler()
+        capture_dir = self.config.device_trace_dir
+        capture = None  # the live DeviceTrace, from the second call on
+        capture_warm = False  # the step that absorbs the profiler's start
+        self.lane_drift_report = self.profile_summary = None
         trace_n = max(1, int(self.config.trace_steps))
         use_trace = (trace_n > 1 and world_size() == 1
-                     and recompile_state is None
+                     and recompile_state is None and profiler is None
+                     and not capture_dir
                      and loader.num_batches >= trace_n)
         metrics = PerfMetrics()
         history = []
@@ -1727,6 +1794,17 @@ class FFModel:
                 seeds = np.arange(self._rng_counter + 1,
                                   self._rng_counter + n + 1, dtype=np.int64)
                 self._rng_counter += n
+                step_span = None
+                if capture is not None and not capture_warm:
+                    from flexflow_tpu_torch.obs import annotate
+
+                    # one ff.phase/step range per optimizer step: the
+                    # window trace_ingest assigns lane marks to
+                    step_span = annotate.phase_span(annotate.STEP_PHASE)
+                    step_span.__enter__()
+                if profiler is not None:
+                    profiler.start_step()
+                    profiler.start_phase("dispatch")
                 (self.params, self.opt_state, self.state, step_loss,
                  ms) = self.compiled.train_steps(
                     self.params, self.opt_state, self.state, inputs, labels,
@@ -1735,6 +1813,22 @@ class FFModel:
                 # overwrites: keep a copy of the losses; the metric sums
                 # are new tensors
                 losses.append(step_loss.clone())
+                if profiler is not None:
+                    # host phases: issue (dispatch) against the device's
+                    # completion (wait); the fence makes the step real
+                    profiler.end_phase("dispatch")
+                    profiler.start_phase("wait")
+                    float(losses[-1][-1])
+                    profiler.end_phase("wait")
+                    profiler.end_step()
+                if step_span is not None:
+                    step_span.__exit__(None, None, None)
+                elif capture_warm:
+                    from flexflow_tpu_torch.obs import annotate
+
+                    float(losses[-1][-1])  # the windows start after it
+                    annotate.LANES.clear()
+                    capture_warm = False
                 if (recompile_state is not None
                         and recompile_state.check(self)):
                     acc = None  # the re-lowered step's metrics may differ
@@ -1745,6 +1839,17 @@ class FFModel:
                 steps_done += n
                 if t_start is None:
                     float(losses[-1][-1])  # fence: off the clock
+                    if capture_dir:
+                        # after the first call (the step's capture), so
+                        # the trace holds steady steps only; its start
+                        # (seconds of the profiler's set-up on the card)
+                        # stays off the throughput clock
+                        capture = self._start_capture(capture_dir)
+                        # on the card the first step under the profiler
+                        # opens no window: a graph replay's kernels went
+                        # missing from a window right after the start
+                        capture_warm = (capture is not None
+                                        and capture.device.type == "cuda")
                     t_start = time.perf_counter()
                     steps_at_t0 = steps_done
             if acc is not None:
@@ -1779,6 +1884,12 @@ class FFModel:
             cb.on_train_end()
         if ckpt is not None:
             ckpt.close()
+        trace_file = None
+        if capture is not None:
+            try:
+                trace_file = capture.stop()  # waits for the device
+            except Exception:  # telemetry never fails a fit
+                trace_file = None
         if not losses:
             return history
         elapsed = time.perf_counter() - t_start  # float(loss) above fenced
@@ -1789,7 +1900,145 @@ class FFModel:
                 print(f"ELAPSED TIME = {elapsed:.4f}s, THROUGHPUT = "
                       f"{self.last_throughput:.2f} samples/s")
         self.step_losses = torch.cat(losses).tolist()
+        if profiler is not None:
+            self._report_profile(profiler, verbose and self._prints())
+        if trace_file is not None:
+            self._ingest_device_trace(trace_file, verbose and self._prints())
         return history
+
+    def _start_capture(self, capture_dir: str):
+        """``fit``'s ``device_trace`` over its post-compile steps (None
+        when it cannot start: telemetry never fails a fit)."""
+        from flexflow_tpu_torch.runtime.profiler import DeviceTrace
+
+        try:
+            return DeviceTrace(capture_dir, self.compiled.device).start()
+        except Exception:
+            return None
+
+    def _ingest_device_trace(self, trace_file: str, verbose: bool) -> None:
+        """Close the measured side of the lane loop (reference
+        model.py:2101-2150): parse the capture ``fit`` just wrote,
+        tag-match it against the compile-time predicted sync lanes and
+        fill the per-bucket measured fields of ``drift_report``.  The
+        report lands on ``self.lane_drift_report`` (which the
+        controller's drift watch reads) and, when exporting, in the
+        strategy file's ``__meta__``."""
+        from flexflow_tpu_torch.runtime.distributed import rank
+
+        try:
+            from flexflow_tpu_torch.obs.events import BUS
+            from flexflow_tpu_torch.obs.trace_ingest import (
+                apply_lane_measurements,
+                build_lane_drift_report,
+            )
+
+            report = build_lane_drift_report(
+                trace_file, self.predicted_breakdown,
+                threshold=self.config.drift_threshold)
+            self.lane_drift_report = report
+            if report is None:
+                return
+            apply_lane_measurements(self.drift_report, report)
+            if verbose:
+                print(f"LANES {report}")
+            if self.config.export_strategy_file and rank() == 0:
+                from flexflow_tpu_torch.search.strategy_io import attach_meta
+
+                try:
+                    attach_meta(self.config.export_strategy_file,
+                                lane_drift=report.to_dict())
+                except (OSError, ValueError):
+                    pass
+            BUS.flush()
+        except Exception:  # telemetry never fails a fit
+            self.lane_drift_report = None
+
+    def _report_profile(self, profiler, verbose: bool) -> None:
+        """Step-profile reporting through the obs metrics registry and
+        event bus, plus the predicted-against-measured ``DriftReport``
+        when compile recorded a prediction, with the reference's
+        staleness marks on the calibration table and the cost cache
+        (reference model.py:2152-2253)."""
+        from flexflow_tpu_torch.obs.drift import build_drift_report
+        from flexflow_tpu_torch.obs.events import BUS
+        from flexflow_tpu_torch.obs.metrics import METRICS
+
+        s = profiler.summary()
+        if s.get("steps") and not s.get("includes_compile"):
+            # a compile-contaminated summary stays out of the registry:
+            # a gauge has no flag to carry the caveat
+            METRICS.gauge("fit.step_mean_s").set(s["mean_s"])
+            METRICS.gauge("fit.step_p95_s").set(s["p95_s"])
+            METRICS.counter("fit.steps").inc(int(s["steps"]))
+            hist = METRICS.histogram("fit.step_s")
+            for t in profiler.step_times[1:]:
+                hist.observe(t)
+        BUS.emit("profile.summary", **s)
+        if verbose:
+            print(f"PROFILE {profiler}")
+        self.profile_summary = s
+        pred = self.predicted_breakdown
+        if not pred or not s.get("steps") or s.get("includes_compile"):
+            return
+        report = build_drift_report(
+            pred, measured_step_s=s["mean_s"],
+            measured_phases=profiler.phase_summary(),
+            threshold=self.config.drift_threshold,
+            calibrated=bool(pred.get("calibrated")))
+        if report is None:
+            return
+        self.drift_report = report
+        BUS.emit("drift.report", **report.to_dict())
+        METRICS.gauge("fit.drift_ratio").set(report.ratio)
+        cal_file = self.config.calibration_file
+        if report.calibration_stale:
+            from flexflow_tpu_torch.search.calibration import (
+                CalibrationTable,
+            )
+            from flexflow_tpu_torch.search.cost_cache import (
+                mark_calibration_stale,
+                resolve_cost_cache_path,
+            )
+            from flexflow_tpu_torch.utils.logging import SEARCH_LOG
+
+            BUS.emit("calibration.staleness", ratio=report.ratio,
+                     threshold=report.threshold)
+            lo = 1.0 / (1.0 + report.threshold)
+            hi = 1.0 + report.threshold
+            SEARCH_LOG.log(
+                f"calibration staleness: measured step is "
+                f"{report.ratio:.2f}x the calibrated prediction, outside "
+                f"[{lo:.2f}x, {hi:.2f}x]")
+            # the next search re-probes the drifted records, and the
+            # cost cache stops serving rows priced with them
+            if cal_file and CalibrationTable.mark_stale_file(
+                    cal_file, report.ratio):
+                SEARCH_LOG.log(f"calibration table {cal_file} marked "
+                               f"stale")
+            cache_path = resolve_cost_cache_path(self.config)
+            if cache_path and mark_calibration_stale(cache_path):
+                SEARCH_LOG.log(f"cost cache {cache_path} marked "
+                               f"calibration-stale")
+        elif report.calibrated and cal_file:
+            from flexflow_tpu_torch.search.calibration import (
+                CalibrationTable,
+            )
+
+            CalibrationTable.mark_healthy_file(cal_file)
+        if verbose:
+            print(f"DRIFT {report}")
+        if self.config.export_strategy_file:
+            from flexflow_tpu_torch.runtime.distributed import rank
+            from flexflow_tpu_torch.search.strategy_io import attach_meta
+
+            if rank() == 0:
+                try:
+                    attach_meta(self.config.export_strategy_file,
+                                drift=report.to_dict())
+                except (OSError, ValueError):
+                    pass
+        BUS.flush()
 
     def _prints(self) -> bool:
         from flexflow_tpu_torch.runtime.distributed import rank

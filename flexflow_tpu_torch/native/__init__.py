@@ -7,7 +7,8 @@ JAX package binds its C++ equivalents in ``native/src/*.cpp``, and the
 port binds the same files (read, never edited): the graph algorithms
 (``graph_algos.cpp``), the simulation engine (``sim_engine.cpp``) and
 the DP engine (``dp_engine.cpp``) are host-side search code, not device
-kernels.  At first use they are compiled with ``g++`` into one shared
+kernels; the data loader's threaded row gather (``dataloader.cpp``,
+``gather_rows``) is host-side loading code.  At first use they are compiled with ``g++`` into one shared
 library under ``flexflow_tpu_torch/_build/native/`` (git-ignored), named
 by a hash of the sources and flags, so an edited source builds anew
 and a second process reuses the library; several processes building at
@@ -87,8 +88,9 @@ def _configure(lib) -> None:
     lib.ffn_graph_components.restype = c_i32
     lib.ffn_graph_components.argtypes = [c_i32, p_i32, c_i32, p_i32]
 
-    # dataloader.cpp's ffn_gather_rows is bound with the data loader's
-    # native gather (ROADMAP Queue A item 10)
+    p_i64 = ctypes.POINTER(ctypes.c_int64)
+    lib.ffn_gather_rows.argtypes = [p_u8, p_u8, p_i64, ctypes.c_int64,
+                                    ctypes.c_int64, c_i32]
 
 
 def _sources() -> List[str]:
@@ -148,6 +150,36 @@ def get_lib():
 
 def _i32(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+# ---------------------------------------------------------------------------
+# Dataloader gather
+# ---------------------------------------------------------------------------
+
+
+def gather_rows(src: np.ndarray, indices: np.ndarray,
+                n_threads: int = 0) -> Optional[np.ndarray]:
+    """``src[indices]`` along the first dim through the threaded native
+    gather (``ffn_gather_rows``); None when the library is unavailable
+    (the caller takes numpy's).  Indices must lie in ``[0, len(src))``:
+    the native copy checks none, so they are checked here."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src)
+    idx = np.ascontiguousarray(indices, dtype=np.int64)
+    if idx.size and (idx.min() < 0 or idx.max() >= src.shape[0]):
+        raise IndexError(f"gather_rows: indices outside [0, {src.shape[0]})")
+    out = np.empty((len(idx),) + src.shape[1:], dtype=src.dtype)
+    row_bytes = int(src.dtype.itemsize
+                    * np.prod(src.shape[1:], dtype=np.int64))
+    if n_threads <= 0:
+        n_threads = min(8, os.cpu_count() or 1)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.ffn_gather_rows(out.ctypes.data_as(u8), src.ctypes.data_as(u8),
+                        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                        len(idx), row_bytes, n_threads)
+    return out
 
 
 # ---------------------------------------------------------------------------

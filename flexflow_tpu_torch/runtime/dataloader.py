@@ -12,6 +12,15 @@ split them (``label_slices``): the other dims are cut once here, the
 batch dim from each batch's rows.  ``iter_traced(n)`` yields
 the same batches in the same order, n at a time stacked on a leading
 step axis for ``CompiledModel.train_steps``.
+
+Rows are gathered through the native threaded gather
+(``native.gather_rows``, native/src/dataloader.cpp) from 1 MiB of
+gathered rows up, as the reference does (dataloader.py:57-71), and
+through numpy below that or with ``FLEXFLOW_TPU_NO_NATIVE=1``.  The
+reference's multi-host placement (each process gathers only its slice
+of a batch's rows and the global array is assembled from them) is what
+the per-rank blocks above already do: every rank draws the same
+order and gathers only its own rows and dims of each batch.
 """
 
 from __future__ import annotations
@@ -54,8 +63,22 @@ class SingleDataLoader:
             return self.num_samples // self.batch_size
         return (self.num_samples + self.batch_size - 1) // self.batch_size
 
+    @staticmethod
+    def _gather(a: np.ndarray, idx: np.ndarray) -> np.ndarray:
+        """``a[idx]``: the threaded native gather from 1 MiB of rows up
+        (threads pay off there), numpy below or without the library."""
+        row_bytes = a.dtype.itemsize * int(np.prod(a.shape[1:],
+                                                   dtype=np.int64))
+        if row_bytes * len(idx) >= 1 << 20:
+            from flexflow_tpu_torch import native
+
+            out = native.gather_rows(a, idx)
+            if out is not None:
+                return out
+        return a[idx]
+
     def _place(self, array: np.ndarray, idx: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(array[idx]).to(self.device)
+        return torch.from_numpy(self._gather(array, idx)).to(self.device)
 
     def _batch(self, idx: np.ndarray):
         """(inputs, labels) of the batch of global rows ``idx``: this

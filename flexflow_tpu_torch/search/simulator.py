@@ -18,9 +18,10 @@ The port prices collectives over the fabric its spec describes: the
 NVSwitch of an H100 host (``network.nvswitch_network``) for a spec
 whose ``platform`` is ``"cuda"``, the reference's torus for its TPU and
 CPU specs.  ``simulate(sync_schedule=)`` prices a searched gradient-sync
-schedule bucket by bucket (exposed-comm semantics).  The reference's
-Chrome-trace and graphviz exports of the predicted timeline come with
-the modules that use them (ROADMAP Queue A item 11).
+schedule bucket by bucket (exposed-comm semantics).
+``export_chrome_trace`` writes the predicted timeline as Chrome-trace
+JSON (obs/trace.py), to load next to a real ``device_trace`` capture,
+and ``export_task_graph_dot`` the simulated task graph as graphviz.
 """
 
 from __future__ import annotations
@@ -1296,6 +1297,63 @@ class Simulator:
         return self._node_costs(node, mv)
 
     # ------------------------------------------------------------------
+    def export_chrome_trace(
+        self,
+        graph: Graph,
+        strategy: Dict[int, MachineView],
+        path: str,
+        include_update: Optional[bool] = None,
+        label: Optional[str] = None,
+        schedule: Optional[list] = None,
+        comm_schedule: Optional[list] = None,
+        total_s: Optional[float] = None,
+    ) -> float:
+        """Write the simulated schedule as Chrome-trace JSON loadable
+        in Perfetto/chrome://tracing — the PREDICTED timeline, viewable
+        next to the real ``runtime.profiler.device_trace`` capture.
+        Returns the simulated iteration seconds.  Callers that already
+        simulated (e.g. for a breakdown) pass their ``schedule``/
+        ``comm_schedule``/``total_s`` to skip the re-simulation."""
+        from flexflow_tpu_torch.obs.trace import write_chrome_trace
+
+        if schedule is None:
+            schedule, comm_schedule = [], []
+            total_s = self.simulate(
+                graph, strategy, include_update=include_update,
+                schedule=schedule, comm_schedule=comm_schedule,
+            )
+        write_chrome_trace(
+            path, schedule, comm_schedule or [],
+            label=label or f"predicted ({type(self).__name__})",
+            meta={"simulated_step_s": total_s,
+                  "num_devices": self.num_devices,
+                  "machine": self.machine.name},
+        )
+        return total_s
+
+    def export_task_graph_dot(self, graph: Graph,
+                              strategy: Dict[int, MachineView],
+                              path: str) -> float:
+        """Write the simulated schedule as graphviz (reference:
+        export_strategy_task_graph_file, simulator.cc:1008-1058).
+        Returns the simulated iteration seconds."""
+        schedule: list = []
+        cost = self.simulate(graph, strategy, schedule=schedule)
+        lines = ["digraph taskgraph {", "  rankdir=LR;"]
+        for op_name, start, finish, devs in schedule:
+            label = (f"{op_name}\\n[{start*1e3:.3f}, {finish*1e3:.3f}] ms"
+                     f"\\ndevs={list(devs)}")
+            lines.append(f'  "{op_name}" [shape=record, label="{label}"];')
+        for g in graph.nodes:
+            for e in graph.out_edges[g]:
+                a = graph.nodes[e.src].op.name
+                b = graph.nodes[e.dst].op.name
+                lines.append(f'  "{a}" -> "{b}";')
+        lines.append("}")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return cost
+
     def strategy_table_rows(
         self,
         graph: Graph,

@@ -39,6 +39,9 @@ steps of SGD at lr 0.05, fp32) from the reference's initial weights:
   bounds);
 * ``sync_schedule="search"`` with ``sync_bucket_bytes`` on the
   two-host machine lowers the schedule the reference's compile chooses.
+* the same schedule once more with ``profiling`` and a
+  ``device_trace_dir`` capture on every rank (``"traced"``), held in
+  tests/test_torch_trace_ingest.py.
 
 The rank function imports no JAX: the spawned ranks import this module
 to find it."""
@@ -362,6 +365,10 @@ MODE_CONFIG = {
     "int8_ef": {"sync_precision": "int8", "sync_ef": "auto"},
     "search": {"two_level": True, "sync_schedule": "search",
                "sync_bucket_bytes": 1 << 20},
+    # the searched schedule again under a device_trace_dir capture
+    # (held in tests/test_torch_trace_ingest.py)
+    "traced": {"two_level": True, "sync_schedule": "search",
+               "sync_bucket_bytes": 1 << 20, "profiling": True},
 }
 PORT_MODES = {2: ("mono", "sched", "staged", "mono_ga2", "sched_ga2"),
               4: tuple(MODE_CONFIG)}
@@ -382,10 +389,15 @@ def _rank(rank, n, start, x, y):
     from flexflow_tpu_torch.core.machine import MachineSpec
     from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
 
+    import tempfile
+
     torch.manual_seed(0)
     out = {}
     for mode in PORT_MODES[n]:
-        m = mlp(tff, _config(tff, MachineSpec, n, mode, device="cpu"))
+        extra = ({"device_trace_dir": tempfile.mkdtemp(prefix="fftrace")}
+                 if mode == "traced" else {})
+        m = mlp(tff, _config(tff, MachineSpec, n, mode, device="cpu",
+                             **extra))
         m.compile(optimizer=tff.SGDOptimizer(lr=LR), loss_type=(
             "sparse_categorical_crossentropy"), metrics=[])
         sched = _schedule(mode, n)
@@ -412,7 +424,35 @@ def _rank(rank, n, start, x, y):
             "ef": {k: v.numpy().copy() for k, v in m.state.items()
                    if k.endswith("/ef_residual")},
         }
+        if mode == "traced":
+            out[mode]["trace"] = _traced(m, extra["device_trace_dir"])
     return out
+
+
+def _traced(m, trace_dir):
+    """What a rank's captured fit left: its capture ingested, its lane
+    report, its predicted lanes, and whether the controller's drift
+    watch took the report from the model."""
+    import shutil
+
+    from flexflow_tpu_torch.obs.annotate import LANES
+    from flexflow_tpu_torch.obs.trace_ingest import ingest
+    from flexflow_tpu_torch.runtime.controller import TrainingController
+
+    res = ingest(trace_dir, emit=False)
+    shutil.rmtree(trace_dir)
+    report = m.lane_drift_report
+    ctl = TrainingController(m)
+    ctl._watch_drift(0)
+    return {"step_spans": res.step_spans, "lanes": res.lanes,
+            "source": res.source,
+            "report": None if report is None else report.to_dict(),
+            "controller_read": report is not None
+            and ctl._lane_seen is report,
+            "recorder_spans": LANES.spans(),
+            "predicted": {k: m.predicted_breakdown[k]
+                          for k in ("total_s", "sync_buckets")},
+            "profile": m.profile_summary}
 
 
 def _reference(n, x, y):
