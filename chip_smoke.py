@@ -13,6 +13,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --zoo-only [--seed N]
     python3 chip_smoke.py --always-on-only [--seed N]
     python3 chip_smoke.py --obs-only [--seed N]
+    python3 chip_smoke.py --frontends-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -32,6 +33,8 @@ phase 6's first step taken alone.  The eighth builds the kernels and
 runs phase 13 alone RUNS times.  The ninth runs phase 14 alone (no CUDA
 kernel of the port lies on its path, so nothing is built).  The tenth
 builds the kernels and runs phase 15 alone, the eleventh phase 16.
+The twelfth runs phase 17 alone (nothing on its path launches a CUDA
+kernel of the port, so nothing is built).
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -382,7 +385,41 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    3 samples each, every measured sync time above 0, its ``source``
    printed, and the controller's drift watch takes it from the model.
    Printed as ``observability path: {...}``;
-17. print one JSON line listing every ported kernel.
+17. the frontends, keras and the command line, one card, every leg's
+   ``FFConfig`` from ``FFConfig.parse_args`` on a fixed argv (``-b``,
+   ``-e``, ``--seed``, ``-ll:tpu 1``, ``--only-data-parallel``; fields
+   no flag sets, as the compute dtype, by ``dataclasses.replace``), the
+   parsed fields printed: (a) ``FxBert``, a plain-torch module shaped
+   like ``transformers.BertModel`` (word, position and token-type
+   embeddings, post-LN layers with separate q, k and v Linears,
+   non-causal ``scaled_dot_product_attention``, exact GELU; a mean-pool,
+   a tanh pooler and a 2-class head) at ``build_bert``'s widths (vocab
+   30522, 12 layers, hidden 768, 12 heads, ff 3072, seq 512), batch 8,
+   seeded weights, on the card, imported by ``PyTorchModel(module,
+   example_inputs=[ids on the card]).torch_to_ff`` (its attention
+   decomposed into ``batch_matmul`` and ``softmax``: no MHA op),
+   compiled with Adam at bf16 compute, its weights carried by
+   ``transfer_torch_weights``; ``predict`` on one batch within
+   ZOO_BF16_TOL (of the largest logit) of the module's own fp32
+   forward; ``fit`` 20 steps captured (rows 1-6 never launch), 4
+   captured steps against 4 eager from one start (bit-equal); printed:
+   step p50/p90 (10 synchronised captured steps), tokens/s, MFU (3 x the
+   graph's forward FLOPs against the card's dense bf16 peak), peak
+   memory, device ms per step by kind of kernel over 3 profiled steps,
+   and phase 11's ``build_bert`` step beside it when phase 11 ran; (b)
+   ``flexflow_tpu_torch.keras``: the models of
+   examples/keras_mnist_mlp.py, keras_cifar10_cnn.py (with
+   ``ModelCheckpoint`` and ``EarlyStopping``) and keras_reuters_mlp.py
+   at their shapes on the datasets' synthetic fallback (its warnings
+   printed), the CNN's last snapshot restored into a fresh keras model
+   predicting bit-equal, and the keras MNIST accuracy gate
+   (tests/test_accuracy.py:44-66: 1024 rows, Dense 64 relu then Dense
+   10, SGD 0.1, batch 64, 8 epochs, fp32) with ``VerifyMetrics`` at
+   0.85; (c) examples/onnx_import.py's CNN written by the port's
+   ``onnx_minimal`` and imported by ``ONNXModel``: its forward within
+   1e-5 (fp32) of an ``F.conv2d``/``F.linear`` composition on the card,
+   then 3 ``fit`` steps.  Printed as ``frontends path: {...}``;
+18. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -675,6 +712,33 @@ ZOO_KERNEL_GROUPS = {
 ZOO_EP_RANKS = 4
 ZOO_EP_BATCH = 64
 ZOO_EP_TOL = 1e-5  # fp32, TF32 off: the CPU tests' bound
+# phase 17: the frontends; FxBert at build_bert's widths (BERT above)
+FX_BERT = dict(vocab=30522, num_layers=12, hidden=768, num_heads=12,
+               ff_dim=3072, seq_len=512)
+FX_BATCH = 8
+FX_STEPS = 20  # fit, captured
+FX_CMP_STEPS = 4  # captured against eager
+FX_TIMED_STEPS = 10
+FX_PROFILE_STEPS = 3
+FX_REUTERS_WORDS = 2000  # examples/keras_reuters_mlp.py's NUM_WORDS
+FX_GATE_ACCURACY = 0.85  # tests/test_accuracy.py's keras MNIST gate
+FX_ONNX_STEPS = 3
+FX_LR_ROWS, FX_LR_BATCH = 512, 64  # the keras lr schedule's 2 epochs
+FX_ONNX_TOL = 1e-5  # fp32, TF32 off
+# device time of an imported BERT step by kind of kernel (name fragments,
+# the first match wins; the port's layer norm is reductions and
+# elementwise passes, Adam's update multi-tensor kernels)
+FX_KERNEL_GROUPS = {
+    "matmul (cuBLAS)": ("gemm", "nvjet", "cutlass", "xmma", "sm90_",
+                        "sm80_", "cublas"),
+    "softmax": ("softmax", "SoftMax"),
+    "embedding, index and scatter": ("embedding", "index", "scatter",
+                                     "gather"),
+    "optimizer (multi-tensor)": ("multi_tensor_apply",),
+    "reduction (mean, norm, loss)": ("reduce_kernel", "Reduce"),
+    "elementwise and casts": ("elementwise", "copy", "fill", "Memset",
+                              "Memcpy"),
+}
 # phase 15: the always-on loop
 OBS_WARM_STEPS = 2  # phase 16 (a): steps before the capture
 OBS_PROFILER_WARM = 1  # the step under the profiler that opens no window
@@ -6738,6 +6802,535 @@ def phase_observability(seed, name):
     print("observability path: " + json.dumps(report))
     return report
 
+# ---------------------------------------------------------------------------
+# phase 17: the frontends, keras and the command line
+class FxBertEmbeddings(torch.nn.Module):
+    """``transformers.BertModel``'s embeddings: word, position and
+    token-type tables summed, then LayerNorm.  The position and
+    token-type ids are buffers of the sequence's length (the importer
+    folds them into constants)."""
+
+    def __init__(self, vocab, hidden, seq_len, eps):
+        super().__init__()
+        self.word = torch.nn.Embedding(vocab, hidden)
+        self.position = torch.nn.Embedding(seq_len, hidden)
+        self.token_type = torch.nn.Embedding(2, hidden)
+        self.norm = torch.nn.LayerNorm(hidden, eps=eps)
+        self.register_buffer("position_ids", torch.arange(seq_len)[None])
+        self.register_buffer("token_type_ids",
+                             torch.zeros(1, seq_len, dtype=torch.long))
+
+    def forward(self, ids):
+        e = (self.word(ids) + self.position(self.position_ids)
+             + self.token_type(self.token_type_ids))
+        return self.norm(e)
+
+
+class FxBertLayer(torch.nn.Module):
+    """A post-LN BERT encoder layer: separate q, k and v Linears,
+    non-causal ``scaled_dot_product_attention``, the output projection,
+    then the exact-erf GELU feed-forward."""
+
+    def __init__(self, hidden, heads, ff_dim, eps):
+        super().__init__()
+        self.heads = heads
+        self.query = torch.nn.Linear(hidden, hidden)
+        self.key = torch.nn.Linear(hidden, hidden)
+        self.value = torch.nn.Linear(hidden, hidden)
+        self.attn_out = torch.nn.Linear(hidden, hidden)
+        self.attn_norm = torch.nn.LayerNorm(hidden, eps=eps)
+        self.ff_in = torch.nn.Linear(hidden, ff_dim)
+        self.act = torch.nn.GELU()
+        self.ff_out = torch.nn.Linear(ff_dim, hidden)
+        self.ff_norm = torch.nn.LayerNorm(hidden, eps=eps)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        d = h // self.heads
+        q = self.query(x).view(b, s, self.heads, d).transpose(1, 2)
+        k = self.key(x).view(b, s, self.heads, d).transpose(1, 2)
+        v = self.value(x).view(b, s, self.heads, d).transpose(1, 2)
+        a = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        a = a.transpose(1, 2).reshape(b, s, h)
+        x = self.attn_norm(x + self.attn_out(a))
+        return self.ff_norm(x + self.ff_out(self.act(self.ff_in(x))))
+
+
+class FxBert(torch.nn.Module):
+    """A plain-torch module shaped like ``transformers.BertModel`` (the
+    card's host has no ``transformers``), with a mean-pool, a tanh
+    pooler and a classification head; weights drawn as BERT's are
+    (normal, std 0.02; biases 0) from ``seed``, on the CPU."""
+
+    def __init__(self, vocab, num_layers, hidden, num_heads, ff_dim,
+                 seq_len, num_classes=2, eps=1e-12, seed=0):
+        super().__init__()
+        self.embeddings = FxBertEmbeddings(vocab, hidden, seq_len, eps)
+        self.layers = torch.nn.ModuleList(
+            FxBertLayer(hidden, num_heads, ff_dim, eps)
+            for _ in range(num_layers))
+        self.pooler = torch.nn.Linear(hidden, hidden)
+        self.head = torch.nn.Linear(hidden, num_classes)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (torch.nn.Linear, torch.nn.Embedding)):
+                    m.weight.normal_(0.0, 0.02, generator=gen)
+                if isinstance(m, torch.nn.Linear):
+                    m.bias.zero_()
+
+    def forward(self, ids):
+        x = self.embeddings(ids)
+        for layer in self.layers:
+            x = layer(x)
+        return self.head(torch.tanh(self.pooler(x.mean(dim=1))))
+
+
+def fx_argv(seed, batch, epochs, *extra):
+    """A leg's fixed command line: one card, its batch, epochs and seed."""
+    return ["-b", str(batch), "-e", str(epochs), "--seed", str(seed),
+            "-ll:tpu", "1", "--only-data-parallel", *extra]
+
+
+def parsed_config(argv, **replaced):
+    """``FFConfig.parse_args(argv)``, with ``replaced`` fields (those no
+    flag sets, as the compute dtype), and the fields the leg uses."""
+    import dataclasses
+
+    from flexflow_tpu_torch import FFConfig
+
+    cfg = dataclasses.replace(FFConfig.parse_args(argv), **replaced)
+    used = {k: getattr(cfg, k) for k in (
+        "batch_size", "epochs", "seed", "num_devices", "only_data_parallel",
+        "learning_rate", "device", "compute_dtype")}
+    return cfg, {"argv": list(argv), "fields": used}
+
+
+def kernel_launches():
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+
+    return {k.__name__: k.launches for k in COUNTED}
+
+
+def frontends_bert(seed, name, bert_step_ms=None):
+    """Phase 17 (a): BERT-base widths imported through torch.fx from a
+    module on the card, carried weights, ``predict`` against the
+    module's own fp32 forward, ``fit`` captured, captured against eager
+    and the step's device time by kind of kernel."""
+    from flexflow_tpu_torch import AdamOptimizer, FFModel
+    from flexflow_tpu_torch.compiler.graphs import eager
+    from flexflow_tpu_torch.core.optype import OperatorType
+    from flexflow_tpu_torch.frontends import (
+        PyTorchModel,
+        transfer_torch_weights,
+    )
+
+    b, seq = FX_BATCH, FX_BERT["seq_len"]
+    cfg, parsed = parsed_config(fx_argv(seed, b, 1))
+    free_models()
+    base = torch.cuda.memory_allocated()
+    dev = cfg.torch_device()
+    rng = np.random.default_rng(seed + 17)
+    ids = rng.integers(0, FX_BERT["vocab"], size=(FX_STEPS * b, seq)
+                       ).astype(np.int32)
+    labels = rng.integers(0, 2, size=(FX_STEPS * b,)).astype(np.int32)
+    t0 = time.perf_counter()
+    source = FxBert(**FX_BERT, seed=seed).to(dev).eval()
+    example = torch.from_numpy(ids[:b]).long().to(dev)
+    model = FFModel(cfg)
+    x = model.create_tensor([b, seq], dtype="int32", name="ids")
+    t1 = time.perf_counter()
+    outs = PyTorchModel(source, example_inputs=[example]).torch_to_ff(
+        model, [x])
+    import_s = time.perf_counter() - t1
+    check([tuple(o.sizes) for o in outs] == [(b, 2)],
+          f"imported outputs {[o.sizes for o in outs]}")
+    model.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    copied = transfer_torch_weights(source, model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kinds = {}
+    for n in model.graph.nodes.values():
+        kinds[n.op.op_type.name] = kinds.get(n.op.op_type.name, 0) + 1
+    layers = FX_BERT["num_layers"]
+    check(OperatorType.MULTIHEAD_ATTENTION.name not in kinds
+          and kinds.get(OperatorType.BATCH_MATMUL.name) == 2 * layers
+          and kinds.get(OperatorType.SOFTMAX.name) == layers,
+          f"the imported graph's attention is not decomposed as the "
+          f"importer's records say: {kinds}")
+    want = 16 * layers + 5 + 4  # Linears and norms per layer; embeddings,
+    check(copied == want, f"transfer_torch_weights copied {copied} "
+          f"arrays, want {want}")  # their norm; pooler and head
+    check(all(w.is_cuda for ws in model.params.values()
+              for w in ws.values()), "the imported weights are not on the "
+          "card")
+    n_params = sum(w.numel() for ws in model.params.values()
+                   for w in ws.values())
+    flops = sum(n.op.flops() for n in model.graph.nodes.values())
+    # predict (bf16 compute) against the source module's fp32 forward
+    got = model.predict(ids[:b])
+    with torch.no_grad():
+        ref = source(example).float().cpu().numpy()
+    pred_err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    check(pred_err <= ZOO_BF16_TOL, f"the imported BERT's predict is "
+          f"{pred_err:.3e} (of its largest logit) from the source module's "
+          f"fp32 forward (> {ZOO_BF16_TOL})")
+    del source, example
+    free_models()
+
+    start = [t.clone() for t in train_tensors(model)]
+    before = kernel_launches()  # the phase's count runs on across legs
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(ids, labels, batch_size=b, epochs=1, shuffle=False,
+              verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in kernel_launches().items()}
+    fit_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    losses = list(model.step_losses)
+    check(len(losses) == FX_STEPS, f"fit ran {len(losses)} steps")
+    check(bool(np.isfinite(losses).all()), f"imported BERT losses {losses}")
+    check(not any(launched.values()), f"the imported BERT launched rows "
+          f"1-6: {launched} (its attention is decomposed)")
+    # FX_CMP_STEPS captured steps against eager ones, from one start
+    runs = {}
+    cmp_x, cmp_y = ids[:FX_CMP_STEPS * b], labels[:FX_CMP_STEPS * b]
+    for tag, ctx in (("captured", None), ("eager", eager())):
+        restore(model, start)
+        with ctx or contextlib.nullcontext():
+            model.fit(cmp_x, cmp_y, batch_size=b, epochs=1, shuffle=False,
+                      verbose=False)
+        runs[tag] = (list(model.step_losses),
+                     [t.clone() for t in train_tensors(model)])
+    cap, eag = runs["captured"], runs["eager"]
+    check(cap[0] == eag[0] and same_bits(cap[1], eag[1]),
+          f"{FX_CMP_STEPS} captured steps of the imported BERT differ from "
+          f"eager: losses {cap[0]} vs {eag[0]}")
+    check(cap[0] == losses[:FX_CMP_STEPS], f"the comparison's captured "
+          f"losses {cap[0]} are not fit's first {losses[:FX_CMP_STEPS]}")
+    del start, runs, cap, eag
+    batches = device_batches(model, [ids], labels, b)
+    timed_steps(model, batches, 2)  # warm
+    times = timed_steps(model, batches, FX_TIMED_STEPS)
+    prof = profile_window(lambda: timed_steps(model, batches, 1),
+                          FX_PROFILE_STEPS, "step", groups=FX_KERNEL_GROUPS)
+    p50 = float(np.median(times))
+    report = {
+        "command_line": parsed,
+        "config": dict(FX_BERT, batch=b, compute=cfg.compute_dtype,
+                       optimizer=f"adam {ADAM_ALPHA}"),
+        "parameters": n_params, "forward_flops": flops,
+        "graph_ops_by_type": kinds,
+        "import_s": import_s, "build_import_compile_transfer_s": build_s,
+        "weights_transferred": copied,
+        "predict_vs_fp32_module_rel": pred_err,
+        "fit_steps": len(losses), "fit_wall_s": fit_s,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "captured_equals_eager_steps": FX_CMP_STEPS,
+        "step_p50_ms": p50 * 1e3,
+        "step_p90_ms": float(np.quantile(times, 0.9)) * 1e3,
+        "tokens_per_s": b * seq / p50,
+        "mfu_vs_dense_bf16_peak": 3.0 * flops / p50 / card_peaks(name)[2],
+        "peak_memory_gb_fit": fit_peak,
+        "kernel_rows_launched_fit": launched,
+        "phase11_build_bert_step_p50_ms": (
+            bert_step_ms if bert_step_ms is not None
+            else "not measured in this run"),
+        "profile": {k: v for k, v in prof.items()
+                    if not k.startswith(("decode_attention", "phase_span"))},
+    }
+    del model, batches
+    free_models()
+    return report
+
+
+def frontends_keras(seed):
+    """Phase 17 (b): the keras examples' models at their shapes on the
+    datasets' synthetic fallback, the accuracy gate and a checkpoint
+    restored into a fresh model."""
+    import tempfile
+
+    from flexflow_tpu_torch import keras
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    free_models()
+    report = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (mx, my), _ = keras.datasets.mnist.load_data()
+        (cx, cy), _ = keras.datasets.cifar10.load_data()
+        (rx, ry), _ = keras.datasets.reuters.load_data(
+            num_words=FX_REUTERS_WORDS, maxlen=100)
+    fallback = [str(w.message) for w in caught
+                if "SYNTHETIC" in str(w.message)]
+    for msg in fallback:
+        print("frontends path: " + msg)
+    report["synthetic_fallback_warnings"] = len(fallback)
+    check(len(fallback) == 3 or not fallback, f"{len(fallback)} of the 3 "
+          f"loaders fell back to synthetic data")
+
+    def leg(tag, cfg_argv, layers, optimizer, x, y, callbacks=(),
+            **replaced):
+        cfg, parsed = parsed_config(cfg_argv, **replaced)
+        model = keras.Sequential(layers)
+        model.compile(optimizer=optimizer,
+                      loss="sparse_categorical_crossentropy",
+                      metrics=["accuracy"], config=cfg)
+        check(all(w.is_cuda for ws in model.ffmodel.params.values()
+                  for w in ws.values()), f"keras {tag}: weights not on "
+              f"the card")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = model.fit(x, y, epochs=cfg.epochs, verbose=False,
+                         callbacks=list(callbacks))
+        torch.cuda.synchronize()
+        losses = model.ffmodel.step_losses
+        check(bool(np.isfinite(losses).all()), f"keras {tag}: losses "
+              f"{losses}")
+        report[tag] = {"command_line": parsed, "epochs_run": len(hist),
+                       "steps": len(losses), "fit_wall_s":
+                       time.perf_counter() - t0, "history": hist,
+                       "samples_per_s_fit": model.ffmodel.last_throughput}
+        return model, cfg
+
+    L = keras.layers
+    # examples/keras_mnist_mlp.py
+    b = 64
+    x = (mx[:b * 16].astype(np.float32) / 255.0).reshape(-1, 784)
+    leg("mnist_mlp", fx_argv(seed, b, 2),
+        [L.Dense(256, activation="relu", input_shape=(784,)),
+         L.Dense(128, activation="relu"), L.Dropout(0.1), L.Dense(10)],
+        keras.optimizers.SGD(0.05), x, my[:b * 16].astype(np.int32),
+        [keras.callbacks.EarlyStopping(monitor="loss", patience=2)])
+    # examples/keras_cifar10_cnn.py, with a checkpoint and early stopping
+    b = 32
+    x = (cx[:b * 16].transpose(0, 2, 3, 1) / 255.0).astype(np.float32)
+    y = cy[:b * 16].astype(np.int32)
+
+    def cifar_layers():
+        return [L.Conv2D(32, (3, 3), activation="relu", padding="same",
+                         input_shape=(32, 32, 3)),
+                L.MaxPooling2D((2, 2)),
+                L.Conv2D(64, (3, 3), activation="relu", padding="same"),
+                L.MaxPooling2D((2, 2)), L.Flatten(),
+                L.Dense(128, activation="relu"), L.Dropout(0.25),
+                L.Dense(10)]
+
+    with tempfile.TemporaryDirectory(prefix="keras_ckpt_") as ckpt_dir:
+        cnn, cnn_cfg = leg(
+            "cifar10_cnn", fx_argv(seed, b, 2), cifar_layers(),
+            keras.optimizers.SGD(0.02), x, y,
+            [keras.callbacks.ModelCheckpoint(ckpt_dir),
+             keras.callbacks.EarlyStopping(monitor="loss", patience=3)])
+        fresh = keras.Sequential(cifar_layers())
+        fresh.compile(optimizer=keras.optimizers.SGD(0.02),
+                      loss="sparse_categorical_crossentropy",
+                      metrics=["accuracy"], config=cnn_cfg)
+        step = CheckpointManager(ckpt_dir).restore(fresh.ffmodel)
+        want, got = cnn.predict(x[:2 * b]), fresh.predict(x[:2 * b])
+        check(np.array_equal(want, got), f"the keras CNN restored from "
+              f"ModelCheckpoint's step {step} predicts differently: largest "
+              f"difference {float(np.abs(want - got).max()):.3e}")
+        report["cifar10_cnn"]["checkpoint"] = {
+            "restored_step": step, "predict_bit_equal": True,
+            "snapshots": sorted(os.listdir(ckpt_dir))}
+    del cnn, fresh
+    # examples/keras_reuters_mlp.py
+    b = 32
+    seqs = rx[:b * 16]
+    x = np.zeros((len(seqs), FX_REUTERS_WORDS), np.float32)
+    for i, row in enumerate(seqs):
+        row = np.asarray(row)
+        x[i, row[row < FX_REUTERS_WORDS]] = 1.0
+    leg("reuters_mlp", fx_argv(seed, b, 2),
+        [L.Dense(256, activation="relu", input_shape=(FX_REUTERS_WORDS,)),
+         L.Dropout(0.2), L.Dense(46)],
+        keras.optimizers.Adam(1e-3), x, ry[:b * 16].astype(np.int32))
+    # the accuracy gate (tests/test_accuracy.py:44-66), fp32
+    x = (mx[:1024].astype(np.float32) / 255.0).reshape(-1, 784)
+    gate = keras.callbacks.VerifyMetrics(metric="accuracy",
+                                         threshold=FX_GATE_ACCURACY)
+    leg("accuracy_gate", fx_argv(seed, 64, 8),
+        [L.Dense(64, activation="relu", input_shape=(784,)), L.Dense(10)],
+        keras.optimizers.SGD(learning_rate=0.1), x,
+        my[:1024].astype(np.int32), [gate], compute_dtype="float32")
+    acc = report["accuracy_gate"]["history"][-1]["accuracy"]
+    check(acc >= FX_GATE_ACCURACY, f"keras MNIST gate: accuracy {acc} < "
+          f"{FX_GATE_ACCURACY}")
+    report["accuracy_gate"]["accuracy"] = acc
+    report["lr_scheduler"] = {
+        opt: keras_lr_schedule(seed, keras, opt, lrs, x[:FX_LR_ROWS],
+                               my[:FX_LR_ROWS].astype(np.int32))
+        for opt, lrs in (("sgd", (0.1, 0.02)), ("adam", (1e-3, 2e-4)))}
+    free_models()
+    return report
+
+
+def keras_lr_schedule(seed, keras, opt, lrs, x, y):
+    """``LearningRateScheduler`` on captured steps: the lr changes at
+    epoch 1, which must drop the captured graphs (they hold the lr they
+    were captured with).  The captured run is bit-equal to an eager one
+    from the same start and differs from a run that keeps epoch 0's
+    lr."""
+    from flexflow_tpu_torch.compiler.graphs import eager
+
+    cfg, parsed = parsed_config(fx_argv(seed, FX_LR_BATCH, 2),
+                                compute_dtype="float32")
+    L = keras.layers
+    model = keras.Sequential([
+        L.Dense(64, activation="relu", input_shape=(x.shape[1],)),
+        L.Dense(10)])
+    make = {"sgd": keras.optimizers.SGD, "adam": keras.optimizers.Adam}
+    model.compile(optimizer=make[opt](lrs[0]),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"], config=cfg)
+    fm = model.ffmodel
+    start = [t.clone() for t in train_tensors(fm)]
+    runs, replays = {}, None
+    for tag, ctx, schedule in (
+            ("captured", None, lambda e: lrs[min(e, 1)]),
+            ("eager", eager(), lambda e: lrs[min(e, 1)]),
+            ("epoch0_lr", None, lambda e: lrs[0])):
+        restore(fm, start)
+        with ctx or contextlib.nullcontext():
+            model.fit(x, y, epochs=cfg.epochs, shuffle=False,
+                      verbose=False, callbacks=[
+                          keras.callbacks.LearningRateScheduler(schedule)])
+        runs[tag] = (list(fm.step_losses),
+                     [t.clone() for t in train_tensors(fm)])
+        if tag == "captured":
+            replays = fm.compiled.step_graph.report()
+    per_epoch = len(x) // FX_LR_BATCH
+    check(len(runs["captured"][0]) == 2 * per_epoch, f"keras lr schedule "
+          f"({opt}): {len(runs['captured'][0])} steps")
+    check(sum(r["replays"] for r in replays) == per_epoch - 1,
+          f"keras lr schedule ({opt}): epoch 1's steps were not captured "
+          f"once and replayed: {replays}")
+    cap, eag, flat = runs["captured"], runs["eager"], runs["epoch0_lr"]
+    check(cap[0] == eag[0] and same_bits(cap[1], eag[1]),
+          f"keras lr schedule ({opt}): the captured run differs from "
+          f"eager after the lr change: losses {cap[0]} vs {eag[0]}")
+    check(cap[0][:per_epoch] == flat[0][:per_epoch]
+          and not same_bits(cap[1], flat[1]), f"keras lr schedule "
+          f"({opt}): the epoch-1 lr change did not change the weights")
+    return {"command_line": parsed, "lr_by_epoch": list(lrs),
+            "steps": len(cap[0]), "captured_replays_epoch1": replays,
+            "captured_bit_equal_eager": True,
+            "loss_last": {k: v[0][-1] for k, v in runs.items()}}
+
+
+def onnx_demo_cnn(path, seed):
+    """examples/onnx_import.py's CNN, written by the port's
+    ``onnx_minimal``; returns its weights."""
+    from flexflow_tpu_torch.frontends.onnx_minimal import (
+        TensorProto,
+        helper,
+        numpy_helper,
+        save,
+    )
+
+    rng = np.random.default_rng(seed)
+    w = {"wc": rng.normal(size=(8, 3, 3, 3)).astype(np.float32) * 0.2,
+         "bc": np.zeros(8, np.float32),
+         "wl": rng.normal(size=(10, 8 * 8 * 8)).astype(np.float32) * 0.1,
+         "bl": np.zeros(10, np.float32)}
+    nodes = [
+        helper.make_node("Conv", ["x", "wc", "bc"], ["h1"], name="conv1",
+                         kernel_shape=[3, 3], strides=[1, 1],
+                         pads=[1, 1, 1, 1]),
+        helper.make_node("Relu", ["h1"], ["h2"], name="relu1"),
+        helper.make_node("MaxPool", ["h2"], ["h3"], name="pool1",
+                         kernel_shape=[2, 2], strides=[2, 2]),
+        helper.make_node("Flatten", ["h3"], ["h4"], name="flat"),
+        helper.make_node("Gemm", ["h4", "wl", "bl"], ["y"], name="fc",
+                         transB=1),
+    ]
+    g = helper.make_graph(
+        nodes, "demo_cnn",
+        [helper.make_tensor_value_info("x", TensorProto.FLOAT,
+                                       (0, 3, 16, 16))],
+        [helper.make_tensor_value_info("y", TensorProto.FLOAT, (0, 10))],
+        [numpy_helper.from_array(a, n) for n, a in w.items()])
+    save(helper.make_model(g), path)
+    return w
+
+
+def frontends_onnx(seed):
+    """Phase 17 (c): the ONNX example's CNN imported, its forward against
+    an ``F.conv2d``/``F.linear`` composition in fp32, then fit."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch import FFModel, SGDOptimizer
+    from flexflow_tpu_torch.frontends import ONNXModel
+
+    b = 16
+    cfg, parsed = parsed_config(fx_argv(seed, b, 1),
+                                compute_dtype="float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "demo_cnn.onnx")
+        w = onnx_demo_cnn(path, seed)
+        om = ONNXModel(path)
+    model = FFModel(cfg)
+    x = model.create_tensor([b, 3, 16, 16], name="x")
+    om.apply(model, {om.model.graph.input[0].name: x})
+    model.compile(optimizer=SGDOptimizer(lr=0.05),
+                  loss_type="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    copied = om.transfer_onnx_weights(model)
+    check(copied == 4, f"transfer_onnx_weights copied {copied}, want 4")
+    rng = np.random.default_rng(seed + 18)
+    xs = rng.normal(size=(FX_ONNX_STEPS * b, 3, 16, 16)).astype(np.float32)
+    ys = rng.integers(0, 10, FX_ONNX_STEPS * b).astype(np.int32)
+    got = model.predict(xs[:b])
+    dev = cfg.torch_device()
+    t = {k: torch.from_numpy(v).to(dev) for k, v in w.items()}
+    with torch.no_grad():
+        h = F.max_pool2d(F.relu(F.conv2d(torch.from_numpy(xs[:b]).to(dev),
+                                         t["wc"], t["bc"], padding=1)), 2)
+        ref = F.linear(h.flatten(1), t["wl"], t["bl"]).cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    tol = FX_ONNX_TOL * max(1.0, float(np.abs(ref).max()))
+    check(err <= tol, f"the imported ONNX CNN is {err:.3e} from the "
+          f"F.conv2d/F.linear composition (> {tol:.3e})")
+    model.fit(xs, ys, batch_size=b, epochs=1, shuffle=False, verbose=False)
+    losses = list(model.step_losses)
+    check(len(losses) == FX_ONNX_STEPS and bool(np.isfinite(losses).all()),
+          f"ONNX CNN fit losses {losses}")
+    return {"command_line": parsed, "weights_transferred": copied,
+            "forward_max_abs_err": err, "forward_tol": tol,
+            "fit_losses": losses}
+
+
+def phase_frontends(seed, name, bert_step_ms=None):
+    """Phase 17 (module docstring): the frontends, keras and the command
+    line on one card.  Rows 1-6 launch no time in the phase."""
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+
+    t_phase = time.perf_counter()
+    for k in COUNTED:
+        k.launches = 0
+    report = {"card": CARD_LINE[0]}
+    for key, fn in (("a_torch_fx_bert", lambda: frontends_bert(
+            seed, name, bert_step_ms)),
+                    ("b_keras", lambda: frontends_keras(seed)),
+                    ("c_onnx", lambda: frontends_onnx(seed))):
+        t0 = time.perf_counter()
+        report[key] = fn()
+        report[key]["wall_s"] = time.perf_counter() - t0
+    launched = kernel_launches()
+    check(not any(launched.values()), f"the frontends phase launched rows "
+          f"1-6: {launched} (no import here has an MHA op)")
+    report["kernel_rows_launched"] = launched
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("frontends path: " + json.dumps(report))
+    return report
+
+
 def main(argv=None) -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6770,6 +7363,9 @@ def main(argv=None) -> int:
     ap.add_argument("--obs-only", action="store_true",
                     help="only run phase 16, the measured side of the "
                          "loop")
+    ap.add_argument("--frontends-only", action="store_true",
+                    help="only run phase 17, the frontends, keras and "
+                         "the command line")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -6807,6 +7403,10 @@ def main(argv=None) -> int:
 
     if args.zoo_only:  # no CUDA kernel of the port lies on its path
         phase_zoo(args.seed, phase_device())
+        return 0
+
+    if args.frontends_only:  # no CUDA kernel of the port on its path
+        phase_frontends(args.seed, phase_device())
         return 0
 
     if args.always_on_only:
@@ -6859,12 +7459,13 @@ def main(argv=None) -> int:
     cal_launches, searched_launches = phase_searched_train(
         args.seed, name, first_loss, calibration_out(1))
     pipe_launches = phase_pipeline_train(args.seed, name, first_loss)
-    bert_launches, _ = phase_bert_train(args.seed, name)
+    bert_launches, bert = phase_bert_train(args.seed, name)
     sync_launches = phase_sync_train(args.seed, name, first_loss)
     serve_launches = phase_serve_ranks(args.seed, name)
     phase_zoo(args.seed, name)
     always_on = phase_always_on(args.seed, name)
     obs = phase_observability(args.seed, name)
+    frontends = phase_frontends(args.seed, name, bert["step_p50_ms"])
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -6875,6 +7476,8 @@ def main(argv=None) -> int:
         "replaces": "flexflow_tpu/kernels/ragged_paged_attention.py:132",
         "launches": rpa_launches,
         "launches_observability_frames": obs["a_serve"]["launches"],
+        "launches_frontends": frontends["kernel_rows_launched"][
+            "ragged_paged_attention"],
         "launches_serving_per_rank": {
             leg: ls["ragged_paged_attention"]
             for leg, ls in serve_launches.items()},
@@ -6892,6 +7495,8 @@ def main(argv=None) -> int:
         "source": "flexflow_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "flexflow_tpu/kernels/ragged_paged_attention.py:233",
         "launches": quant_launches,
+        "launches_frontends": frontends["kernel_rows_launched"][
+            "ragged_paged_attention_quant"],
         "launches_serving_per_rank": {
             leg: ls["ragged_paged_attention_quant"]
             for leg, ls in serve_launches.items()},
@@ -6939,6 +7544,7 @@ def main(argv=None) -> int:
             "launches_observability_fit": obs["a_fit"]["launches"][wrapper],
             "launches_observability_sync_per_rank": [
                 r["launches"][wrapper] for r in obs["c_sync"]["per_rank"]],
+            "launches_frontends": frontends["kernel_rows_launched"][wrapper],
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],
             "plain_ms": bf16["plain_ms"],
@@ -6963,6 +7569,8 @@ def main(argv=None) -> int:
         "launches_placed_per_rank": pipe_launches["placed"][
             "flash_forward_partial"],
         "launches_calibration": cal_launches["flash_forward_partial"],
+        "launches_frontends": frontends["kernel_rows_launched"][
+            "flash_forward_partial"],
         "max_abs_err": max(r["max_abs_err"] for k, r in partial.items()
                            if k.startswith("bf16")),
         "ms": main_row["ms"],

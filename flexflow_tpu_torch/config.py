@@ -1,5 +1,5 @@
-"""FFConfig — the subset of flexflow_tpu/config.py the decode, training
-and search paths read.
+"""FFConfig — the port's flexflow_tpu/config.py: the fields the decode,
+training, search and frontend paths read, and the command line.
 
 ``device`` is explicit and defaults to ``"cuda"``: the entry points run
 on the card unless the caller asks for the CPU (the tests pass
@@ -70,12 +70,29 @@ levers (config.py:258-266, lowering.py:266-279 and :613-693): every
 weighted op that mutates no state recomputes its activations in the
 backward, and each optimizer step runs its batch as that many
 microbatches (the batch must divide by it; checked at the step).
+
+The command line is the reference's (config.py:464-697):
+``FFConfig.parse_args(argv)`` takes its flags, destinations and
+defaults, unknown flags left to the caller (``parse_known_args``).
+``-ll:tpu`` keeps its spelling and counts cards here; its default 0
+means every visible card (``num_devices=0``, below).  ``parse_args``
+leaves ``device`` at ``"cuda"``: for the CPU, ``dataclasses.replace(
+FFConfig.parse_args(argv), device="cpu")``.  ``slice_levels`` is the
+reference's too (config.py:69-90, 108, 447-456): a link hierarchy above
+the cards' own links, ``"span:bandwidth:latency[,...]"`` or triples,
+laid over whichever ``machine_spec`` resolves and validated at
+construction.  ``num_devices=0`` resolves to the visible cards
+(``torch.cuda.device_count()``, at least 1, so that a CUDA config made
+on a host without CUDA still constructs and raises in
+``torch_device``) on a CUDA device, and to 1 on the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -133,10 +150,30 @@ def parse_slo_classes(value) -> Tuple[Dict, ...]:
     return tuple(out)
 
 
+def parse_slice_levels(value) -> Tuple[Tuple[int, float, float], ...]:
+    """Normalize a slice-level hierarchy: the CLI spelling
+    ``"span:bw:lat[,span:bw:lat...]"`` or an iterable of (span,
+    bandwidth, latency) triples -> MachineSpec.slice_levels tuples.
+    Structural validation (ascending aligned spans) stays in
+    MachineSpec.topology_levels(), the one reader."""
+    if isinstance(value, str):
+        levels = []
+        for part in value.split(","):
+            fields = part.split(":")
+            if len(fields) != 3:
+                raise ValueError(
+                    f"slice level {part!r} must be span:bandwidth:latency")
+            levels.append(
+                (int(fields[0]), float(fields[1]), float(fields[2])))
+        return tuple(levels)
+    return tuple(
+        (int(span), float(bw), float(lat)) for span, bw, lat in value)
+
+
 @dataclass
 class FFConfig:
     batch_size: int = 64
-    num_devices: int = 1
+    num_devices: int = 1  # 0: every visible card (1 on the CPU)
     compute_dtype: str = "bfloat16"  # matmul dtype, as the reference
     seed: int = 0
     kv_precision: str = "off"  # KV page-pool dtype: off|fp32|bf16|int8
@@ -160,6 +197,10 @@ class FFConfig:
     # the strategy search (reference config.py:103-160, its defaults)
     machine_spec: Optional[MachineSpec] = None
     machine_model_file: Optional[str] = None
+    # a link hierarchy above the cards' own links (reference
+    # config.py:108): (span, bandwidth, latency) triples or the CLI
+    # spelling "span:bw:lat[,...]", laid over the resolved machine_spec
+    slice_levels: Optional[object] = None
     search_budget: int = 16
     search_alpha: float = 1.05
     only_data_parallel: bool = False
@@ -222,6 +263,10 @@ class FFConfig:
     device_trace_dir: Optional[str] = None
 
     def __post_init__(self):
+        if self.num_devices == 0:
+            self.num_devices = (max(1, torch.cuda.device_count())
+                                if torch.device(self.device).type == "cuda"
+                                else 1)
         if self.num_devices < 1:
             raise ValueError(
                 f"num_devices must be >= 1, got {self.num_devices}")
@@ -291,6 +336,13 @@ class FFConfig:
                 MachineSpec.from_file(self.machine_model_file)
                 if self.machine_model_file
                 else MachineSpec.h100_sxm(self.num_devices))
+        if self.slice_levels:
+            levels = parse_slice_levels(self.slice_levels)
+            self.machine_spec = dataclasses.replace(
+                self.machine_spec, slice_levels=levels)
+            # fail at construction, not mid-search
+            self.machine_spec.topology_levels()
+            self.slice_levels = levels
         if int(self.grad_accum_steps) < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got "
                              f"{self.grad_accum_steps}")
@@ -312,3 +364,245 @@ class FFConfig:
                 f"FFConfig.device={self.device!r} but torch sees no CUDA "
                 f"device; pass device='cpu' to run on the CPU")
         return dev
+
+    # ---- argv parsing ----------------------------------------------------
+    @staticmethod
+    def parse_args(argv: Optional[Sequence[str]] = None) -> "FFConfig":
+        """Accepts the reference's flag spellings (flexflow_tpu
+        config.py:464-697, after FlexFlow's model.cc:3371-3654).
+        ``-ll:tpu`` keeps the reference's spelling and counts CUDA cards
+        here (0, its default: every visible card).  The config runs on
+        the card; replace ``device`` for the CPU."""
+        p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+        p.add_argument("-e", "--epochs", type=int, default=1)
+        p.add_argument("-b", "--batch-size", type=int, default=64)
+        p.add_argument("--lr", "--learning-rate", dest="lr", type=float, default=0.01)
+        p.add_argument("--wd", "--weight-decay", dest="wd", type=float, default=1e-4)
+        p.add_argument("-ll:tpu", "--num-devices", dest="num_devices", type=int, default=0,
+                       help="CUDA cards of the job (0 = every visible "
+                            "card)")
+        p.add_argument("--budget", "--search-budget", dest="budget", type=int, default=128)
+        p.add_argument("--alpha", "--search-alpha", dest="alpha", type=float, default=1.05)
+        p.add_argument("--only-data-parallel", action="store_true")
+        p.add_argument("--enable-parameter-parallel", action="store_true", default=True)
+        p.add_argument("--enable-attribute-parallel", action="store_true", default=True)
+        p.add_argument("--search-num-nodes", type=int, default=0)
+        p.add_argument("--search-num-workers", type=int, default=0)
+        p.add_argument("--base-optimize-threshold", type=int, default=10)
+        p.add_argument("--search-timeout", dest="search_timeout", type=float, default=45.0)
+        p.add_argument("--search-improvement-margin",
+                       dest="search_improvement_margin", type=float,
+                       default=0.03,
+                       help="minimum simulated win over plain DP before a "
+                            "searched strategy is accepted (champion-vs-DP "
+                            "floor)")
+        p.add_argument("--disable-pipeline-search",
+                       dest="disable_pipeline_search", action="store_true",
+                       help="compile() stops proposing pipelined lowerings "
+                            "for stacked-block graphs")
+        p.add_argument("--substitution-json", type=str, default=None)
+        p.add_argument("--calibration-file", type=str, default=None)
+        p.add_argument("--calibrate", action="store_true")
+        p.add_argument("--calibration-budget", dest="calibration_budget",
+                       type=float, default=60.0)
+        p.add_argument("--export-strategy", dest="export_strategy", type=str, default=None)
+        p.add_argument("--import-strategy", dest="import_strategy", type=str, default=None)
+        p.add_argument("--import-strategy-partial",
+                       dest="import_strategy_partial", action="store_true",
+                       help="apply a strategy file best-effort even when "
+                            "its graph digest/coverage does not match "
+                            "(provenance checks downgrade to warnings)")
+        p.add_argument("--machine-model-file", type=str, default=None)
+        p.add_argument("--slice-levels", dest="slice_levels", type=str,
+                       default=None,
+                       help="multi-slice link hierarchy above ICI "
+                            "without a machine file: comma list of "
+                            "span:bandwidth:latency triples, e.g. "
+                            "'16:3.1e9:1e-5' for one DCN class "
+                            "spanning 16 devices (MachineSpec."
+                            "slice_levels)")
+        p.add_argument("--taskgraph", dest="export_taskgraph", type=str, default=None)
+        p.add_argument("--profiling", action="store_true")
+        p.add_argument("--trace-steps", dest="trace_steps", type=int, default=1)
+        p.add_argument("--grad-accum-steps", dest="grad_accum_steps",
+                       type=int, default=1)
+        p.add_argument("--remat", action="store_true")
+        p.add_argument("--zero-dp-shard", dest="zero_dp_shard",
+                       action="store_true")
+        p.add_argument("--sync-precision", dest="sync_precision",
+                       choices=("fp32", "bf16", "int8", "search"),
+                       default="fp32",
+                       help="gradient-sync wire precision; 'search' "
+                            "lets the strategy search pick it per "
+                            "weight group")
+        p.add_argument("--sync-schedule", dest="sync_schedule",
+                       choices=("off", "search"), default="off",
+                       help="gradient-sync schedule: 'search' buckets "
+                            "the weight-grad collectives and issues "
+                            "them inside the backward "
+                            "(search/sync_schedule.py)")
+        p.add_argument("--sync-bucket-bytes", dest="sync_bucket_bytes",
+                       type=int, default=0,
+                       help="pin the schedule search's per-bucket "
+                            "coalescing floor in bytes (0 = sweep)")
+        p.add_argument("--co-search", dest="co_search",
+                       action="store_true",
+                       help="joint strategy x comm-plan co-search: "
+                            "price every candidate strategy with its "
+                            "best sync schedule/precision/reduction "
+                            "plan inside the substitution search "
+                            "(search/comm_plan.py)")
+        p.add_argument("--sync-ef", dest="sync_ef",
+                       choices=("off", "auto"), default="off",
+                       help="error-feedback residuals on int8 gradient "
+                            "sync (per-group int8_ef wire choice, "
+                            "residual threaded as training-loop state)")
+        p.add_argument("--objective", dest="objective",
+                       choices=("train", "serve"), default="train",
+                       help="search objective: 'serve' ranks decode "
+                            "graphs by simulated p99 latency over a "
+                            "ragged arrival model under the HBM "
+                            "KV-residency budget (search/serving.py)")
+        p.add_argument("--serve-p99-budget-ms",
+                       dest="serve_p99_budget_ms", type=float,
+                       default=0.0,
+                       help="declared p99 SLO for objective=serve "
+                            "(recorded in __meta__.serving, linted "
+                            "SHD163); 0 = rank-only")
+        p.add_argument("--serve-disaggregation",
+                       dest="serve_disaggregation",
+                       choices=("off", "search"), default="off",
+                       help="under objective=serve, also search a "
+                            "prefill/decode disaggregation: prompt and "
+                            "decode graphs on disjoint submeshes, the "
+                            "KV handoff priced as a cross-block "
+                            "transfer (search/disaggregation.py)")
+        p.add_argument("--prefill-chunk", dest="prefill_chunk",
+                       type=int, default=32,
+                       help="chunk size of the batched prefill lane "
+                            "(runtime/prefill.py): prompt tokens "
+                            "written into the KV page pool per causal "
+                            "forward pass")
+        p.add_argument("--serve-fleet", dest="serve_fleet",
+                       choices=("off", "search"), default="off",
+                       help="under objective=serve, also search a "
+                            "serving FLEET: N replica blocks on "
+                            "disjoint submeshes, per-replica strategy "
+                            "and per-SLO-class routing priced together "
+                            "in per-class p99 (search/fleet.py)")
+        p.add_argument("--serve-fleet-max-replicas",
+                       dest="serve_fleet_max_replicas", type=int,
+                       default=4,
+                       help="upper bound on fleet replica count the "
+                            "partition enumeration explores")
+        p.add_argument("--serve-slo-classes", dest="serve_slo_classes",
+                       type=str, default=None,
+                       help="request SLO classes for the serving "
+                            "executor: comma list of name:priority:"
+                            "deadline_frames[:quantile] — priority "
+                            "admission, deadline expiry, preemption "
+                            "(runtime/decode.py)")
+        p.add_argument("--kv-precision", dest="kv_precision",
+                       choices=("off", "fp32", "bf16", "int8", "search"),
+                       default="off",
+                       help="KV page-pool dtype lane (ops/"
+                            "decode_attention.py): pin fp32/bf16/int8 "
+                            "(int8 adds per-page scales + in-kernel "
+                            "dequant) or 'search' to price the lane "
+                            "under objective=serve; 'off' is "
+                            "byte-identical to history")
+        p.add_argument("--serve-shared-prefix-pages",
+                       dest="serve_shared_prefix_pages", type=int,
+                       default=0,
+                       help="pages per sequence expected to be CLAIMED "
+                            "from the radix prefix trie instead of "
+                            "privately allocated (runtime/decode.py) — "
+                            "prices SHARED KV residency in SHD161 and "
+                            "kv_residency_bytes")
+        p.add_argument("--obs-log", dest="obs_log", type=str, default=None,
+                       help="JSONL structured-event telemetry sink "
+                            "(flexflow_tpu_torch/obs; tools/ffobs.py renders it)")
+        p.add_argument("--obs-trace", dest="obs_trace", type=str,
+                       default=None,
+                       help="write the PREDICTED task timeline as "
+                            "Chrome-trace JSON at compile (Perfetto)")
+        p.add_argument("--device-trace-dir", dest="device_trace_dir",
+                       type=str, default=None,
+                       help="capture a REAL torch.profiler device trace "
+                            "of fit's post-compile steps into this "
+                            "logdir, lane-stamped and tag-matched "
+                            "against the predicted comm lanes "
+                            "(obs/trace_ingest.py LaneDriftReport)")
+        p.add_argument("--drift-threshold", dest="drift_threshold",
+                       type=float, default=0.5,
+                       help="predicted-vs-measured step-time drift "
+                            "beyond which the DriftReport flags "
+                            "calibration staleness")
+        p.add_argument("--cost-cache-file", dest="cost_cache_file",
+                       type=str, default=None,
+                       help="persistent per-(op, view) cost-row + "
+                            "search-result cache (search/cost_cache.py); "
+                            "repeated searches start warm")
+        p.add_argument("--no-cost-cache", dest="no_cost_cache",
+                       action="store_true",
+                       help="bypass the persistent cost cache even when "
+                            "a file/env default is configured")
+        p.add_argument("--verify", action="store_true",
+                       help="static-analysis verification "
+                            "(flexflow_tpu_torch/analysis): check graph "
+                            "invariants after every rewrite and the "
+                            "compile-time graph before lowering")
+        p.add_argument("--seed", type=int, default=0)
+        args, _ = p.parse_known_args(argv)
+        search_devs = args.search_num_workers * max(1, args.search_num_nodes or 1)
+        return FFConfig(
+            epochs=args.epochs,
+            batch_size=args.batch_size,
+            learning_rate=args.lr,
+            weight_decay=args.wd,
+            num_devices=args.num_devices,
+            search_budget=args.budget,
+            search_alpha=args.alpha,
+            only_data_parallel=args.only_data_parallel,
+            search_num_devices=search_devs,
+            base_optimize_threshold=args.base_optimize_threshold,
+            search_timeout_s=args.search_timeout,
+            search_improvement_margin=args.search_improvement_margin,
+            enable_pipeline_search=not args.disable_pipeline_search,
+            substitution_json=args.substitution_json,
+            calibration_file=args.calibration_file,
+            calibrate=args.calibrate,
+            calibration_budget_s=args.calibration_budget,
+            export_strategy_file=args.export_strategy,
+            import_strategy_file=args.import_strategy,
+            import_strategy_partial=args.import_strategy_partial,
+            export_strategy_task_graph_file=args.export_taskgraph,
+            machine_model_file=args.machine_model_file,
+            slice_levels=args.slice_levels,
+            profiling=args.profiling,
+            trace_steps=args.trace_steps,
+            grad_accum_steps=args.grad_accum_steps,
+            remat=args.remat,
+            zero_dp_shard=args.zero_dp_shard,
+            sync_precision=args.sync_precision,
+            sync_schedule=args.sync_schedule,
+            sync_bucket_bytes=args.sync_bucket_bytes,
+            co_search=args.co_search,
+            sync_ef=args.sync_ef,
+            objective=args.objective,
+            serve_p99_budget_ms=args.serve_p99_budget_ms,
+            serve_disaggregation=args.serve_disaggregation,
+            serve_fleet=args.serve_fleet,
+            serve_fleet_max_replicas=args.serve_fleet_max_replicas,
+            prefill_chunk=args.prefill_chunk,
+            serve_slo_classes=args.serve_slo_classes,
+            kv_precision=args.kv_precision,
+            serve_shared_prefix_pages=args.serve_shared_prefix_pages,
+            obs_log_file=args.obs_log,
+            obs_trace_file=args.obs_trace,
+            device_trace_dir=args.device_trace_dir,
+            drift_threshold=args.drift_threshold,
+            cost_cache_file="" if args.no_cost_cache else args.cost_cache_file,
+            verify=args.verify,
+            seed=args.seed,
+        )

@@ -69,7 +69,6 @@ from flexflow_tpu_torch.core.ptensor import DataType, ParallelTensorShape
 from flexflow_tpu_torch.initializers import DEFAULT_WEIGHT_INIT, Initializer
 from flexflow_tpu_torch.kernels.flash_attention import (
     HEAD_DIMS,
-    _bmm32,
     _pick_block,
     attn_core,
     attn_core_dropout,
@@ -84,7 +83,7 @@ from flexflow_tpu_torch.ops.base import (
     WeightSpec,
     register_op,
 )
-from flexflow_tpu_torch.ops.linear import matmul_acc32
+from flexflow_tpu_torch.ops.linear import _MatmulAcc32, matmul_acc32
 
 # the reference's flash defaults and threshold (flash_attention.py:666-669,
 # ops/attention.py:255)
@@ -391,8 +390,8 @@ class BatchMatmulOp(Operator):
         x, y = inputs
         cd = ctx.compute_dtype
         xs, ys = x.shape, y.shape
-        z = _bmm32(x.to(cd).reshape(-1, *xs[-2:]),
-                   y.to(cd).reshape(-1, *ys[-2:]))
+        z = _MatmulAcc32.apply(x.to(cd).reshape(-1, *xs[-2:]),
+                               y.to(cd).reshape(-1, *ys[-2:]))
         return [z.view(*xs[:-1], ys[-1]).to(x.dtype)]
 
     def propagate(self, mv: MachineView) -> OpSharding:

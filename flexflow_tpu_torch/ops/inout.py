@@ -14,6 +14,7 @@ import torch
 from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.core.optype import OperatorType
 from flexflow_tpu_torch.core.ptensor import ParallelTensorShape
+from flexflow_tpu_torch.interop import tensor_from_numpy
 from flexflow_tpu_torch.ops.base import (
     Operator,
     OpSharding,
@@ -89,7 +90,7 @@ class ConstantOp(Operator):
     def forward(self, ctx, inputs, weights):
         t = self._on_device.get(ctx.device)
         if t is None:
-            t = torch.from_numpy(np.array(self._value)).to(ctx.device)
+            t = tensor_from_numpy(self._value, ctx.device)
             self._on_device[ctx.device] = t
         if ctx.mesh is not None:
             t = t[ctx.out_placements[0].local_slices(t.shape, ctx.mesh)]

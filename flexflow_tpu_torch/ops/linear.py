@@ -30,6 +30,7 @@ from flexflow_tpu_torch.initializers import (
     DEFAULT_WEIGHT_INIT,
     Initializer,
 )
+from flexflow_tpu_torch.kernels.flash_attention import _bmm32
 from flexflow_tpu_torch.core.machine import MachineView
 from flexflow_tpu_torch.ops.base import (
     REPLICA_SLOT,
@@ -42,11 +43,13 @@ from flexflow_tpu_torch.ops.base import (
 
 
 class _MatmulAcc32(torch.autograd.Function):
-    """fp32 product of compute-dtype operands a [M, K] and b [K, N].
-    The backward forms dA and dB the same way from the cotangent cast
-    to the compute dtype (the reference's transpose contracts the fp32
-    cotangent; rounding it once keeps both backward products on the
-    card's bf16 tensor cores) and casts them to the operands' dtypes."""
+    """fp32 product of compute-dtype operands a [M, K] and b [K, N], or
+    a batch of them, a [N, M, K] and b [N, K, P].  The backward forms dA
+    and dB the same way from the cotangent cast to the compute dtype
+    (the reference's transpose contracts the fp32 cotangent; rounding it
+    once keeps both backward products on the card's bf16 tensor cores)
+    and casts them to the operands' dtypes.  On the card it also gives
+    ``torch.bmm``'s ``out_dtype`` form, which has none, a derivative."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -59,13 +62,15 @@ class _MatmulAcc32(torch.autograd.Function):
         g = g.to(a.dtype)
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _mm32(g, b.t()).to(a.dtype)
+            da = _mm32(g, b.transpose(-2, -1)).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            db = _mm32(a.t(), g).to(b.dtype)
+            db = _mm32(a.transpose(-2, -1), g).to(b.dtype)
         return da, db
 
 
 def _mm32(a, b):
+    if a.dim() == 3:
+        return _bmm32(a, b)
     if a.is_cuda:
         return torch.mm(a, b, out_dtype=torch.float32)
     # products of bf16 values are exact in fp32: the reference's
