@@ -14,6 +14,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --always-on-only [--seed N]
     python3 chip_smoke.py --obs-only [--seed N]
     python3 chip_smoke.py --frontends-only [--seed N]
+    python3 chip_smoke.py --entry-points-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -34,7 +35,8 @@ runs phase 13 alone RUNS times.  The ninth runs phase 14 alone (no CUDA
 kernel of the port lies on its path, so nothing is built).  The tenth
 builds the kernels and runs phase 15 alone, the eleventh phase 16.
 The twelfth runs phase 17 alone (nothing on its path launches a CUDA
-kernel of the port, so nothing is built).
+kernel of the port, so nothing is built), the thirteenth builds the
+kernels and runs phase 18 alone.
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -129,24 +131,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    print each fit's tokens/s and MFU (3 x the graph's forward FLOPs
    against the card's dense bf16 peak) and both sides' step time
    p50/p99; profile 3 steady steps on each side;
-7. sequence-parallel training path: the same model at seq 4096, batch 2,
+7. sequence-parallel training path: the same widths at 6 layers, seq
+   4096, batch 2,
    split over 4 ranks (``runtime.distributed.spawn``: one card each with
    NCCL on a 4-card machine, else all on card 0 with the shared-card
    transport, gloo with counted host hops; an exclusive compute mode
-   fails), every MHA on the zigzag ring; ``fit`` 3 steps (SP_STEPS) and
+   fails), every MHA on the zigzag ring; ``fit`` 2 steps (SP_STEPS) and
    check that
-   the partial kernel launched 12 x 9 times per step on every rank and
+   the partial kernel launched 6 x 9 times per step on every rank and
    the flash kernels of phase 6 never, that the loss fell, and that the
    first step's loss equals a one-process run's on the flash route
-   (fp32 at 2 layers within 1e-5, bf16 at full width within 5e-3); print
+   (fp32 at 2 layers within 1e-5, bf16 at 6 layers within 5e-3); print
    the transport, step p50/p99, tokens/s, MFU, peak memory and every
-   collective's calls, bytes and host hops per rank; profile 2 steps on
+   collective's calls, bytes and host hops per rank; profile 1 step on
    rank 0;
 8. hybrid-parallel training path, 4 ranks spawned as phase 7's: (a)
    Megatron dp 2 x tp 2 of phase 6's model on phase 6's batches (MHA (2,
    1, 1) r 2 with 6 heads per rank, ff1 (2, 1, 2), ff2 (2, 1, 1) r 2,
-   every other op batch-split), ``fit`` 5 steps, then 4 synchronised
-   steps and a profile of 2 on rank 0; check rows 1-3 launched 12 times
+   every other op batch-split), ``fit`` 3 steps, then 2 synchronised
+   steps and a profile of 1 on rank 0; check rows 1-3 launched 12 times
    per rank per step and row 4 never, every loss finite and falling, the
    first step's loss against one process (fp32 at 2 layers within 1e-5,
    bf16 at full width, phase 6's first step, within 5e-3), and every
@@ -155,7 +158,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    memory per rank and every collective's calls, bytes and host hops per
    rank per step; (b) Ulysses at phase 7's shape (sp 4,
    ``sp_mode="ulysses"`` on every MHA, 3 heads per rank) on phase 7's
-   batches, ``fit`` 3 steps: rows 1-3 12 launches per rank per step, row
+   batches, ``fit`` 2 steps: rows 1-3 6 launches per rank per step, row
    4 none, all-to-all exchanges, the first step's loss against phase 7's
    one-process bf16 loss within 5e-3;
 9. searched training path, 4 ranks spawned as phase 7's: (a) calibrate
@@ -172,7 +175,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    data-parallel and phase 8's Megatron strategies, then export the
    strategy; (c) the ranks compile with ``strategy=None`` (rank 0's
    search served by (b)'s cost cache, sent to every rank) and ``fit``
-   5 steps: every rank holds (b)'s graph digest and one set of views,
+   3 steps: every rank holds (b)'s graph digest and one set of views,
    the first step's loss within 5e-3 of phase 6's, losses finite and
    falling, every weight replica bit-equal, and the attention kernels'
    launches as the views imply (rows 1-3 12 per step; a sequence split
@@ -180,8 +183,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    same model under data parallelism and under ``compile(strategy=None)``
    with FFConfig's defaults (the uncalibrated search; its graph digest
    checked against (b)'s roofline search and its first-step loss within
-   5e-3 of phase 6's), 6 synchronised steps of each of the three in
-   blocks of SEARCH_TIMED_BLOCK (3) in the order A B C C B A: each
+   5e-3 of phase 6's), 2 synchronised steps of each of the three in
+   blocks of SEARCH_TIMED_BLOCK (1) in the order A B C C B A: each
    strategy's step p50, its two blocks' p50s and their spread, beside
    its predicted step (on the shared card labelled as the shared-card
    transport); with NCCL the
@@ -198,8 +201,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``compile(pipeline=PipelineConfig(2, 4))`` (pp 2 x dp 2, GPipe over
    point-to-point sends), and (b) placed, the embeddings and layers 0-5
    on ranks 0-1 and layers 6-11 and the head on ranks 2-3 (two
-   ``start_part`` blocks, each data-parallel): each ``fit`` 5 steps
-   with the counts set to 0 just before, then 3 synchronised steps;
+   ``start_part`` blocks, each data-parallel): each ``fit`` 3 steps
+   with the counts set to 0 just before, then 2 synchronised steps;
    checked: the lowering, the first step's loss within 5e-3 of phase
    6's, losses finite and falling, rows 1-3 launched exactly 24 (a) and
    6 (b) times per rank per step and row 4 never, every weight held by
@@ -238,8 +241,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    losses differ), one seed twice the same;
 12. gradient sync, 4 ranks spawned as phase 7's: phase 6's model and
    batches under dp 4, each leg a fresh model through ``fit`` with the
-   counts set to 0 just before: (a) the monolithic fp32 sum, 3 steps;
-   (b) ``zero_dp_shard=True``, 3 steps: its first loss equal to (a)'s,
+   counts set to 0 just before: (a) the monolithic fp32 sum, 2 steps;
+   (b) ``zero_dp_shard=True``, 2 steps: its first loss equal to (a)'s,
    its later losses and its weights within SYNC_LOSS_TOL and
    SYNC_WEIGHT_TOL of (a)'s (its gradient is reduce-scattered where
    (a)'s is all-reduced, so the summation order differs), about 1/4 of
@@ -253,7 +256,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (printed with each bucket's predicted exposed seconds), staged
    plans, the weights against (a)'s as (b)'s; (e) ``compile(strategy=
    None)`` with ``co_search=True``: one search on rank 0, every rank
-   the same digest, views and comm plan, 3 steps, the exported
+   the same digest, views and comm plan, 2 steps, the exported
    ``__meta__`` equal to the lowered plan and its views re-imported.
    The searches of (a)-(c) price the link the ranks use (on the shared
    card, SYNC_SHARED_LINK_BW); (e)'s is FFConfig's default,
@@ -265,7 +268,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 13. serving over ranks, 4 ranks spawned as phase 7's: phase 4's model
    (full width, 32 frame slots, bf16 compute, seeded weights) serving
    the first 32 of phase 4's seeded requests, one per frame slot, cut
-   in depth (``serve_requests``: prompts to 64 tokens, at most 48 new
+   in depth (``serve_requests``: prompts to 32 tokens, at most 24 new
    tokens, r5 still filling its sequence; on the shared card every
    collective is a host round trip that waits for the card's other
    contexts, so the phase keeps to its time) in four legs, each a
@@ -419,7 +422,42 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``onnx_minimal`` and imported by ``ONNXModel``: its forward within
    1e-5 (fp32) of an ``F.conv2d``/``F.linear`` composition on the card,
    then 3 ``fit`` steps.  Printed as ``frontends path: {...}``;
-18. print one JSON line listing every ported kernel.
+18. the repo's entry points on one card (``flexflow_tpu_torch/examples``
+   and ``tools``), each example called as a user would, ``main(argv)``
+   on a fixed argv, its parsed config and wall time printed: (a)
+   ``examples.gpt`` at the reference's TPU widths (vocab 32000, 12
+   layers, hidden 768, 12 heads, ff 3072, seq 512; ``-b 8 -e 1``):
+   every step's loss, rows 1-3 at exactly 12 launches per step each
+   (rows 4-6 none), the step p50/p90 over 5 synchronised captured
+   steps, tokens/s, MFU, and one batch's loss on the flash route within
+   LOSS_PATH_TOL (bf16) of the plain-attention route of the same model
+   from a copy of its weights; (b) ``examples.transformer`` (the
+   12-layer encoder, hidden 512, 8 heads, ff 2048, seq 512, not causal)
+   the same way, its event bus writing a log (``--obs-log``), but its
+   SGD diverges at this size, so only its first EP_STABLE_STEPS losses
+   must be finite; its model is built again from the seed and trained
+   on the same batches on the plain-attention route at bf16 and on both
+   routes at fp32, each route's losses printed, its first
+   EP_STABLE_STEPS finite and the first step's loss of the flash route
+   within LOSS_PATH_TOL of the plain route's at either precision; (c)
+   every other example at its card size on tests/test_examples.py's
+   argv with ``-ll:tpu 1 --only-data-parallel`` (its throughput line
+   or final loss printed), ``pytorch_bert``, ``tf_keras_import`` and
+   ``digits_accuracy`` only where ``transformers.utils.fx`` (HuggingFace's
+   fx tracer), TensorFlow and scikit-learn can be imported (else ``not
+   run on this host: no <module>``), then ``placed_dlrm`` over 2 ranks and ``ulysses_sp``
+   and ``staged_pipeline`` over 4 (spawned by ``main``, sharing the
+   card as phases 7-10 do; the placed and staged lowerings checked);
+   (d) the port's tools with no JAX on the host: ``ffobs report``,
+   ``validate`` (exit 0), ``metrics`` and ``trace`` on (b)'s log,
+   ``fflint registry --devices 4`` (the proofs on the card) and
+   ``fflint cache COST_CACHE.json`` (exit 0), ``mfu_probe`` and each
+   ``mfu_variants`` variant (only ``flash`` launches rows 1-3), their
+   times printed; then rows 1-3 against their plain versions, as phase
+   3 checks them, at every shape the phase launched them at in this
+   process (EP_FLASH_SHAPES at least).  Printed as ``entry points
+   path: {...}``;
+19. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -431,6 +469,7 @@ ep-MoE leg, 15's device-loss leg and 16 (c) one rank per card.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import gc
 import itertools
@@ -552,20 +591,21 @@ BWD_ROW_TOL = {"bf16": 2.0 ** -5}
 LOSS_PATH_TOL = {"bf16": 1e-3, "fp32": 1e-5}
 GRAD_PATH_TOL = {"bf16": 0.1, "fp32": 1e-2}
 
-# the sequence-parallel path: build_gpt at its default widths with seq
-# 4096 and batch 2 (the 8192 tokens a step of phase 6 trains) split over
+# the sequence-parallel path: build_gpt at its default widths, cut to 6
+# layers to keep the script inside its time limit, with seq 4096 and
+# batch 2 (the 8192 tokens a step of phase 6 trains) split over
 # SP_RANKS ranks (the sp degree of __graft_entry__.py:152-155);
 # every MHA runs the zigzag ring, whose blocks are half chunks of
 # 4096 / (2 x 4) = 512 positions, 2n + 1 = 9 partial-kernel calls per
 # layer and step
-SP = dict(vocab=32000, num_layers=12, hidden=768, num_heads=12,
+SP = dict(vocab=32000, num_layers=6, hidden=768, num_heads=12,
           ff_dim=3072, seq_len=4096)
 SP_BATCH = 2
 SP_RANKS = 4
 SP_HALF_CHUNK = SP["seq_len"] // (2 * SP_RANKS)
-SP_STEPS = 3  # kept short: the whole script stays inside its time limit
-SP_TIMED_STEPS = 3
-SP_PROFILE_STEPS = 2
+SP_STEPS = 2  # kept short: the whole script stays inside its time limit
+SP_TIMED_STEPS = 2
+SP_PROFILE_STEPS = 1
 SP_PARITY_LAYERS = 2
 SP_TIMEOUT_S = 600
 # the first step's loss, the SP ring against one process on the flash
@@ -581,11 +621,11 @@ SP_LOSS_TOL = {"fp32": 1e-5, "bf16": 5e-3}
 # shape (seq 4096, batch 2, sp 4, 3 heads per rank).  First-step losses
 # against one process with phase 7's tolerances
 HYB_RANKS = 4
-HYB_STEPS = 5  # kept short, as SP_STEPS
-HYB_TIMED_STEPS = 4
-HYB_PROFILE_STEPS = 2
+HYB_STEPS = 3  # kept short, as SP_STEPS
+HYB_TIMED_STEPS = 2
+HYB_PROFILE_STEPS = 1
 HYB_PARITY_LAYERS = 2
-ULYSSES_STEPS = 3
+ULYSSES_STEPS = 2
 # the per-rank attention shapes of phase 8's legs, (leg, B, S, H) at D
 # 64: Megatron's local batch and heads at phase 6's sequence, Ulysses'
 # whole sequence at H / sp heads
@@ -596,12 +636,12 @@ HYB_FLASH_SHAPES = (
 # phase 9, the searched path: phase 6's model and batches over 4 ranks,
 # the strategy chosen by compile(strategy=None)
 SEARCH_RANKS = 4
-SEARCH_STEPS = 5  # fit steps under the searched strategy
-# then 6 synchronised steps per strategy (searched, data parallel and
+SEARCH_STEPS = 3  # fit steps under the searched strategy
+# then 2 synchronised steps per strategy (searched, data parallel and
 # the uncalibrated default search's pick) in two blocks of
 # SEARCH_TIMED_BLOCK, in the order A B C C B A: each strategy is timed
 # early and late, and its two blocks give the spread of one strategy
-SEARCH_TIMED_BLOCK = 3  # kept short, as SP_STEPS
+SEARCH_TIMED_BLOCK = 1  # kept short, as SP_STEPS
 CAL_BUDGET_S = 60.0  # FFConfig.calibration_budget_s's default
 CAL_REPROBES = 2  # records measured again for their spread
 LINK_PROBE_RUNS = 200  # calls timed by each link probe (NCCL only)
@@ -621,8 +661,8 @@ PIPE_RANKS = 4
 PIPE_STAGES = 2
 PIPE_MICRO = 4
 PIPE_LAYERS_A = 6
-PIPE_STEPS = 5  # kept short, as SP_STEPS
-PIPE_TIMED_STEPS = 3
+PIPE_STEPS = 3  # kept short, as SP_STEPS
+PIPE_TIMED_STEPS = 2
 PIPE_DEFAULT_STEPS = 2
 # phase 11: build_bert at its defaults, the OSDI'22 BERT configuration
 BERT = dict(vocab=30522, num_layers=12, hidden=768, num_heads=12,
@@ -639,7 +679,7 @@ BERT_GA_TOL = 5e-3  # bf16 compute, relative loss
 # and a short bf16 leg, (d) the searched, bucketed and staged schedule
 # on two hosts of two ranks, (e) the co-search
 SYNC_RANKS = 4
-SYNC_STEPS = 3  # fit steps per leg
+SYNC_STEPS = 2  # fit steps per leg, kept short as SP_STEPS
 SYNC_INT8_STEPS = 4  # enough for the loss to fall
 SYNC_BF16_STEPS = 2
 # the link the legs' searches price on the shared card: gloo through
@@ -664,8 +704,8 @@ SERVE_RANKS = 4
 # SERVE_PROMPT_TOKENS tokens, at most SERVE_NEW_TOKENS tokens each, and
 # r5 still fills its sequence (its prompt repeated to the rest)
 SERVE_REQUESTS = FRAME_SLOTS
-SERVE_PROMPT_TOKENS = 64
-SERVE_NEW_TOKENS = 48
+SERVE_PROMPT_TOKENS = 32  # one chunk pass (LANE_CHUNK) each
+SERVE_NEW_TOKENS = 24
 # logits of every frame of a leg against one process's on the same calls:
 # bf16 compute over ranks sums in another order (the first 8 frames
 # measured 5.0e-3 to 6.0e-3 on an H100 over 4 ranks, one card or four)
@@ -739,6 +779,52 @@ FX_KERNEL_GROUPS = {
     "elementwise and casts": ("elementwise", "copy", "fill", "Memset",
                               "Memcpy"),
 }
+# phase 18: the repo's entry points (flexflow_tpu_torch/examples, tools)
+EP_TRAIN_ARGV = ("-b", "8", "-e", "1")  # gpt and transformer, full width
+EP_FLASH_LAYERS = 12  # rows 1-3 launch this many times per step in both
+EP_FLASH_ROWS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+# rows 1-3's shapes in phase 18, (kind, B, Sq, Sk, H, causal) at D 64:
+# gpt's, the transformer's and mfu_variants' flash variant's
+EP_FLASH_SHAPES = (("full", 8, 512, 512, 12, True),
+                   ("full", 8, 512, 512, 8, False),
+                   ("full", 64, 256, 256, 8, False))
+EP_TIMED_STEPS = 5
+# (b)'s example diverges at this size: its SGD (lr 0.01) on MSE against
+# unit-normal targets through 12 layers without layer norm.  Its first
+# EP_STABLE_STEPS steps come before the blow-up and must be finite on
+# every route; the later ones are printed.  The routes trained from the
+# example's weights beside it: (name, compute dtype, use_flash)
+EP_STABLE_STEPS = 3
+EP_ROUTES = (("bf16_plain", "bfloat16", False),
+             ("fp32_flash", "float32", True),
+             ("fp32_plain", "float32", False))
+EP_SINGLE = (  # tests/test_examples.py's argv (-b 8 for inception)
+    ("alexnet", ("-b", "8", "-e", "1")),
+    ("resnet", ("-b", "4", "-e", "1")),
+    ("inception", ("-b", "8", "-e", "1")),
+    ("dlrm", ("-b", "8", "-e", "1")),
+    ("xdl", ("-b", "8", "-e", "1")),
+    ("candle_uno", ("-b", "8", "-e", "1")),
+    ("mlp_unify", ("-b", "16", "-e", "1")),
+    ("moe", ("-b", "8", "-e", "1")),
+    ("keras_mnist_mlp", ("-b", "16", "-e", "1")),
+    ("keras_cifar10_cnn", ("-b", "16", "-e", "1")),
+    ("keras_reuters_mlp", ("-b", "16", "-e", "1")),
+    ("pytorch_import", ("-b", "8", "-e", "1")),
+    ("onnx_import", ("-b", "16", "-e", "1")),
+)
+EP_OPTIONAL = (  # (example, the module it needs, argv)
+    ("pytorch_bert", "transformers.utils.fx", ("-b", "8", "-e", "1")),
+    ("tf_keras_import", "tensorflow", ("-b", "8", "-e", "1")),
+    ("digits_accuracy", "sklearn", ("-b", "32", "-e", "12")),
+)
+EP_MULTI = (  # (example, argv, the lowering it must pick)
+    ("placed_dlrm", ("-b", "32", "-e", "1", "-ll:tpu", "2"),
+     "PlacedCompiledModel"),
+    ("ulysses_sp", ("-b", "8", "-e", "1", "-ll:tpu", "4"), None),
+    ("staged_pipeline", ("-b", "16", "-e", "1", "-ll:tpu", "4"),
+     "StagedPipelinedModel"),
+)
 # phase 15: the always-on loop
 OBS_WARM_STEPS = 2  # phase 16 (a): steps before the capture
 OBS_PROFILER_WARM = 1  # the step under the profiler that opens no window
@@ -762,12 +848,6 @@ AO_PROOF_TOL = 1e-3  # the messages carry 4 significant digits
 AO_MEMORY_SLACK_GB = 0.03
 # the restore drill's warning, the one phase 15 (a) expects
 AO_TORN_WARNING = r"checkpoint step\(s\) .* are truncated"
-CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H200", 4.8e12, 67e12, 989e12),
-    ("H100", 3.35e12, 67e12, 989e12),  # SXM
-)
 
 
 def fail(msg: str) -> None:
@@ -781,11 +861,14 @@ def check(cond: bool, msg: str) -> None:
 
 
 def card_peaks(name: str):
-    """(bytes/s, fp32 operations/s, bf16 tensor-core operations/s)."""
-    for key, *peaks in CARD_PEAKS:
-        if key in name:
-            return peaks
-    fail(f"no published peaks for {name!r} in CARD_PEAKS")
+    """(bytes/s, fp32 operations/s, bf16 tensor-core operations/s), the
+    port's published table (``core.machine.CARD_PEAKS``)."""
+    from flexflow_tpu_torch.core import machine
+
+    peaks = machine.card_peaks(name)
+    check(peaks is not None, f"no published peaks for {name!r} in "
+          f"flexflow_tpu_torch.core.machine.CARD_PEAKS")
+    return peaks
 
 
 # the card's name and power limit, as nvidia-smi prints them
@@ -3183,8 +3266,7 @@ def phase_hybrid_train(seed, name, first_loss_bf16, sp_refs):
               * TRAIN_BATCH]
     rng = np.random.default_rng(seed + 9)  # phase 7's batches
     ids_u = rng.integers(0, TOKEN_RANGE, size=(
-        SP_STEPS * SP_BATCH, SP["seq_len"] + 1)).astype(np.int32)
-    ids_u = ids_u[:ULYSSES_STEPS * SP_BATCH]
+        ULYSSES_STEPS * SP_BATCH, SP["seq_len"] + 1)).astype(np.int32)
 
     model = gpt_model(seed, "float32", HYB_PARITY_LAYERS, TRAIN,
                          TRAIN_BATCH, 1, None)
@@ -3283,12 +3365,13 @@ def phase_hybrid_train(seed, name, first_loss_bf16, sp_refs):
               f"rank {i}: transport {m['transport']}, want {want_transport}")
         check(m["losses"] == m0["losses"] and u["losses"] == u0["losses"],
               f"rank {i} reports other losses")
-        for leg, r, k in (("megatron", m, steps), ("ulysses", u, steps_u)):
+        for leg, r, k, n in (("megatron", m, steps, layers),
+                             ("ulysses", u, steps_u, SP["num_layers"])):
             for kname in rows:
-                check(r["launches"][kname] == layers * k,
+                check(r["launches"][kname] == n * k,
                       f"rank {i} {leg}: {kname} launched "
                       f"{r['launches'][kname]} times in {k} steps, want "
-                      f"{layers * k}")
+                      f"{n * k}")
             check(r["launches"]["flash_forward_partial"] == 0,
                   f"rank {i} {leg}: the partial kernel launched")
         hopped = m["collectives"]["all_reduce_sum"]["host_hops"]
@@ -7331,6 +7414,333 @@ def phase_frontends(seed, name, bert_step_ms=None):
     return report
 
 
+def entry_training(model, tag, parsed, wall, launched, xs, y, name,
+                   parity=True):
+    """Phase 18 (a)/(b): ``model`` after its example's ``fit``: every
+    step's loss, rows 1-3 at EP_FLASH_LAYERS launches per step (rows
+    4-6 none), the step p50 over EP_TIMED_STEPS synchronised captured
+    steps, tokens/s and MFU; with ``parity``, every loss finite and one
+    batch's loss on the flash route against the plain-attention route
+    (``use_flash=False``) of the same model from a copy of its weights
+    (``interop.params_from_numpy``); without (the diverging leg (b),
+    whose routes ``entry_routes`` compares from its first weights), the
+    first EP_STABLE_STEPS losses finite."""
+    from flexflow_tpu_torch.interop import params_from_numpy, params_to_numpy
+
+    losses = list(model.step_losses)
+    steps = len(losses)
+    finite = np.isfinite(losses)
+    check(steps == 8 and bool(finite[:steps if parity
+                                      else EP_STABLE_STEPS].all()),
+          f"{tag}: fit's losses {losses}")
+    want = {k: (EP_FLASH_LAYERS * steps if k in EP_FLASH_ROWS else 0)
+            for k in launched}
+    check(launched == want, f"{tag}: the kernels launched {launched} in "
+          f"fit's {steps} steps, want {want}")
+    b = model.config.batch_size
+    seq = model._input_tensors[0].sizes[1]
+    batches = device_batches(model, xs, y, b)
+    timed_steps(model, batches, 1)  # warm (fit captured the step)
+    times = timed_steps(model, batches, EP_TIMED_STEPS)
+    p50 = float(np.median(times))
+    flops = sum(n.op.flops() for n in model.graph.nodes.values())
+    report = {}
+    if parity:
+        ins, lab = batches[0]
+        full = params_to_numpy(model.params, model.compiled)
+        loss_flash = float(model.compiled.loss_and_grads(
+            model.params, model.state, ins, lab)[0])
+        set_op_attr(model, "multihead_attention", "use_flash", False)
+        copied = params_from_numpy(full, str(model.compiled.device),
+                                   model.compiled)
+        loss_plain = float(model.compiled.loss_and_grads(
+            copied, model.state, ins, lab)[0])
+        set_op_attr(model, "multihead_attention", "use_flash", True)
+        rel = abs(loss_flash - loss_plain) / abs(loss_plain)
+        check(rel <= LOSS_PATH_TOL["bf16"], f"{tag}: the flash route's "
+              f"loss {loss_flash} is {rel:.3e} from the plain route's "
+              f"{loss_plain} (> {LOSS_PATH_TOL['bf16']})")
+        report = {"loss_flash_route": loss_flash,
+                  "loss_plain_route": loss_plain, "loss_rel_err": rel,
+                  "loss_tol": LOSS_PATH_TOL["bf16"]}
+        del copied, full
+    del batches
+    return {"command_line": parsed, "wall_s": wall,
+            "step_losses": losses, "finite_losses": int(finite.sum()),
+            "kernel_rows_launched_fit": launched,
+            "flash_launches_per_step": {
+                k: launched[k] / steps for k in EP_FLASH_ROWS},
+            "throughput_fit_samples_per_s": model.last_throughput,
+            "step_p50_ms": p50 * 1e3,
+            "step_p90_ms": float(np.quantile(times, 0.9)) * 1e3,
+            "tokens_per_s": b * seq / p50,
+            "mfu_vs_dense_bf16_peak": 3.0 * flops / p50 / card_peaks(name)[2],
+            "forward_flops": flops,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **report}
+
+
+def entry_run(example, argv):
+    """(the value ``main`` returned, its parsed config, wall seconds, the
+    kernels it launched) for ``flexflow_tpu_torch.examples.<example>``
+    called as a user would, ``main(argv)``, with the config parsed from
+    ``argv``."""
+    import importlib
+
+    mod = importlib.import_module(f"flexflow_tpu_torch.examples.{example}")
+    cfg, parsed = parsed_config(list(argv))
+    free_models()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    out = mod.main(list(argv), cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in kernel_launches().items()}
+    return out, parsed, wall, launched
+
+
+def entry_gpt(seed, name):
+    """Phase 18 (a): ``examples.gpt`` at the reference's TPU widths."""
+    from flexflow_tpu_torch.examples import common, gpt
+
+    argv = (*EP_TRAIN_ARGV, "--seed", str(seed))
+    model, parsed, wall, launched = entry_run("gpt", argv)
+    size = gpt.sizes(model.config)
+    check(size == dict(vocab=32000, num_layers=12, hidden=768, num_heads=12,
+                       ff_dim=3072, seq_len=512), f"gpt's widths {size}")
+    x, y = common.lm_sequence_data(8 * model.config.batch_size,
+                                   size["seq_len"], size["vocab"], seed=seed)
+    report = entry_training(model, "gpt", parsed, wall, launched, [x], y,
+                            name)
+    report["widths"] = size
+    del model
+    free_models()
+    return report
+
+
+def entry_transformer(seed, name, obs_log):
+    """Phase 18 (b): ``examples.transformer`` at the reference's TPU
+    size, its event bus writing ``obs_log`` (``--obs-log``)."""
+    from flexflow_tpu_torch.examples import common, transformer
+    from flexflow_tpu_torch.obs.events import BUS
+
+    argv = (*EP_TRAIN_ARGV, "--seed", str(seed), "--obs-log", obs_log)
+    try:
+        model, parsed, wall, launched = entry_run("transformer", argv)
+    finally:
+        BUS.close()
+    size = transformer.sizes(model.config)
+    check(size == dict(num_layers=12, hidden=512, num_heads=8, ff_dim=2048,
+                       seq_len=512), f"transformer's size {size}")
+    n = 8 * model.config.batch_size
+    xs = common.synthetic_inputs(model, n)
+    y = common.synthetic_labels(model, n, "mean_squared_error")
+    report = entry_training(model, "transformer", parsed, wall, launched,
+                            xs, y, name, parity=False)
+    report["widths"] = size
+    config, losses = model.config, list(model.step_losses)
+    del model
+    report["routes"] = entry_routes(config, size, losses)
+    return report
+
+
+def entry_routes(config, size, losses):
+    """Phase 18 (b): the transformer example's model built again from
+    its config (so from its first weights: they are drawn from the
+    seed) on each of EP_ROUTES and trained as the example trains it
+    (``run_example``: the same batches in the same order): every step's
+    loss of each route beside the example's own (bf16, flash route);
+    each route's first EP_STABLE_STEPS losses finite, and the first
+    step's loss of the flash route against the plain route's within
+    LOSS_PATH_TOL at bf16 and at fp32."""
+    import dataclasses
+
+    from flexflow_tpu_torch.examples.common import run_example
+    from flexflow_tpu_torch.models import build_transformer
+
+    out = {"bf16_flash": losses}
+    for route, dtype, flash in EP_ROUTES:
+        free_models()
+        model = build_transformer(dataclasses.replace(
+            config, compute_dtype=dtype, obs_log_file=None), **size)
+        set_op_attr(model, "multihead_attention", "use_flash", flash)
+        run_example(model, f"transformer {route}", loss="mean_squared_error",
+                    metrics=["mean_squared_error"])
+        out[route] = list(model.step_losses)
+        del model
+    free_models()
+    for route, got in out.items():
+        check(len(got) == len(losses)
+              and bool(np.isfinite(got[:EP_STABLE_STEPS]).all()),
+              f"transformer, route {route}: losses {got}")
+    rel = {}
+    for prec in ("bf16", "fp32"):
+        a, b = out[f"{prec}_flash"][0], out[f"{prec}_plain"][0]
+        rel[prec] = abs(a - b) / abs(b)
+        check(rel[prec] <= LOSS_PATH_TOL[prec], f"transformer: the flash "
+              f"route's first loss {a} is {rel[prec]:.3e} from the plain "
+              f"route's {b} at {prec} (> {LOSS_PATH_TOL[prec]})")
+    return {"step_losses": out, "first_loss_rel_err": rel,
+            "loss_tol": {p: LOSS_PATH_TOL[p] for p in rel},
+            "finite_steps": {r: int(np.isfinite(v).sum())
+                             for r, v in out.items()}}
+
+
+def entry_leg(example, argv, kind=None):
+    """Phase 18 (c): one example through ``main(argv)``: its throughput
+    line's number, or its final loss, and for a multi-rank example rank
+    0's lowering, views and losses."""
+    out, parsed, wall, launched = entry_run(example, argv)
+    report = {"command_line": parsed, "wall_s": wall}
+    if isinstance(out, dict):  # rank 0's job_summary
+        losses = out["losses"]
+        report.update(lowering=out["kind"], num_stages=out["num_stages"],
+                      num_microbatches=out["num_microbatches"],
+                      ranks=parsed["fields"]["num_devices"])
+        check(kind is None or out["kind"] == kind,
+              f"{example} lowered {out['kind']}, want {kind}")
+    else:
+        model = getattr(out, "ffmodel", out)
+        losses = list(model.step_losses)
+        report["throughput_samples_per_s"] = model.last_throughput
+        del model
+    check(len(losses) > 0 and bool(np.isfinite(losses).all()),
+          f"{example}: losses {losses}")
+    report["final_loss"] = losses[-1]
+    report["kernel_rows_launched"] = launched
+    del out
+    free_models()
+    print(f"entry point {example}: " + json.dumps(report))
+    return report
+
+
+def entry_tools(obs_log):
+    """Phase 18 (d): the port's tools on the card's host: ffobs on leg
+    (b)'s event log, fflint's registry proofs (on the card) and the
+    committed cost cache, then mfu_probe and each mfu_variants
+    variant."""
+    import io
+
+    from flexflow_tpu_torch.tools import fflint, ffobs, mfu_probe, mfu_variants
+
+    def run(main, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        lines = buf.getvalue().splitlines()
+        return {"argv": argv, "rc": rc, "wall_s": time.perf_counter() - t0,
+                "lines": len(lines), "first_lines": lines[:3],
+                "last_line": lines[-1] if lines else ""}
+
+    report = {}
+    for cmd in ("report", "validate", "metrics", "trace"):
+        report[f"ffobs_{cmd}"] = run(ffobs.main, [cmd, obs_log])
+    check(report["ffobs_validate"]["rc"] == 0,
+          f"ffobs validate: {report['ffobs_validate']}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    report["fflint_registry"] = run(fflint.main, ["registry", "--devices",
+                                                  "4"])
+    report["fflint_cache"] = run(fflint.main, [
+        "cache", os.path.join(root, "COST_CACHE.json")])
+    for k in ("fflint_registry", "fflint_cache"):
+        check(report[k]["rc"] == 0, f"{k}: {report[k]}")
+    free_models()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    report["mfu_probe"] = mfu_probe.main([])
+    report["mfu_probe"]["wall_s"] = time.perf_counter() - t0
+    report["mfu_probe"]["kernel_rows_launched"] = {
+        k: n - before[k] for k, n in kernel_launches().items()}
+    for variant in mfu_variants.VARIANTS:
+        free_models()
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        r = mfu_variants.main([variant])
+        r["wall_s"] = time.perf_counter() - t0
+        r["kernel_rows_launched"] = launched = {
+            k: n - before[k] for k, n in kernel_launches().items()}
+        flash = variant == "flash"
+        check(all((launched[k] > 0) == flash for k in EP_FLASH_ROWS)
+              and not any(v for k, v in launched.items()
+                          if k not in EP_FLASH_ROWS),
+              f"mfu_variants {variant} launched {launched}")
+        report[f"mfu_variants_{variant}"] = r
+    free_models()
+    return report
+
+
+def installed(module: str) -> bool:
+    """True when ``module`` can be imported here (its parents too)."""
+    import importlib.util
+
+    try:
+        return importlib.util.find_spec(module) is not None
+    except ModuleNotFoundError:  # a parent package is missing
+        return False
+
+
+def phase_entry_points(seed, name):
+    """Phase 18 (module docstring): the repo's entry points on one card,
+    each called as ``main(argv)`` with its config parsed from ``argv``."""
+    import tempfile
+
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+
+    t_phase = time.perf_counter()
+    for k in COUNTED:
+        k.launches = 0
+    report = {"card": CARD_LINE[0]}
+    recorded = set()  # every flash launch of the phase in this process
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp, \
+            recorded_flash_launches(recorded):
+        obs_log = os.path.join(tmp, "transformer_obs.jsonl")
+        for key, fn in (("a_gpt", lambda: entry_gpt(seed, name)),
+                        ("b_transformer",
+                         lambda: entry_transformer(seed, name, obs_log))):
+            report[key] = fn()
+            print(f"entry point {key}: " + json.dumps(report[key]))
+        launched = kernel_launches()
+        report["kernel_rows_launched_a_b"] = launched
+        others = {}
+        for example, argv in EP_SINGLE:
+            others[example] = entry_leg(
+                example, (*argv, "--seed", str(seed), "-ll:tpu", "1",
+                          "--only-data-parallel"))
+        for example, package, argv in EP_OPTIONAL:
+            if not installed(package):
+                others[example] = f"not run on this host: no {package}"
+                print(f"entry point {example}: {others[example]}")
+            else:
+                others[example] = entry_leg(
+                    example, (*argv, "--seed", str(seed), "-ll:tpu", "1",
+                              "--only-data-parallel"))
+        # the multi-rank examples at once, each ``main`` spawning its own
+        # ranks on the shared card: their start-ups (about 8 s a
+        # process) overlap
+        with concurrent.futures.ThreadPoolExecutor(len(EP_MULTI)) as pool:
+            multi = {example: pool.submit(
+                entry_leg, example, (*argv, "--seed", str(seed)), kind)
+                for example, argv, kind in EP_MULTI}
+        for example, leg in multi.items():
+            others[example] = leg.result()  # a failed check raises here
+        report["c_examples"] = others
+        report["d_tools"] = entry_tools(obs_log)
+    # the kernels against their plain versions at every shape the phase
+    # launched them at: (a)'s causal [8, 512, 12], (b)'s [8, 512, 8]
+    # and the flash variant's [64, 256, 8], neither causal
+    shapes = launches_to_shapes(recorded)
+    check(set(EP_FLASH_SHAPES) <= set(shapes), f"phase 18 launched the "
+          f"flash kernels at {shapes}, want at least {EP_FLASH_SHAPES}")
+    report["flash_shapes_vs_plain"] = check_flash_shapes(seed + 18, shapes)
+    print("flash kernels at phase 18's shapes vs plain versions: "
+          + json.dumps(report["flash_shapes_vs_plain"]))
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("entry points path: " + json.dumps(report))
+    return report
+
+
 def main(argv=None) -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7366,6 +7776,8 @@ def main(argv=None) -> int:
     ap.add_argument("--frontends-only", action="store_true",
                     help="only run phase 17, the frontends, keras and "
                          "the command line")
+    ap.add_argument("--entry-points-only", action="store_true",
+                    help="only run phase 18, the repo's entry points")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -7407,6 +7819,12 @@ def main(argv=None) -> int:
 
     if args.frontends_only:  # no CUDA kernel of the port on its path
         phase_frontends(args.seed, phase_device())
+        return 0
+
+    if args.entry_points_only:
+        name = phase_device()
+        phase_build()
+        phase_entry_points(args.seed, name)
         return 0
 
     if args.always_on_only:
@@ -7466,6 +7884,16 @@ def main(argv=None) -> int:
     always_on = phase_always_on(args.seed, name)
     obs = phase_observability(args.seed, name)
     frontends = phase_frontends(args.seed, name, bert["step_p50_ms"])
+    entry = phase_entry_points(args.seed, name)
+
+    def entry_launches(kernel):
+        """``kernel``'s launches in phase 18: leg (a)'s and (b)'s fit,
+        and mfu_variants' flash variant."""
+        return {"gpt_fit": entry["a_gpt"]["kernel_rows_launched_fit"][kernel],
+                "transformer_fit": entry["b_transformer"][
+                    "kernel_rows_launched_fit"][kernel],
+                "mfu_variants_flash": entry["d_tools"][
+                    "mfu_variants_flash"]["kernel_rows_launched"][kernel]}
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -7478,6 +7906,7 @@ def main(argv=None) -> int:
         "launches_observability_frames": obs["a_serve"]["launches"],
         "launches_frontends": frontends["kernel_rows_launched"][
             "ragged_paged_attention"],
+        "launches_entry_points": entry_launches("ragged_paged_attention"),
         "launches_serving_per_rank": {
             leg: ls["ragged_paged_attention"]
             for leg, ls in serve_launches.items()},
@@ -7497,6 +7926,8 @@ def main(argv=None) -> int:
         "launches": quant_launches,
         "launches_frontends": frontends["kernel_rows_launched"][
             "ragged_paged_attention_quant"],
+        "launches_entry_points": entry_launches(
+            "ragged_paged_attention_quant"),
         "launches_serving_per_rank": {
             leg: ls["ragged_paged_attention_quant"]
             for leg, ls in serve_launches.items()},
@@ -7545,6 +7976,7 @@ def main(argv=None) -> int:
             "launches_observability_sync_per_rank": [
                 r["launches"][wrapper] for r in obs["c_sync"]["per_rank"]],
             "launches_frontends": frontends["kernel_rows_launched"][wrapper],
+            "launches_entry_points": entry_launches(wrapper),
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],
             "plain_ms": bf16["plain_ms"],
@@ -7571,6 +8003,7 @@ def main(argv=None) -> int:
         "launches_calibration": cal_launches["flash_forward_partial"],
         "launches_frontends": frontends["kernel_rows_launched"][
             "flash_forward_partial"],
+        "launches_entry_points": entry_launches("flash_forward_partial"),
         "max_abs_err": max(r["max_abs_err"] for k, r in partial.items()
                            if k.startswith("bf16")),
         "ms": main_row["ms"],

@@ -43,6 +43,27 @@ from typing import Tuple
 H100_LINK_LATENCY_S = 3.64e-6
 H100_RESHARD_OVERHEAD_S = 3.03e-4
 
+# the published peaks of the NVIDIA cards the port runs on, by the
+# name torch.cuda.get_device_name gives (the first key it contains):
+# (HBM bytes/s, fp32 operations/s, dense bf16 tensor-core operations/s).
+# The one table of them: ``h100_sxm``, the MFU tools and chip_smoke.py
+# read it.
+CARD_PEAKS = (
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H200", 4.8e12, 67e12, 989e12),
+    ("H100", 3.35e12, 67e12, 989e12),  # SXM
+)
+
+
+def card_peaks(name: str):
+    """(bytes/s, fp32 operations/s, bf16 operations/s) of the card named
+    ``name``, or None when CARD_PEAKS has no row for it."""
+    for key, *peaks in CARD_PEAKS:
+        if key in name:
+            return tuple(peaks)
+    return None
+
 
 @dataclass(frozen=True)
 class LinkLevel:
@@ -138,8 +159,8 @@ class MachineSpec:
         return MachineSpec(
             num_devices=num_devices,
             devices_per_host=8,
-            peak_flops=9.89e14,
-            hbm_bandwidth=3.35e12,
+            peak_flops=card_peaks("H100")[2],
+            hbm_bandwidth=card_peaks("H100")[0],
             hbm_capacity=80e9,
             vmem_capacity=132 * 228e3,
             ici_bandwidth=4.5e11,

@@ -216,6 +216,7 @@ def _fleet_rank(rank):
     prop = _proposal(m.graph, [_views(m.graph, 1, 2), _views(m.graph, 2, 1)])
     fl = fleet_over_ranks(m, prop, _executor, prefill_chunk=4, seed=1)
     out = fl.run(_requests(decode))
+    from test_torch_examples import example_rank_legs
     from test_torch_zoo import zoo_rank_legs
 
     return {"tokens": out, "assignments": dict(fl.assignments),
@@ -224,7 +225,9 @@ def _fleet_rank(rank):
             "per_replica": [s.get("completed") for s in
                             fl.summary()["per_replica"]],
             # the zoo's split legs share this world (tests/test_torch_zoo)
-            "zoo": zoo_rank_legs()}
+            "zoo": zoo_rank_legs(),
+            # and the multi-rank examples (tests/test_torch_examples)
+            "examples": example_rank_legs()}
 
 
 def _one_process_fleet():
