@@ -15,6 +15,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --obs-only [--seed N]
     python3 chip_smoke.py --frontends-only [--seed N]
     python3 chip_smoke.py --entry-points-only [--seed N]
+    python3 chip_smoke.py --zoo-ranks-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -36,7 +37,8 @@ kernel of the port lies on its path, so nothing is built).  The tenth
 builds the kernels and runs phase 15 alone, the eleventh phase 16.
 The twelfth runs phase 17 alone (nothing on its path launches a CUDA
 kernel of the port, so nothing is built), the thirteenth builds the
-kernels and runs phase 18 alone.
+kernels and runs phase 18 alone, and the fourteenth runs phase 19
+alone (no CUDA kernel of the port on its path: nothing is built).
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -457,13 +459,42 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    3 checks them, at every shape the phase launched them at in this
    process (EP_FLASH_SHAPES at least).  Printed as ``entry points
    path: {...}``;
-19. print one JSON line listing every ported kernel.
+19. the zoo over ranks: ZR_RANKS ranks spawned once for every leg
+   (sharing the card, as phases 7-10 do; NCCL on a machine with a card
+   per rank).  (a) ResNet-50, Inception-v3, DLRM (4 tables of 1 M
+   rows), the MoE and candle_uno at bench_zoo.py's shapes (batch 64,
+   bf16) under ``compile(strategy=None)`` on ``MachineSpec.h100_sxm(4)``
+   (rank 0 searches and sends every rank its pick; the pipeline and
+   placement proposals off: the flat pick), (b) ResNet-50 at batch 8,
+   224x224, with the stem and its first stage (``conv1``, ``bn1``,
+   ``pool1``, ``s0b*``) split (1, 2, 2, 1) over H and W and the rest
+   (4, 1, 1, 1): the halo exchange of ops/conv.py.  For each leg: the
+   pick's views counted by kind, ZR_STEPS ``fit`` steps, the first
+   step's loss within ZR_LOSS_TOL (bf16) of one process's first step
+   of the same model from the same seeded weights, every weight a rank
+   holds whole bit-equal across ranks (digests), the step's p50 over
+   the last ZR_STEPS - 1 steps (each step one synchronised ``fit``
+   call; the first warms up) against data parallelism's p50 over
+   ZR_DP_STEPS calls after the pick's (the pick's own when it is data
+   parallelism), beside the simulator's prediction of both, the
+   transport, ``comm_counts()`` bytes per rank per step and peak memory
+   per rank; on (b) also the halo bytes per rank per step equal to the
+   halo slabs the shapes imply and the whole-gather bytes they replace,
+   both computed from the shapes.  (c) The halo's contents on the
+   transport: the stem's conv and max pool alone (ZR_HALO_CASES, split
+   (1, 2, 2, 1), fp32, TF32 off) against the unsplit op on the same
+   tensors, the output and the input's and kernel's gradients within
+   ZR_HALO_TOL, the halo bytes exact.  Each rank zeroes the launch
+   counts of rows 1-6 before its legs and returns them after: none
+   launches, on any rank or in the one-process side.  Printed as
+   ``zoo over ranks path: {...}``;
+20. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
 It needs one card; with four it runs phases 7-10, 12, 13, 14's
-ep-MoE leg, 15's device-loss leg and 16 (c) one rank per card.
+ep-MoE leg, 15's device-loss leg, 16 (c) and 19 one rank per card.
 """
 
 from __future__ import annotations
@@ -604,7 +635,7 @@ SP_BATCH = 2
 SP_RANKS = 4
 SP_HALF_CHUNK = SP["seq_len"] // (2 * SP_RANKS)
 SP_STEPS = 2  # kept short: the whole script stays inside its time limit
-SP_TIMED_STEPS = 2
+SP_TIMED_STEPS = 1  # kept short, as SP_STEPS
 SP_PROFILE_STEPS = 1
 SP_PARITY_LAYERS = 2
 SP_TIMEOUT_S = 600
@@ -705,7 +736,7 @@ SERVE_RANKS = 4
 # r5 still fills its sequence (its prompt repeated to the rest)
 SERVE_REQUESTS = FRAME_SLOTS
 SERVE_PROMPT_TOKENS = 32  # one chunk pass (LANE_CHUNK) each
-SERVE_NEW_TOKENS = 24
+SERVE_NEW_TOKENS = 16
 # logits of every frame of a leg against one process's on the same calls:
 # bf16 compute over ranks sums in another order (the first 8 frames
 # measured 5.0e-3 to 6.0e-3 on an H100 over 4 ranks, one card or four)
@@ -752,6 +783,35 @@ ZOO_KERNEL_GROUPS = {
 ZOO_EP_RANKS = 4
 ZOO_EP_BATCH = 64
 ZOO_EP_TOL = 1e-5  # fp32, TF32 off: the CPU tests' bound
+# phase 19, the zoo over ranks: (leg, builder, batch, widths)
+ZR_RANKS = 4
+ZR_LEGS = (
+    ("resnet50", "build_resnet", 64, {}),
+    ("inception_v3", "build_inception_v3", 64, {}),
+    ("dlrm", "build_dlrm", 64, {"embedding_sizes": (1000000,) * 4}),
+    ("moe", "build_moe", 64, {}),
+    ("candle_uno", "build_candle_uno", 64, {}),
+)
+# the attribute-parallel leg: these ops split (1, 2, 2, 1) over H and W
+ZR_ATTR = ("resnet50_attribute", "build_resnet", 8, {})
+ZR_ATTR_OPS = ("conv1", "bn1", "pool1")
+ZR_ATTR_PREFIX = "s0b"  # the first stage's blocks
+ZR_STEPS = 4  # one fit call each: the first warms up, the rest are timed
+# dp 4's calls follow the pick's in the same ranks, which warmed the
+# shared card's cuDNN and allocator: p50 of all of them (a slower first
+# call, as NCCL's first collectives of a new model make it, is the one
+# the median drops)
+ZR_DP_STEPS = 3
+ZR_DTYPE = "bfloat16"
+ZR_LOSS_TOL = 5e-3  # bf16, relative: phase 7's SP_LOSS_TOL["bf16"]
+# the halo's contents on the card: the stem's conv and max pool of the
+# attribute leg at its batch, split (1, 2, 2, 1), fp32 with TF32 off,
+# against the unsplit op: (op, kind, input (H, W), channels, window)
+ZR_HALO_CASES = (
+    ("conv1", "conv", (224, 224), 3, dict(out=64, k=7, s=2, p=3)),
+    ("pool1", "max", (112, 112), 64, dict(k=3, s=2, p=1)),
+)
+ZR_HALO_TOL = 1e-5  # the CPU tests' (zr_halo_check says of what)
 # phase 17: the frontends; FxBert at build_bert's widths (BERT above)
 FX_BERT = dict(vocab=30522, num_layers=12, hidden=768, num_heads=12,
                ff_dim=3072, seq_len=512)
@@ -7741,6 +7801,440 @@ def phase_entry_points(seed, name):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the zoo over ranks
+def zr_model(build, batch, seed, widths, n, strategy):
+    """``build`` at ``widths`` for ``n`` ranks (bf16, SGD), compiled
+    under ``strategy``: None searches on ``h100_sxm(ZR_RANKS)`` (the
+    pipeline and placement proposals off), a callable is given the
+    model and returns the views, {} is one process's."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer, models
+    from flexflow_tpu_torch.core.machine import MachineSpec
+
+    model = getattr(models, build)(FFConfig(
+        batch_size=batch, compute_dtype=ZR_DTYPE, seed=seed,
+        num_devices=n, machine_spec=MachineSpec.h100_sxm(ZR_RANKS),
+        enable_pipeline_search=False, enable_placement_search=False),
+        **widths)
+    wide = model.graph.sinks()[-1].op.output_shapes[0].sizes[-1]
+    loss = (dict(loss_type="mean_squared_error", metrics=[]) if wide == 1
+            else dict(loss_type="sparse_categorical_crossentropy",
+                      metrics=[]))
+    if callable(strategy):
+        strategy = strategy(model)
+    model.compile(optimizer=SGDOptimizer(lr=ZOO_LR), strategy=strategy,
+                  **loss)
+    return model
+
+
+def attribute_views(model, n):
+    """Phase 19 (b)'s strategy: ZR_ATTR_OPS and the ZR_ATTR_PREFIX
+    blocks split (1, 2, 2, 1), every other op's batch n ways where it
+    splits (the image stays whole on every rank, which slices it)."""
+    from flexflow_tpu_torch.core.machine import MachineView
+
+    views = {}
+    for node in model.graph.topo_order():
+        op = node.op
+        nd = op.output_shapes[0].ndim
+        if op.name in ZR_ATTR_OPS or op.name.startswith(ZR_ATTR_PREFIX):
+            views[node.guid] = MachineView((1, 2, 2, 1))
+        elif op.op_type.value != "input" and 0 in op.splittable_output_dims():
+            views[node.guid] = MachineView((n,) + (1,) * (nd - 1))
+        else:
+            views[node.guid] = MachineView.trivial(nd)
+    return views
+
+
+def pick_kinds(graph, views):
+    """The views counted by kind (batch: dim 0; out: a later dim;
+    replica: partial sums or a replicated input; none) and the
+    non-batch ones by (op type, degrees, replica degree)."""
+    kinds, splits = {}, {}
+    for node in graph.topo_order():
+        v = views[node.guid]
+        degs, r = tuple(v.dim_degrees), v.replica_degree
+        tags = ([("batch" if i == 0 else "out") for i, d in enumerate(degs)
+                 if d > 1] + (["replica"] if r > 1 else [])) or ["none"]
+        for tag in set(tags):
+            kinds[tag] = kinds.get(tag, 0) + 1
+        if set(tags) - {"batch", "none"}:
+            key = f"{node.op.op_type.value} {degs} r{r}"
+            splits[key] = splits.get(key, 0) + 1
+    return kinds, splits
+
+
+def attribute_halo_bytes(graph, views, n):
+    """Per rank, per training step: (the halo slabs' bytes its
+    exchanges send, forward and backward, and the bytes the replaced
+    whole gather handed the transport: the input's H and W gathered
+    over their axes in the forward and its gradient summed over them in
+    the backward), from the shapes.  A split H takes the view's first
+    axes, W the next: rank r is at (r // nw, r % nw)
+    (``ops.conv.halo_cells``, the CPU tests' count too)."""
+    from flexflow_tpu_torch.core.ptensor import DataType
+    from flexflow_tpu_torch.ops.conv import halo_cells
+
+    halo = [0] * n
+    gather = 0
+    for node in graph.topo_order():
+        op = node.op
+        if op.op_type.value not in ("conv2d", "pool2d"):
+            continue
+        degs = tuple(views[node.guid].dim_degrees)
+        nh, nw = degs[1], degs[2]
+        if nh == nw == 1:
+            continue
+        a = op.attrs
+        nb, h, w, c = op.input_shapes[0].sizes
+        elem = DataType.from_any(op.input_shapes[0].dtype).itemsize
+        unit = (nb // degs[0]) * c * elem
+        src = graph.in_edges[node.guid][0].src
+        grad = graph.nodes[src].op.op_type.value != "input"
+        for r in range(n):
+            f, b = halo_cells((h, w), (nh, nw),
+                              (a["kernel_h"], a["kernel_w"]),
+                              (a["stride_h"], a["stride_w"]),
+                              (a["padding_h"], a["padding_w"]), r)
+            halo[r] += (f + (b if grad else 0)) * unit
+        block = (h // nh) * (w // nw)
+        gather += ((block + (h * (w // nw) if nh > 1 and nw > 1 else 0))
+                   + (h * w if grad else 0)) * unit
+    return halo, gather
+
+
+def weight_digests(model):
+    """sha1 of every weight this rank holds whole (its local shape is
+    the weight's), by op/weight."""
+    import hashlib
+
+    whole = {(nd.op.name, s.name): tuple(s.shape)
+             for nd in model.graph.topo_order()
+             for s in nd.op._weight_specs}
+    out = {}
+    for op, ws in model.params.items():
+        for w, t in ws.items():
+            if tuple(t.shape) == whole[(op, w)]:
+                out[f"{op}/{w}"] = hashlib.sha1(
+                    t.detach().cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def fit_steps(model, xs, y, batch):
+    """One ``fit`` call per batch of (xs, y), each synchronised: the
+    losses and each call's host seconds."""
+    losses, secs = [], []
+    for i in range(0, len(y), batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit([x[i:i + batch] for x in xs], y[i:i + batch],
+                  batch_size=batch, epochs=1, shuffle=False, verbose=False)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses += list(model.step_losses)
+    return losses, secs
+
+
+def zr_leg(seed, leg, build, batch, widths):
+    """One leg of phase 19 on this rank (module docstring)."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch import models
+    from flexflow_tpu_torch.compiler.lowering import data_parallel_strategy
+    from flexflow_tpu_torch.parallel import mesh
+    from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
+    from flexflow_tpu_torch.search.simulator import Simulator
+
+    n = dist.get_world_size()
+    attribute = leg == ZR_ATTR[0]
+    free_models()
+    dist.barrier()
+    t0 = time.perf_counter()
+    model = zr_model(build, batch, seed, widths, n,
+                     (lambda m: attribute_views(m, n)) if attribute
+                     else None)
+    compile_s = time.perf_counter() - t0
+    graph, views = model.graph, model.strategy
+    kinds, splits = pick_kinds(graph, views)
+    xs, y = zoo_data(model, ZR_STEPS * batch, seed + 19)
+    mesh.reset_comm_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    losses, secs = fit_steps(model, xs, y, batch)
+    counts = mesh.comm_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"digest": stable_graph_digest(graph), "kinds": kinds,
+           "splits": splits, "compile_s": compile_s,
+           "search_s": (model.search_stats or {}).get("search_seconds"),
+           "losses": losses, "step_s": secs,
+           "step_ms": float(np.median(secs[1:])) * 1e3,
+           "bytes_per_step": {k: v["bytes"] / ZR_STEPS
+                              for k, v in counts.items() if v["bytes"]},
+           "host_bytes_per_step": sum(v["host_bytes"] for v in
+                                      counts.values()) / ZR_STEPS,
+           "halo_calls": counts["halo_exchange"]["calls"],
+           "peak_memory_gb": peak, "weights": weight_digests(model)}
+    dp_views = data_parallel_strategy(graph, n)
+    out["pick_is_data_parallel"] = all(
+        str(views[g]) == str(v) for g, v in dp_views.items())
+    sim = Simulator.for_config(model.config)
+    out["predicted_ms"] = sim.simulate(graph, views) * 1e3
+    plain = getattr(models, build)(model.config, **widths).graph
+    out["dp_predicted_ms"] = sim.simulate(
+        plain, data_parallel_strategy(plain, n)) * 1e3
+    del model
+    if out["pick_is_data_parallel"]:
+        out["dp_step_ms"], out["dp_step_s"] = out["step_ms"], secs
+    else:
+        free_models()
+        dp = zr_model(build, batch, seed, widths, n,
+                      lambda m: data_parallel_strategy(m.graph, n))
+        rows = ZR_DP_STEPS * batch
+        out["dp_step_s"] = fit_steps(dp, [x[:rows] for x in xs], y[:rows],
+                                     batch)[1]
+        out["dp_step_ms"] = float(np.median(out["dp_step_s"])) * 1e3
+        del dp
+    free_models()
+    return out
+
+
+def zr_halo_check(seed):
+    """Phase 19's halo contents on this rank: each ZR_HALO_CASES op
+    alone under (1, 2, 2, 1), fp32, from seeded weights, input and
+    cotangent, against the unsplit op on the same tensors (plain
+    PyTorch on this rank, one process's computation): the output, the
+    input's gradient as max |got - want| / (1 + |want|), the kernel's
+    (the ranks' addends summed) as max |got - want| / max |want| (a sum
+    of batch x output cells' terms, which fp32 rounds on that scale,
+    split or not), and the halo bytes this rank sent
+    (forward and backward) beside the slabs the shapes imply."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.core.machine import MachineView
+    from flexflow_tpu_torch.interop import params_from_numpy
+    from flexflow_tpu_torch.ops.conv import halo_cells
+    from flexflow_tpu_torch.parallel import mesh as pmesh
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    batch = ZR_ATTR[2]
+
+    def err(got, want):
+        return float(((got - want).abs() / (1 + want.abs())).max())
+
+    out = {}
+    for name, kind, (h, w), c, a in ZR_HALO_CASES:
+        m = FFModel(FFConfig(batch_size=batch, num_devices=n,
+                             compute_dtype="float32", seed=seed))
+        x = m.create_tensor([batch, h, w, c], name="x")
+        if kind == "conv":
+            m.conv2d(x, a["out"], a["k"], a["k"], a["s"], a["s"], a["p"],
+                     a["p"], use_bias=False, name=name)
+        else:
+            m.pool2d(x, a["k"], a["k"], a["s"], a["s"], a["p"], a["p"],
+                     pool_type=kind, name=name)
+        m.compile(strategy={
+            nd.guid: (MachineView((1, 2, 2, 1)) if nd.op.name == name
+                      else MachineView.trivial(nd.op.output_shapes[0].ndim))
+            for nd in m.graph.topo_order()},
+            loss_type="mean_squared_error", metrics=[])
+        rng = np.random.default_rng(seed + 19)
+        xn = rng.normal(size=(batch, h, w, c)).astype(np.float32)
+        whole = {op: {wn: (rng.normal(size=tuple(t.shape)) * 0.1).astype(
+                          np.float32) for wn, t in ws.items()}
+                 for op, ws in m.params.items()}
+        params = params_from_numpy(whole, "cuda", m.compiled)
+        for ws in params.values():
+            for t in ws.values():
+                t.requires_grad_()
+        xt = torch.from_numpy(xn).cuda().requires_grad_()
+        pmesh.reset_comm_counts()
+        y, _ = m.compiled.apply(params, m.state, [xt], train=True)
+        got = m.compiled.gather_output(y.detach())
+        cot = torch.from_numpy(rng.normal(size=tuple(got.shape)).astype(
+            np.float32)).cuda()
+        y.backward(cot[tuple(m.compiled._sink_pl.local_slices(
+            cot.shape, m.compiled.mesh))])
+        sent = pmesh.comm_counts()["halo_exchange"]["bytes"]
+        xr = torch.from_numpy(xn).cuda().requires_grad_()
+        if kind == "conv":
+            kr = torch.from_numpy(whole[name]["kernel"]).cuda()
+            kr.requires_grad_()
+            want = F.conv2d(xr.permute(0, 3, 1, 2), kr.permute(3, 2, 0, 1),
+                            stride=a["s"], padding=a["p"])
+        else:
+            want = F.max_pool2d(xr.permute(0, 3, 1, 2), a["k"], a["s"],
+                                a["p"])
+        want = want.permute(0, 2, 3, 1)
+        want.backward(cot)
+        f, b = halo_cells((h, w), (2, 2), (a["k"],) * 2, (a["s"],) * 2,
+                          (a["p"],) * 2, rank)
+        row = {"output_err": err(got, want.detach()),
+               "input_grad_err": err(xt.grad, xr.grad),
+               "halo_bytes": sent, "halo_bytes_expected": (f + b) * batch
+               * c * 4}
+        if kind == "conv":
+            g = params[name]["kernel"].grad.detach()
+            g = pmesh.all_reduce_sum(g, m.compiled.mesh.names,
+                                     m.compiled.mesh)
+            # a sum over batch x output cells: held to its scale
+            row["kernel_grad_err"] = float((g - kr.grad).abs().max()
+                                           / kr.grad.abs().max())
+        out[name] = row
+        del m, params, xt, xr, y, want, got, cot
+    free_models()
+    return out
+
+
+def _zoo_ranks_rank(rank, seed):
+    """One rank of phase 19: every leg in turn, then the halo contents,
+    with the launch counts of rows 1-6 zeroed before and read after."""
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+    from flexflow_tpu_torch.runtime.distributed import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"transport": transport(), "legs": {}}
+    for k in COUNTED:
+        k.launches = 0
+    for leg, build, batch, widths in ZR_LEGS + (ZR_ATTR,):
+        t0 = time.perf_counter()
+        out["legs"][leg] = zr_leg(seed, leg, build, batch, widths)
+        out["legs"][leg]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["halo"] = zr_halo_check(seed)
+    out["halo_wall_s"] = time.perf_counter() - t0
+    out["launched"] = {k.__name__: k.launches for k in COUNTED}
+    return out
+
+
+def zr_one_process(seed):
+    """Phase 19's one-process side: each leg's first-step loss (its
+    model alone, from the same seeded weights and batch), and the halo
+    and whole-gather bytes the attribute leg's shapes imply."""
+    one, expect = {}, None
+    for leg, build, batch, widths in ZR_LEGS + (ZR_ATTR,):
+        free_models()
+        m = zr_model(build, batch, seed, widths, 1, {})
+        xs, y = zoo_data(m, ZR_STEPS * batch, seed + 19)
+        ins, lab = device_batches(m, [x[:batch] for x in xs], y[:batch],
+                                  batch)[0]
+        *_, loss, _ = m.compiled.train_step(m.params, m.opt_state,
+                                            m.state, ins, lab)
+        one[leg] = float(loss)
+        if leg == ZR_ATTR[0]:
+            expect = attribute_halo_bytes(
+                m.graph, attribute_views(m, ZR_RANKS), ZR_RANKS)
+        del m, ins, lab, xs, y
+    free_models()
+    return one, expect
+
+
+def phase_zoo_ranks(seed, name):
+    """Phase 19 (module docstring): the legs over ZR_RANKS ranks spawned
+    once, and meanwhile, while the ranks start and rank 0 searches,
+    one process's side of each leg in this process."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+    from flexflow_tpu_torch.runtime.distributed import spawn
+
+    t_phase = time.perf_counter()
+    for k in COUNTED:  # this process's side: one process's legs
+        k.launches = 0
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(spawn, _zoo_ranks_rank, ZR_RANKS, (seed,),
+                          init_method=f"tcp://localhost:{free_port()}",
+                          device="cuda", timeout=SP_TIMEOUT_S)
+        one, expect = zr_one_process(seed)
+        one_wall = time.perf_counter() - t_phase
+        ranks = job.result()  # re-raises a rank's failure
+    ranks_wall = time.perf_counter() - t_phase
+    r0 = ranks[0]
+    report = {"card": CARD_LINE[0], "ranks": ZR_RANKS,
+              "transport": r0["transport"], "ranks_wall_s": ranks_wall,
+              "one_process_wall_s": one_wall, "legs": {}}
+    for leg, build, batch, _ in ZR_LEGS + (ZR_ATTR,):
+        got = r0["legs"][leg]
+        losses = got["losses"]
+        check(len(losses) == ZR_STEPS and bool(np.isfinite(losses).all()),
+              f"phase 19 {leg}: fit losses {losses}")
+        rel = abs(losses[0] - one[leg]) / abs(one[leg])
+        check(rel <= ZR_LOSS_TOL, f"phase 19 {leg}: the first loss "
+              f"{losses[0]} is {rel:.3e} from one process's {one[leg]}")
+        for r in ranks[1:]:
+            other = r["legs"][leg]
+            check(other["digest"] == got["digest"]
+                  and other["splits"] == got["splits"]
+                  and other["kinds"] == got["kinds"],
+                  f"phase 19 {leg}: the ranks lowered different picks")
+            check(other["losses"] == losses,
+                  f"phase 19 {leg}: the ranks' losses differ")
+            for key in set(other["weights"]) & set(got["weights"]):
+                check(other["weights"][key] == got["weights"][key],
+                      f"phase 19 {leg}: the whole weight {key} differs "
+                      f"between ranks")
+        row = {"build": build, "batch": batch, "views": got["kinds"],
+               "non_batch_splits": got["splits"],
+               "pick_is_data_parallel": got["pick_is_data_parallel"],
+               "losses": losses, "one_process_first_loss": one[leg],
+               "first_loss_rel": rel,
+               "whole_weights_bit_equal": len(got["weights"]),
+               "step_p50_ms": got["step_ms"],
+               "dp_step_p50_ms": got["dp_step_ms"],
+               "predicted_ms": got["predicted_ms"],
+               "dp_predicted_ms": got["dp_predicted_ms"],
+               "bytes_per_rank_per_step": [
+                   r["legs"][leg]["bytes_per_step"] for r in ranks],
+               "host_bytes_per_rank_per_step": [
+                   r["legs"][leg]["host_bytes_per_step"] for r in ranks],
+               "peak_memory_gb_per_rank": [
+                   r["legs"][leg]["peak_memory_gb"] for r in ranks],
+               "compile_s": got["compile_s"], "search_s": got["search_s"],
+               "step_s": got["step_s"], "dp_step_s": got["dp_step_s"],
+               "wall_s": got["wall_s"]}
+        if leg == ZR_ATTR[0]:
+            halo, gather = expect
+            sent = [r["legs"][leg]["bytes_per_step"].get("halo_exchange", 0)
+                    for r in ranks]
+            check(sent == halo and got["halo_calls"] > 0,
+                  f"phase 19 {leg}: halo bytes per rank per step {sent}, "
+                  f"the shapes imply {halo}")
+            row["halo_bytes_per_rank_per_step"] = sent
+            row["whole_gather_bytes_replaced_per_rank_per_step"] = gather
+        report["legs"][leg] = row
+    for name, *_ in ZR_HALO_CASES:
+        rows = [r["halo"][name] for r in ranks]
+        for rank, row in enumerate(rows):
+            for key, e in row.items():
+                if key.endswith("_err"):
+                    check(e <= ZR_HALO_TOL, f"phase 19 halo {name} rank "
+                          f"{rank}: {key} {e:.3e} > {ZR_HALO_TOL}")
+            check(row["halo_bytes"] == row["halo_bytes_expected"],
+                  f"phase 19 halo {name} rank {rank}: sent "
+                  f"{row['halo_bytes']} bytes, the shapes imply "
+                  f"{row['halo_bytes_expected']}")
+        report.setdefault("halo_contents", {})[name] = {
+            key: max(row[key] for row in rows)
+            for key in rows[0] if key.endswith("_err")}
+        report["halo_contents"][name]["halo_bytes_per_rank"] = [
+            row["halo_bytes"] for row in rows]
+    report["halo_contents_wall_s"] = r0["halo_wall_s"]
+    for rank, r in enumerate(ranks):
+        check(not any(r["launched"].values()), f"phase 19 rank {rank} "
+              f"launched rows 1-6: {r['launched']} (no TPU kernel lies on "
+              f"its path)")
+    one_launched = {k.__name__: k.launches for k in COUNTED}
+    check(not any(one_launched.values()), f"phase 19's one-process side "
+          f"launched rows 1-6: {one_launched}")
+    report["kernel_rows_launched_per_rank"] = [r["launched"] for r in ranks]
+    report["kernel_rows_launched_one_process"] = one_launched
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("zoo over ranks path: " + json.dumps(report))
+    return report
+
+
 def main(argv=None) -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7778,6 +8272,8 @@ def main(argv=None) -> int:
                          "the command line")
     ap.add_argument("--entry-points-only", action="store_true",
                     help="only run phase 18, the repo's entry points")
+    ap.add_argument("--zoo-ranks-only", action="store_true",
+                    help="only run phase 19, the zoo over ranks")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -7815,6 +8311,10 @@ def main(argv=None) -> int:
 
     if args.zoo_only:  # no CUDA kernel of the port lies on its path
         phase_zoo(args.seed, phase_device())
+        return 0
+
+    if args.zoo_ranks_only:  # no CUDA kernel of the port on its path
+        phase_zoo_ranks(args.seed, phase_device())
         return 0
 
     if args.frontends_only:  # no CUDA kernel of the port on its path
@@ -7885,6 +8385,7 @@ def main(argv=None) -> int:
     obs = phase_observability(args.seed, name)
     frontends = phase_frontends(args.seed, name, bert["step_p50_ms"])
     entry = phase_entry_points(args.seed, name)
+    phase_zoo_ranks(args.seed, name)
 
     def entry_launches(kernel):
         """``kernel``'s launches in phase 18: leg (a)'s and (b)'s fit,

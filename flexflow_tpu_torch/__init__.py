@@ -37,8 +37,11 @@ with keras-protocol callbacks, validation data or split,
 ``FFModel.recompile``).  Entry points run on the card unless the config
 says ``device="cpu"``.
 
-The exports are the reference's ``_LAZY`` names that the port has
-(flexflow_tpu/__init__.py:22-53), loaded on first use.
+The exports are the reference's ``_LAZY`` names
+(flexflow_tpu/__init__.py:22-53), every one of them, loaded on first
+use; each subpackage's ``__init__`` exports its reference's names the
+same way (``tests/test_torch_surface.py`` lists the few JAX idioms
+left out, each with its reason).
 """
 
 from flexflow_tpu_torch.config import FFConfig
@@ -49,6 +52,7 @@ from flexflow_tpu_torch.model import FFModel
 from flexflow_tpu_torch.optimizers import AdamOptimizer, SGDOptimizer
 
 _LAZY = {
+    "IterationConfig": ("flexflow_tpu_torch.config", "IterationConfig"),
     "OperatorType": ("flexflow_tpu_torch.core.optype", "OperatorType"),
     "DataType": ("flexflow_tpu_torch.core.ptensor", "DataType"),
     "ParallelDim": ("flexflow_tpu_torch.core.ptensor", "ParallelDim"),
@@ -57,6 +61,8 @@ _LAZY = {
     "Tensor": ("flexflow_tpu_torch.core.ptensor", "Tensor"),
     "MachineSpec": ("flexflow_tpu_torch.core.machine", "MachineSpec"),
     "Graph": ("flexflow_tpu_torch.core.graph", "Graph"),
+    "UniformInitializer": ("flexflow_tpu_torch.initializers",
+                           "UniformInitializer"),
     "GlorotUniformInitializer": ("flexflow_tpu_torch.initializers",
                                  "GlorotUniformInitializer"),
     "ZeroInitializer": ("flexflow_tpu_torch.initializers",

@@ -15,6 +15,9 @@
   the cross-level exchange (arXiv:2110.10548).
 
 Every collective goes through ``parallel/mesh.py``, which counts it.
+The reference's ``__init__`` names are exported but ``shard_map`` and
+``force_cpu_devices``: JAX's own API drift and virtual CPU devices,
+which a port of torch ranks has no counterpart of.
 """
 
 from flexflow_tpu_torch.comm.bucketed import BucketedSync, bucketed_grad_sync

@@ -643,7 +643,8 @@ class CompiledModel:
                              f"got {len(inputs)}")
         ctx = LoweringContext(compute_dtype=self.compute_dtype, train=train,
                               state_in=state, device=self.device,
-                              mesh=self.mesh, seed=seed, row_base=row_base)
+                              mesh=self.mesh, seed=seed, row_base=row_base,
+                              seq_length=self.config.iteration.seq_length)
         values: Dict[Tuple[int, int], torch.Tensor] = {}
         places: Dict[Tuple[int, int], Placement] = {}
         resharded: Dict[tuple, torch.Tensor] = {}

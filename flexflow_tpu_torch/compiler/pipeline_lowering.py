@@ -293,7 +293,8 @@ class PipelinedCompiledModel(CompiledModel):
             sctx = LoweringContext(compute_dtype=ctx.compute_dtype,
                                    train=ctx.train, device=ctx.device,
                                    mesh=self.mesh, seed=ctx.seed,
-                                   row_base=ctx.row_base + m * x.shape[0])
+                                   row_base=ctx.row_base + m * x.shape[0],
+                                   seq_length=ctx.seq_length)
             values = {first: x}
             places = {first: pl}
             resharded: Dict[tuple, torch.Tensor] = {}

@@ -85,13 +85,23 @@ construction.  ``num_devices=0`` resolves to the visible cards
 (``torch.cuda.device_count()``, at least 1, so that a CUDA config made
 on a host without CUDA still constructs and raises in
 ``torch_device``) on a CUDA device, and to 1 on the CPU.
+
+``iteration`` is the reference's ``IterationConfig`` (config.py:89-94,
+361): its ``seq_length``, when positive, reaches every lowering's
+``LoweringContext`` and ``batch_matmul`` masks the sequence tail past
+it (ops/attention.py).  ``param_dtype``, ``perform_fusion``,
+``enable_parameter_parallel``, ``enable_attribute_parallel`` and
+``enable_inplace_optimizations`` (config.py:120-122, 254, 257) are
+accepted with the reference's defaults and read nowhere, as in the
+reference; ``parse_args`` maps ``--enable-parameter-parallel`` and
+``--enable-attribute-parallel`` onto the two flags.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -171,6 +181,15 @@ def parse_slice_levels(value) -> Tuple[Tuple[int, float, float], ...]:
 
 
 @dataclass
+class IterationConfig:
+    """Per-iteration knobs threaded into the forward and backward
+    (reference config.py:89-94, after FlexFlow's FFIterationConfig):
+    ``seq_length`` > 0 masks ``batch_matmul``'s sequence tail."""
+
+    seq_length: int = -1
+
+
+@dataclass
 class FFConfig:
     batch_size: int = 64
     num_devices: int = 1  # 0: every visible card (1 on the CPU)
@@ -204,6 +223,10 @@ class FFConfig:
     search_budget: int = 16
     search_alpha: float = 1.05
     only_data_parallel: bool = False
+    # accepted and read nowhere, as in the reference (config.py:120-122)
+    enable_parameter_parallel: bool = True
+    enable_attribute_parallel: bool = True
+    enable_inplace_optimizations: bool = True
     search_num_devices: int = 0  # 0: num_devices
     base_optimize_threshold: int = 10
     search_timeout_s: float = 45.0  # <= 0: no deadline
@@ -261,6 +284,10 @@ class FFConfig:
     obs_log_file: Optional[str] = None
     obs_trace_file: Optional[str] = None
     device_trace_dir: Optional[str] = None
+    # accepted and read nowhere, as in the reference (config.py:254, 257)
+    param_dtype: str = "float32"
+    perform_fusion: bool = True
+    iteration: IterationConfig = field(default_factory=IterationConfig)
 
     def __post_init__(self):
         if self.num_devices == 0:
@@ -564,6 +591,8 @@ class FFConfig:
             search_budget=args.budget,
             search_alpha=args.alpha,
             only_data_parallel=args.only_data_parallel,
+            enable_parameter_parallel=args.enable_parameter_parallel,
+            enable_attribute_parallel=args.enable_attribute_parallel,
             search_num_devices=search_devs,
             base_optimize_threshold=args.base_optimize_threshold,
             search_timeout_s=args.search_timeout,

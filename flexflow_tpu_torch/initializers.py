@@ -54,6 +54,21 @@ class ConstantInitializer(Initializer):
 
 
 @dataclass
+class UniformInitializer(Initializer):
+    """Uniform draws in ``[min_val, max_val]`` (reference
+    initializers.py:72-79).  ``seed`` is carried as the reference's is;
+    the draws come from the generator ``init`` is given."""
+
+    seed: int = 0
+    min_val: float = -0.05
+    max_val: float = 0.05
+
+    def init(self, gen, shape):
+        return torch.empty(shape).uniform_(self.min_val, self.max_val,
+                                           generator=gen)
+
+
+@dataclass
 class NormInitializer(Initializer):
     mean: float = 0.0
     stddev: float = 0.05

@@ -5,6 +5,8 @@ from flexflow_tpu_torch.ops.base import (
     OP_REGISTRY,
     LoweringContext,
     Operator,
+    OpSharding,
+    ShardAnnot,
     WeightSpec,
     register_op,
 )
@@ -19,7 +21,7 @@ from flexflow_tpu_torch.ops.elementwise import (
     ElementUnaryOp,
 )
 from flexflow_tpu_torch.ops.embedding import BatchedEmbeddingOp, EmbeddingOp
-from flexflow_tpu_torch.ops.inout import ConstantOp, InputOp
+from flexflow_tpu_torch.ops.inout import ConstantOp, InputOp, NoOp
 from flexflow_tpu_torch.ops.linear import LinearOp
 from flexflow_tpu_torch.ops.moe import (
     AggregateOp,
@@ -61,6 +63,9 @@ __all__ = [
     "ElementBinaryOp",
     "EmbeddingOp",
     "InputOp",
+    "NoOp",
+    "OpSharding",
+    "ShardAnnot",
     "LayerNormOp",
     "LinearOp",
     "LoweringContext",

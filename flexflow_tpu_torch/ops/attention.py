@@ -53,8 +53,12 @@ usual route.
 
 ``BatchMatmulOp`` is the reference's (ops/attention.py:312-382):
 [..., M, K] x [..., K, N] in the compute dtype with an fp32 product,
-cast back to the first input's dtype; the reference's sequence-length
-masking reads ``ctx.seq_length``, which no port path sets.
+cast back to the first input's dtype.  With ``ctx.seq_length`` > 0
+(``FFConfig.iteration.seq_length``, set by the flat, pipelined and
+placed lowerings as the reference's are) the inputs are zeroed past it
+along ``a_seq_length_dim`` and ``b_seq_length_dim`` before the product
+(reference :338-355), by the global index of each row: a rank whose
+block of that dim starts at row s masks its rows at s and on.
 """
 
 from __future__ import annotations
@@ -386,12 +390,33 @@ class BatchMatmulOp(Operator):
         return (ParallelTensorShape.make(a.sizes[:-1] + (b.sizes[-1],),
                                          a.dtype),)
 
+    def _seq_mask(self, ctx, t, i, dim):
+        """``t`` (input ``i``) zeroed at global indices >= seq_length
+        along ``dim`` (attr < 0: unmasked)."""
+        if dim < 0:
+            return t
+        d = dim % t.ndim
+        start = 0
+        if ctx.mesh is not None and len(ctx.in_placements) > i:
+            axes = ctx.in_placements[i].dims[d]
+            if axes:
+                start = ctx.mesh.index(axes) * t.shape[d]
+        idx = torch.arange(start, start + t.shape[d], device=t.device)
+        keep = (idx < ctx.seq_length).reshape(
+            [t.shape[d] if j == d else 1 for j in range(t.ndim)])
+        return torch.where(keep, t, torch.zeros((), dtype=t.dtype,
+                                                device=t.device))
+
     def forward(self, ctx, inputs, weights):
         x, y = inputs
         cd = ctx.compute_dtype
         xs, ys = x.shape, y.shape
-        z = _MatmulAcc32.apply(x.to(cd).reshape(-1, *xs[-2:]),
-                               y.to(cd).reshape(-1, *ys[-2:]))
+        xc, yc = x.to(cd), y.to(cd)
+        if ctx.seq_length > 0:
+            xc = self._seq_mask(ctx, xc, 0, self.attrs["a_seq_length_dim"])
+            yc = self._seq_mask(ctx, yc, 1, self.attrs["b_seq_length_dim"])
+        z = _MatmulAcc32.apply(xc.reshape(-1, *xs[-2:]),
+                               yc.reshape(-1, *ys[-2:]))
         return [z.view(*xs[:-1], ys[-1]).to(x.dtype)]
 
     def propagate(self, mv: MachineView) -> OpSharding:

@@ -205,7 +205,10 @@ class LoweringContext:
     sets it, so its masks are its rows of the whole batch's.
     ``mask_source``, None outside tests, replaces the drawn masks:
     ``mask_source(ctx, op_name, local_shape, keep)`` returns the bool
-    keep mask (the parity tests hand in the reference's masks)."""
+    keep mask (the parity tests hand in the reference's masks).
+    ``seq_length`` is ``FFConfig.iteration.seq_length`` (the reference's
+    LoweringContext, ops/base.py:132): when positive, ``batch_matmul``
+    masks its sequence tail."""
 
     mask_source: Optional[Callable] = None
 
@@ -214,8 +217,10 @@ class LoweringContext:
                  state_in: Optional[Dict[str, torch.Tensor]] = None,
                  device: torch.device | str = "cpu",
                  mesh: "Optional[Mesh]" = None,
-                 seed: Optional[torch.Tensor] = None, row_base: int = 0):
+                 seed: Optional[torch.Tensor] = None, row_base: int = 0,
+                 seq_length: int = -1):
         self.compute_dtype = compute_dtype
+        self.seq_length = seq_length
         self.train = train
         self.state_in = state_in or {}
         self.state_out: Dict[str, torch.Tensor] = {}

@@ -23,16 +23,24 @@ Under a strategy (``propagate`` is the reference's): a batch or
 out-channel split runs ``forward`` on the shards; an in-channel split
 ``r`` leaves partial sums, so the bias goes in on one rank of the
 replica axes and an activation waits for the op's own sum, as in
-ops/linear.py.  The reference lets GSPMD exchange halos for a split
-spatial dim (OptCNN's attribute parallelism); here ``forward_sharded``
-gathers the input's split spatial dims whole over their axes, computes,
-and keeps this rank's output rows and columns, with the input's
-gradient summed over those axes before its block is kept (every rank's
-output block reads the whole input).  A halo exchange in place of the
-gather is ROADMAP "Work on ported paths".  A grouped conv under an
-in-channel split gathers the channels and the kernel whole (a group's
-channels do not follow the split): one rank of the replica axes
-computes the product and the others add zeros.
+ops/linear.py.  A split H or W is OptCNN's attribute parallelism, for
+which the reference lets GSPMD exchange halos: here ``forward_sharded``
+exchanges them itself (``parallel.mesh.halo_exchange``).  Rank r's
+output rows along a split dim are its block [o0, o1) of the output,
+which read input rows [o0 * s - p, (o1 - 1) * s - p + k); the rank
+receives the rows of that window it does not hold from the ranks that
+own them (however many blocks away: a 7x7 kernel over blocks of 2
+rows takes rows from several owners), drops the rows it holds outside
+it (stride 2 can leave a block's edge unread), pads only where the
+window crosses the tensor's edge (zeros for a conv and an average,
+-inf for a max; the average still divides by ``kh * kw``), and runs
+the op unpadded on that dim: every rank computes its own output block
+and nothing else.  With H and W both split, H is exchanged first and
+W then on the H-extended window, which carries the corners.  The
+backward returns each halo row's gradient to its owner.  A grouped
+conv under an in-channel split gathers the channels and the kernel
+whole (a group's channels do not follow the split): one rank of the
+replica axes computes the product and the others add zeros.
 """
 
 from __future__ import annotations
@@ -86,31 +94,90 @@ def _spatial_axes(pl) -> Tuple[str, ...]:
     return tuple(pl.dims[1]) + tuple(pl.dims[2])
 
 
-def _gather_spatial(ctx, x: torch.Tensor) -> torch.Tensor:
-    """The input with its split H and W gathered whole; its gradient is
-    summed over those axes first (each rank's output block took a share
-    of every input row), then cut to this rank's block."""
-    from flexflow_tpu_torch.parallel.mesh import (
-        Placement,
-        grad_all_reduce,
-        reshard,
-    )
+def _halo_windows(size: int, n: int, kernel: int, stride: int, pad: int
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """Each of ``n`` ranks' input rows [lo, hi) along a dim of ``size``
+    split evenly: the rows its block of the output reads, in unpadded
+    coordinates (lo < 0 or hi > size where the window crosses an
+    edge)."""
+    out = _out_size(size, kernel, stride, pad)
+    if size % n or out % n:
+        raise ValueError(f"a split of {n} does not divide input {size} "
+                         f"and output {out}")
+    per = out // n
+    return tuple((j * per * stride - pad,
+                  (j * per + per - 1) * stride - pad + kernel)
+                 for j in range(n))
 
-    src = ctx.in_placements[0]
-    dst = Placement((src.dims[0], (), (), src.dims[3]), src.partial)
-    return grad_all_reduce(reshard(x, src, dst, ctx.mesh),
-                           _spatial_axes(src), ctx.mesh)
+
+def halo_rows(size: int, n: int, kernel: int, stride: int, pad: int,
+              rank: int) -> Tuple[int, int, int]:
+    """Along a dim of ``size`` split ``n`` ways under a window of
+    ``kernel`` rows at ``stride`` and padding ``pad``: (the rows
+    ``rank`` sends in the forward exchange, the rows it sends back in
+    the backward, the rows of its window)."""
+    block = size // n
+    windows = [(max(lo, 0), min(hi, size))
+               for lo, hi in _halo_windows(size, n, kernel, stride, pad)]
+
+    def held(lo, hi, j):  # rows of [lo, hi) in rank j's block
+        return max(0, min(hi, (j + 1) * block) - max(lo, j * block))
+
+    lo, hi = windows[rank]
+    others = [j for j in range(n) if j != rank]
+    return (sum(held(*windows[j], rank) for j in others),
+            sum(held(lo, hi, j) for j in others), hi - lo)
 
 
-def _keep_spatial(ctx, y: torch.Tensor) -> torch.Tensor:
-    """This rank's output rows and columns of a whole-H/W result."""
-    pl = ctx.out_placements[0]
-    for d in (1, 2):
-        axes = pl.dims[d]
-        if axes:
-            per = y.shape[d] // ctx.mesh.size(axes)
-            y = y.narrow(d, ctx.mesh.index(axes) * per, per)
-    return y
+def halo_cells(hw: Tuple[int, int], splits: Tuple[int, int],
+               kernel: Tuple[int, int], stride: Tuple[int, int],
+               pad: Tuple[int, int], rank: int) -> Tuple[int, int]:
+    """The H x W cells ``rank`` sends in one conv's or pool's halo
+    exchanges over an input of ``hw`` split ``splits`` = (nh, nw) ways
+    (the rank at (rank // nw, rank % nw)), H first on its W block, then
+    W on its H window: (forward, backward).  Times the batch block,
+    the channels and the element size, the exchanges' bytes."""
+    (h, w), (nh, nw) = hw, splits
+    rh, rw = divmod(rank, nw)
+    fwd = bwd = 0
+    rows = h
+    if nh > 1:
+        f, b, rows = halo_rows(h, nh, kernel[0], stride[0], pad[0], rh)
+        fwd, bwd = f * (w // nw), b * (w // nw)
+    if nw > 1:
+        f, b, _ = halo_rows(w, nw, kernel[1], stride[1], pad[1], rw)
+        fwd, bwd = fwd + f * rows, bwd + b * rows
+    return fwd, bwd
+
+
+def _halo_input(ctx, x, kernel, stride, pad, fill):
+    """This rank's input window of a conv or pool over its split H and
+    W (module docstring), padded with ``fill`` where it crosses the
+    tensor's edges; returns it and the padding the op keeps on each of
+    H and W (none on a split dim)."""
+    from flexflow_tpu_torch.parallel.mesh import halo_exchange
+
+    in_pl, out_pl = ctx.in_placements[0], ctx.out_placements[0]
+    edge = [0, 0, 0, 0]  # H low, H high, W low, W high
+    keep = list(pad)
+    for i, d in enumerate((1, 2)):
+        axes = in_pl.dims[d]
+        if not axes:
+            continue
+        if tuple(out_pl.dims[d]) != tuple(axes):
+            raise ValueError(f"dim {d} split over {axes} in, "
+                             f"{out_pl.dims[d]} out")
+        n = ctx.mesh.size(axes)
+        size = x.shape[d] * n
+        windows = _halo_windows(size, n, kernel[i], stride[i], pad[i])
+        lo, hi = windows[ctx.mesh.index(axes)]
+        x = halo_exchange(x, d, axes, ctx.mesh,
+                          [(max(a, 0), min(b, size)) for a, b in windows])
+        edge[2 * i], edge[2 * i + 1] = max(0, -lo), max(0, hi - size)
+        keep[i] = 0
+    if any(edge):
+        x = F.pad(x, (0, 0, edge[2], edge[3], edge[0], edge[1]), value=fill)
+    return x, tuple(keep)
 
 
 @register_op
@@ -187,17 +254,19 @@ class Conv2DOp(Operator):
                                     DataType.FLOAT32, self._bias_init))
         return specs
 
-    def _conv(self, ctx, x, kernel) -> torch.Tensor:
+    def _conv(self, ctx, x, kernel, padding=None) -> torch.Tensor:
         """The product, NHWC in, NHWC out, rounded to the compute dtype
-        and returned in fp32."""
+        and returned in fp32 (``padding``: the attrs' by default)."""
         a = self.attrs
         cd = ctx.compute_dtype
+        if padding is None:
+            padding = (a["padding_h"], a["padding_w"])
         # HWIO -> OIHW in channels_last memory (OHWI), cast, one copy
         k = kernel.permute(3, 2, 0, 1).to(dtype=cd,
                                           memory_format=torch.channels_last)
         y = F.conv2d(x.to(cd).permute(0, 3, 1, 2), k,
                      stride=(a["stride_h"], a["stride_w"]),
-                     padding=(a["padding_h"], a["padding_w"]),
+                     padding=padding,
                      groups=x.shape[-1] // kernel.shape[2])
         return y.permute(0, 2, 3, 1).float()
 
@@ -228,8 +297,11 @@ class Conv2DOp(Operator):
         r_axes = in_pl.dims[3] if self.attrs["groups"] > 1 else ()
         if not _spatial_axes(in_pl) and not r_axes:
             return None
-        if _spatial_axes(in_pl):
-            x = _gather_spatial(ctx, x)
+        a = self.attrs
+        x, padding = _halo_input(
+            ctx, x, (a["kernel_h"], a["kernel_w"]),
+            (a["stride_h"], a["stride_w"]),
+            (a["padding_h"], a["padding_w"]), 0.0)
         if r_axes:
             # a group's channels do not follow an in-channel split: the
             # input's channels and the kernel's in dim are gathered whole,
@@ -244,7 +316,7 @@ class Conv2DOp(Operator):
                 reshard(kernel, Placement(((), (), r_axes, co_axes)),
                         Placement(((), (), (), co_axes)), ctx.mesh),
                 r_axes, ctx.mesh)
-        y = _keep_spatial(ctx, self._conv(ctx, x, kernel))
+        y = self._conv(ctx, x, kernel, padding)
         if r_axes and not ctx.partial_leader():
             y = y * 0.0
         return [self._finish(ctx, y, weights, inputs[0].dtype)]
@@ -321,11 +393,13 @@ class Pool2DOp(Operator):
         return (ParallelTensorShape.make((n, ho, wo, c),
                                          self.input_shapes[0].dtype),)
 
-    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+    def _pool(self, x: torch.Tensor, pad=None) -> torch.Tensor:
+        """The pool, NHWC in and out (``pad``: the attrs' by default)."""
         a = self.attrs
         kernel = (a["kernel_h"], a["kernel_w"])
         stride = (a["stride_h"], a["stride_w"])
-        pad = (a["padding_h"], a["padding_w"])
+        if pad is None:
+            pad = (a["padding_h"], a["padding_w"])
         is_max = a["pool_type"] == "max"
         v = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         if not is_max:
@@ -349,8 +423,12 @@ class Pool2DOp(Operator):
     def forward_sharded(self, ctx, inputs, weights, osh):
         if not _spatial_axes(ctx.in_placements[0]):
             return None
-        return [_keep_spatial(ctx, self._pool(_gather_spatial(ctx,
-                                                              inputs[0])))]
+        a = self.attrs
+        fill = float("-inf") if a["pool_type"] == "max" else 0.0
+        x, pad = _halo_input(ctx, inputs[0], (a["kernel_h"], a["kernel_w"]),
+                             (a["stride_h"], a["stride_w"]),
+                             (a["padding_h"], a["padding_w"]), fill)
+        return [self._pool(x, pad)]
 
     def propagate(self, mv: MachineView) -> OpSharding:
         a = ShardAnnot(mv.dim_degrees, mv.replica_degree)

@@ -1,7 +1,7 @@
-"""Input and constant sentinel operators — the port of ``InputOp`` and
-``ConstantOp`` in flexflow_tpu/ops/inout.py, with the reference's
-``propagate``, ``signature`` and ``splittable_output_dims``
-(inout.py:40-125)."""
+"""Input and constant sentinel operators and the identity — the port of
+``InputOp``, ``ConstantOp`` and ``NoOp`` in flexflow_tpu/ops/inout.py,
+with the reference's ``propagate``, ``signature`` and
+``splittable_output_dims`` (inout.py:40-125)."""
 
 from __future__ import annotations
 
@@ -105,3 +105,20 @@ class ConstantOp(Operator):
 
     def splittable_output_dims(self) -> Tuple[int, ...]:
         return ()
+
+
+@register_op
+class NoOp(Operator):
+    """The identity (reference inout.py:114-125): its output is its
+    input's shape, split as any of its dims."""
+
+    op_type = OperatorType.NOOP
+
+    def infer(self) -> Sequence[ParallelTensorShape]:
+        return (self.input_shapes[0],)
+
+    def forward(self, ctx, inputs, weights):
+        return [inputs[0]]
+
+    def splittable_output_dims(self) -> Tuple[int, ...]:
+        return tuple(range(self.output_shapes[0].ndim))

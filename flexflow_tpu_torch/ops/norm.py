@@ -142,7 +142,10 @@ class BatchNormOp(Operator):
     batch's statistics, an evaluation pass normalises with them.  Under
     a split of the batch (or any dim but the channels) the statistics
     are the whole batch's, summed over the ranks that split it, as the
-    reference's GSPMD mean over a sharded axis is."""
+    reference's GSPMD mean over a sharded axis is.  The running
+    statistics stay whole on every rank: under a split of the channels
+    a rank normalises with its block of them and updates its block,
+    and the blocks are gathered back into the whole."""
 
     op_type = OperatorType.BATCHNORM
 
@@ -179,6 +182,14 @@ class BatchNormOp(Operator):
         m = self.attrs["momentum"]
         rm = ctx.state_in[f"{self.name}/running_mean"]
         rv = ctx.state_in[f"{self.name}/running_var"]
+        c_axes = ()
+        if ctx.mesh is not None and ctx.in_placements:
+            c_axes = tuple(ctx.in_placements[0].dims[-1])
+        whole_rm, whole_rv = rm, rv
+        if c_axes:  # this rank's channels of the whole statistics
+            c = x.shape[-1]
+            start = ctx.mesh.index(c_axes) * c
+            rm, rv = rm[start:start + c], rv[start:start + c]
         if ctx.train:
             if split:
                 n = (x.numel() // x.shape[-1]) * ctx.mesh.size(split)
@@ -188,14 +199,21 @@ class BatchNormOp(Operator):
             else:
                 mean = x.mean(dim=axes)
                 var = ((x - mean) ** 2).mean(dim=axes)
-            ctx.state_out[f"{self.name}/running_mean"] = (
-                m * rm + (1 - m) * mean.detach())
-            ctx.state_out[f"{self.name}/running_var"] = (
-                m * rv + (1 - m) * var.detach())
+            new_rm = m * rm + (1 - m) * mean.detach()
+            new_rv = m * rv + (1 - m) * var.detach()
+            if c_axes:
+                from flexflow_tpu_torch.parallel.mesh import all_gather
+
+                both = all_gather(torch.stack([new_rm, new_rv], dim=1), 0,
+                                  c_axes, ctx.mesh)
+                new_rm, new_rv = both.unbind(dim=1)
+                new_rm, new_rv = new_rm.contiguous(), new_rv.contiguous()
+            ctx.state_out[f"{self.name}/running_mean"] = new_rm
+            ctx.state_out[f"{self.name}/running_var"] = new_rv
         else:
             mean, var = rm, rv
-            ctx.state_out[f"{self.name}/running_mean"] = rm
-            ctx.state_out[f"{self.name}/running_var"] = rv
+            ctx.state_out[f"{self.name}/running_mean"] = whole_rm
+            ctx.state_out[f"{self.name}/running_var"] = whole_rv
         y = (x - mean) * torch.rsqrt(var + self.attrs["eps"])
         y = y * weights["scale"] + weights["bias"]
         if self.attrs["relu"]:

@@ -49,6 +49,12 @@ backward exchanges on every rank in the reverse of the forward order,
 whatever each rank computed in between, and runs all of them on every
 rank.  The tensors of one exchange are posted in order with fixed tags.
 
+The halo exchange (a conv's or pool's split H or W, ops/conv.py):
+``halo_exchange(x, dim, axes, mesh, windows)`` hands each rank the
+window of rows its output block reads, each row from the rank that
+owns it, all of one exchange's sends and receives posted together;
+its backward returns the rows' gradients to their owners.
+
 Point to point (the pipelined, placed and staged lowerings):
 ``Sends`` posts sends without waiting and waits for them together,
 ``recv`` receives one tensor by tag, and ``broadcast`` hands one rank's
@@ -217,6 +223,25 @@ def placement(annot: ShardAnnot, slot_axes: Dict[int, Tuple[str, ...]]
                     else tuple(slot_axes.get(slot, ())))
     partial = tuple(slot_axes.get(REPLICA_SLOT, ())) if annot.partial else ()
     return Placement(tuple(dims), partial)
+
+
+def build_mesh(devices=None) -> "Mesh":
+    """The job's mesh over ``devices`` (reference parallel/mesh.py:45-57,
+    which builds a ``jax.sharding.Mesh``): None for every rank of the
+    job, else a count or a sequence of consecutive global ranks, whose
+    block gets its own prime-factor axes.  Outside a job, a one-rank
+    mesh.  Every rank of the job calls it alike: a new block creates
+    process groups on every rank (``runtime.distributed.mesh_over``)."""
+    from flexflow_tpu_torch.runtime import distributed
+
+    if devices is None:
+        return distributed.mesh_over()
+    ranks = (list(range(devices)) if isinstance(devices, int)
+             else [int(r) for r in devices])
+    if not ranks or ranks != list(range(ranks[0], ranks[0] + len(ranks))):
+        raise ValueError(f"devices {devices!r} are not a block of "
+                         f"consecutive ranks")
+    return distributed.mesh_over(start=ranks[0], width=len(ranks))
 
 
 class Mesh:
@@ -545,28 +570,41 @@ def _peers(perm: Sequence[Tuple[int, int]], me: int, n: int):
     return dst[me], src[me]
 
 
+def _post(fn, sends, recvs, like: torch.Tensor, group) -> List[torch.Tensor]:
+    """Post every send and receive of one exchange at once and wait for
+    them all, so no order of posts across ranks can deadlock: ``sends``
+    is [(global rank, tag, tensor)], ``recvs`` [(global rank, tag,
+    shape, dtype)].  Counted as ``fn``'s; returns the received tensors
+    on ``like``'s device (through host memory where the group is gloo
+    and ``like`` is on the card)."""
+    hop = _host_hop(like, group)
+    bufs = [x.contiguous() for *_, x in sends]
+    if hop:
+        bufs = [b.cpu() for b in bufs]
+    out = [torch.empty(shape, dtype=dtype,
+                       device="cpu" if hop else like.device)
+           for *_, shape, dtype in recvs]
+    ops = ([dist.P2POp(dist.isend, b, peer, group, tag)
+            for (peer, tag, _), b in zip(sends, bufs)]
+           + [dist.P2POp(dist.irecv, b, peer, group, tag)
+              for (peer, tag, *_), b in zip(recvs, out)])
+    if ops:
+        _count(fn, *bufs, hop=hop)
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [b.to(like.device) for b in out] if hop else out
+
+
 def _exchange(xs: Sequence[torch.Tensor], perm, group) -> List[torch.Tensor]:
     me, n = dist.get_rank(group), dist.get_world_size(group)
     dst, src = _peers(perm, me, n)
     if dst == me:  # then src == me too: a local copy
         return [x.clone(memory_format=torch.contiguous_format) for x in xs]
-    hop = _host_hop(xs[0], group)
-    send = [x.contiguous() for x in xs]
-    if hop:
-        send = [x.cpu() for x in send]
-    _count(ppermute, *send, hop=hop)
-    recv = [torch.empty_like(x) for x in send]
     g_dst = dist.get_global_rank(group, dst)
     g_src = dist.get_global_rank(group, src)
-    ops = ([dist.P2POp(dist.isend, x, g_dst, group, tag)
-            for tag, x in enumerate(send)]
-           + [dist.P2POp(dist.irecv, x, g_src, group, tag)
-              for tag, x in enumerate(recv)])
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    if hop:
-        recv = [x.to(xs[0].device) for x in recv]
-    return recv
+    return _post(ppermute, [(g_dst, tag, x) for tag, x in enumerate(xs)],
+                 [(g_src, tag, x.shape, x.dtype) for tag, x in enumerate(xs)],
+                 xs[0], group)
 
 
 class _PPermute(torch.autograd.Function):
@@ -692,11 +730,109 @@ def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
     return buf.to(x.device) if hop else buf
 
 
-for _fn in (ppermute, all_reduce_mean_, send_recv, broadcast):
+# ---- the halo exchange (attribute parallelism) ---------------------------
+def _halo_spans(windows: Sequence[Tuple[int, int]], block: int, me: int):
+    """For each rank j of the slice: the rows of this rank's block that
+    j's window takes, as [a0, a1) in this block, and the rows of j's
+    block that this rank's window takes, as [w0, w1) in this window
+    (empty spans have a1 <= a0 or w1 <= w0)."""
+    lo, hi = windows[me]
+    spans = []
+    for j, (jlo, jhi) in enumerate(windows):
+        a0, a1 = max(jlo, me * block), min(jhi, (me + 1) * block)
+        r0, r1 = max(lo, j * block), min(hi, (j + 1) * block)
+        spans.append((a0 - me * block, a1 - me * block, r0 - lo, r1 - lo))
+    return spans
+
+
+def _sized(x: torch.Tensor, dim: int, n: int) -> Tuple[int, ...]:
+    shape = list(x.shape)
+    shape[dim] = n
+    return tuple(shape)
+
+
+class _HaloWindow(torch.autograd.Function):
+    """Rows ``windows[me]`` of a tensor split in blocks along ``dim``,
+    received from their owners; the backward sends each received row's
+    gradient back to its owner, which adds it to its block's."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh, windows):
+        me, block = mesh.index(axes), x.shape[dim]
+        members, group = mesh.members(axes), mesh.group(axes)
+        spans = _halo_spans(windows, block, me)
+        ctx.dim, ctx.block, ctx.spans = dim, block, spans
+        ctx.members, ctx.group, ctx.me = members, group, me
+        sends, wanted = [], []  # one message each way per peer: tag 0
+        for j, (a0, a1, w0, w1) in enumerate(spans):
+            if j == me:
+                continue
+            if a1 > a0:
+                sends.append((members[j], 0, x.narrow(dim, a0, a1 - a0)))
+            if w1 > w0:
+                wanted.append((members[j], 0, _sized(x, dim, w1 - w0),
+                               x.dtype))
+        got = iter(_post(halo_exchange, sends, wanted, x, group))
+        pieces = []
+        for j, (a0, a1, w0, w1) in enumerate(spans):
+            if w1 <= w0:
+                continue
+            pieces.append(x.narrow(dim, a0, a1 - a0) if j == me
+                          else next(got))
+        if not pieces:
+            return x.narrow(dim, 0, 0).clone()
+        return torch.cat(pieces, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, spans, me = ctx.dim, ctx.spans, ctx.me
+        grad = torch.zeros(_sized(g, dim, ctx.block), dtype=g.dtype,
+                           device=g.device)
+        sends, wanted, into = [], [], []
+        for j, (a0, a1, w0, w1) in enumerate(spans):
+            if j == me:
+                if a1 > a0:
+                    grad.narrow(dim, a0, a1 - a0).add_(
+                        g.narrow(dim, w0, w1 - w0))
+                continue
+            if w1 > w0:
+                sends.append((ctx.members[j], 0, g.narrow(dim, w0, w1 - w0)))
+            if a1 > a0:
+                wanted.append((ctx.members[j], 0, _sized(g, dim, a1 - a0),
+                               g.dtype))
+                into.append(a0)
+        for a0, part in zip(into, _post(halo_exchange, sends, wanted, g,
+                                         ctx.group)):
+            grad.narrow(dim, a0, part.shape[dim]).add_(part)
+        return grad, None, None, None, None
+
+
+def halo_exchange(x: torch.Tensor, dim: int, axes: Sequence[str],
+                  mesh: Mesh, windows: Sequence[Tuple[int, int]]
+                  ) -> torch.Tensor:
+    """``x``, this rank's block of a tensor split evenly along ``dim``
+    over ``axes``, replaced by the rows ``windows[me]`` = [lo, hi) of
+    the whole (``me``: this rank's coordinate index along ``axes``;
+    ``windows`` holds every rank's, clipped to the tensor): the rows it
+    holds are kept, the others are received from the ranks that own
+    them, however many blocks away, and rows it holds outside its
+    window are dropped.  Each rank sends each peer only the rows of
+    its block in the peer's window, in one message, all messages of the
+    exchange posted together.  Differentiable: the backward sends each
+    window row's gradient to its owner, which sums it into its block's
+    gradient.  Counted as ``comm_counts()["halo_exchange"]`` (bytes
+    sent, forward and backward)."""
+    return _HaloWindow.apply(x, dim, tuple(axes), mesh,
+                             tuple((int(a), int(b)) for a, b in windows))
+
+
+for _fn in (ppermute, all_reduce_mean_, send_recv, broadcast,
+            halo_exchange):
     _fn.calls = _fn.bytes = _fn.host_hops = _fn.host_bytes = 0
 
 COLLECTIVES = (all_reduce_sum, all_gather, all_to_all, reduce_scatter_sum,
-               ppermute, all_reduce_mean_, send_recv, broadcast)
+               ppermute, all_reduce_mean_, send_recv, broadcast,
+               halo_exchange)
 
 
 def comm_counts() -> Dict[str, Dict[str, int]]:

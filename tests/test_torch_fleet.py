@@ -217,7 +217,10 @@ def _fleet_rank(rank):
     fl = fleet_over_ranks(m, prop, _executor, prefill_chunk=4, seed=1)
     out = fl.run(_requests(decode))
     from test_torch_examples import example_rank_legs
+    from test_torch_halo import halo_rank_legs
+    from test_torch_seq_split import seq_split_rank_legs
     from test_torch_zoo import zoo_rank_legs
+    from test_torch_zoo_ranks import searched_zoo_rank_legs
 
     return {"tokens": out, "assignments": dict(fl.assignments),
             "remote": [isinstance(r, RemoteReplica) for r in fl.replicas],
@@ -227,7 +230,14 @@ def _fleet_rank(rank):
             # the zoo's split legs share this world (tests/test_torch_zoo)
             "zoo": zoo_rank_legs(),
             # and the multi-rank examples (tests/test_torch_examples)
-            "examples": example_rank_legs()}
+            "examples": example_rank_legs(),
+            # and the halo exchange's cases (tests/test_torch_halo)
+            "halo": halo_rank_legs(),
+            # and batch_matmul's split sequence mask
+            # (tests/test_torch_seq_split)
+            "seq_split": seq_split_rank_legs(),
+            # and the zoo's searched picks (tests/test_torch_zoo_ranks)
+            "searched_zoo": searched_zoo_rank_legs()}
 
 
 def _one_process_fleet():

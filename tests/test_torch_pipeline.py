@@ -123,10 +123,14 @@ def _gpt(n, pipeline):
     return m
 
 
-def _rank(rank, start, x, y, gpt_ids, export_path, port_export):
+def _rank(rank, start, x, y, gpt_ids, export_path, port_export,
+          seq_mask_start):
     from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    # batch_matmul's sequence mask, pipelined (tests/test_torch_surface)
+    from test_torch_surface import seq_mask_rank_leg
 
-    out = {"sched": {c: _sched_rank(*c) for c in SCHED}}
+    out = {"sched": {c: _sched_rank(*c) for c in SCHED},
+           "seq_mask": seq_mask_rank_leg(seq_mask_start)}
     m = _transformer(N, PP, export_file=port_export)
     out["kind"] = type(m.compiled).__name__
     out["held"] = sorted(m.params)
@@ -259,6 +263,9 @@ def _make_world(tmp_path_factory):
     port_export = str(tmp / "port_pp_strategy.json")
     jm, start = _jax_compile(export)
     ref = {"start": start}
+    from test_torch_surface import reference_seq_mask_step
+
+    ref["seq_mask"] = reference_seq_mask_step()
     # the reference's snapshot of the pipelined model at its start
     # weights, before its steps run (they donate the buffers)
     from flexflow_tpu.runtime.checkpoint import CheckpointManager as RefMgr
@@ -269,7 +276,8 @@ def _make_world(tmp_path_factory):
     worker = threading.Thread(target=_jax_runs, args=(jm, x, y, ref))
     worker.start()
     try:
-        ranks = spawn(_rank, N, (start, x, y, ids, export, port_export),
+        ranks = spawn(_rank, N, (start, x, y, ids, export, port_export,
+                                 ref["seq_mask"][0]),
                       init_method=f"file://{tmp / 'rendezvous'}",
                       device="cpu", timeout=600)
     finally:
