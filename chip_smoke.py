@@ -16,6 +16,7 @@ paths on one NVIDIA GPU and check them.
     python3 chip_smoke.py --frontends-only [--seed N]
     python3 chip_smoke.py --entry-points-only [--seed N]
     python3 chip_smoke.py --zoo-ranks-only [--seed N]
+    python3 chip_smoke.py --split-views-only [--seed N]
 
 The second form only times the decode kernels of the checkout at ROOT
 (its own ``flexflow_tpu_torch``, built from its own sources) at phase
@@ -37,8 +38,9 @@ kernel of the port lies on its path, so nothing is built).  The tenth
 builds the kernels and runs phase 15 alone, the eleventh phase 16.
 The twelfth runs phase 17 alone (nothing on its path launches a CUDA
 kernel of the port, so nothing is built), the thirteenth builds the
-kernels and runs phase 18 alone, and the fourteenth runs phase 19
-alone (no CUDA kernel of the port on its path: nothing is built).
+kernels and runs phase 18 alone, the fourteenth runs phase 19 alone
+and the fifteenth phase 20 (no CUDA kernel of the port lies on either
+path: nothing is built).
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -488,13 +490,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    counts of rows 1-6 before its legs and returns them after: none
    launches, on any rank or in the one-process side.  Printed as
    ``zoo over ranks path: {...}``;
-20. print one JSON line listing every ported kernel.
+20. the split views over ranks: SV_RANKS ranks spawned once (as phase
+   19's).  (a) ResNeXt-50 32x4d (``build_resnext50`` at its defaults,
+   bench_zoo.py's batch 16, 224x224, 1000 classes, bf16) under its
+   ``compile(strategy=None)`` pick on ``h100_sxm(4)``, as a phase 19
+   leg: SV_STEPS ``fit`` steps of the pick and SV_DP_STEPS of dp 4, the
+   grouped convs' views counted by kind, the step p50s beside the
+   simulator's prediction of each, ``comm_counts()`` calls and bytes
+   per rank per step, peak memory per rank; (b) the same model with
+   every grouped conv at each SV_OUT_VIEWS view (an out-channel split,
+   alone and with a batch split) and every other op at dp 4's,
+   SV_OUT_STEPS steps each; (c) the keras-style MNIST MLP (SV_MLP, the
+   head ``dense(10, activation="softmax")``, batch 64, fp32) under its
+   ``h100_sxm(4)`` pick, which must split the head's out dim, 2 steps;
+   (d) a depthwise conv (SV_DEPTHWISE, fp32) split by out channel
+   against the unsplit op on each rank: output, input gradient and the
+   rank's block of the kernel gradient within SV_DEPTHWISE_TOL.  The
+   first loss of (a) and (b) within ZR_LOSS_TOL (bf16) of one process's
+   first step of the same model from the same seeded weights, (c)'s
+   within SV_MLP_TOL (fp32); every weight a rank holds whole bit-equal
+   across ranks; rows 1-6 launch on no rank and not in the one-process
+   side.  Printed as ``split views path: {...}``;
+21. print one JSON line listing every ported kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The script imports torch and the port, never JAX or the JAX package.
 It needs one card; with four it runs phases 7-10, 12, 13, 14's
-ep-MoE leg, 15's device-loss leg, 16 (c) and 19 one rank per card.
+ep-MoE leg, 15's device-loss leg, 16 (c), 19 and 20 one rank per card.
 """
 
 from __future__ import annotations
@@ -796,12 +819,18 @@ ZR_LEGS = (
 ZR_ATTR = ("resnet50_attribute", "build_resnet", 8, {})
 ZR_ATTR_OPS = ("conv1", "bn1", "pool1")
 ZR_ATTR_PREFIX = "s0b"  # the first stage's blocks
-ZR_STEPS = 4  # one fit call each: the first warms up, the rest are timed
+# one fit call each: the first warms up, the rest are timed (3 to leave
+# phase 20 its time in the script's limit)
+ZR_STEPS = 3
 # dp 4's calls follow the pick's in the same ranks, which warmed the
-# shared card's cuDNN and allocator: p50 of all of them (a slower first
-# call, as NCCL's first collectives of a new model make it, is the one
-# the median drops)
-ZR_DP_STEPS = 3
+# shared card's cuDNN and allocator: p50 of all of them (2; a slower
+# first call, as NCCL's first collectives of a new model make it, then
+# weighs half)
+ZR_DP_STEPS = 2
+# the batches each leg's data holds, whatever the calls: ``zoo_data``
+# draws the labels after every input, so the first batch, on which the
+# first loss is held to one process's, keeps its labels
+ZR_DATA_BATCHES = 4
 ZR_DTYPE = "bfloat16"
 ZR_LOSS_TOL = 5e-3  # bf16, relative: phase 7's SP_LOSS_TOL["bf16"]
 # the halo's contents on the card: the stem's conv and max pool of the
@@ -812,6 +841,22 @@ ZR_HALO_CASES = (
     ("pool1", "max", (112, 112), 64, dict(k=3, s=2, p=1)),
 )
 ZR_HALO_TOL = 1e-5  # the CPU tests' (zr_halo_check says of what)
+# phase 20, the split views over ranks: (a) ResNeXt-50 32x4d under its
+# h100_sxm(4) pick, (b) its grouped convs under out-channel splits, (c)
+# the keras-style MNIST MLP whose pick splits the softmax head, (d) a
+# depthwise conv split by out channel
+SV_RANKS = 4
+SV_RESNEXT = ("resnext50", "build_resnext50", 16, {})  # bench_zoo.py's
+SV_STEPS, SV_DP_STEPS = 4, 3  # (a)'s fit calls of the pick and of dp 4
+SV_OUT_VIEWS = ((1, 1, 1, 4), (2, 1, 1, 2))  # (b): every grouped conv
+SV_OUT_WIDTHS = {}  # (b)'s depth: build_resnext50's (3, 4, 6, 3) blocks
+SV_OUT_STEPS = 2
+SV_MLP = (784, 512, 512, 10)
+SV_MLP_BATCH = 64
+SV_MLP_TOL = 1e-5  # fp32, TF32 off, relative
+# (d): [batch, H, W, channels] through a 3x3 depthwise conv, out split
+SV_DEPTHWISE = ((8, 56, 56, 128), (1, 1, 1, 4))
+SV_DEPTHWISE_TOL = 1e-5  # phase 19 (c)'s |d| / (1 + |want|)
 # phase 17: the frontends; FxBert at build_bert's widths (BERT above)
 FX_BERT = dict(vocab=30522, num_layers=12, hidden=768, num_heads=12,
                ff_dim=3072, seq_len=512)
@@ -7864,6 +7909,18 @@ def pick_kinds(graph, views):
     return kinds, splits
 
 
+def grouped_conv_views(graph, views):
+    """The grouped convs' views counted by (degrees, replica degree)."""
+    out = {}
+    for node in graph.topo_order():
+        if (node.op.op_type.value == "conv2d"
+                and node.op.attrs["groups"] > 1):
+            v = views[node.guid]
+            key = f"{tuple(v.dim_degrees)} r{v.replica_degree}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
 def attribute_halo_bytes(graph, views, n):
     """Per rank, per training step: (the halo slabs' bytes its
     exchanges send, forward and backward, and the bytes the replaced
@@ -7935,8 +7992,10 @@ def fit_steps(model, xs, y, batch):
     return losses, secs
 
 
-def zr_leg(seed, leg, build, batch, widths):
-    """One leg of phase 19 on this rank (module docstring)."""
+def zr_leg(seed, leg, build, batch, widths, steps=ZR_STEPS,
+           dp_steps=ZR_DP_STEPS):
+    """One leg of phase 19 on this rank (module docstring): ``steps``
+    ``fit`` calls of the pick, ``dp_steps`` of dp 4."""
     import torch.distributed as dist
 
     from flexflow_tpu_torch import models
@@ -7956,22 +8015,27 @@ def zr_leg(seed, leg, build, batch, widths):
     compile_s = time.perf_counter() - t0
     graph, views = model.graph, model.strategy
     kinds, splits = pick_kinds(graph, views)
-    xs, y = zoo_data(model, ZR_STEPS * batch, seed + 19)
+    grouped = grouped_conv_views(graph, views)
+    xs, y = zoo_data(model, ZR_DATA_BATCHES * batch, seed + 19)
+    rows = steps * batch
     mesh.reset_comm_counts()
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
-    losses, secs = fit_steps(model, xs, y, batch)
+    losses, secs = fit_steps(model, [x[:rows] for x in xs], y[:rows], batch)
     counts = mesh.comm_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     out = {"digest": stable_graph_digest(graph), "kinds": kinds,
-           "splits": splits, "compile_s": compile_s,
+           "splits": splits, "grouped_conv_views": grouped,
+           "compile_s": compile_s,
            "search_s": (model.search_stats or {}).get("search_seconds"),
            "losses": losses, "step_s": secs,
            "step_ms": float(np.median(secs[1:])) * 1e3,
-           "bytes_per_step": {k: v["bytes"] / ZR_STEPS
+           "bytes_per_step": {k: v["bytes"] / steps
                               for k, v in counts.items() if v["bytes"]},
+           "calls_per_step": {k: v["calls"] / steps
+                              for k, v in counts.items() if v["calls"]},
            "host_bytes_per_step": sum(v["host_bytes"] for v in
-                                      counts.values()) / ZR_STEPS,
+                                      counts.values()) / steps,
            "halo_calls": counts["halo_exchange"]["calls"],
            "peak_memory_gb": peak, "weights": weight_digests(model)}
     dp_views = data_parallel_strategy(graph, n)
@@ -7989,7 +8053,7 @@ def zr_leg(seed, leg, build, batch, widths):
         free_models()
         dp = zr_model(build, batch, seed, widths, n,
                       lambda m: data_parallel_strategy(m.graph, n))
-        rows = ZR_DP_STEPS * batch
+        rows = dp_steps * batch
         out["dp_step_s"] = fit_steps(dp, [x[:rows] for x in xs], y[:rows],
                                      batch)[1]
         out["dp_step_ms"] = float(np.median(out["dp_step_s"])) * 1e3
@@ -8117,7 +8181,7 @@ def zr_one_process(seed):
     for leg, build, batch, widths in ZR_LEGS + (ZR_ATTR,):
         free_models()
         m = zr_model(build, batch, seed, widths, 1, {})
-        xs, y = zoo_data(m, ZR_STEPS * batch, seed + 19)
+        xs, y = zoo_data(m, ZR_DATA_BATCHES * batch, seed + 19)
         ins, lab = device_batches(m, [x[:batch] for x in xs], y[:batch],
                                   batch)[0]
         *_, loss, _ = m.compiled.train_step(m.params, m.opt_state,
@@ -8235,6 +8299,350 @@ def phase_zoo_ranks(seed, name):
     return report
 
 
+def out_channel_views(model, n, view):
+    """Phase 20 (b)'s strategy: every grouped conv at ``view``, every
+    other op at data parallelism's view."""
+    from flexflow_tpu_torch.compiler.lowering import data_parallel_strategy
+    from flexflow_tpu_torch.core.machine import MachineView
+
+    views = data_parallel_strategy(model.graph, n)
+    for node in model.graph.topo_order():
+        if (node.op.op_type.value == "conv2d"
+                and node.op.attrs["groups"] > 1):
+            views[node.guid] = MachineView(view)
+    return views
+
+
+def sv_out_leg(seed, view):
+    """Phase 20 (b) on this rank: ResNeXt-50 at SV_OUT_WIDTHS with every
+    grouped conv at ``view``, SV_OUT_STEPS ``fit`` steps on phase 20
+    (a)'s first batches."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel import mesh
+
+    n = dist.get_world_size()
+    _, build, batch, _ = SV_RESNEXT
+    free_models()
+    dist.barrier()
+    model = zr_model(build, batch, seed, SV_OUT_WIDTHS, n,
+                     lambda m: out_channel_views(m, n, view))
+    xs, y = zoo_data(model, ZR_DATA_BATCHES * batch, seed + 19)
+    rows = SV_OUT_STEPS * batch
+    mesh.reset_comm_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    losses, secs = fit_steps(model, [x[:rows] for x in xs], y[:rows], batch)
+    counts = mesh.comm_counts()
+    out = {"grouped_conv_views": grouped_conv_views(model.graph,
+                                                    model.strategy),
+           "losses": losses, "step_s": secs,
+           "bytes_per_step": {k: v["bytes"] / SV_OUT_STEPS
+                              for k, v in counts.items() if v["bytes"]},
+           "calls_per_step": {k: v["calls"] / SV_OUT_STEPS
+                              for k, v in counts.items() if v["calls"]},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "weights": weight_digests(model)}
+    del model
+    free_models()
+    return out
+
+
+def sv_mlp(seed, n):
+    """The keras-style MNIST MLP (SV_MLP, the head a softmax dense), fp32,
+    SGD, compiled for ``n`` ranks under ``compile(strategy=None)`` on
+    ``h100_sxm(SV_RANKS)`` (one process: unsplit), and its data: 2
+    batches of normal features and class ids."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.core.machine import MachineSpec
+
+    d_in, h1, h2, classes = SV_MLP
+    b = SV_MLP_BATCH
+    m = FFModel(FFConfig(batch_size=b, compute_dtype="float32", seed=seed,
+                         num_devices=n,
+                         machine_spec=MachineSpec.h100_sxm(SV_RANKS),
+                         enable_pipeline_search=False,
+                         enable_placement_search=False))
+    x = m.create_tensor([b, d_in], name="x")
+    t = m.dense(x, h1, activation="relu", name="fc1")
+    t = m.dense(t, h2, activation="relu", name="fc2")
+    m.dense(t, classes, activation="softmax", name="head")
+    m.compile(optimizer=SGDOptimizer(lr=ZOO_LR),
+              strategy=None if n > 1 else {},
+              loss_type="sparse_categorical_crossentropy", metrics=[])
+    rng = np.random.default_rng(seed + 20)
+    return m, (rng.normal(size=(2 * b, d_in)).astype(np.float32),
+               rng.integers(0, classes, 2 * b).astype(np.int32))
+
+
+def sv_mlp_leg(seed):
+    """Phase 20 (c) on this rank: the MLP's pick and its 2 ``fit``
+    steps."""
+    import torch.distributed as dist
+
+    free_models()
+    m, (x, y) = sv_mlp(seed, dist.get_world_size())
+    views = {nd.op.name: [list(m.strategy[nd.guid].dim_degrees),
+                          m.strategy[nd.guid].replica_degree]
+             for nd in m.graph.topo_order()}
+    losses, secs = fit_steps(m, [x], y, SV_MLP_BATCH)
+    del m
+    return {"views": views, "losses": losses, "step_s": secs}
+
+
+def sv_depthwise_check(seed):
+    """Phase 20 (d) on this rank: SV_DEPTHWISE's 3x3 depthwise conv alone
+    under its out-channel view, fp32, from seeded weights, input and
+    cotangent, against the unsplit op on the same tensors (plain
+    PyTorch, one process's computation): the output and the input's
+    gradient as max |got - want| / (1 + |want|), this rank's block of
+    the kernel's gradient (a sum over batch x output cells) as max
+    |got - want| / max |want|."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.core.machine import MachineView
+    from flexflow_tpu_torch.interop import params_from_numpy
+
+    (b, h, w, c), view = SV_DEPTHWISE
+    n = dist.get_world_size()
+
+    def err(got, want):
+        return float(((got - want).abs() / (1 + want.abs())).max())
+
+    m = FFModel(FFConfig(batch_size=b, num_devices=n,
+                         compute_dtype="float32", seed=seed))
+    x = m.create_tensor([b, h, w, c], name="x")
+    m.conv2d(x, c, 3, 3, 1, 1, 1, 1, groups=c, name="dw")
+    m.compile(strategy={
+        nd.guid: (MachineView(view) if nd.op.name == "dw"
+                  else MachineView.trivial(nd.op.output_shapes[0].ndim))
+        for nd in m.graph.topo_order()},
+        loss_type="mean_squared_error", metrics=[])
+    rng = np.random.default_rng(seed + 20)
+    xn = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    whole = {"dw": {spec.name: (rng.normal(size=spec.shape) * 0.1).astype(
+                        np.float32)
+                    for spec in m.node_by_name("dw").op._weight_specs}}
+    params = params_from_numpy(whole, "cuda", m.compiled)
+    for ws in params.values():
+        for t in ws.values():
+            t.requires_grad_()
+    xt = torch.from_numpy(xn).cuda().requires_grad_()
+    y, _ = m.compiled.apply(params, m.state, [xt], train=True)
+    got = m.compiled.gather_output(y.detach())
+    cot = torch.from_numpy(rng.normal(size=tuple(got.shape)).astype(
+        np.float32)).cuda()
+    y.backward(cot[tuple(m.compiled._sink_pl.local_slices(
+        cot.shape, m.compiled.mesh))])
+    xr = torch.from_numpy(xn).cuda().requires_grad_()
+    kr = torch.from_numpy(whole["dw"]["kernel"]).cuda().requires_grad_()
+    want = F.conv2d(xr.permute(0, 3, 1, 2), kr.permute(3, 2, 0, 1),
+                    torch.from_numpy(whole["dw"]["bias"]).cuda(),
+                    padding=1, groups=c).permute(0, 2, 3, 1)
+    want.backward(cot)
+    mine = params["dw"]["kernel"]
+    lo = mine.shape[-1] * m.compiled.mesh.index(  # the output is dw's
+        m.compiled._sink_pl.dims[3])
+    kg = kr.grad[..., lo:lo + mine.shape[-1]]
+    out = {"output_err": err(got, want.detach()),
+           "input_grad_err": err(xt.grad, xr.grad),
+           "kernel_grad_err": float((mine.grad - kg).abs().max()
+                                    / kg.abs().max()),
+           "kernel_block": list(mine.shape)}
+    del m, params, xt, xr, y, want, got, cot
+    free_models()
+    return out
+
+
+def _split_views_rank(rank, seed):
+    """One rank of phase 20: legs (a)-(d) in turn, with the launch counts
+    of rows 1-6 zeroed before and read after."""
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+    from flexflow_tpu_torch.runtime.distributed import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"transport": transport(), "wall_s": {}}
+    for k in COUNTED:
+        k.launches = 0
+    legs = (("a", lambda: zr_leg(seed, *SV_RESNEXT, steps=SV_STEPS,
+                                 dp_steps=SV_DP_STEPS)),
+            ("b", lambda: {str(v): sv_out_leg(seed, v)
+                           for v in SV_OUT_VIEWS}),
+            ("c", lambda: sv_mlp_leg(seed)),
+            ("d", lambda: sv_depthwise_check(seed)))
+    for key, run in legs:
+        t0 = time.perf_counter()
+        out[key] = run()
+        out["wall_s"][key] = time.perf_counter() - t0
+    out["launched"] = {k.__name__: k.launches for k in COUNTED}
+    return out
+
+
+def sv_one_process(seed):
+    """Phase 20's one-process side: ResNeXt-50's first-step loss (at (b)'s
+    widths too, where they differ) and the MLP's, each model alone from
+    the same seeded weights and first batch."""
+    one = {}
+    _, build, batch, widths = SV_RESNEXT
+    todo = [("a", widths)] + ([("b", SV_OUT_WIDTHS)]
+                              if SV_OUT_WIDTHS != widths else [])
+    for key, w in todo:
+        free_models()
+        m = zr_model(build, batch, seed, w, 1, {})
+        xs, y = zoo_data(m, ZR_DATA_BATCHES * batch, seed + 19)
+        ins, lab = device_batches(m, [x[:batch] for x in xs], y[:batch],
+                                  batch)[0]
+        *_, loss, _ = m.compiled.train_step(m.params, m.opt_state,
+                                            m.state, ins, lab)
+        one[key] = float(loss)
+        del m, ins, lab, xs, y
+    one.setdefault("b", one["a"])
+    free_models()
+    m, (x, y) = sv_mlp(seed, 1)
+    ins, lab = device_batches(m, [x[:SV_MLP_BATCH]], y[:SV_MLP_BATCH],
+                              SV_MLP_BATCH)[0]
+    *_, loss, _ = m.compiled.train_step(m.params, m.opt_state, m.state,
+                                        ins, lab)
+    one["c"] = float(loss)
+    del m, ins, lab
+    free_models()
+    return one
+
+
+def phase_split_views(seed, name):
+    """Phase 20 (module docstring): legs (a)-(d) over SV_RANKS ranks
+    spawned once, and meanwhile one process's side in this process."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flexflow_tpu_torch.compiler.graphs import COUNTED
+    from flexflow_tpu_torch.runtime.distributed import spawn
+
+    t_phase = time.perf_counter()
+    for k in COUNTED:  # this process's side: one process's legs
+        k.launches = 0
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(spawn, _split_views_rank, SV_RANKS, (seed,),
+                          init_method=f"tcp://localhost:{free_port()}",
+                          device="cuda", timeout=SP_TIMEOUT_S)
+        one = sv_one_process(seed)
+        one_wall = time.perf_counter() - t_phase
+        ranks = job.result()  # re-raises a rank's failure
+    r0 = ranks[0]
+    report = {"card": CARD_LINE[0], "ranks": SV_RANKS,
+              "transport": r0["transport"], "one_process_wall_s": one_wall,
+              "legs_wall_s": r0["wall_s"]}
+
+    def same_on_every_rank(leg, got, others, what):
+        for r in others:
+            check(r["losses"] == got["losses"],
+                  f"phase 20 {leg}: the ranks' losses differ")
+            for key in set(r["weights"]) & set(got["weights"]):
+                check(r["weights"][key] == got["weights"][key],
+                      f"phase 20 {leg}: the whole weight {key} differs "
+                      f"between ranks ({what})")
+
+    def first_loss(leg, losses, want, tol):
+        check(bool(np.isfinite(losses).all()),
+              f"phase 20 {leg}: fit losses {losses}")
+        rel = abs(losses[0] - want) / abs(want)
+        check(rel <= tol, f"phase 20 {leg}: the first loss {losses[0]} is "
+              f"{rel:.3e} from one process's {want}")
+        return rel
+
+    # (a) ResNeXt-50 under its pick, and dp 4
+    a = r0["a"]
+    check(len(a["losses"]) == SV_STEPS, f"phase 20 (a): {a['losses']}")
+    for r in ranks[1:]:
+        check(r["a"]["digest"] == a["digest"]
+              and r["a"]["grouped_conv_views"] == a["grouped_conv_views"],
+              "phase 20 (a): the ranks lowered different picks")
+    same_on_every_rank("(a)", a, [r["a"] for r in ranks[1:]], "the pick")
+    report["a_resnext50"] = {
+        "build": SV_RESNEXT[1], "batch": SV_RESNEXT[2],
+        "grouped_conv_views": a["grouped_conv_views"],
+        "views": a["kinds"], "non_batch_splits": a["splits"],
+        "pick_is_data_parallel": a["pick_is_data_parallel"],
+        "losses": a["losses"], "one_process_first_loss": one["a"],
+        "first_loss_rel": first_loss("(a)", a["losses"], one["a"],
+                                     ZR_LOSS_TOL),
+        "whole_weights_bit_equal": len(a["weights"]),
+        "step_p50_ms": a["step_ms"], "dp_step_p50_ms": a["dp_step_ms"],
+        "predicted_ms": a["predicted_ms"],
+        "dp_predicted_ms": a["dp_predicted_ms"],
+        "calls_per_rank_per_step": [r["a"]["calls_per_step"]
+                                    for r in ranks],
+        "bytes_per_rank_per_step": [r["a"]["bytes_per_step"]
+                                    for r in ranks],
+        "host_bytes_per_rank_per_step": [r["a"]["host_bytes_per_step"]
+                                         for r in ranks],
+        "peak_memory_gb_per_rank": [r["a"]["peak_memory_gb"]
+                                    for r in ranks],
+        "search_s": a["search_s"], "compile_s": a["compile_s"],
+        "step_s": a["step_s"], "dp_step_s": a["dp_step_s"]}
+    # (b) every grouped conv under each out-channel view
+    report["b_out_channel"] = {}
+    for view in SV_OUT_VIEWS:
+        b = r0["b"][str(view)]
+        views = b["grouped_conv_views"]
+        check(list(views) == [f"{view} r1"],
+              f"phase 20 (b) {view}: grouped convs at {views}")
+        same_on_every_rank(f"(b) {view}", b,
+                           [r["b"][str(view)] for r in ranks[1:]], view)
+        report["b_out_channel"][str(view)] = {
+            "grouped_convs": views[f"{view} r1"], "losses": b["losses"],
+            "one_process_first_loss": one["b"],
+            "first_loss_rel": first_loss(f"(b) {view}", b["losses"],
+                                         one["b"], ZR_LOSS_TOL),
+            "whole_weights_bit_equal": len(b["weights"]),
+            "step_s": b["step_s"],
+            "calls_per_rank_per_step": [r["b"][str(view)]["calls_per_step"]
+                                        for r in ranks],
+            "bytes_per_rank_per_step": [r["b"][str(view)]["bytes_per_step"]
+                                        for r in ranks],
+            "peak_memory_gb_per_rank": [r["b"][str(view)]["peak_memory_gb"]
+                                        for r in ranks]}
+    # (c) the MLP's pick splits the softmax head
+    c = r0["c"]
+    head = c["views"]["head"]
+    check(head[0][-1] > 1, f"phase 20 (c): the pick keeps the softmax "
+          f"head's out dim whole: {c['views']}")
+    for r in ranks[1:]:
+        check(r["c"]["views"] == c["views"] and r["c"]["losses"]
+              == c["losses"], "phase 20 (c): the ranks differ")
+    report["c_mlp"] = {"views": c["views"], "losses": c["losses"],
+                       "one_process_first_loss": one["c"],
+                       "first_loss_rel": first_loss("(c)", c["losses"],
+                                                    one["c"], SV_MLP_TOL),
+                       "step_s": c["step_s"]}
+    # (d) the depthwise conv's contents
+    rows = [r["d"] for r in ranks]
+    for rank, row in enumerate(rows):
+        for key, e in row.items():
+            if key.endswith("_err"):
+                check(e <= SV_DEPTHWISE_TOL, f"phase 20 (d) rank {rank}: "
+                      f"{key} {e:.3e} > {SV_DEPTHWISE_TOL}")
+    report["d_depthwise"] = {
+        "shape": list(SV_DEPTHWISE[0]), "view": list(SV_DEPTHWISE[1]),
+        "kernel_block": rows[0]["kernel_block"],
+        **{k: max(row[k] for row in rows) for k in rows[0]
+           if k.endswith("_err")}}
+    for rank, r in enumerate(ranks):
+        check(not any(r["launched"].values()), f"phase 20 rank {rank} "
+              f"launched rows 1-6: {r['launched']} (no TPU kernel lies on "
+              f"its path)")
+    one_launched = {k.__name__: k.launches for k in COUNTED}
+    check(not any(one_launched.values()), f"phase 20's one-process side "
+          f"launched rows 1-6: {one_launched}")
+    report["kernel_rows_launched_per_rank"] = [r["launched"] for r in ranks]
+    report["kernel_rows_launched_one_process"] = one_launched
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    print("split views path: " + json.dumps(report))
+    return report
+
+
 def main(argv=None) -> int:
     t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -8274,6 +8682,8 @@ def main(argv=None) -> int:
                     help="only run phase 18, the repo's entry points")
     ap.add_argument("--zoo-ranks-only", action="store_true",
                     help="only run phase 19, the zoo over ranks")
+    ap.add_argument("--split-views-only", action="store_true",
+                    help="only run phase 20, the split views over ranks")
     ap.add_argument("--calibration-out", metavar="DIR", default=None,
                     help="keep each phase 9 run's calibration table in "
                          "DIR as calibration_<run>.json")
@@ -8315,6 +8725,10 @@ def main(argv=None) -> int:
 
     if args.zoo_ranks_only:  # no CUDA kernel of the port on its path
         phase_zoo_ranks(args.seed, phase_device())
+        return 0
+
+    if args.split_views_only:  # no CUDA kernel of the port on its path
+        phase_split_views(args.seed, phase_device())
         return 0
 
     if args.frontends_only:  # no CUDA kernel of the port on its path
@@ -8386,6 +8800,7 @@ def main(argv=None) -> int:
     frontends = phase_frontends(args.seed, name, bert["step_p50_ms"])
     entry = phase_entry_points(args.seed, name)
     phase_zoo_ranks(args.seed, name)
+    split_views = phase_split_views(args.seed, name)
 
     def entry_launches(kernel):
         """``kernel``'s launches in phase 18: leg (a)'s and (b)'s fit,
@@ -8395,6 +8810,10 @@ def main(argv=None) -> int:
                     "kernel_rows_launched_fit"][kernel],
                 "mfu_variants_flash": entry["d_tools"][
                     "mfu_variants_flash"]["kernel_rows_launched"][kernel]}
+    def split_launches(kernel):
+        """``kernel``'s launches on each rank of phase 20."""
+        return [r[kernel] for r in
+                split_views["kernel_rows_launched_per_rank"]]
     fp32, int8 = rpa["fp32"], rpa["int8"]
     kernels = [{
         "name": "ragged_paged_attention",
@@ -8408,6 +8827,8 @@ def main(argv=None) -> int:
         "launches_frontends": frontends["kernel_rows_launched"][
             "ragged_paged_attention"],
         "launches_entry_points": entry_launches("ragged_paged_attention"),
+        "launches_split_views_per_rank": split_launches(
+            "ragged_paged_attention"),
         "launches_serving_per_rank": {
             leg: ls["ragged_paged_attention"]
             for leg, ls in serve_launches.items()},
@@ -8428,6 +8849,8 @@ def main(argv=None) -> int:
         "launches_frontends": frontends["kernel_rows_launched"][
             "ragged_paged_attention_quant"],
         "launches_entry_points": entry_launches(
+            "ragged_paged_attention_quant"),
+        "launches_split_views_per_rank": split_launches(
             "ragged_paged_attention_quant"),
         "launches_serving_per_rank": {
             leg: ls["ragged_paged_attention_quant"]
@@ -8478,6 +8901,7 @@ def main(argv=None) -> int:
                 r["launches"][wrapper] for r in obs["c_sync"]["per_rank"]],
             "launches_frontends": frontends["kernel_rows_launched"][wrapper],
             "launches_entry_points": entry_launches(wrapper),
+            "launches_split_views_per_rank": split_launches(wrapper),
             "max_abs_err": bf16["max_abs_err"],
             "ms": bf16["ms"],
             "plain_ms": bf16["plain_ms"],
@@ -8505,6 +8929,8 @@ def main(argv=None) -> int:
         "launches_frontends": frontends["kernel_rows_launched"][
             "flash_forward_partial"],
         "launches_entry_points": entry_launches("flash_forward_partial"),
+        "launches_split_views_per_rank": split_launches(
+            "flash_forward_partial"),
         "max_abs_err": max(r["max_abs_err"] for k, r in partial.items()
                            if k.startswith("bf16")),
         "ms": main_row["ms"],

@@ -692,6 +692,8 @@ class FFModel:
             strategy, pipeline = self._choose_strategy(comp_mode, pipeline)
         else:
             pipeline = self._adopt_meta(strategy, pipeline)
+            if pipeline is None:
+                self._refuse_unlowerable(strategy, mesh)
         from flexflow_tpu_torch.compiler.lowering import strategy_views
 
         self.strategy = strategy_views(strategy)  # its __meta__ adopted
@@ -715,6 +717,44 @@ class FFModel:
         if pipeline is None and self.pipeline_proposal is None:
             self._predict(self.graph, self.strategy)
         self._export_graphs()
+
+    @staticmethod
+    def _unlowerable(finding) -> bool:
+        """A ``lint_strategy`` finding of a view the flat lowering cannot
+        place: a degree that does not divide its dim (SHD102), parts
+        that do not divide the devices (SHD103), a replica degree past
+        the op's contraction (SHD106; a split of a dim outside the op's
+        splittable set, also SHD106, lowers: a sequence split of the
+        inputs), degrees that do not factor onto the mesh (SHD108)."""
+        return (finding.code in ("SHD102", "SHD103", "SHD108")
+                or (finding.code == "SHD106"
+                    and "contraction capacity" in finding.message))
+
+    def _refuse_unlowerable(self, strategy, mesh) -> None:
+        """Raise ``AnalysisError`` with ``lint_strategy``'s findings when a
+        given flat strategy holds a view the lowering cannot place,
+        before any weight is placed or collective run (the reference
+        refuses such a view as it lowers; a searched, imported or
+        trivial view never is one).  A ``num_devices`` other than the
+        job's is the lowering's to refuse."""
+        from flexflow_tpu_torch.analysis import (
+            AnalysisError,
+            errors_only,
+            lint_strategy,
+        )
+        from flexflow_tpu_torch.compiler.lowering import strategy_views
+        from flexflow_tpu_torch.runtime import distributed
+
+        if mesh is None and self.config.num_devices != (
+                distributed.world_size()):
+            return
+        bad = [f for f in errors_only(lint_strategy(
+            self.graph, strategy_views(strategy), self.config.num_devices))
+            if self._unlowerable(f)]
+        if bad:
+            raise AnalysisError("the given strategy holds views the "
+                                "lowering cannot place on this "
+                                "graph/mesh", bad)
 
     def _export_graphs(self) -> None:
         """``config.export_strategy_computation_graph_file`` (the graph

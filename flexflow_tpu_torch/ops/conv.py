@@ -40,7 +40,14 @@ W then on the H-extended window, which carries the corners.  The
 backward returns each halo row's gradient to its owner.  A grouped
 conv under an in-channel split gathers the channels and the kernel
 whole (a group's channels do not follow the split): one rank of the
-replica axes computes the product and the others add zeros.
+replica axes computes the product and the others add zeros.  A grouped
+conv under an out-channel split computes its block of the out channels
+from the input channels of the groups that block belongs to
+(``_group_pieces``): the block may span several whole groups (a
+depthwise conv's block is its own input channels) or lie inside one
+(more ranks than groups).  The input's gradient is then a partial sum
+over the out-channel axes, which the lowering sums as it does for an
+ungrouped conv.
 """
 
 from __future__ import annotations
@@ -256,19 +263,55 @@ class Conv2DOp(Operator):
 
     def _conv(self, ctx, x, kernel, padding=None) -> torch.Tensor:
         """The product, NHWC in, NHWC out, rounded to the compute dtype
-        and returned in fp32 (``padding``: the attrs' by default)."""
+        and returned in fp32 (``padding``: the attrs' by default).
+        ``x`` holds the input channels whole when the conv is grouped;
+        ``kernel`` this rank's block of the out channels, which
+        ``_group_pieces`` pairs with its groups' input channels."""
         a = self.attrs
         cd = ctx.compute_dtype
         if padding is None:
             padding = (a["padding_h"], a["padding_w"])
-        # HWIO -> OIHW in channels_last memory (OHWI), cast, one copy
-        k = kernel.permute(3, 2, 0, 1).to(dtype=cd,
+
+        def conv(xs, ks, groups):
+            # HWIO -> OIHW in channels_last memory (OHWI), cast, one copy
+            k = ks.permute(3, 2, 0, 1).to(dtype=cd,
                                           memory_format=torch.channels_last)
-        y = F.conv2d(x.to(cd).permute(0, 3, 1, 2), k,
-                     stride=(a["stride_h"], a["stride_w"]),
-                     padding=padding,
-                     groups=x.shape[-1] // kernel.shape[2])
-        return y.permute(0, 2, 3, 1).float()
+            y = F.conv2d(xs.to(cd).permute(0, 3, 1, 2), k,
+                         stride=(a["stride_h"], a["stride_w"]),
+                         padding=padding, groups=groups)
+            return y.permute(0, 2, 3, 1).float()
+
+        if a["groups"] == 1:
+            return conv(x, kernel, 1)
+        ys = [conv(x[..., i0:i1], kernel[..., c0:c1], groups)
+              for i0, i1, c0, c1, groups in self._group_pieces(ctx, kernel)]
+        return ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+
+    def _group_pieces(self, ctx, kernel):
+        """This rank's block [o0, o1) of the out channels (the whole on
+        one rank) as runs of one ``F.conv2d`` each: (input channels
+        [i0, i1), the block's channels [c0, c1), groups).  A block of
+        whole groups is one run over those groups' input channels; a
+        block that starts or ends inside a group (more ranks than
+        groups, or groups that do not divide evenly) is a run per group
+        it touches, each an ungrouped conv over that group's input
+        channels."""
+        g, cout = self.attrs["groups"], self.attrs["out_channels"]
+        per_out, per_in, b = cout // g, kernel.shape[2], kernel.shape[3]
+        o0 = 0
+        if ctx.mesh is not None and ctx.out_placements:
+            o0 = ctx.mesh.index(ctx.out_placements[0].dims[3]) * b
+        if o0 % per_out == 0 and b % per_out == 0:
+            g0, ng = o0 // per_out, b // per_out
+            return [(g0 * per_in, (g0 + ng) * per_in, 0, b, ng)]
+        pieces, c = [], o0
+        while c < o0 + b:
+            grp = c // per_out
+            end = min((grp + 1) * per_out, o0 + b)
+            pieces.append((grp * per_in, (grp + 1) * per_in, c - o0,
+                           end - o0, 1))
+            c = end
+        return pieces
 
     def _finish(self, ctx, y, weights, dtype) -> torch.Tensor:
         """Bias (counted once over partial addends), the op's own sum

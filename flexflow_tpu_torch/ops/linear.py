@@ -15,10 +15,12 @@ added on one rank of them only (``LoweringContext.partial_leader``), so
 the sum counts it once, and so does its gradient, which the weight
 sync sums over those axes.  An activation cannot act on addends: with
 one, the op sums its output itself (``reduce_partial``) after the bias
-and before the activation."""
+and before the activation.  A softmax under an out-dim split takes its
+row whole (``_row_softmax``), as the reference's GSPMD does."""
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Sequence
 
 import torch
@@ -102,6 +104,19 @@ _ACTIVATIONS = {  # the reference's table (linear.py:40-47), on fp32
 }
 
 
+def _row_softmax(ctx, y):
+    """The softmax of rows whose out dim is split over ranks: the row
+    gathered whole, its softmax, this rank's block of it (the
+    gradients: the blocks' gathered whole, the whole row's cut back to
+    this rank's block), so every rank computes one process's bits."""
+    from flexflow_tpu_torch.parallel.mesh import reshard
+
+    split = ctx.out_placements[0]
+    whole = replace(split, dims=split.dims[:-1] + ((),))
+    row = reshard(y, split, whole, ctx.mesh)
+    return reshard(torch.softmax(row, dim=-1), whole, split, ctx.mesh)
+
+
 @register_op
 class LinearOp(Operator):
     op_type = OperatorType.LINEAR
@@ -148,10 +163,9 @@ class LinearOp(Operator):
             y = ctx.reduce_partial(y)
         if (self.attrs["activation"] == "softmax" and ctx.out_placements
                 and ctx.out_placements[0].dims[-1]):
-            raise NotImplementedError(
-                f"{self.name}: a softmax over an out dim split across ranks "
-                f"needs the whole row; keep the out dim whole")
-        y = _ACTIVATIONS[self.attrs["activation"]](y)
+            y = _row_softmax(ctx, y)
+        else:
+            y = _ACTIVATIONS[self.attrs["activation"]](y)
         return [y.to(inputs[0].dtype)]
 
     def propagate(self, mv: MachineView) -> OpSharding:

@@ -9,9 +9,11 @@ draw.
    weights.  The masks are the reference's own: the test draws them in
    JAX with the reference's key chain (``jax.random.key(step)``, then
    ``op_rng``'s ``fold_in(key, hash(op_name) & 0x7FFFFFFF)``, then
-   ``bernoulli``, in this process, whose ``hash`` the reference uses)
-   and hands them to the port through ``LoweringContext.mask_source``.
-   Losses and weights within 1e-5 (fp32).
+   ``bernoulli``) and hands them to the port through
+   ``LoweringContext.mask_source``; the parity tests pin the salted
+   ``hash`` to crc32 on both sides (``pin_reference_masks``), so every
+   interpreter trains on the same masks.  Losses and weights within
+   1e-5 (fp32).
 3. The port's draw (ops/base.py): the kept fraction of 1e6 draws is
    within 4 sigma of ``keep``; two steps, and two ops, draw different
    masks; one (seed, op) draws the same mask twice; a rank's block of a
@@ -27,6 +29,7 @@ import hashlib
 import os
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import jax
@@ -36,6 +39,7 @@ import pytest
 import torch
 
 import flexflow_tpu as ff
+from flexflow_tpu.ops import base as jax_base
 from flexflow_tpu.core.machine import MachineView as JView
 from flexflow_tpu.kernels.flash_attention import (
     _attn_core_dropout as jax_attn_core_dropout,
@@ -61,8 +65,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def salted_fold(op_name: str) -> int:
+    """What the reference's ``op_rng`` folds into the step key: this
+    interpreter's salted ``hash`` of the op's name."""
+    return hash(op_name) & 0x7FFFFFFF
+
+
+def pinned_fold(op_name: str) -> int:
+    """The same key, pinned: crc32 of the name, as the port's
+    ``op_key``, the same in every interpreter."""
+    return zlib.crc32(op_name.encode()) & 0x7FFFFFFF
+
+
 def reference_mask(seed: int, op_name: str, shape, keep: float,
-                   split: int = 1, part: int = 0) -> torch.Tensor:
+                   split: int = 1, part: int = 0,
+                   fold=salted_fold) -> torch.Tensor:
     """The reference's mask for ``op_name`` at step key
     ``jax.random.key(seed)`` (part ``part`` of ``split`` under gradient
     accumulation, whose microbatches take ``jax.random.split``'s
@@ -70,18 +87,38 @@ def reference_mask(seed: int, op_name: str, shape, keep: float,
     key = jax.random.key(seed)
     if split > 1:
         key = jax.random.split(key, split)[part]
-    key = jax.random.fold_in(key, hash(op_name) & 0x7FFFFFFF)
+    key = jax.random.fold_in(key, fold(op_name))
     return torch.from_numpy(np.array(jax.random.bernoulli(key, keep,
                                                           tuple(shape))))
 
 
-def reference_masks(ga: int = 1):
+def reference_masks(ga: int = 1, fold=salted_fold):
     """A ``LoweringContext.mask_source`` that hands the port the
     reference's masks (module docstring)."""
     def source(ctx, op_name, shape, keep):
         part = ctx.row_base // shape[0] if ga > 1 else 0
-        return reference_mask(int(ctx.seed), op_name, shape, keep, ga, part)
+        return reference_mask(int(ctx.seed), op_name, shape, keep, ga, part,
+                              fold)
     return source
+
+
+def pin_reference_masks(monkeypatch):
+    """Key the reference's draws by ``pinned_fold`` for this test (its
+    ``op_rng`` patched) and hand the port the same masks.  With the
+    salted key each interpreter trains on other masks, and a parity
+    test's result then depends on the interpreter: tests/test_torch_zoo's
+    AlexNet, 3 SGD steps at fp32 1e-5, was off by up to 7.5x its
+    tolerance under 4 of 12 ``PYTHONHASHSEED`` values (a ReLU or pool
+    flip in one step, the libraries' summation orders), alone and in
+    the whole suite alike."""
+    def op_rng(self, op_name):
+        if self.rng is None:
+            return jax.random.key(0)
+        return jax.random.fold_in(self.rng, pinned_fold(op_name))
+
+    monkeypatch.setattr(jax_base.LoweringContext, "op_rng", op_rng)
+    monkeypatch.setattr(LoweringContext, "mask_source",
+                        reference_masks(fold=pinned_fold))
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +177,7 @@ def test_mha_and_dropout_op_train_like_the_reference(monkeypatch):
     pm.params = params_from_numpy({op: {w: np.array(v) for w, v in ws.items()}
                                    for op, ws in jm.params.items()})
     pm.opt_state = pm.optimizer.init_state(pm.params)
-    monkeypatch.setattr(LoweringContext, "mask_source", reference_masks())
+    pin_reference_masks(monkeypatch)
     rng = np.random.default_rng(1)
     for step in (1, 2, 3):
         x = rng.normal(size=(4, 8, 16)).astype(np.float32)

@@ -220,6 +220,7 @@ def _fleet_rank(rank):
     from test_torch_halo import halo_rank_legs
     from test_torch_seq_split import seq_split_rank_legs
     from test_torch_zoo import zoo_rank_legs
+    from test_torch_view_sweep import pinned_rank_legs, sweep_rank_legs
     from test_torch_zoo_ranks import searched_zoo_rank_legs
 
     return {"tokens": out, "assignments": dict(fl.assignments),
@@ -237,7 +238,10 @@ def _fleet_rank(rank):
             # (tests/test_torch_seq_split)
             "seq_split": seq_split_rank_legs(),
             # and the zoo's searched picks (tests/test_torch_zoo_ranks)
-            "searched_zoo": searched_zoo_rank_legs()}
+            "searched_zoo": searched_zoo_rank_legs(),
+            # and every op's candidate views, and Queue C's pinned views
+            # (tests/test_torch_view_sweep)
+            "sweep": sweep_rank_legs(), "pinned": pinned_rank_legs()}
 
 
 def _one_process_fleet():

@@ -11,7 +11,9 @@ shape ops and the batched embedding, against the JAX package's.
   tiny configs (tests/test_torch_moe.py has the MoE), the port holding
   the reference's weights and state: 3 SGD steps (``train_step``, the
   step ``fit`` runs; AlexNet's dropout masks handed in from the
-  reference, tests/test_torch_dropout.py), each step's loss within 1e-5
+  reference, keyed alike in every interpreter,
+  tests/test_torch_dropout.py ``pin_reference_masks``), each step's
+  loss within 1e-5
   relative and the weights and batch-norm statistics after them within
   1e-5; the ResNet's steps each start from the reference's weights, and
   its updates are held to a measured bound (``RESNET_UPDATE_TOL`` says
@@ -90,7 +92,7 @@ from flexflow_tpu_torch.search import driver
 from flexflow_tpu_torch.search.cost_cache import stable_graph_digest
 from flexflow_tpu_torch.search.simulator import Simulator
 
-from test_torch_dropout import reference_masks
+from test_torch_dropout import pin_reference_masks
 from test_torch_fleet import fleet_world  # noqa: F401  (the shared world)
 
 TOL = 1e-6
@@ -334,7 +336,7 @@ def test_builder_trains_as_the_reference(name, monkeypatch):
             pm.set_state_var(k, np.asarray(v))
 
     take_reference()
-    monkeypatch.setattr(LoweringContext, "mask_source", reference_masks())
+    pin_reference_masks(monkeypatch)  # the same masks in every process
     rng = np.random.default_rng(DATA_SEED)
     for step in (1, 2, 3):
         xs, y = _data(name, batch, rng)

@@ -11,8 +11,10 @@ tables (out-dim and vocabulary splits of the tables and the MLPs),
 candle_uno with three feature towers at width 512 (out-dim and
 in-dim splits), the MoE (expert splits), mlp_unify (out-dim splits),
 AlexNet at CIFAR-10 size (out-dim and in-dim splits of its dense
-head) and a ResNet of one block per stage at 32x32 (out- and
-in-channel splits of its convs and batch norms).  Checked: every rank
+head), a ResNet of one block per stage at 32x32 (out- and in-channel
+splits of its convs and batch norms) and the same ResNet with grouped
+convs (4 groups, base width 16: ResNeXt's block), whose pick splits a
+grouped conv's out channels.  Checked: every rank
 holds the one searched graph and views; the pick splits a dim other
 than the batch or a replica; the losses and the whole weights within
 fp32 1e-5 of one process (the ResNet's updates within the zoo's
@@ -55,7 +57,7 @@ ID_RANGE = 1000  # below every table's rows
 # package), and the second step compounds it.  Its first loss is held
 # to TOL, its first update (L2, each weight) and its second loss to
 # that file's measured bound.
-SENSITIVE = ("resnet",)
+SENSITIVE = ("resnet", "resnet_groups")
 RESNET_UPDATE_TOL = 5e-2  # tests/test_torch_zoo.py's
 
 # name -> (builder, widths, batch, loss)
@@ -73,6 +75,11 @@ SEARCHED = {
     "alexnet": ("build_alexnet_cifar10", {}, 8, CCE),
     "resnet": ("build_resnet", dict(num_classes=10, image=32,
                                     layers=(1, 1, 1, 1)), 8, CCE),
+    # ResNeXt's grouped convs at 4 groups: the pick splits the last
+    # stage's out channels (ROADMAP Queue C)
+    "resnet_groups": ("build_resnet", dict(
+        num_classes=10, image=32, layers=(1, 1, 1, 1), groups=4,
+        base_width=16), 8, CCE),
 }
 
 
@@ -281,3 +288,14 @@ def test_searched_pick_keeps_whole_weights_bit_equal(fleet_world, name):
                 if v.shape == first["whole"][op][w].shape:
                     np.testing.assert_array_equal(got["local"][op][w], v,
                                                   err_msg=f"{op}/{w}")
+
+
+def test_the_grouped_resnet_pick_splits_a_grouped_convs_out_channels(
+        fleet_world):
+    ranks, _ = fleet_world
+    grouped = {n.op.name for n in _build("resnet_groups", N).graph
+               .topo_order() if n.op.attrs.get("groups", 1) > 1}
+    split = [name for name, degs, _ in
+             ranks[0]["searched_zoo"]["resnet_groups"]["views"]
+             if name in grouped and degs[3] > 1]
+    assert split, grouped
